@@ -1,0 +1,634 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one CUDA card and check it end to end.
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+Phases, each printing one JSON line:
+
+1. card: the card's name and power limit (nvidia-smi); TF32 off.
+2. build: every kernel of ``mistral_inference_tpu_torch/ops/cuda/csrc`` is
+   compiled from the checkout with nvcc (sm_90a).
+3. kernels: each CUDA kernel against its plain PyTorch version on the same
+   inputs on the card, at the Mistral-7B head shapes (H=32, Hkv=8, D=128),
+   with its time (CUDA-event median), the plain version's time, the time of
+   one PyTorch library call for the same function where one exists, and the
+   card's least time for the work (bytes or flops, from this run's inputs).
+4. main path: ``generate()`` on ``mistral-7b-v0.1`` at full width (32
+   layers) with random bf16 weights from a seed and an int8 KV ring, over 4
+   prompts of ragged length, one longer than the 4096 window so the ring
+   wraps. Checks the decode == prefill invariant and that top-p sampling is
+   fixed by its seed. The kernel launch counts are read around this phase.
+
+Then a ``kernels`` line, the nvidia-smi line, and last the device line.
+Any failure raises and the script exits non-zero. Without a CUDA device,
+or without the package beside it, it exits non-zero and prints no result.
+nvcc's build logs (``-Xptxas -v``: registers, shared memory) go to stderr.
+``--profile`` adds to the main-path line a torch.profiler breakdown of the
+prefill and of one decode step, with the decode step's aten calls and the
+host's time to enqueue it.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's 1.98 GHz boost clock
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense): used for
+# each kernel's least time, stated against the card's full 700 W limit.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+MODEL = "mistral-7b-v0.1"
+PROMPT_LENS = (4300, 1537, 700, 45)  # the first is longer than the 4096 window
+CHUNK = 512
+GREEDY_TOKENS = 32
+TOPP_TOKENS = 16
+REPEATS = 5  # timed generate() calls per median
+# decode == prefill: the greedy decode logprobs and the teacher-forced
+# prefill logprobs of the same tokens go through the same int8 ring bytes
+# (the fused decode kernel's write is bit-identical to the prefill's), but
+# with bf16 weights and activations the two paths round at different
+# places: T=1 against T=512 GEMMs (other cuBLAS kernels and summation
+# orders), K2 against K4+K1+merge. Random 7B weights pass those bf16
+# differences through 32 layers, so the bound is on the bf16 scale, not fp32.
+INVARIANT_MAX_NATS = 0.25
+INVARIANT_MEAN_NATS = 0.05
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def close(a, b, atol: float, rtol: float):
+    """(ok, max abs error) for a against b in fp32."""
+    a, b = a.float(), b.float()
+    err = (a - b).abs()
+    ok = bool((err <= atol + rtol * b.abs()).all()) and bool(torch.isfinite(a).all())
+    return ok, float(err.max()) if err.numel() else 0.0
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def timed_ms(fn, reps: int = 10) -> float:
+    """Median of per-call CUDA-event times of the card's work alone. Before
+    each call a 64 MB write evicts the inputs from the 50 MB L2 (the main
+    path finds them cold: each layer reads its own weights and ring), and a
+    10 ms spin kernel holds the stream while the host queues the call, so
+    the host's own time per call does not count."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(flops: float, bytes_: float):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, bytes_ / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def sdpa_ms(q, k, v, mask) -> float:
+    """One PyTorch call for masked GQA attention: the yardstick only."""
+    import torch.nn.functional as F
+
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    m = mask[:, None].contiguous()
+    return timed_ms(
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m, enable_gqa=True))
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+H, HKV, D = 32, 8, 128
+
+
+def randn(gen, *shape, dtype=None):
+    x = torch.randn(shape, generator=gen, device="cuda")
+    return x.to(dtype) if dtype is not None else x
+
+
+def check_k1(gen):
+    from mistral_inference_tpu_torch.ops.attention import sliding_window_mask
+    from mistral_inference_tpu_torch.ops.cuda.attention import attend_stats_plain, flash_attention
+
+    bf = torch.bfloat16
+    worst = 0.0
+    # (B, T, S, window, ragged validity): the main path's chunk shape, then
+    # ragged T and S with window < S and invalid rows.
+    for B, T, S, window, ragged in ((4, 512, 512, 4096, False), (2, 200, 333, 100, True)):
+        q = randn(gen, B, T, H, D, dtype=bf)
+        k, v = randn(gen, B, S, HKV, D, dtype=bf), randn(gen, B, S, HKV, D, dtype=bf)
+        kv_pos = torch.arange(S, device="cuda", dtype=torch.int32)[None].repeat(B, 1)
+        q_pos = kv_pos[:, S - T:].contiguous()
+        q_valid = torch.ones((B, T), dtype=torch.bool, device="cuda")
+        kv_valid = torch.ones((B, S), dtype=torch.bool, device="cuda")
+        if ragged:
+            q_valid[:, -7:] = False
+            kv_valid = torch.rand((B, S), generator=gen, device="cuda") > 0.2
+        args = (q, k, v, q_pos, kv_pos, q_valid, kv_valid, window)
+        ref, m_ref, l_ref = attend_stats_plain(q, k, v, None, None, *args[3:])
+        out = flash_attention(*args)
+        o, m, l = flash_attention(*args, return_stats=True)
+        torch.cuda.synchronize()
+        for name, (ok, err) in {
+            "out": close(out.view(B, T, H, D), ref, 1e-2, 1e-2),
+            "out_stats": close(o, ref, 1e-2, 1e-2),
+            "m": close(m, m_ref, 1e-4, 1e-4),
+            "l": close(l, l_ref, 1e-4, 1e-4),
+        }.items():
+            require(ok, f"K1 {name} disagrees with its plain version (B={B} T={T} S={S}): {err}")
+            if name.startswith("out"):
+                worst = max(worst, err)
+        if not ragged:
+            main = args
+    q, k, v, q_pos, kv_pos, q_valid, kv_valid, window = main
+    mask = sliding_window_mask(q_pos, kv_pos, q_valid, kv_valid, window)
+    flops = 4.0 * D * H * float(mask.sum())
+    b_ms, b_by = bound(flops, nbytes(q, k, v, q_pos, kv_pos, q_valid, kv_valid) + nbytes(q))
+    return {
+        "name": "flash_attention", "kernel": "K1", "route": "cuda",
+        "source": "mistral_inference_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+        "replaces": "mistral_inference_tpu/ops/pallas/attention.py:146",
+        "max_abs_err": worst,
+        "ms": timed_ms(lambda: flash_attention(*main)),
+        "plain_ms": timed_ms(lambda: attend_stats_plain(q, k, v, None, None, *main[3:])),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": sdpa_ms(q, k, v, mask),
+        "shape": "B=4 T=S=512 H=32 Hkv=8 D=128 bf16, causal",
+        "tolerance": "abs 1e-2 + rel 1e-2 on bf16 outputs (one bf16 ulp of |out| < 4 "
+                     "is 1.6e-2 at most; both sides round p to bf16 at the same point), "
+                     "1e-4 on the fp32 stats",
+    }
+
+
+def ring_case(gen, B, T, S, window, int8: bool, kv_len):
+    """A stored ring of one layer (wrapped when kv_len > window) and a chunk
+    of T queries after it."""
+    from mistral_inference_tpu_torch.cache import _quantize_ring, slot_positions
+
+    bf = torch.bfloat16
+    kf, vf = randn(gen, B, S, HKV, D), randn(gen, B, S, HKV, D)
+    if int8:
+        kq, ks = _quantize_ring(kf)
+        vq, vs = _quantize_ring(vf)
+        ks, vs = ks.permute(0, 2, 1).contiguous(), vs.permute(0, 2, 1).contiguous()
+    else:
+        kq, vq, ks, vs = kf.to(bf), vf.to(bf), None, None
+    kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    slot_pos, slot_valid = slot_positions(kv_len, window, S)
+    q_pos = kv_len[:, None] + torch.arange(T, dtype=torch.int32, device="cuda")[None]
+    q_valid = torch.ones((B, T), dtype=torch.bool, device="cuda")
+    q_valid[-1, T // 2:] = False  # a short row in the chunk
+    q = randn(gen, B, T, H, D, dtype=bf)
+    return (q, kq.reshape(B, S, HKV * D), vq.reshape(B, S, HKV * D), ks, vs,
+            q_pos, slot_pos, q_valid, slot_valid, window)
+
+
+def check_k4(gen):
+    from mistral_inference_tpu_torch.cache import kv_roundtrip
+    from mistral_inference_tpu_torch.ops.attention import attend_scaled, sliding_window_mask
+    from mistral_inference_tpu_torch.ops.cuda.attention import (
+        attend_stats_plain, flash_attention, merge_attention_parts, ring_attention_stats,
+    )
+
+    B, T, S, window = 4, 512, 4096, 4096
+    kv_len = [4300 - 512, 4096 + 700, 1537, 2000]  # rows 0 and 1 have wrapped
+    worst = 0.0
+    for int8 in (True, False):
+        case = ring_case(gen, B, T, S, window, int8, kv_len)
+        q, kq, vq, ks, vs, q_pos, slot_pos, q_valid, slot_valid, _ = case
+        o, m, l = ring_attention_stats(*case)
+        ref, m_ref, l_ref = attend_stats_plain(
+            q, kq.view(B, S, HKV, D), vq.view(B, S, HKV, D), ks, vs, *case[5:]
+        )
+        torch.cuda.synchronize()
+        vis = q_valid[..., None, None]
+        for name, (ok, err) in {
+            "out": close(o * vis, ref * vis, 1e-2, 1e-2),
+            "m": close(m, m_ref, 1e-4, 1e-4),
+            "l": close(l, l_ref, 1e-4, 1e-4),
+        }.items():
+            require(ok, f"K4 {name} disagrees with its plain version (int8={int8}): {err}")
+            if name == "out":
+                worst = max(worst, err)
+        if int8:
+            main = case
+    # Merge with K1 over the chunk against attend_scaled over ring ++ chunk.
+    q, kq, vq, ks, vs, q_pos, slot_pos, q_valid, slot_valid, _ = main
+    ck, cv = kv_roundtrip(randn(gen, B, T, HKV, D, dtype=torch.bfloat16)), kv_roundtrip(
+        randn(gen, B, T, HKV, D, dtype=torch.bfloat16))
+    o_r, m_r, l_r = ring_attention_stats(*main)
+    o_c, m_c, l_c = flash_attention(q, ck, cv, q_pos, q_pos, q_valid, q_valid, window,
+                                    return_stats=True)
+    merged = merge_attention_parts(o_r, m_r, l_r, o_c, m_c, l_c)
+    keys = torch.cat([kq.view(B, S, HKV, D).float(), ck.float()], 1)
+    vals = torch.cat([vq.view(B, S, HKV, D).float(), cv.float()], 1)
+    ones = torch.ones((B, HKV, T), device="cuda")
+    kvp = torch.cat([slot_pos, q_pos], 1)
+    kvv = torch.cat([slot_valid, q_valid], 1)
+    mask = sliding_window_mask(q_pos, kvp, q_valid, kvv, window)
+    oracle = attend_scaled(
+        q.float(), keys, vals, torch.cat([ks, ones], 2).permute(0, 2, 1),
+        torch.cat([vs, ones], 2).permute(0, 2, 1), mask,
+    ).view(B, T, H, D)
+    torch.cuda.synchronize()
+    vis = q_valid[..., None, None]
+    ok, merge_err = close(merged * vis, oracle * vis, 2e-2, 2e-2)
+    require(ok, f"K4 + K1 merge disagrees with attend_scaled over ring ++ chunk: {merge_err}")
+
+    ring_mask = sliding_window_mask(q_pos, slot_pos, q_valid, slot_valid, window)
+    flops = 4.0 * D * H * float(ring_mask.sum())
+    out_bytes = 2 * B * T * H * D + 2 * 4 * B * T * H
+    b_ms, b_by = bound(flops, nbytes(*[x for x in main[:9]]) + out_bytes)
+    deq_k = (kq.view(B, S, HKV, D).float() * ks.permute(0, 2, 1)[..., None]).to(torch.bfloat16)
+    deq_v = (vq.view(B, S, HKV, D).float() * vs.permute(0, 2, 1)[..., None]).to(torch.bfloat16)
+    return {
+        "name": "ring_attention_stats", "kernel": "K4", "route": "cuda",
+        "source": "mistral_inference_tpu_torch/ops/cuda/csrc/ring_attention.cu",
+        "replaces": "mistral_inference_tpu/ops/pallas/attention.py:501",
+        "max_abs_err": worst, "merge_max_abs_err": merge_err,
+        "ms": timed_ms(lambda: ring_attention_stats(*main)),
+        "plain_ms": timed_ms(lambda: attend_stats_plain(
+            q, kq.view(B, S, HKV, D), vq.view(B, S, HKV, D), ks, vs, *main[5:])),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": sdpa_ms(q, deq_k, deq_v, ring_mask),
+        "shape": "B=4 T=512 over an int8 ring of S=4096 (two rows wrapped) H=32 Hkv=8 D=128",
+        "tolerance": "kernel vs plain: abs 1e-2 + rel 1e-2 on bf16 outputs, 1e-4 on "
+                     "stats; merge vs fp32 oracle: 2e-2, since the oracle keeps the "
+                     "probabilities in fp32 where the kernels round them to bf16",
+    }
+
+
+def check_k2(gen):
+    from mistral_inference_tpu_torch.cache import _quantize_ring, slot_positions
+    from mistral_inference_tpu_torch.ops.cuda.attention import (
+        fused_update_decode_attention, fused_update_decode_attention_plain,
+    )
+
+    from mistral_inference_tpu_torch.ops.attention import sliding_window_mask
+
+    bf = torch.bfloat16
+    L, B, S, window = 32, 4, 4096, 4096
+    worst, main = 0.0, None
+    # Row 0 wrapped and row 3 dead (the timed case); then no row wrapped, a
+    # dead row with a fill of 3000 slots, not a multiple of the tile, and a
+    # write to slot 256, the first of a span, which is then its only slot.
+    for kv_len, live in (([4300, 1000, 37, 2999], [1, 1, 1, 0]),
+                         ([1000, 37, 2999, 256], [1, 1, 0, 1])):
+        kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        live = torch.tensor(live, dtype=torch.int32, device="cuda")
+        new_total = kv_len + live
+        pos = kv_len
+        should = (live > 0) & (pos >= new_total - window)
+        write_slot = torch.where(should, pos % window, -1).to(torch.int32)
+        slot_pos, slot_valid = slot_positions(new_total, window, S)
+        for int8 in (True, False):
+            if int8:
+                CK, KS = _quantize_ring(randn(gen, L, B, S, HKV, D))
+                CV, VS = _quantize_ring(randn(gen, L, B, S, HKV, D))
+                KS, VS = KS.permute(0, 1, 3, 2).contiguous(), VS.permute(0, 1, 3, 2).contiguous()
+            else:
+                CK, CV, KS, VS = randn(gen, L, B, S, HKV, D, dtype=bf), randn(
+                    gen, L, B, S, HKV, D, dtype=bf), None, None
+            CK, CV = CK.reshape(L, B, S, HKV * D), CV.reshape(L, B, S, HKV * D)
+            xq = randn(gen, B, 1, H, D, dtype=bf)
+            xk, xv = randn(gen, B, 1, HKV, D, dtype=bf) * 3, randn(gen, B, 1, HKV, D, dtype=bf)
+            li = 5
+            stacks = [CK, CV, KS, VS]
+            plain_stacks = [None if t is None else t.clone() for t in stacks]
+            out = fused_update_decode_attention(xq, xk, xv, *stacks, li, window, write_slot,
+                                                pos, slot_pos, slot_valid)
+            ref = fused_update_decode_attention_plain(xq, xk, xv, *plain_stacks, li, window,
+                                                      write_slot, pos, slot_pos, slot_valid)
+            torch.cuda.synchronize()
+            case = f"int8={int8}, kv_len={kv_len.tolist()}"
+            for name, a, b in zip(("CK", "CV", "KS", "VS"), stacks, plain_stacks):
+                if a is not None:
+                    require(torch.equal(a, b), f"K2 ring {name} after the write is not "
+                                               f"bit-identical to the plain write ({case}): "
+                                               f"{int((a != b).sum())} elements differ")
+            ok, err = close(out, ref, 1e-2, 1e-2)
+            require(ok, f"K2 output disagrees with its plain version ({case}): {err}")
+            worst = max(worst, err)
+            if int8 and main is None:
+                main = (xq, xk, xv, *stacks, li, window, write_slot, pos, slot_pos, slot_valid)
+            del CK, CV, KS, VS, stacks, plain_stacks
+
+    xq, xk, xv, _, _, _, _, li, window, write_slot, pos, slot_pos, slot_valid = main
+    ones = torch.ones((B, 1), dtype=torch.bool, device="cuda")
+    # (row, slot) pairs this step's data makes visible: each is read once,
+    # int8 K and V for every KV head plus their fp32 scales.
+    visible = float(sliding_window_mask(pos[:, None], slot_pos, ones, slot_valid, window).sum())
+    ring_bytes = visible * HKV * (2 * D + 2 * 4)
+    small = nbytes(xq, xk, xv, write_slot, pos, slot_pos, slot_valid) + 2 * B * H * D
+    b_ms, b_by = bound(4.0 * D * H * visible, ring_bytes + small + 2 * B * HKV * (D + 4))
+    layer = [0]
+
+    def cycle_layers():
+        # Each call takes the next layer of the 32-layer stack, as a decode
+        # step does, so the timed ring is never the one just read.
+        layer[0] = (layer[0] + 1) % L
+        args = list(main)
+        args[7] = layer[0]
+        return fused_update_decode_attention(*args)
+
+    plain_stacks = [t.clone() for t in main[3:7]]
+    return {
+        "name": "fused_update_decode_attention", "kernel": "K2", "route": "cuda",
+        "source": "mistral_inference_tpu_torch/ops/cuda/csrc/fused_decode.cu",
+        "replaces": "mistral_inference_tpu/ops/pallas/attention.py:1089",
+        "max_abs_err": worst,
+        "ms": timed_ms(cycle_layers),
+        "plain_ms": timed_ms(lambda: fused_update_decode_attention_plain(
+            *main[:3], *plain_stacks, *main[7:])),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "shape": "B=4 over a 32-layer int8 ring stack of S=4096 (one row wrapped, one dead) "
+                 "H=32 Hkv=8 D=128; also checked: no row wrapped, fill 3000, a write at slot 256",
+        "tolerance": "ring bytes and scales bit-identical; output abs 1e-2 + rel 1e-2 "
+                     "(bf16 output, fp32 sums in another order)",
+    }
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the main path
+# ---------------------------------------------------------------------------
+
+
+def main_path(card: str, profile: bool):
+    import numpy as np
+
+    from mistral_inference_tpu_torch.generate import generate
+    from mistral_inference_tpu_torch.model import Transformer
+    from mistral_inference_tpu_torch.models.registry import get_args
+    from mistral_inference_tpu_torch.models.transformer import param_count
+    from mistral_inference_tpu_torch.ops.cuda import attention as kern
+
+    args = get_args(MODEL)
+    args.kv_quant = "int8"
+    t0 = time.perf_counter()
+    model = Transformer.random(args, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, args.vocab_size, n).tolist() for n in PROMPT_LENS]
+
+    def run(p, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = generate(p, model, chunk_size=CHUNK, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in kern.KERNELS}
+
+    kern.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    # The first generate() of a process also pays cuBLAS and allocator
+    # set-up; the timed calls come after it. Decode time is the difference of
+    # two medians (32 tokens less 1), and the host, which bounds decode,
+    # shares its cores, so each is the median of REPEATS calls.
+    run(prompts, max_tokens=2, temperature=0.0)
+    ttft_s = statistics.median(
+        run(prompts, max_tokens=1, temperature=0.0)[1] for _ in range(REPEATS))
+    before = counts()
+    (gen, lps), t0 = run(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)
+    per_greedy = {k: n - before[k] for k, n in counts().items()}
+    totals = [t0]
+    for _ in range(REPEATS - 1):
+        (again, _), t = run(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)
+        require(again == gen, "greedy tokens differ between two runs")
+        totals.append(t)
+    total_s = statistics.median(totals)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(all(len(g) == GREEDY_TOKENS for g in gen), "wrong number of generated tokens")
+    require(all(0 <= t < args.vocab_size for g in gen for t in g), "token out of range")
+    require(all(len(lp) == n - 1 + GREEDY_TOKENS for lp, n in zip(lps, PROMPT_LENS)),
+            "wrong number of logprobs")
+    require(all(math.isfinite(x) for lp in lps for x in lp), "non-finite logprob")
+
+    # decode == prefill: teacher-force prompt + generated tokens.
+    full = [p + g for p, g in zip(prompts, gen)]
+    (_, lps_tf), _ = run(full, max_tokens=0, temperature=0.0)
+    diffs = np.concatenate([
+        np.abs(np.array(a[-GREEDY_TOKENS:]) - np.array(b[-GREEDY_TOKENS:]))
+        for a, b in zip(lps, lps_tf)
+    ])
+    require(float(diffs.max()) <= INVARIANT_MAX_NATS and float(diffs.mean()) <= INVARIANT_MEAN_NATS,
+            f"decode != prefill: max {diffs.max()} mean {diffs.mean()} nats")
+
+    # top-p sampling, twice with one seed.
+    (s1, _), topp_s = run(prompts, max_tokens=TOPP_TOKENS, temperature=0.7, top_p=0.9, seed=1)
+    (s2, _), _ = run(prompts, max_tokens=TOPP_TOKENS, temperature=0.7, top_p=0.9, seed=1)
+    require(s1 == s2, "top-p tokens differ between two runs with one seed")
+    launches = counts()
+    for name, n in launches.items():
+        require(n > 0, f"{name} was not launched on the main path")
+    breakdown = profile_generate(model, prompts) if profile else None
+
+    decode_s = total_s - ttft_s
+    return {
+        "phase": "main_path", "model": MODEL, "params": param_count(model.params),
+        "weights": "bf16 random (seed 0)", "kv_ring": "int8", "prompt_lens": PROMPT_LENS,
+        "chunk_size": CHUNK, "window": args.sliding_window, "init_s": init_s,
+        "ttft_s": ttft_s,
+        "ttft_note": f"median of {REPEATS} warm generate(max_tokens=1): chunked prefill "
+                     "of all prompts plus one step",
+        "greedy_total_s": total_s,
+        "decode_tokens_per_s": len(PROMPT_LENS) * (GREEDY_TOKENS - 1) / decode_s,
+        "decode_note": "B*(32-1) tokens over median generate(32) time less median "
+                       f"generate(1) time, medians of {REPEATS}",
+        "peak_mem_gb": peak_gb, "launches": launches,
+        "launches_per_greedy_generate": per_greedy,
+        "invariant_max_nats": float(diffs.max()), "invariant_mean_nats": float(diffs.mean()),
+        "invariant_bound": [INVARIANT_MAX_NATS, INVARIANT_MEAN_NATS],
+        "topp_s": topp_s, "topp_identical": True, "card": card, "profile": breakdown,
+    }, launches
+
+
+def kernel_ms(prof, calls: int = 1):
+    """Kernel time per call by category from a torch.profiler run, and in
+    all (kernel events only: an operator's entry repeats its kernels')."""
+    cats, top = {}, []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(ev, "self_device_time_total", 0.0) / 1e3 / calls
+        name = ev.key.lower()
+        cat = next((c for k, c in (("flash_tile", "K1/K4 flash_tile"),
+                                   ("fused_decode", "K2 fused_decode"),
+                                   ("decode_merge", "K2 fused_decode"), ("gemm", "matmul"),
+                                   ("gemv", "matmul"), ("xmma", "matmul"), ("cutlass", "matmul"),
+                                   ("nvjet", "matmul"), ("splitkreduce", "matmul")) if k in name),
+                   "other")
+        cats[cat] = cats.get(cat, 0.0) + ms
+        top.append((ms, ev.key[:80]))
+    return sum(cats.values()), dict(sorted(cats.items(), key=lambda kv: -kv[1])), sorted(top)[::-1]
+
+
+def profile_generate(model, prompts):
+    """Where the time goes. Prefill: generate(max_tokens=0) over all prompts
+    under torch.profiler, its wall time, kernel time by category and the
+    card's idle share (1 - kernel time / wall; one stream, kernels do not
+    overlap). Decode: decode_step_probe."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    from mistral_inference_tpu_torch.generate import generate
+
+    generate(prompts, model, chunk_size=CHUNK, temperature=0.0, max_tokens=0)
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        generate(prompts, model, chunk_size=CHUNK, temperature=0.0, max_tokens=0)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    busy, cats, top = kernel_ms(prof)
+    return {
+        "prefill_all_prompts": {
+            "wall_ms": wall, "kernel_ms": busy, "device_idle_share": 1.0 - busy / wall,
+            "kernel_ms_by_category": cats,
+            "top_kernels_ms": [[round(ms, 3), k] for ms, k in top[:12]],
+        },
+        "decode_step": decode_step_probe(model, len(prompts)),
+    }
+
+
+def decode_step_probe(model, B: int, fill: int = 3000, steps: int = 10):
+    """One decode step (model.forward, T=1) at B rows over rings holding
+    ``fill`` tokens: its aten calls; the host's time to enqueue it (median
+    of ``steps``, each started with the card idle); the wall time per step
+    of ``steps`` steps in a row; and its kernel time by category
+    (torch.profiler). Enqueue time above kernel time means the host bounds
+    decode, and the card idles for the difference."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        calls = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.calls += 1
+            return func(*args, **(kwargs or {}))
+
+    dev = model.device
+    cache = model.alloc_cache(B, fill + 2 * steps + 16)
+    start = torch.full((B,), fill, dtype=torch.int32, device=dev)
+    cache.kv_len = start
+    tok = torch.ones((B, 1), dtype=torch.long, device=dev)
+    ones = torch.ones((B,), dtype=torch.int32, device=dev)
+    for _ in range(3):
+        model.forward(tok, ones, cache)
+    with Count():
+        model.forward(tok, ones, cache)
+    enqueue = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.forward(tok, ones, cache)
+        enqueue.append(1e3 * (time.perf_counter() - t))
+    cache.kv_len = start
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        model.forward(tok, ones, cache)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t) / steps
+    cache.kv_len = start
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            model.forward(tok, ones, cache)
+        torch.cuda.synchronize()
+    busy, cats, _ = kernel_ms(prof, steps)
+    return {"rows": B, "fill": fill, "aten_calls": Count.calls,
+            "host_enqueue_ms": statistics.median(enqueue), "wall_ms": wall, "kernel_ms": busy,
+            "device_idle_share": 1.0 - busy / wall, "kernel_ms_by_category": cats}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "mistral_inference_tpu_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+
+    card = nvidia_smi()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+
+    from mistral_inference_tpu_torch.ops.cuda import _build
+
+    built = _build.build_all(force=True)
+    for name, text in built["logs"].items():
+        print(f"== nvcc {name}\n{text}", file=sys.stderr, flush=True)
+    emit({"phase": "build", "seconds": built["seconds"], "sources": sorted(built["logs"])})
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = [check_k1(gen), check_k4(gen), check_k2(gen)]
+    for r in rows:
+        emit({"phase": "kernel", "card": card, **r})
+    torch.cuda.empty_cache()
+
+    summary, launches = main_path(card, "--profile" in sys.argv[1:])
+    emit(summary)
+    kernels = []
+    for r in rows:
+        kernels.append({
+            "name": r["name"], "route": r["route"], "source": r["source"],
+            "replaces": r["replaces"], "launches": launches[r["name"]],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
+    emit({"kernels": kernels})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

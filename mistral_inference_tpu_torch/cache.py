@@ -1,0 +1,189 @@
+"""Ring KV cache (counterpart of ``mistral_inference_tpu/cache.py``).
+
+One stacked pair of rings ``(L, B, W, Hkv * Dh)`` in flat-head layout, and
+for int8 rings one fp32 scale per (token, kv-head), stored ``(L, B, Hkv, W)``.
+Token at absolute position p of a layer with window w lives in slot
+``p % w``; ``slot_positions`` recovers each slot's position from the fill
+``kv_len``, so attention masks are position arithmetic and the ring is never
+unrotated. Per-layer windows share one W = max(window) rounded up to 128.
+
+Where the JAX package returns updated buffers from pure functions (and
+donates the old ones), this port updates the ring IN PLACE: ``update_stacked``
+and the fused decode kernel write into the tensors they are given.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple, Union
+
+import torch
+
+INT8_MAX = 127.0
+
+
+@dataclass
+class KVCache:
+    k: torch.Tensor  # (L, B, W, Hkv*Dh) ring dtype
+    v: torch.Tensor
+    kv_len: torch.Tensor  # (B,) int32: tokens absorbed per row so far
+    windows: List[int]  # per-layer ring size (<= W)
+    # (L, B, Hkv, W) fp32 scales for int8 rings; None for bf16 rings.
+    k_scale: Optional[torch.Tensor]
+    v_scale: Optional[torch.Tensor]
+
+    @property
+    def size(self) -> int:
+        return self.k.shape[2]
+
+    @classmethod
+    def alloc(
+        cls,
+        n_layers: int,
+        batch: int,
+        max_seq_len: int,
+        n_kv_heads: int,
+        head_dim: int,
+        sliding_window: Optional[Union[int, List[Optional[int]]]] = None,
+        dtype: torch.dtype = torch.bfloat16,
+        kv_quant: str = "bf16",
+        device: Union[str, torch.device] = "cuda",
+    ) -> "KVCache":
+        sizes = _cache_sizes(n_layers, max_seq_len, sliding_window)
+        # W padded to 128: the kernels tile the ring in 128-slot steps. Slots
+        # at or past a layer's window are never written or valid.
+        W = -(-max(sizes) // 128) * 128
+        kv_dtype = kv_cache_dtype(kv_quant, dtype)
+        shape = (n_layers, batch, W, n_kv_heads * head_dim)
+        scales = None, None
+        if kv_quant == "int8":
+            sshape = (n_layers, batch, n_kv_heads, W)
+            scales = (
+                torch.ones(sshape, dtype=torch.float32, device=device),
+                torch.ones(sshape, dtype=torch.float32, device=device),
+            )
+        return cls(
+            k=torch.zeros(shape, dtype=kv_dtype, device=device),
+            v=torch.zeros(shape, dtype=kv_dtype, device=device),
+            kv_len=torch.zeros((batch,), dtype=torch.int32, device=device),
+            windows=sizes,
+            k_scale=scales[0],
+            v_scale=scales[1],
+        )
+
+
+def _cache_sizes(
+    n_layers: int,
+    max_seq_len: int,
+    sliding_window: Optional[Union[int, List[Optional[int]]]],
+) -> List[int]:
+    if sliding_window is None:
+        return n_layers * [max_seq_len]
+    if isinstance(sliding_window, int):
+        return n_layers * [min(sliding_window, max_seq_len)]
+    if n_layers % len(sliding_window):
+        raise ValueError("a per-layer window list must tile n_layers")
+    reps = n_layers // len(sliding_window)
+    return reps * [
+        min(w, max_seq_len) if w is not None else max_seq_len for w in sliding_window
+    ]
+
+
+def kv_cache_dtype(kv_quant: str, dtype: torch.dtype) -> torch.dtype:
+    if kv_quant not in ("bf16", "int8"):
+        raise ValueError(f"kv_quant must be 'bf16' or 'int8', got {kv_quant!r}")
+    return torch.int8 if kv_quant == "int8" else dtype
+
+
+def _quantize_ring(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., Dh) -> (int8 (..., Dh), fp32 scale (...,)) under the per-(token,
+    head) absmax rule: scale = max(absmax / 127, 1e-8), q = clip(round(x /
+    scale), -127, 127) with round-half-to-even. The fused decode kernel
+    repeats this bit for bit."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    # Divide by a tensor, not a Python number: on CUDA, PyTorch turns division
+    # by a host scalar into a multiply by its reciprocal, which is not IEEE
+    # division and breaks the bit-exact rule on a few percent of inputs.
+    scale = (amax / torch.full_like(amax, INT8_MAX)).clamp_min(1e-8)
+    y = torch.round(xf / scale[..., None]).clamp(-INT8_MAX, INT8_MAX)
+    return y.to(torch.int8), scale
+
+
+def ring_writes(
+    positions: torch.Tensor,  # (B, T)
+    token_valid: torch.Tensor,  # (B, T)
+    new_total: torch.Tensor,  # (B,)
+    window: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Which chunk tokens land in a ``window``-slot ring, and where: slot =
+    pos % window. A token that a later token of the same chunk would
+    overwrite is dropped, so the slots written are unique. Returns (b_idx,
+    t_idx, slot), each (N,). Finding N syncs with the host, so the caller
+    makes this once per chunk and window and hands it to every layer."""
+    should = token_valid & (positions >= new_total[:, None] - window)
+    b_idx, t_idx = should.nonzero(as_tuple=True)
+    return b_idx, t_idx, positions[b_idx, t_idx] % window
+
+
+def update_stacked(
+    CK: torch.Tensor,  # (L, B, W, Hkv*Dh), updated in place
+    CV: torch.Tensor,
+    KS: Optional[torch.Tensor],  # (L, B, Hkv, W), updated in place; None for bf16
+    VS: Optional[torch.Tensor],
+    li: int,
+    xk: torch.Tensor,  # (B, T, Hkv, Dh)
+    xv: torch.Tensor,
+    writes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],  # ring_writes(...)
+) -> None:
+    """Write this chunk's K/V for layer ``li`` into the stacked ring, in place
+    (the JAX package returns new buffers; here the caller's tensors change)."""
+    b_idx, t_idx, slot = writes
+    k_sel, v_sel = xk[b_idx, t_idx], xv[b_idx, t_idx]  # (N, Hkv, Dh)
+    N = k_sel.shape[0]
+    if KS is not None:
+        qk, k_scale = _quantize_ring(k_sel)
+        qv, v_scale = _quantize_ring(v_sel)
+        KS[li, b_idx, :, slot] = k_scale
+        VS[li, b_idx, :, slot] = v_scale
+        k_sel, v_sel = qk, qv
+    CK[li, b_idx, slot] = k_sel.reshape(N, -1).to(CK.dtype)
+    CV[li, b_idx, slot] = v_sel.reshape(N, -1).to(CV.dtype)
+
+
+def dequant_layer(
+    ck: torch.Tensor,  # (B, W, Hkv*Dh) one layer's ring
+    ks: Optional[torch.Tensor],  # (B, Hkv, W) fp32, or None for bf16 rings
+    dtype: torch.dtype,
+    n_kv_heads: int,
+) -> torch.Tensor:
+    """Ring slots -> (B, W, Hkv, Dh) in ``dtype``, applying scales if present."""
+    B, W, HD = ck.shape
+    ck4 = ck.reshape(B, W, n_kv_heads, HD // n_kv_heads)
+    if ks is None:
+        return ck4.to(dtype)
+    return (ck4.float() * ks.permute(0, 2, 1)[..., None]).to(dtype)
+
+
+def kv_roundtrip(x: torch.Tensor) -> torch.Tensor:
+    """Quantize-dequantize through the int8 ring rule. Prefill attends to
+    these copies of its own chunk's K/V, so its logits see exactly what
+    decode later reads back from the ring (the decode == prefill invariant)."""
+    q, scale = _quantize_ring(x)
+    return (q.float() * scale[..., None]).to(x.dtype)
+
+
+def slot_positions(
+    kv_len: torch.Tensor,  # (B,) tokens in the ring
+    window: int,
+    W: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Absolute position held by each ring slot: with n tokens written and
+    ring size w, slot s holds p = s + w * floor((n - 1 - s) / w), the unique
+    p = s (mod w) in [n - w, n). Slots with p < 0 or s >= w are invalid.
+    Returns (pos (B, W) int32 with -1 where invalid, valid (B, W) bool)."""
+    s = torch.arange(W, dtype=torch.int32, device=kv_len.device)[None, :]
+    n = kv_len[:, None].to(torch.int32)
+    pos = s + window * torch.div(n - 1 - s, window, rounding_mode="floor")
+    valid = (pos >= 0) & (s < window) & (n > 0)
+    return torch.where(valid, pos, -1).to(torch.int32), valid

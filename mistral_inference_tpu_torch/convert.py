@@ -1,0 +1,67 @@
+"""Carry weights from the JAX package's parameter tree into this port.
+
+The JAX tree stacks each layer weight as ``(L, in, out)`` and applies it as
+``x @ w``. This port keeps a list of per-layer dicts with each linear weight
+``(out, in)``, applied with ``F.linear``, and stacks the projections that
+read one input: ``wqkv`` = [wq; wk; wv] and ``w13`` = [w1; w3] along out.
+After conversion both compute the same function. The input is a tree of numpy arrays (for example
+``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Union
+
+import numpy as np
+import torch
+
+from mistral_inference_tpu_torch.models.transformer import Params
+
+# port weight -> the JAX leaves stacked along its out dim
+_LINEAR = {
+    "wqkv": (("attention", "wq"), ("attention", "wk"), ("attention", "wv")),
+    "wo": (("attention", "wo"),),
+    "w13": (("feed_forward", "w1"), ("feed_forward", "w3")),
+    "w2": (("feed_forward", "w2"),),
+}
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # numpy has no bf16: widen exactly, narrow in torch
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))  # a writable, contiguous copy
+    return t.to(device).contiguous()
+
+
+def params_from_numpy(
+    tree: Dict[str, Any],
+    device: Union[str, torch.device] = "cpu",
+) -> Params:
+    """Dense JAX params (numpy leaves) -> this port's params. Raises on the
+    trees this slice does not carry yet (MoE, LoRA, quantized weights)."""
+    layers = tree["layers"]
+    if "moe" in layers or "feed_forward" not in layers:
+        raise ValueError("only dense feed-forward trees convert in this slice")
+    for group in ("attention", "feed_forward"):
+        for name, leaf in layers[group].items():
+            if isinstance(leaf, dict) or name.endswith("_lora"):
+                raise ValueError(f"{group}.{name}: quantized or LoRA leaves do not convert yet")
+    n_layers = np.asarray(layers["attention_norm"]).shape[0]
+    out_layers = []
+    for i in range(n_layers):
+        lw = {
+            "attention_norm": _tensor(layers["attention_norm"][i], device),
+            "ffn_norm": _tensor(layers["ffn_norm"][i], device),
+        }
+        for key, leaves in _LINEAR.items():
+            w = [np.asarray(layers[group][name][i]).T for group, name in leaves]
+            lw[key] = _tensor(np.concatenate(w, axis=0), device)
+        out_layers.append(lw)
+    return {
+        "tok_embeddings": _tensor(tree["tok_embeddings"], device),
+        "layers": out_layers,
+        "norm": _tensor(tree["norm"], device),
+        "output": _tensor(np.asarray(tree["output"]).T, device),
+    }

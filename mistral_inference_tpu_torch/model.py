@@ -1,0 +1,88 @@
+"""Host handle around the dense forward (counterpart of
+``mistral_inference_tpu/model.py::Transformer``)."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from mistral_inference_tpu_torch.args import TransformerArgs
+from mistral_inference_tpu_torch.cache import KVCache
+from mistral_inference_tpu_torch.models import transformer as tf
+
+MAX_SEQ_LEN = 128_000  # positions the reference's RoPE table covers
+
+
+def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
+    """The card by default. Without one this raises: the port never runs on
+    the CPU unless the caller asks for it with ``device="cpu"``."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions of the kernels on the CPU"
+            )
+        device = "cuda"
+    return torch.device(device)
+
+
+class Transformer:
+    """Args, parameters (a dict of tensors on one device) and the dtype."""
+
+    def __init__(
+        self,
+        args: TransformerArgs,
+        params: tf.Params,
+        dtype: torch.dtype = torch.bfloat16,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        self.args = args
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.params = params
+
+    @classmethod
+    def random(
+        cls,
+        args: TransformerArgs,
+        dtype: torch.dtype = torch.bfloat16,
+        seed: int = 0,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> "Transformer":
+        """Random weights from ``seed``, made directly on ``device`` (the card
+        unless ``device="cpu"``)."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return cls(args, tf.init_params(args, dtype, gen, dev), dtype, dev)
+
+    def alloc_cache(self, batch: int, max_seq_len: int) -> KVCache:
+        if max_seq_len > MAX_SEQ_LEN:
+            raise ValueError(f"max_seq_len {max_seq_len} exceeds {MAX_SEQ_LEN}")
+        return KVCache.alloc(
+            n_layers=self.args.n_layers,
+            batch=batch,
+            max_seq_len=max_seq_len,
+            n_kv_heads=self.args.n_kv_heads,
+            head_dim=self.args.head_dim,
+            sliding_window=self.args.sliding_window,
+            dtype=self.dtype,
+            kv_quant=self.args.kv_quant,
+            device=self.device,
+        )
+
+    def forward(
+        self,
+        tokens: torch.Tensor,  # (B, T)
+        seqlens: torch.Tensor,  # (B,)
+        cache: KVCache,
+        attend_cache: bool = True,
+        head: str = "full",
+    ) -> torch.Tensor:
+        """Prelogits (B, T, V) fp32, or hidden states with ``head="none"``.
+        The cache is updated in place."""
+        with torch.inference_mode():
+            return tf.forward(
+                self.params, tokens.to(self.device), seqlens.to(self.device), cache,
+                self.args, attend_cache, head=head,
+            )

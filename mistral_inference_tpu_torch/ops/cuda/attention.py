@@ -1,0 +1,377 @@
+"""Attention kernels of the dense path: wrappers, launch counters and plain
+PyTorch versions (counterpart of ``mistral_inference_tpu/ops/pallas/attention.py``).
+
+Three hand-written CUDA kernels for Hopper (sources in ``csrc/``, built by
+``_build.py``):
+
+* ``flash_attention`` (K1, ``csrc/flash_attention.cu``): a chunk's attention
+  to its own keys, optionally with online-softmax stats.
+* ``ring_attention_stats`` (K4, ``csrc/ring_attention.cu``): a chunk's
+  queries over one layer's stored ring, with stats.
+* ``fused_update_decode_attention`` (K2, ``csrc/fused_decode.cu``): one
+  decode step's ring write plus ring-only attention.
+
+Each wrapper launches its kernel for CUDA tensors, and for nothing else: on
+CPU tensors it runs the plain version in this module, which computes the
+same function with the same rounding points. There is no fallback from a
+CUDA tensor to the plain version. Each wrapper counts its kernel launches in
+its ``launches`` attribute.
+
+The mask is position arithmetic (``0 <= q_pos - kv_pos < window`` with
+validity flags). A query row that sees no key returns 0 with m = -1e30 and
+l = 0, the convention ``merge_attention_parts`` relies on.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from mistral_inference_tpu_torch.cache import _quantize_ring
+from mistral_inference_tpu_torch.ops.attention import NEG_INF, sliding_window_mask
+from mistral_inference_tpu_torch.ops.cuda import _build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGS = {
+    ("flash_attention", "flash_attention_bf16"): [_P] * 7 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _P],
+    ("ring_attention", "ring_attention_stats_int8"): [_P] * 9 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _P],
+    ("ring_attention", "ring_attention_stats_bf16"): [_P] * 7 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _P],
+    ("fused_decode", "fused_decode_int8"): [_P] * 7 + [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _P],
+    ("fused_decode", "fused_decode_bf16"): [_P] * 5 + [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _P],
+    ("fused_decode", "fused_decode_span"): [],
+}
+_FNS = {}
+
+
+def _kernel(lib: str, name: str):
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(_build.load(lib), name)
+        fn.argtypes = _SIGS[(lib, name)]
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+def _launch(lib: str, name: str, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _kernel(lib, name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def _need(t: torch.Tensor, name: str, dtype, shape, device) -> torch.Tensor:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    return t
+
+
+def _meta(x: torch.Tensor, name: str, dtype, shape, device) -> torch.Tensor:
+    """Positions (int32) and validity flags (bool), read one element at a
+    time: cast and made contiguous only where needed (a no-op cast still
+    costs a dispatch, and the host bounds decode), then shape-checked."""
+    if x.dtype != dtype or not x.is_contiguous():
+        x = x.to(dtype).contiguous()
+    if x.device != device or tuple(x.shape) != tuple(shape):
+        raise ValueError(
+            f"{name} must have shape {tuple(shape)} on {device}, "
+            f"got {tuple(x.shape)} on {x.device}"
+        )
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def attend_stats_plain(
+    q: torch.Tensor,  # (B, T, H, D)
+    k: torch.Tensor,  # (B, S, Hkv, D), any ring dtype
+    v: torch.Tensor,
+    k_scale: Optional[torch.Tensor],  # (B, Hkv, S) fp32, or None
+    v_scale: Optional[torch.Tensor],
+    q_pos: torch.Tensor,  # (B, T)
+    kv_pos: torch.Tensor,  # (B, S)
+    q_valid: torch.Tensor,  # (B, T) bool
+    kv_valid: torch.Tensor,  # (B, S) bool
+    window: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The function all three kernels compute, written out: fp32 dots, the
+    key scale after the dot, probabilities (times the value scale) rounded to
+    q.dtype before the PV product. Returns (out (B, T, H, D) in q.dtype,
+    m (B, T, H) fp32, l (B, T, H) fp32)."""
+    B, T, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    scale = D**-0.5
+    qg = q.reshape(B, T, Hkv, G, D).float()
+    scores = torch.einsum("bthgd,bshd->bhgts", qg, k.float())
+    if k_scale is not None:
+        scores = scores * (k_scale.float()[:, :, None, None, :] * scale)
+    else:
+        scores = scores * scale
+    mask = sliding_window_mask(q_pos, kv_pos, q_valid, kv_valid, window)[:, None, None]
+    m = torch.where(mask, scores, NEG_INF).amax(dim=-1)  # (B, Hkv, G, T)
+    p = torch.where(mask, torch.exp(scores - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    if v_scale is not None:
+        p = p * v_scale.float()[:, :, None, None, :]
+    acc = torch.einsum("bhgts,bshd->bhgtd", p.to(q.dtype).float(), v.float())
+    out = torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D).to(q.dtype)
+    return out, m.permute(0, 3, 1, 2).reshape(B, T, H), l.permute(0, 3, 1, 2).reshape(B, T, H)
+
+
+def merge_attention_parts(o1, m1, l1, o2, m2, l2) -> torch.Tensor:
+    """Exactly combine two partial attentions over disjoint key sets, each
+    normalized within its part with stats (m, l): softmax over the union is
+    the merge weighted by exp(m_i - max(m)) * l_i. Rows empty in both parts
+    return 0. o: (B, T, H, D); m, l: (B, T, H). Plain PyTorch on every device."""
+    m = torch.maximum(m1, m2)
+    w1 = torch.where(l1 > 0, torch.exp(m1 - m), 0.0) * l1
+    w2 = torch.where(l2 > 0, torch.exp(m2 - m), 0.0) * l2
+    denom = (w1 + w2).clamp_min(1e-30)[..., None]
+    merged = (o1.float() * w1[..., None] + o2.float() * w2[..., None]) / denom
+    return merged.to(o1.dtype)
+
+
+def _ring_write_plain(xk, xv, CK, CV, KS, VS, li: int, write_slot) -> None:
+    rows = (write_slot >= 0).nonzero(as_tuple=True)[0]
+    slots = write_slot[rows].long()
+    k_new, v_new = xk[rows, 0], xv[rows, 0]  # (N, Hkv, D)
+    n = rows.shape[0]
+    if KS is not None:
+        k_new, k_s = _quantize_ring(k_new)
+        v_new, v_s = _quantize_ring(v_new)
+        KS[li, rows, :, slots] = k_s
+        VS[li, rows, :, slots] = v_s
+    CK[li, rows, slots] = k_new.reshape(n, -1).to(CK.dtype)
+    CV[li, rows, slots] = v_new.reshape(n, -1).to(CV.dtype)
+
+
+def fused_update_decode_attention_plain(
+    xq, xk, xv, CK, CV, KS, VS, li, window, write_slot, q_pos, kv_pos, kv_valid
+) -> torch.Tensor:
+    """Plain version of K2: the ring write of update_stacked for T = 1 (in
+    place), then ring-only attention. Returns (B, 1, H * D)."""
+    B, _, H, D = xq.shape
+    S, Hkv = CK.shape[2], xk.shape[2]
+    _ring_write_plain(xk, xv, CK, CV, KS, VS, li, write_slot)
+    out, _, _ = attend_stats_plain(
+        xq, CK[li].reshape(B, S, Hkv, D), CV[li].reshape(B, S, Hkv, D),
+        None if KS is None else KS[li], None if VS is None else VS[li],
+        q_pos.reshape(B, 1), kv_pos,
+        torch.ones((B, 1), dtype=torch.bool, device=xq.device), kv_valid, window,
+    )
+    return out.reshape(B, 1, H * D)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, T, H, D) bf16 on the card
+    k: torch.Tensor,  # (B, S, Hkv, D)
+    v: torch.Tensor,
+    q_pos: torch.Tensor,  # (B, T) int32
+    kv_pos: torch.Tensor,  # (B, S) int32
+    q_valid: torch.Tensor,  # (B, T) bool
+    kv_valid: torch.Tensor,  # (B, S) bool
+    window: int,
+    return_stats: bool = False,
+):
+    """K1. Returns (B, T, H * D), or with ``return_stats`` the tuple
+    ((B, T, H, D) out, (B, T, H) m, (B, T, H) l)."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if not q.is_cuda:
+        out, m, l = attend_stats_plain(
+            q, k, v, None, None, q_pos, kv_pos, q_valid, kv_valid, int(window)
+        )
+    else:
+        dev = q.device
+        bf = torch.bfloat16
+        _need(q, "q", bf, (B, T, H, D), dev)
+        _need(k, "k", bf, (B, S, Hkv, D), dev)
+        _need(v, "v", bf, (B, S, Hkv, D), dev)
+        if D != 128:
+            raise ValueError("the CUDA kernels take head_dim 128")
+        qp = _meta(q_pos, "q_pos", torch.int32, (B, T), dev)
+        kp = _meta(kv_pos, "kv_pos", torch.int32, (B, S), dev)
+        qv = _meta(q_valid, "q_valid", torch.bool, (B, T), dev)
+        kv = _meta(kv_valid, "kv_valid", torch.bool, (B, S), dev)
+        out = torch.empty((B, T, H, D), dtype=bf, device=dev)
+        m = l = None
+        if return_stats:
+            m = torch.empty((B, T, H), dtype=torch.float32, device=dev)
+            l = torch.empty((B, T, H), dtype=torch.float32, device=dev)
+        _launch(
+            "flash_attention", "flash_attention_bf16", dev,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), kp.data_ptr(),
+            qv.data_ptr(), kv.data_ptr(), int(window), out.data_ptr(),
+            None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
+            B, T, S, H, Hkv, D**-0.5,
+        )
+        flash_attention.launches += 1
+    if return_stats:
+        return out, m, l
+    return out.reshape(B, T, H * D)
+
+
+flash_attention.launches = 0
+
+
+def ring_attention_stats(
+    q: torch.Tensor,  # (B, T, H, D)
+    kq: torch.Tensor,  # (B, S, Hkv * D) stored ring layout, int8 or bf16
+    vq: torch.Tensor,
+    k_scale: Optional[torch.Tensor],  # (B, Hkv, S) fp32 for int8 rings, else None
+    v_scale: Optional[torch.Tensor],
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    q_valid: torch.Tensor,
+    kv_valid: torch.Tensor,
+    window: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4. Returns (out (B, T, H, D), m (B, T, H), l (B, T, H)) for
+    merge_attention_parts."""
+    B, T, H, D = q.shape
+    S = kq.shape[1]
+    Hkv = kq.shape[2] // D
+    if not q.is_cuda:
+        return attend_stats_plain(
+            q, kq.reshape(B, S, Hkv, D), vq.reshape(B, S, Hkv, D), k_scale, v_scale,
+            q_pos, kv_pos, q_valid, kv_valid, int(window),
+        )
+    dev = q.device
+    _need(q, "q", torch.bfloat16, (B, T, H, D), dev)
+    if D != 128:
+        raise ValueError("the CUDA kernels take head_dim 128")
+    scaled = k_scale is not None
+    rdt = torch.int8 if scaled else torch.bfloat16
+    _need(kq, "kq", rdt, (B, S, Hkv * D), dev)
+    _need(vq, "vq", rdt, (B, S, Hkv * D), dev)
+    qp = _meta(q_pos, "q_pos", torch.int32, (B, T), dev)
+    kp = _meta(kv_pos, "kv_pos", torch.int32, (B, S), dev)
+    qv = _meta(q_valid, "q_valid", torch.bool, (B, T), dev)
+    kv = _meta(kv_valid, "kv_valid", torch.bool, (B, S), dev)
+    out = torch.empty((B, T, H, D), dtype=torch.bfloat16, device=dev)
+    m = torch.empty((B, T, H), dtype=torch.float32, device=dev)
+    l = torch.empty((B, T, H), dtype=torch.float32, device=dev)
+    tail = (
+        qp.data_ptr(), kp.data_ptr(), qv.data_ptr(), kv.data_ptr(), int(window),
+        out.data_ptr(), m.data_ptr(), l.data_ptr(), B, T, S, H, Hkv, D**-0.5,
+    )
+    if scaled:
+        _need(k_scale, "k_scale", torch.float32, (B, Hkv, S), dev)
+        _need(v_scale, "v_scale", torch.float32, (B, Hkv, S), dev)
+        _launch(
+            "ring_attention", "ring_attention_stats_int8", dev, q.data_ptr(),
+            kq.data_ptr(), vq.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), *tail,
+        )
+    else:
+        _launch(
+            "ring_attention", "ring_attention_stats_bf16", dev, q.data_ptr(),
+            kq.data_ptr(), vq.data_ptr(), *tail,
+        )
+    ring_attention_stats.launches += 1
+    return out, m, l
+
+
+ring_attention_stats.launches = 0
+
+
+def fused_update_decode_attention(
+    xq: torch.Tensor,  # (B, 1, H, D)
+    xk: torch.Tensor,  # (B, 1, Hkv, D) post-rope, pre-quantization
+    xv: torch.Tensor,
+    CK: torch.Tensor,  # (L, B, S, Hkv * D) ring, updated IN PLACE
+    CV: torch.Tensor,
+    KS: Optional[torch.Tensor],  # (L, B, Hkv, S) fp32, updated in place; None for bf16
+    VS: Optional[torch.Tensor],
+    li: int,
+    window: int,
+    write_slot: torch.Tensor,  # (B,) int32, -1 = write nothing for this row
+    q_pos: torch.Tensor,  # (B,) int32
+    kv_pos: torch.Tensor,  # (B, S) int32, slot positions AFTER the write
+    kv_valid: torch.Tensor,  # (B, S) bool
+) -> torch.Tensor:
+    """K2. Writes this step's K/V into layer ``li`` of the ring in place (the
+    JAX kernel returns aliased buffers instead), then attends ring-only.
+    Returns (B, 1, H * D)."""
+    B, _, H, D = xq.shape
+    L, S = CK.shape[0], CK.shape[2]
+    Hkv = xk.shape[2]
+    if not xq.is_cuda:
+        return fused_update_decode_attention_plain(
+            xq, xk, xv, CK, CV, KS, VS, int(li), int(window), write_slot, q_pos,
+            kv_pos, kv_valid,
+        )
+    dev = xq.device
+    bf = torch.bfloat16
+    if D != 128:
+        raise ValueError("the CUDA kernels take head_dim 128")
+    _need(xq, "xq", bf, (B, 1, H, D), dev)
+    _need(xk, "xk", bf, (B, 1, Hkv, D), dev)
+    _need(xv, "xv", bf, (B, 1, Hkv, D), dev)
+    scaled = KS is not None
+    rdt = torch.int8 if scaled else bf
+    _need(CK, "CK", rdt, (L, B, S, Hkv * D), dev)
+    _need(CV, "CV", rdt, (L, B, S, Hkv * D), dev)
+    if not 0 <= int(li) < L:
+        raise ValueError(f"layer index {li} out of range for {L} layers")
+    ws = _meta(write_slot, "write_slot", torch.int32, (B,), dev)
+    qp = _meta(q_pos, "q_pos", torch.int32, (B,), dev)
+    kp = _meta(kv_pos, "kv_pos", torch.int32, (B, S), dev)
+    kv = _meta(kv_valid, "kv_valid", torch.bool, (B, S), dev)
+    out = torch.empty((B, 1, H * D), dtype=bf, device=dev)
+    # Per-span partials, merged by the kernel's second pass.
+    nspan = -(-S // _kernel("fused_decode", "fused_decode_span")())
+    part_acc = torch.empty((B, H, nspan, D), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((B, H, nspan, 2), dtype=torch.float32, device=dev)
+    tail = (
+        int(li), int(window), ws.data_ptr(), qp.data_ptr(), kp.data_ptr(),
+        kv.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        B, S, H, Hkv, D**-0.5,
+    )
+    if scaled:
+        _need(KS, "KS", torch.float32, (L, B, Hkv, S), dev)
+        _need(VS, "VS", torch.float32, (L, B, Hkv, S), dev)
+        _launch(
+            "fused_decode", "fused_decode_int8", dev, xq.data_ptr(), xk.data_ptr(),
+            xv.data_ptr(), CK.data_ptr(), CV.data_ptr(), KS.data_ptr(), VS.data_ptr(),
+            *tail,
+        )
+    else:
+        _launch(
+            "fused_decode", "fused_decode_bf16", dev, xq.data_ptr(), xk.data_ptr(),
+            xv.data_ptr(), CK.data_ptr(), CV.data_ptr(), *tail,
+        )
+    fused_update_decode_attention.launches += 1
+    return out
+
+
+fused_update_decode_attention.launches = 0
+
+KERNELS = (flash_attention, ring_attention_stats, fused_update_decode_attention)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

@@ -1,0 +1,31 @@
+"""1-D rotary position embeddings with real cos/sin pairs (counterpart of
+``mistral_inference_tpu/ops/rope.py``). The head dim is viewed as adjacent
+(even, odd) pairs."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def rope_for_positions(
+    positions: torch.Tensor, head_dim: int, theta: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin at integer positions (B, T) -> two (B, T, 1, head_dim // 2)
+    fp32 tensors, computed directly from the positions (no table)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device)
+    freqs = 1.0 / (theta ** (exps / head_dim))
+    pos = positions.clamp_min(0).float()
+    angles = pos[..., None] * freqs
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate adjacent pairs of the last dim of x (..., n_heads, head_dim) in
+    fp32 and cast back to x.dtype: (xr + i xi) * (cos + i sin), as one
+    complex product (four kernels on the card where the pairwise form takes
+    nine)."""
+    xc = torch.view_as_complex(x.float().unflatten(-1, (-1, 2)))
+    out = torch.view_as_real(xc * torch.complex(cos, sin))
+    return out.flatten(-2).to(x.dtype)

@@ -1,0 +1,126 @@
+"""The port's ring KV cache against the JAX package's, on the CPU.
+
+Everything here is exact: the int8 rule (fp32 absmax / 127 with a 1e-8
+floor, IEEE division, round half to even, clip to +-127) is integer-valued
+once the scale is fixed, and slot arithmetic is integer arithmetic. The
+port stores rings and scales in the JAX package's layouts, so the buffers
+compare element for element.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mistral_inference_tpu import cache as jcache
+from mistral_inference_tpu_torch import cache as tcache
+
+
+def _np(x):
+    return np.array(x.float() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_ring_int8_bit_exact(dtype):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((6, 5, 3, 128)).astype(np.float32) * rng.uniform(0.01, 30, (6, 5, 3, 1))
+    x[0, 0, 0] = 0.0  # an all-zero head hits the 1e-8 floor
+    x[1, 0, 0, :4] = [127.0, -127.0, 63.5, 0.5]  # exact halves round to even
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    jq, js = jcache._quantize_ring(jx, jnp.int8)
+    tq, ts = tcache._quantize_ring(tx)
+    assert tq.dtype == torch.int8
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        tcache.kv_roundtrip(tx).float().numpy(), _np(jcache.kv_roundtrip(jx, jnp.int8))
+    )
+
+
+@pytest.mark.parametrize("window", [4, 7, 16])
+def test_slot_positions_match(window):
+    kv_len = np.array([0, 1, 3, 7, 8, 9, 23, 100], np.int32)
+    W = -(-window // 128) * 128
+    jp, jv = jcache.slot_positions(jnp.asarray(kv_len), jnp.int32(window), W)
+    tp, tv = tcache.slot_positions(torch.from_numpy(kv_len), window, W)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("sliding_window", [None, 6, [3, None]])
+@pytest.mark.parametrize("kv_quant", ["bf16", "int8"])
+def test_alloc_matches(sliding_window, kv_quant):
+    kw = dict(n_layers=4, batch=3, max_seq_len=20, n_kv_heads=2, head_dim=8,
+              sliding_window=sliding_window, kv_quant=kv_quant)
+    jc = jcache.KVCache.alloc(dtype=jnp.float32, **kw)
+    tc = tcache.KVCache.alloc(dtype=torch.float32, device="cpu", **kw)
+    assert tuple(tc.k.shape) == jc.k.shape and tc.size == jc.size == 128
+    assert tc.windows == np.asarray(jc.windows).tolist()
+    assert str(tc.k.dtype).split(".")[-1] == str(jc.k.dtype)
+    if kv_quant == "int8":
+        assert tuple(tc.k_scale.shape) == jc.k_scale.shape
+    else:
+        assert tc.k_scale is None and jc.k_scale.size == 0
+
+
+def _ring(kv_quant, rng, L=3, B=3, W=128, Hkv=2, Dh=8):
+    """A random stored ring (stacks, scales) in both frameworks' form."""
+    kf = rng.standard_normal((L, B, W, Hkv, Dh)).astype(np.float32)
+    vf = rng.standard_normal((L, B, W, Hkv, Dh)).astype(np.float32)
+    if kv_quant == "bf16":
+        return kf.reshape(L, B, W, -1), vf.reshape(L, B, W, -1), None, None
+    kq, ks = jcache._quantize_ring(jnp.asarray(kf), jnp.int8)
+    vq, vs = jcache._quantize_ring(jnp.asarray(vf), jnp.int8)
+    return (np.array(kq).reshape(L, B, W, -1), np.array(vq).reshape(L, B, W, -1),
+            np.moveaxis(np.asarray(ks), 2, 3).copy(), np.moveaxis(np.asarray(vs), 2, 3).copy())
+
+
+@pytest.mark.parametrize("kv_quant", ["bf16", "int8"])
+def test_update_stacked_matches(kv_quant):
+    """A chunk longer than the window (same-chunk overwrites are dropped), a
+    ring that wraps, a short row and an idle row, into layer 1 of 3."""
+    rng = np.random.default_rng(1)
+    L, B, W, Hkv, Dh, T, window = 3, 3, 128, 2, 8, 9, 5
+    CK, CV, KS, VS = _ring(kv_quant, rng, L, B, W, Hkv, Dh)
+    xk = rng.standard_normal((B, T, Hkv, Dh)).astype(np.float32)
+    xv = rng.standard_normal((B, T, Hkv, Dh)).astype(np.float32)
+    kv_len = np.array([3, 0, 11], np.int32)
+    seqlens = np.array([9, 2, 0], np.int32)
+    positions = kv_len[:, None] + np.arange(T, dtype=np.int32)[None]
+    valid = np.arange(T)[None] < seqlens[:, None]
+    new_total = kv_len + seqlens
+
+    jks = jnp.asarray(KS) if KS is not None else jnp.ones((L, 0, 0, 0), jnp.float32)
+    jvs = jnp.asarray(VS) if VS is not None else jnp.ones((L, 0, 0, 0), jnp.float32)
+    jout = jcache.update_stacked(
+        jnp.asarray(CK), jnp.asarray(CV), jks, jvs, jnp.int32(1), jnp.asarray(xk),
+        jnp.asarray(xv), jnp.asarray(positions), jnp.asarray(valid),
+        jnp.asarray(new_total), jnp.int32(window),
+    )
+    t = [None if a is None else torch.from_numpy(a.copy()) for a in (CK, CV, KS, VS)]
+    writes = tcache.ring_writes(
+        torch.from_numpy(positions), torch.from_numpy(valid),
+        torch.from_numpy(new_total), window,
+    )
+    tcache.update_stacked(*t, 1, torch.from_numpy(xk), torch.from_numpy(xv), writes)
+    for ours, theirs in zip(t, jout):
+        if ours is not None:
+            np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+    # Row 0 wrote positions 3..11 into a 5-slot ring: only 7..11 landed.
+    b_idx, t_idx, slot = writes
+    assert positions[0, t_idx[b_idx == 0].numpy()].tolist() == [7, 8, 9, 10, 11]
+    assert sorted(slot[b_idx == 0].tolist()) == [0, 1, 2, 3, 4]
+
+
+def test_dequant_layer_matches():
+    rng = np.random.default_rng(2)
+    CK, _, KS, _ = _ring("int8", rng)
+    ref = jcache.dequant_layer(jnp.asarray(CK[1]), jnp.asarray(KS[1]), jnp.float32, 2)
+    out = tcache.dequant_layer(torch.from_numpy(CK[1]), torch.from_numpy(KS[1]), torch.float32, 2)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_kv_quant_rejects_unknown():
+    with pytest.raises(ValueError):
+        tcache.kv_cache_dtype("fp4", torch.bfloat16)

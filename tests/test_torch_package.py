@@ -1,0 +1,138 @@
+"""Package rules of the PyTorch port.
+
+* It imports neither ``jax`` nor ``mistral_inference_tpu`` (nor do
+  ``chip_smoke.py`` and tests/test_torch_cuda.py, which run on the card's
+  machine, where JAX is not installed).
+* The lint rules of tests/test_codequality.py hold for its sources.
+* Its kernel modules import without nvcc or a card: kernels build and load
+  only when first launched.
+* Its entry points run on the card by default and never fall back to the
+  CPU quietly.
+"""
+
+import ast
+import pathlib
+import py_compile
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "mistral_inference_tpu_torch"
+SOURCES = sorted(PKG.rglob("*.py"))
+SCANNED = SOURCES + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+FORBIDDEN = ("jax", "jaxlib", "mistral_inference_tpu")
+
+
+def _ids(p):
+    return str(p.relative_to(ROOT))
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_sources_found():
+    assert len(SOURCES) >= 12
+    assert sorted(p.name for p in (PKG / "ops" / "cuda" / "csrc").glob("*.cu")) == [
+        "flash_attention.cu", "fused_decode.cu", "ring_attention.cu",
+    ]
+
+
+@pytest.mark.parametrize("path", SCANNED, ids=_ids)
+def test_no_jax_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imports(tree) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{_ids(path)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=_ids)
+def test_compiles(path):
+    py_compile.compile(str(path), doraise=True)
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=_ids)
+def test_ast_lint(path):
+    """tests/test_codequality.py's rules: no bare except, no mutable default
+    argument, no print() in library modules, no assert on a tuple."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    problems = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ExceptHandler) and node.type is None:
+            problems.append(f"line {node.lineno}: bare except")
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            for d in list(node.args.defaults) + [d for d in node.args.kw_defaults if d is not None]:
+                if isinstance(d, (ast.List, ast.Dict, ast.Set)):
+                    problems.append(f"line {node.lineno}: mutable default arg in {node.name}")
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name) and node.func.id == "print":
+            problems.append(f"line {node.lineno}: print() in library module")
+        if isinstance(node, ast.Assert) and isinstance(node.test, ast.Tuple):
+            problems.append(f"line {node.lineno}: assert on tuple (always true)")
+    assert not problems, "\n".join(f"{_ids(path)}: {p}" for p in problems)
+
+
+def test_package_imports_without_jax_or_nvcc():
+    """In a fresh interpreter where importing jax fails and nvcc is not on
+    the PATH, every module of the port imports and no kernel is built."""
+    code = (
+        "import sys, importlib, pathlib\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib') or name == 'mistral_inference_tpu' "
+        "or name.startswith('mistral_inference_tpu.'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "root = pathlib.Path(sys.argv[1])\n"
+        "for p in sorted((root / 'mistral_inference_tpu_torch').rglob('*.py')):\n"
+        "    mod = '.'.join(p.relative_to(root).with_suffix('').parts)\n"
+        "    importlib.import_module(mod.removesuffix('.__init__'))\n"
+        "from mistral_inference_tpu_torch.ops.cuda import _build\n"
+        "assert not _build._LIBS\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-S", "-c", code, str(ROOT)], capture_output=True, text=True,
+        timeout=300, env={"PATH": "/usr/bin:/bin", "PYTHONPATH": ":".join([str(ROOT)] + sys.path[1:])},
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-3000:]
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from mistral_inference_tpu_torch.model import Transformer
+    from mistral_inference_tpu_torch.models.registry import get_args
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = get_args("mistral-7b-v0.1")
+    args.n_layers = 1
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Transformer.random(args)
+
+
+def test_cpu_only_on_request():
+    from mistral_inference_tpu_torch.args import TransformerArgs
+    from mistral_inference_tpu_torch.model import Transformer
+
+    args = TransformerArgs(dim=64, n_layers=1, head_dim=16, hidden_dim=128, n_heads=4,
+                           n_kv_heads=2, norm_eps=1e-5, vocab_size=64)
+    model = Transformer.random(args, dtype=torch.float32, seed=0, device="cpu")
+    assert model.device.type == "cpu"
+    assert all(t.device.type == "cpu" for t in model.params["layers"][0].values())
+
+
+@pytest.mark.parametrize("name", ["mistral-7b-v0.1", "mistral-7b-v0.3"])
+def test_registry_matches_jax_presets(name):
+    """The presets carry the JAX package's published widths."""
+    import dataclasses
+
+    from mistral_inference_tpu.models.registry import REGISTRY as JAX_REGISTRY
+    from mistral_inference_tpu_torch.models.registry import REGISTRY
+
+    ours = dataclasses.asdict(REGISTRY[name])
+    theirs = dataclasses.asdict(JAX_REGISTRY[name])
+    assert {k: theirs[k] for k in ours} == ours
