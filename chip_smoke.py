@@ -8,22 +8,28 @@ Phases, each printing one JSON line:
 1. card: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: every kernel of ``mistral_inference_tpu_torch/ops/cuda/csrc`` is
    compiled from the checkout with nvcc (sm_90a).
-3. kernels: each CUDA kernel against its plain PyTorch version on the same
-   inputs on the card, at the Mistral-7B head shapes (H=32, Hkv=8, D=128),
-   with its time (CUDA-event median), the plain version's time, the time of
-   one PyTorch library call for the same function where one exists, and the
-   card's least time for the work (bytes or flops, from this run's inputs).
-4. main path: ``generate()`` on ``mistral-7b-v0.1`` at full width (32
-   layers) with random bf16 weights from a seed and an int8 KV ring, over 4
-   prompts of ragged length, one longer than the 4096 window so the ring
-   wraps. Checks the decode == prefill invariant and that top-p sampling is
-   fixed by its seed. The kernel launch counts are read around this phase.
+3. kernels: each of the six CUDA kernels against its plain PyTorch version
+   on the same inputs on the card, at the Mistral-7B shapes (H=32, Hkv=8,
+   D=128; the four linears of a layer at 4, 256 and 2048 rows, int8 and
+   int4), with its time (CUDA-event median), the plain version's time, the
+   time of one PyTorch library call for the same function where one exists,
+   and the card's least time for the work (bytes or flops, from this run's
+   inputs).
+4. main paths: ``generate()`` on ``mistral-7b-v0.1`` at full width with
+   random bf16 weights from a seed and an int8 KV ring, over 4 prompts of
+   ragged length, one longer than the 4096 window so the ring wraps. Three
+   paths, each with the launch counts set to 0 before it and read after it:
+   bf16 weights (8 layers); weights quantized to int4, all 32 layers, every
+   linear through the quantized-matmul kernels; int8 weights with the
+   non-fused decode route (8 layers). Each checks that greedy tokens repeat,
+   the decode == prefill invariant, that top-p sampling is fixed by its
+   seed, and that every kernel of the path was launched.
 
 Then a ``kernels`` line, the nvidia-smi line, and last the device line.
 Any failure raises and the script exits non-zero. Without a CUDA device,
 or without the package beside it, it exits non-zero and prints no result.
 nvcc's build logs (``-Xptxas -v``: registers, shared memory) go to stderr.
-``--profile`` adds to the main-path line a torch.profiler breakdown of the
+``--profile`` adds to the int4 path's line a torch.profiler breakdown of the
 prefill and of one decode step, with the decode step's aten calls and the
 host's time to enqueue it.
 """
@@ -54,13 +60,26 @@ PROMPT_LENS = (4300, 1537, 700, 45)  # the first is longer than the 4096 window
 CHUNK = 512
 GREEDY_TOKENS = 32
 TOPP_TOKENS = 16
-REPEATS = 5  # timed generate() calls per median
+REPEATS = 5  # timed generate() calls per median on the full-depth path
+
+K1, K2, K4 = "flash_attention", "fused_update_decode_attention", "ring_attention_stats"
+K3, K5, K6 = "matmul_quant", "moe_matmul_quant_ragged", "decode_attention"
+# (label, layers, weight quantization, fused decode route, timed calls per
+# median, kernels the path must launch). The int4 path is the full model; the
+# other two are cut in depth, never in width, to keep the run short.
+PATHS = (
+    ("bf16", 8, None, True, 3, (K1, K4, K2)),
+    ("int4", 32, "int4", True, REPEATS, (K1, K4, K2, K3, K5)),
+    ("int8-nonfused-decode", 8, "int8", False, 3, (K1, K4, K6, K3, K5)),
+)
 # decode == prefill: the greedy decode logprobs and the teacher-forced
 # prefill logprobs of the same tokens go through the same int8 ring bytes
 # (the fused decode kernel's write is bit-identical to the prefill's), but
 # with bf16 weights and activations the two paths round at different
 # places: T=1 against T=512 GEMMs (other cuBLAS kernels and summation
-# orders), K2 against K4+K1+merge. Random 7B weights pass those bf16
+# orders), K2 against K4+K1+merge. With quantized weights the linears are K3
+# (fp32 FMAs) in decode and K5 (tensor cores) in prefill: the same rounding
+# points, other summation orders. Random 7B weights pass those bf16
 # differences through 32 layers, so the bound is on the bf16 scale, not fp32.
 INVARIANT_MAX_NATS = 0.25
 INVARIANT_MEAN_NATS = 0.05
@@ -387,26 +406,277 @@ def check_k2(gen):
     }
 
 
+# The four linears of one mistral-7b layer as (name, K = in, N = out).
+LINEARS = (("wqkv", 4096, 6144), ("wo", 4096, 4096), ("w13", 4096, 28672), ("w2", 14336, 4096))
+GROUP = 128
+
+
+def quant_stack(gen, L, K, N, bits):
+    """A stack of L quantized weights (true quantization of N(0, 1) / sqrt(K))."""
+    from mistral_inference_tpu_torch.ops.linear import quantize_weight
+
+    w = randn(gen, L, K, N) * K**-0.5
+    qw = quantize_weight(w, bits, GROUP)
+    return qw["q4" if bits == 4 else "q"], qw["scale"]
+
+
+def linear_library_ms(x, leaf):
+    """F.linear on the dequantized weight: the yardstick only. Returns (with
+    the dequantization inside the timed call, with a bf16 weight made before)."""
+    import torch.nn.functional as F
+
+    from mistral_inference_tpu_torch.ops.linear import dequant
+
+    w = dequant(leaf, x.dtype).t().contiguous()
+    pre = timed_ms(lambda: F.linear(x, w))
+    del w
+    return timed_ms(lambda: F.linear(x, dequant(leaf, x.dtype).t()), reps=5), pre
+
+
+def check_k3(gen):
+    from mistral_inference_tpu_torch.ops.cuda.matmul_quant import (
+        matmul_quant, matmul_quant_plain, matmul_quant_stacked,
+    )
+    from mistral_inference_tpu_torch.ops.linear import quantize_weight
+
+    # The card's quantizer against the CPU's on one fp32 input: equal bytes
+    # and scales (it divides by a tensor, not by a host scalar).
+    w = torch.randn((1024, 768), generator=torch.Generator().manual_seed(0)) * 0.02
+    for bits in (8, 4):
+        cpu, card = quantize_weight(w, bits), quantize_weight(w.cuda(), bits)
+        for key in cpu:
+            require(torch.equal(cpu[key], card[key].cpu()),
+                    f"quantize_weight int{bits} {key} on the card differs from the CPU's")
+
+    L, li = 2, 1
+    worst, shapes = 0.0, {}
+    total = {k: 0.0 for k in ("ms", "plain_ms", "bound_ms", "library_ms", "library_predequant_ms")}
+    by = set()
+    for bits in (4, 8):
+        for name, K, N in LINEARS:
+            q, scale = quant_stack(gen, L, K, N, bits)
+            rec = {}
+            for rows in (4, 256):
+                x = randn(gen, rows, K, dtype=torch.bfloat16)
+                ref = matmul_quant_plain(x, q[li], scale[li])
+                out = matmul_quant_stacked(x, q, scale, li)
+                one = matmul_quant(x, q[li], scale[li])
+                again = matmul_quant_stacked(x, q, scale, li)
+                torch.cuda.synchronize()
+                case = f"int{bits} {name} {K}x{N} rows={rows}"
+                ok, err = close(out, ref, 1e-2, 1e-2)
+                require(ok, f"K3 disagrees with its plain version ({case}): {err}")
+                require(torch.equal(out, one), f"K3 stacked and unstacked forms differ ({case})")
+                require(torch.equal(out, again), f"K3 is not the same bits on a second run ({case})")
+                worst = max(worst, err)
+                ms = timed_ms(lambda: matmul_quant_stacked(x, q, scale, li))
+                rec[f"rows{rows}_ms"] = ms
+                if rows != 4:
+                    continue
+                # The main path's decode shape: B = 4 rows.
+                b_ms, b_by = bound(2.0 * rows * K * N, nbytes(x, q[li], scale[li]) + 2 * rows * N)
+                lib, lib_pre = linear_library_ms(x, {("q4" if bits == 4 else "q"): q[li],
+                                                     "scale": scale[li]})
+                rec.update(bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                           library_predequant_ms=lib_pre,
+                           plain_ms=timed_ms(lambda: matmul_quant_plain(x, q[li], scale[li]), reps=5))
+                if bits == 4:
+                    by.add(b_by)
+                    for k in total:
+                        total[k] += ms if k == "ms" else rec[k]
+            shapes[f"int{bits}_{name}"] = rec
+            del q, scale
+    return {
+        "name": K3, "kernel": "K3", "route": "cuda",
+        "source": "mistral_inference_tpu_torch/ops/cuda/csrc/matmul_quant.cu",
+        "replaces": "mistral_inference_tpu/ops/pallas/matmul_quant.py:354",
+        "max_abs_err": worst, **total,
+        "bound_by": by.pop() if len(by) == 1 else "bytes",
+        "shape": "the sums over one layer's four int4 linears (wqkv 4096x6144, wo 4096x4096, "
+                 "w13 4096x28672, w2 14336x4096; group 128) at B=4 rows, read from layer 1 of "
+                 "a 2-layer stack; by_shape has each linear, int4 and int8, at 4 and 256 rows",
+        "library": "F.linear(x, dequant(w).T): library_ms dequantizes inside the timed call "
+                   "(the same inputs), library_predequant_ms takes a bf16 weight made before",
+        "by_shape": shapes,
+        "tolerance": "abs 1e-2 + rel 1e-2 on bf16 outputs (fp32 sums in another order, one "
+                     "rounding to bf16); stacked, unstacked and repeated launches equal bits; "
+                     "quantize_weight on the card equal to the CPU's bytes and scales",
+    }
+
+
+def check_k5(gen):
+    from mistral_inference_tpu_torch.ops.cuda.moe_matmul import (
+        moe_matmul_quant_ragged, moe_matmul_quant_ragged_plain,
+    )
+
+    rows, TM = 2048, 256
+    tiles = rows // TM
+    zeros = torch.zeros((tiles,), dtype=torch.int32, device="cuda")
+    worst, shapes = 0.0, {}
+    total = {k: 0.0 for k in ("ms", "plain_ms", "bound_ms", "library_ms", "library_predequant_ms")}
+    by = set()
+    for bits in (4, 8):
+        for name, K, N in LINEARS:
+            q, scale = quant_stack(gen, 1, K, N, bits)
+            x = randn(gen, rows, K, dtype=torch.bfloat16)
+            out = moe_matmul_quant_ragged(x, q, scale, zeros)
+            ref = moe_matmul_quant_ragged_plain(x, q, scale, zeros)
+            torch.cuda.synchronize()
+            ok, err = close(out, ref, 1e-2, 1e-2)
+            require(ok, f"K5 disagrees with its plain version (int{bits} {name} {K}x{N}): {err}")
+            worst = max(worst, err)
+            b_ms, b_by = bound(2.0 * rows * K * N, nbytes(x, q, scale, zeros) + 2 * rows * N)
+            lib, lib_pre = linear_library_ms(x, {("q4" if bits == 4 else "q"): q[0],
+                                                 "scale": scale[0]})
+            rec = {
+                "ms": timed_ms(lambda: moe_matmul_quant_ragged(x, q, scale, zeros), reps=5),
+                "plain_ms": timed_ms(
+                    lambda: moe_matmul_quant_ragged_plain(x, q, scale, zeros), reps=3),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                "library_predequant_ms": lib_pre,
+            }
+            shapes[f"int{bits}_{name}"] = rec
+            if bits == 4:
+                by.add(b_by)
+                for k in total:
+                    total[k] += rec[k]
+            del q, scale, x
+    # Four weights in a two-layer stack, a mixed tile_group, layer 1.
+    E, K, N = 4, 4096, 4096
+    tg = torch.tensor([2, 0, 3, 3, 1, 0, 2, 1], dtype=torch.int32, device="cuda")
+    for bits in (4, 8):
+        q, scale = quant_stack(gen, 2 * E, K, N, bits)
+        q, scale = q.view(2, E, -1, N), scale.view(2, E, -1, N)
+        x = randn(gen, rows, K, dtype=torch.bfloat16)
+        out = moe_matmul_quant_ragged(x, q, scale, tg, 1)
+        ref = moe_matmul_quant_ragged_plain(x, q, scale, tg, 1)
+        torch.cuda.synchronize()
+        ok, err = close(out, ref, 1e-2, 1e-2)
+        require(ok, f"K5 disagrees with its plain version (int{bits}, E=4, layer 1 of 2): {err}")
+        worst = max(worst, err)
+        del q, scale, x
+    return {
+        "name": K5, "kernel": "K5", "route": "cuda",
+        "source": "mistral_inference_tpu_torch/ops/cuda/csrc/moe_matmul.cu",
+        "replaces": "mistral_inference_tpu/ops/pallas/moe_matmul.py:129",
+        "max_abs_err": worst, **total,
+        "bound_by": by.pop() if len(by) == 1 else "operations",
+        "shape": "the sums over one layer's four int4 linears (as K3) at 2048 rows = 4 x 512 in "
+                 "8 tiles of 256, E=1; by_shape has each linear, int4 and int8; also checked: "
+                 "E=4 in a 2-layer stack with a mixed tile_group and layer 1",
+        "library": "F.linear(x, dequant(w).T): library_ms dequantizes inside the timed call "
+                   "(the same inputs), library_predequant_ms takes a bf16 weight made before",
+        "by_shape": shapes,
+        "tolerance": "abs 1e-2 + rel 1e-2 on bf16 outputs (fp32 sums in another order, one "
+                     "rounding to bf16)",
+    }
+
+
+def check_k6(gen):
+    import torch.nn.functional as F
+
+    from mistral_inference_tpu_torch.cache import _quantize_ring, dequant_layer, slot_positions
+    from mistral_inference_tpu_torch.ops.attention import sliding_window_mask
+    from mistral_inference_tpu_torch.ops.cuda.attention import (
+        decode_attention, decode_attention_plain,
+    )
+
+    bf = torch.bfloat16
+    L, B, S, window = 32, 4, 4096, 4096
+    worst, main = 0.0, None
+    # Rings after a decode step's write: row 0 wrapped; then short fills, so
+    # that most spans hold no visible slot.
+    for kv_len in ([4301, 1001, 38, 3000], [1001, 38, 2999, 257]):
+        kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        slot_pos, slot_valid = slot_positions(kv_len, window, S)
+        q_pos = (kv_len - 1)[:, None].contiguous()
+        for int8 in (True, False):
+            if int8:
+                CK, KS = _quantize_ring(randn(gen, L, B, S, HKV, D))
+                CV, VS = _quantize_ring(randn(gen, L, B, S, HKV, D))
+                KS, VS = KS.permute(0, 1, 3, 2).contiguous(), VS.permute(0, 1, 3, 2).contiguous()
+            else:
+                CK, CV, KS, VS = randn(gen, L, B, S, HKV, D, dtype=bf), randn(
+                    gen, L, B, S, HKV, D, dtype=bf), None, None
+            CK, CV = CK.reshape(L, B, S, HKV * D), CV.reshape(L, B, S, HKV * D)
+            q = randn(gen, B, 1, H, D, dtype=bf)
+            li = 5
+            before = [None if t is None else t[li].clone() for t in (CK, CV, KS, VS)]
+            out = decode_attention(q, CK, CV, KS, VS, li, q_pos, slot_pos, slot_valid, window)
+            ref = decode_attention_plain(q, CK, CV, KS, VS, li, q_pos, slot_pos, slot_valid, window)
+            torch.cuda.synchronize()
+            case = f"int8={int8}, kv_len={kv_len.tolist()}"
+            for t, b in zip((CK, CV, KS, VS), before):
+                require(t is None or torch.equal(t[li], b), f"K6 wrote the ring ({case})")
+            ok, err = close(out, ref, 1e-2, 1e-2)
+            require(ok, f"K6 disagrees with its plain version ({case}): {err}")
+            worst = max(worst, err)
+            if int8 and main is None:
+                main = (q, CK, CV, KS, VS, li, q_pos, slot_pos, slot_valid, window)
+            del CK, CV, KS, VS
+
+    q, CK, CV, KS, VS, li, q_pos, slot_pos, slot_valid, window = main
+    ones = torch.ones((B, 1), dtype=torch.bool, device="cuda")
+    mask = sliding_window_mask(q_pos, slot_pos, ones, slot_valid, window)
+    visible = float(mask.sum())
+    ring_bytes = visible * HKV * (2 * D + 2 * 4)
+    b_ms, b_by = bound(4.0 * D * H * visible,
+                       ring_bytes + nbytes(q, q_pos, slot_pos, slot_valid) + 2 * B * H * D)
+    layer = [0]
+
+    def cycle_layers():
+        # The next layer of the stack on each call, as a decode step takes them.
+        layer[0] = (layer[0] + 1) % L
+        return decode_attention(q, CK, CV, KS, VS, layer[0], q_pos, slot_pos, slot_valid, window)
+
+    kh = dequant_layer(CK[li], KS[li], bf, HKV).transpose(1, 2).contiguous()
+    vh = dequant_layer(CV[li], VS[li], bf, HKV).transpose(1, 2).contiguous()
+    qh, m = q.transpose(1, 2).contiguous(), mask[:, None].contiguous()
+    return {
+        "name": K6, "kernel": "K6", "route": "cuda",
+        "source": "mistral_inference_tpu_torch/ops/cuda/csrc/fused_decode.cu",
+        "replaces": "mistral_inference_tpu/ops/pallas/attention.py:619",
+        "max_abs_err": worst,
+        "ms": timed_ms(cycle_layers),
+        "plain_ms": timed_ms(lambda: decode_attention_plain(*main)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=m, enable_gqa=True)),
+        "shape": "B=4 over a 32-layer int8 ring stack of S=4096 (one row wrapped, fills 1001, "
+                 "38 and 3000) H=32 Hkv=8 D=128; also checked: bf16 rings, short fills",
+        "library": "SDPA with a mask on one layer's ring dequantized to bf16 before the call",
+        "tolerance": "abs 1e-2 + rel 1e-2 (bf16 output, fp32 sums in another order); the ring "
+                     "is unchanged",
+    }
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: the main path
+# Phase 4: the main paths
 # ---------------------------------------------------------------------------
 
 
-def main_path(card: str, profile: bool):
+def main_path(card: str, profile: bool, label: str, n_layers: int, quant, fused: bool,
+              repeats: int, expected):
+    """Drive one path of PATHS; returns (its summary line, its launch counts)."""
     import numpy as np
 
     from mistral_inference_tpu_torch.generate import generate
     from mistral_inference_tpu_torch.model import Transformer
+    from mistral_inference_tpu_torch.models import transformer as tf
     from mistral_inference_tpu_torch.models.registry import get_args
-    from mistral_inference_tpu_torch.models.transformer import param_count
-    from mistral_inference_tpu_torch.ops.cuda import attention as kern
+    from mistral_inference_tpu_torch.ops import cuda as kern
 
     args = get_args(MODEL)
     args.kv_quant = "int8"
+    args.n_layers = n_layers
     t0 = time.perf_counter()
     model = Transformer.random(args, dtype=torch.bfloat16, seed=0)
+    if quant is not None:
+        # True quantization of the bf16 weights, so the logits keep their scale.
+        model.quantize(quant)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    tf.FUSED_DECODE = fused
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, args.vocab_size, n).tolist() for n in PROMPT_LENS]
 
@@ -418,22 +688,22 @@ def main_path(card: str, profile: bool):
         return res, time.perf_counter() - t
 
     def counts():
-        return {fn.__name__: fn.launches for fn in kern.KERNELS}
+        return {fn.__name__: fn.launches for fn in kern.all_kernels()}
 
     kern.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     # The first generate() of a process also pays cuBLAS and allocator
     # set-up; the timed calls come after it. Decode time is the difference of
     # two medians (32 tokens less 1), and the host, which bounds decode,
-    # shares its cores, so each is the median of REPEATS calls.
+    # shares its cores, so each is the median of ``repeats`` calls.
     run(prompts, max_tokens=2, temperature=0.0)
     ttft_s = statistics.median(
-        run(prompts, max_tokens=1, temperature=0.0)[1] for _ in range(REPEATS))
+        run(prompts, max_tokens=1, temperature=0.0)[1] for _ in range(repeats))
     before = counts()
     (gen, lps), t0 = run(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)
     per_greedy = {k: n - before[k] for k, n in counts().items()}
     totals = [t0]
-    for _ in range(REPEATS - 1):
+    for _ in range(repeats - 1):
         (again, _), t = run(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)
         require(again == gen, "greedy tokens differ between two runs")
         totals.append(t)
@@ -460,22 +730,27 @@ def main_path(card: str, profile: bool):
     (s2, _), _ = run(prompts, max_tokens=TOPP_TOKENS, temperature=0.7, top_p=0.9, seed=1)
     require(s1 == s2, "top-p tokens differ between two runs with one seed")
     launches = counts()
-    for name, n in launches.items():
-        require(n > 0, f"{name} was not launched on the main path")
+    for name in expected:
+        require(launches[name] > 0, f"{name} was not launched on the {label} path")
+    require(fused or launches[K2] == 0, "the non-fused decode route launched the fused kernel")
     breakdown = profile_generate(model, prompts) if profile else None
+    tf.FUSED_DECODE = True
 
     decode_s = total_s - ttft_s
     return {
-        "phase": "main_path", "model": MODEL, "params": param_count(model.params),
-        "weights": "bf16 random (seed 0)", "kv_ring": "int8", "prompt_lens": PROMPT_LENS,
+        "phase": "main_path", "path": label, "model": MODEL, "layers": n_layers,
+        "params": tf.param_count(model.params),
+        "weights": "bf16 random (seed 0)" + (f", quantized to {quant} (group 128)" if quant else ""),
+        "decode_route": "fused (K2)" if fused else "update_stacked + decode_attention (K6)",
+        "kv_ring": "int8", "prompt_lens": PROMPT_LENS,
         "chunk_size": CHUNK, "window": args.sliding_window, "init_s": init_s,
         "ttft_s": ttft_s,
-        "ttft_note": f"median of {REPEATS} warm generate(max_tokens=1): chunked prefill "
+        "ttft_note": f"median of {repeats} warm generate(max_tokens=1): chunked prefill "
                      "of all prompts plus one step",
         "greedy_total_s": total_s,
         "decode_tokens_per_s": len(PROMPT_LENS) * (GREEDY_TOKENS - 1) / decode_s,
         "decode_note": "B*(32-1) tokens over median generate(32) time less median "
-                       f"generate(1) time, medians of {REPEATS}",
+                       f"generate(1) time, medians of {repeats}",
         "peak_mem_gb": peak_gb, "launches": launches,
         "launches_per_greedy_generate": per_greedy,
         "invariant_max_nats": float(diffs.max()), "invariant_mean_nats": float(diffs.mean()),
@@ -494,8 +769,10 @@ def kernel_ms(prof, calls: int = 1):
         ms = getattr(ev, "self_device_time_total", 0.0) / 1e3 / calls
         name = ev.key.lower()
         cat = next((c for k, c in (("flash_tile", "K1/K4 flash_tile"),
-                                   ("fused_decode", "K2 fused_decode"),
-                                   ("decode_merge", "K2 fused_decode"), ("gemm", "matmul"),
+                                   ("fused_decode", "K2/K6 fused_decode"),
+                                   ("decode_merge", "K2/K6 fused_decode"),
+                                   ("matmul_quant", "K3 matmul_quant"),
+                                   ("moe_matmul", "K5 moe_matmul"), ("gemm", "matmul"),
                                    ("gemv", "matmul"), ("xmma", "matmul"), ("cutlass", "matmul"),
                                    ("nvjet", "matmul"), ("splitkreduce", "matmul")) if k in name),
                    "other")
@@ -607,13 +884,23 @@ def main() -> int:
     emit({"phase": "build", "seconds": built["seconds"], "sources": sorted(built["logs"])})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [check_k1(gen), check_k4(gen), check_k2(gen)]
-    for r in rows:
-        emit({"phase": "kernel", "card": card, **r})
-    torch.cuda.empty_cache()
+    rows = []
+    for check in (check_k1, check_k4, check_k2, check_k3, check_k5, check_k6):
+        rows.append(check(gen))
+        emit({"phase": "kernel", "card": card, **rows[-1]})
+        torch.cuda.empty_cache()
 
-    summary, launches = main_path(card, "--profile" in sys.argv[1:])
-    emit(summary)
+    # Each kernel's launches on the path that is the full model where it runs
+    # there (int4, 32 layers), else on the path that runs it (K6: non-fused).
+    launches = {}
+    for label, n_layers, quant, fused, repeats, expected in PATHS:
+        summary, counted = main_path(card, "--profile" in sys.argv[1:] and label == "int4",
+                                     label, n_layers, quant, fused, repeats, expected)
+        emit(summary)
+        for name in expected:
+            if label == "int4" or name not in PATHS[1][5]:
+                launches[name] = counted[name]
+        torch.cuda.empty_cache()
     kernels = []
     for r in rows:
         kernels.append({

@@ -1,8 +1,8 @@
 """Model configuration for the dense decoder path.
 
 Counterpart of ``mistral_inference_tpu/args.py::TransformerArgs``, cut to the
-fields the dense bf16-weight path reads. Quantized weights, MoE, LoRA and
-vision arrive with later slices of the port.
+fields the dense path reads. MoE, LoRA and vision arrive with later slices
+of the port.
 """
 
 from __future__ import annotations
@@ -31,12 +31,17 @@ class TransformerArgs:
     # KV ring element type: "bf16" (the model dtype) or "int8" with one fp32
     # scale per (token, kv-head).
     kv_quant: str = "bf16"
+    # Weight quantization state: "bf16" (the model dtype), "int8" or "int4"
+    # weight-only. Set by ``Transformer.quantize``.
+    quant: str = "bf16"
 
     def __post_init__(self) -> None:
         if self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must be a multiple of n_kv_heads")
         if self.kv_quant not in ("bf16", "int8"):
             raise ValueError(f"kv_quant must be 'bf16' or 'int8', got {self.kv_quant!r}")
+        if self.quant not in ("bf16", "int8", "int4"):
+            raise ValueError(f"quant must be 'bf16', 'int8' or 'int4', got {self.quant!r}")
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TransformerArgs":

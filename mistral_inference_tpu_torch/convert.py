@@ -4,8 +4,12 @@ The JAX tree stacks each layer weight as ``(L, in, out)`` and applies it as
 ``x @ w``. This port keeps a list of per-layer dicts with each linear weight
 ``(out, in)``, applied with ``F.linear``, and stacks the projections that
 read one input: ``wqkv`` = [wq; wk; wv] and ``w13`` = [w1; w3] along out.
-After conversion both compute the same function. The input is a tree of numpy arrays (for example
-``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
+After conversion both compute the same function. A quantized JAX leaf,
+``{"q" | "q4": int8 (L, in', out), "scale": fp32 (L, groups, out)}``, keeps
+its (in, out) layout and its bytes: it becomes one such leaf per layer, and
+the leaves that fuse are concatenated along out, which grouped quantization
+per output column makes exact. The input is a tree of numpy arrays (for
+example ``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -39,15 +43,16 @@ def params_from_numpy(
     tree: Dict[str, Any],
     device: Union[str, torch.device] = "cpu",
 ) -> Params:
-    """Dense JAX params (numpy leaves) -> this port's params. Raises on the
-    trees this slice does not carry yet (MoE, LoRA, quantized weights)."""
+    """Dense JAX params (numpy leaves), plain or weight-only quantized ->
+    this port's params. Raises on the trees the port does not carry yet (MoE,
+    LoRA)."""
     layers = tree["layers"]
     if "moe" in layers or "feed_forward" not in layers:
         raise ValueError("only dense feed-forward trees convert in this slice")
     for group in ("attention", "feed_forward"):
-        for name, leaf in layers[group].items():
-            if isinstance(leaf, dict) or name.endswith("_lora"):
-                raise ValueError(f"{group}.{name}: quantized or LoRA leaves do not convert yet")
+        for name in layers[group]:
+            if name.endswith("_lora"):
+                raise ValueError(f"{group}.{name}: LoRA leaves do not convert yet")
     n_layers = np.asarray(layers["attention_norm"]).shape[0]
     out_layers = []
     for i in range(n_layers):
@@ -56,8 +61,15 @@ def params_from_numpy(
             "ffn_norm": _tensor(layers["ffn_norm"][i], device),
         }
         for key, leaves in _LINEAR.items():
-            w = [np.asarray(layers[group][name][i]).T for group, name in leaves]
-            lw[key] = _tensor(np.concatenate(w, axis=0), device)
+            parts = [layers[group][name] for group, name in leaves]
+            if isinstance(parts[0], dict):
+                lw[key] = {
+                    k: _tensor(np.concatenate([np.asarray(p[k][i]) for p in parts], axis=-1), device)
+                    for k in parts[0]
+                }
+            else:
+                w = [np.asarray(p[i]).T for p in parts]
+                lw[key] = _tensor(np.concatenate(w, axis=0), device)
         out_layers.append(lw)
     return {
         "tok_embeddings": _tensor(tree["tok_embeddings"], device),

@@ -1,4 +1,5 @@
-"""Host handle around the dense forward (counterpart of
+"""Host handle around the dense forward, with bf16 or weight-only quantized
+linears (counterpart of
 ``mistral_inference_tpu/model.py::Transformer``)."""
 
 from __future__ import annotations
@@ -55,6 +56,15 @@ class Transformer:
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         return cls(args, tf.init_params(args, dtype, gen, dev), dtype, dev)
+
+    def quantize(self, mode: str, group: int = 128) -> "Transformer":
+        """Weight-only quantization in place: "int8" | "int4"
+        (``quant/weights.py``). Returns self for chaining."""
+        from mistral_inference_tpu_torch.quant.weights import quantize_params
+
+        self.params = quantize_params(self.params, mode, group)
+        self.args.quant = mode
+        return self
 
     def alloc_cache(self, batch: int, max_seq_len: int) -> KVCache:
         if max_seq_len > MAX_SEQ_LEN:

@@ -3,18 +3,21 @@
 
 Parameters are a plain dict of tensors with a list of per-layer dicts; a
 linear weight is stored (out_features, in_features) and applied with
-``F.linear`` (cuBLAS). Projections that read the same input share one
-weight and one GEMM: ``wqkv`` stacks wq, wk and wv, and ``w13`` stacks w1
-and w3, since the host's time per call, not the card, bounds a decode step.
-The layer stack is a Python loop. Attention goes through the CUDA kernels
-of ``ops/cuda/attention.py``, chosen by shape alone:
+``F.linear`` (cuBLAS), or is a quantized leaf of ``ops/linear.py`` (int8 or
+packed int4, (in, out) with group scales) applied through that module's
+CUDA kernels. Projections that read the same input share one weight and one
+product: ``wqkv`` stacks wq, wk and wv, and ``w13`` stacks w1 and w3, since
+the host's time per call, not the card, bounds a decode step. The layer
+stack is a Python loop. Attention goes through the CUDA kernels of
+``ops/cuda/attention.py``, chosen by shape alone:
 
 * first prefill chunk (empty ring): ``flash_attention`` over the chunk;
 * later chunks: ``ring_attention_stats`` over the stored ring,
   ``flash_attention(return_stats=True)`` over the chunk, and
   ``merge_attention_parts``;
 * decode (T == 1): ``fused_update_decode_attention``, which writes the ring
-  and attends ring-only.
+  and attends ring-only; or, with ``FUSED_DECODE`` off, ``update_stacked``
+  and then ``decode_attention``, the read-only kernel.
 
 On CPU tensors the same names run their plain versions, so the CPU tests run
 the decomposition the card runs.
@@ -36,17 +39,25 @@ from mistral_inference_tpu_torch.cache import (
     update_stacked,
 )
 from mistral_inference_tpu_torch.ops.cuda.attention import (
+    decode_attention,
     flash_attention,
     fused_update_decode_attention,
     merge_attention_parts,
     ring_attention_stats,
 )
+from mistral_inference_tpu_torch.ops.linear import is_quantized, linear
 from mistral_inference_tpu_torch.ops.norm import rms_norm
 from mistral_inference_tpu_torch.ops.rope import apply_rope, rope_for_positions
 
 Params = Dict[str, Any]
 
 DEFAULT_ROPE_THETA = 1e6
+
+# Decode (T == 1) route, counterpart of the JAX package's fused-decode switch:
+# True sends a step through the fused write-and-attend kernel (K2); False
+# writes the ring with ``update_stacked`` and attends with the read-only
+# ``decode_attention`` (K6). Both leave the same ring bytes.
+FUSED_DECODE = True
 
 
 def init_params(
@@ -89,8 +100,8 @@ def init_params(
 
 def _dense_ffn(x: torch.Tensor, w: Params) -> torch.Tensor:
     """SwiGLU: w2(silu(w1 x) * w3 x)."""
-    gate, up = F.linear(x, w["w13"]).chunk(2, dim=-1)
-    return F.linear(F.silu(gate) * up, w["w2"])
+    gate, up = linear(x, w["w13"]).chunk(2, dim=-1)
+    return linear(F.silu(gate) * up, w["w2"])
 
 
 class RingInputs(NamedTuple):
@@ -98,8 +109,9 @@ class RingInputs(NamedTuple):
     is the same for every layer of that window, so ``forward`` makes it once
     per window, not once per layer."""
 
-    write_slot: Optional[torch.Tensor]  # decode: (B,) int32 slot, -1 = none
-    writes: Optional[Tuple[torch.Tensor, ...]]  # prefill: cache.ring_writes
+    write_slot: Optional[torch.Tensor]  # fused decode: (B,) int32 slot, -1 = none
+    # prefill and non-fused decode: cache.ring_writes
+    writes: Optional[Tuple[torch.Tensor, ...]]
     # (B, W) position and validity of each slot: after a decode step's write,
     # before a prefill chunk's; None for the first chunk, which attends to
     # itself alone.
@@ -117,12 +129,18 @@ def _ring_inputs(
     attend_cache: bool,
 ) -> RingInputs:
     """RingInputs of one window: a decode step (T == 1 over the ring) gets
-    its write slot, a prefill chunk its write plan."""
+    its write slot (fused route) or write plan (non-fused route) and the
+    ring's state after the write; a prefill chunk its write plan."""
     if attend_cache and positions.shape[1] == 1:
+        after = slot_positions(new_total, window, W)
+        if not FUSED_DECODE:
+            return RingInputs(
+                None, ring_writes(positions, token_valid, new_total, window), *after
+            )
         pos = positions[:, 0]
         should = token_valid[:, 0] & (pos >= new_total - window)
         write_slot = torch.where(should, pos % window, -1).to(torch.int32)
-        return RingInputs(write_slot, None, *slot_positions(new_total, window, W))
+        return RingInputs(write_slot, None, *after)
     writes = ring_writes(positions, token_valid, new_total, window)
     if not attend_cache:
         return RingInputs(None, writes, None, None)
@@ -149,7 +167,7 @@ def _attention_block(
     scaled = KS is not None
 
     cos, sin = rope_cs
-    xq, xk, xv = F.linear(h, w["wqkv"]).split([H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
+    xq, xk, xv = linear(h, w["wqkv"]).split([H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
     xq = apply_rope(xq.view(B, T, H, Dh), cos, sin)
     xk = apply_rope(xk.view(B, T, Hkv, Dh), cos, sin)
     xv = xv.reshape(B, T, Hkv, Dh).contiguous()
@@ -161,7 +179,15 @@ def _attention_block(
             xq, xk, xv, CK, CV, KS, VS, li, window, ring.write_slot, positions[:, 0],
             ring.slot_pos, ring.slot_valid,
         )
-        return F.linear(out, w["wo"])
+        return linear(out, w["wo"])
+    if T == 1 and ring.slot_pos is not None:
+        # Decode, non-fused route: the same write through update_stacked,
+        # then the read-only kernel over the ring as it now stands.
+        update_stacked(CK, CV, KS, VS, li, xk, xv, ring.writes)
+        out = decode_attention(
+            xq, CK, CV, KS, VS, li, positions, ring.slot_pos, ring.slot_valid, window
+        )
+        return linear(out, w["wo"])
 
     # Under an int8 ring the chunk attends to quantize-rounded copies of its
     # own K/V, so prefill logits see what decode later reads from the ring.
@@ -182,7 +208,7 @@ def _attention_block(
             xq, xk_att, xv_att, positions, positions, token_valid, token_valid, window
         )
     update_stacked(CK, CV, KS, VS, li, xk, xv, ring.writes)
-    return F.linear(out, w["wo"])
+    return linear(out, w["wo"])
 
 
 def forward(
@@ -237,5 +263,13 @@ def output_head(params: Params, h: torch.Tensor) -> torch.Tensor:
 
 
 def param_count(params: Params) -> int:
+    """Logical weights: a quantized leaf counts its integers (two per packed
+    int4 byte), not its scales."""
+
+    def count(w) -> int:
+        if is_quantized(w):
+            return 2 * w["q4"].numel() if "q4" in w else w["q"].numel()
+        return w.numel()
+
     n = sum(t.numel() for k, t in params.items() if k != "layers")
-    return n + sum(t.numel() for lw in params["layers"] for t in lw.values())
+    return n + sum(count(w) for lw in params["layers"] for w in lw.values())

@@ -1,7 +1,7 @@
 """Attention kernels of the dense path: wrappers, launch counters and plain
 PyTorch versions (counterpart of ``mistral_inference_tpu/ops/pallas/attention.py``).
 
-Three hand-written CUDA kernels for Hopper (sources in ``csrc/``, built by
+Four hand-written CUDA kernels for Hopper (sources in ``csrc/``, built by
 ``_build.py``):
 
 * ``flash_attention`` (K1, ``csrc/flash_attention.cu``): a chunk's attention
@@ -10,6 +10,9 @@ Three hand-written CUDA kernels for Hopper (sources in ``csrc/``, built by
   queries over one layer's stored ring, with stats.
 * ``fused_update_decode_attention`` (K2, ``csrc/fused_decode.cu``): one
   decode step's ring write plus ring-only attention.
+* ``decode_attention`` (K6, the write-free instantiation of
+  ``csrc/fused_decode.cu``): T = 1 attention over one layer of the stacked
+  ring, for the decode route that writes the ring with ``update_stacked``.
 
 Each wrapper launches its kernel for CUDA tensors, and for nothing else: on
 CPU tensors it runs the plain version in this module, which computes the
@@ -24,59 +27,29 @@ l = 0, the convention ``merge_attention_parts`` relies on.
 
 from __future__ import annotations
 
-import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from mistral_inference_tpu_torch.cache import _quantize_ring
 from mistral_inference_tpu_torch.ops.attention import NEG_INF, sliding_window_mask
-from mistral_inference_tpu_torch.ops.cuda import _build
+from mistral_inference_tpu_torch.ops.cuda import _call
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
+_P, _I, _F = _call.P, _call.I, _call.F
 _SIGS = {
     ("flash_attention", "flash_attention_bf16"): [_P] * 7 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _P],
     ("ring_attention", "ring_attention_stats_int8"): [_P] * 9 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _P],
     ("ring_attention", "ring_attention_stats_bf16"): [_P] * 7 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _P],
     ("fused_decode", "fused_decode_int8"): [_P] * 7 + [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _P],
     ("fused_decode", "fused_decode_bf16"): [_P] * 5 + [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _P],
+    ("fused_decode", "decode_attention_int8"): [_P] * 5 + [_I, _I] + [_P] * 6 + [_I] * 4 + [_F, _P],
+    ("fused_decode", "decode_attention_bf16"): [_P] * 3 + [_I, _I] + [_P] * 6 + [_I] * 4 + [_F, _P],
     ("fused_decode", "fused_decode_span"): [],
 }
-_FNS = {}
-
-
-def _kernel(lib: str, name: str):
-    fn = _FNS.get(name)
-    if fn is None:
-        fn = getattr(_build.load(lib), name)
-        fn.argtypes = _SIGS[(lib, name)]
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
-    return fn
-
-
-def _launch(lib: str, name: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel(lib, name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
-
-
-def _need(t: torch.Tensor, name: str, dtype, shape, device) -> torch.Tensor:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-    return t
+_kernel = functools.partial(_call.kernel, _SIGS)
+_launch = functools.partial(_call.launch, _SIGS)
+_need = _call.need
 
 
 def _meta(x: torch.Tensor, name: str, dtype, shape, device) -> torch.Tensor:
@@ -110,7 +83,7 @@ def attend_stats_plain(
     kv_valid: torch.Tensor,  # (B, S) bool
     window: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The function all three kernels compute, written out: fp32 dots, the
+    """The function all four kernels compute, written out: fp32 dots, the
     key scale after the dot, probabilities (times the value scale) rounded to
     q.dtype before the PV product. Returns (out (B, T, H, D) in q.dtype,
     m (B, T, H) fp32, l (B, T, H) fp32)."""
@@ -176,6 +149,23 @@ def fused_update_decode_attention_plain(
         None if KS is None else KS[li], None if VS is None else VS[li],
         q_pos.reshape(B, 1), kv_pos,
         torch.ones((B, 1), dtype=torch.bool, device=xq.device), kv_valid, window,
+    )
+    return out.reshape(B, 1, H * D)
+
+
+def decode_attention_plain(
+    q, CK, CV, KS, VS, li, q_pos, kv_pos, kv_valid, window
+) -> torch.Tensor:
+    """Plain version of K6: T = 1 attention over layer ``li`` of the stacked
+    ring as it stands, nothing written. Returns (B, 1, H * D)."""
+    B, _, H, D = q.shape
+    S = CK.shape[2]
+    Hkv = CK.shape[3] // D
+    out, _, _ = attend_stats_plain(
+        q, CK[li].reshape(B, S, Hkv, D), CV[li].reshape(B, S, Hkv, D),
+        None if KS is None else KS[li], None if VS is None else VS[li],
+        q_pos.reshape(B, 1), kv_pos,
+        torch.ones((B, 1), dtype=torch.bool, device=q.device), kv_valid, window,
     )
     return out.reshape(B, 1, H * D)
 
@@ -297,6 +287,16 @@ def ring_attention_stats(
 ring_attention_stats.launches = 0
 
 
+def _span_partials(B: int, H: int, S: int, D: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scratch for the decode kernels' per-span partials, which their second
+    pass merges: unnormalized sums and (max, sum) per (row, head, span)."""
+    nspan = -(-S // _kernel("fused_decode", "fused_decode_span")())
+    return (
+        torch.empty((B, H, nspan, D), dtype=torch.float32, device=dev),
+        torch.empty((B, H, nspan, 2), dtype=torch.float32, device=dev),
+    )
+
+
 def fused_update_decode_attention(
     xq: torch.Tensor,  # (B, 1, H, D)
     xk: torch.Tensor,  # (B, 1, Hkv, D) post-rope, pre-quantization
@@ -341,10 +341,7 @@ def fused_update_decode_attention(
     kp = _meta(kv_pos, "kv_pos", torch.int32, (B, S), dev)
     kv = _meta(kv_valid, "kv_valid", torch.bool, (B, S), dev)
     out = torch.empty((B, 1, H * D), dtype=bf, device=dev)
-    # Per-span partials, merged by the kernel's second pass.
-    nspan = -(-S // _kernel("fused_decode", "fused_decode_span")())
-    part_acc = torch.empty((B, H, nspan, D), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((B, H, nspan, 2), dtype=torch.float32, device=dev)
+    part_acc, part_ml = _span_partials(B, H, S, D, dev)
     tail = (
         int(li), int(window), ws.data_ptr(), qp.data_ptr(), kp.data_ptr(),
         kv.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
@@ -369,9 +366,69 @@ def fused_update_decode_attention(
 
 fused_update_decode_attention.launches = 0
 
-KERNELS = (flash_attention, ring_attention_stats, fused_update_decode_attention)
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, D)
+    CK: torch.Tensor,  # (L, B, S, Hkv * D) ring, read only
+    CV: torch.Tensor,
+    KS: Optional[torch.Tensor],  # (L, B, Hkv, S) fp32; None for bf16 rings
+    VS: Optional[torch.Tensor],
+    li: int,
+    q_pos: torch.Tensor,  # (B, 1) or (B,) int32
+    kv_pos: torch.Tensor,  # (B, S) int32
+    kv_valid: torch.Tensor,  # (B, S) bool
+    window: int,
+) -> torch.Tensor:
+    """K6. T = 1 attention over layer ``li`` of the stacked ring, read in
+    place through the layer index (no slice is copied) and not written.
+    Returns (B, 1, H * D)."""
+    B, T, H, D = q.shape
+    if T != 1:
+        raise ValueError("decode_attention takes one query token per row")
+    if q_pos.numel() != B:
+        raise ValueError(f"q_pos must hold one position per row, got {tuple(q_pos.shape)}")
+    L, S = CK.shape[0], CK.shape[2]
+    Hkv = CK.shape[3] // D
+    if not q.is_cuda:
+        return decode_attention_plain(
+            q, CK, CV, KS, VS, int(li), q_pos, kv_pos, kv_valid, int(window)
+        )
+    dev = q.device
+    bf = torch.bfloat16
+    if D != 128:
+        raise ValueError("the CUDA kernels take head_dim 128")
+    _need(q, "q", bf, (B, 1, H, D), dev)
+    scaled = KS is not None
+    rdt = torch.int8 if scaled else bf
+    _need(CK, "CK", rdt, (L, B, S, Hkv * D), dev)
+    _need(CV, "CV", rdt, (L, B, S, Hkv * D), dev)
+    if not 0 <= int(li) < L:
+        raise ValueError(f"layer index {li} out of range for {L} layers")
+    qp = _meta(q_pos, "q_pos", torch.int32, tuple(q_pos.shape), dev)
+    kp = _meta(kv_pos, "kv_pos", torch.int32, (B, S), dev)
+    kv = _meta(kv_valid, "kv_valid", torch.bool, (B, S), dev)
+    out = torch.empty((B, 1, H * D), dtype=bf, device=dev)
+    part_acc, part_ml = _span_partials(B, H, S, D, dev)
+    tail = (
+        int(li), int(window), qp.data_ptr(), kp.data_ptr(), kv.data_ptr(),
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, S, H, Hkv, D**-0.5,
+    )
+    if scaled:
+        _need(KS, "KS", torch.float32, (L, B, Hkv, S), dev)
+        _need(VS, "VS", torch.float32, (L, B, Hkv, S), dev)
+        _launch(
+            "fused_decode", "decode_attention_int8", dev, q.data_ptr(), CK.data_ptr(),
+            CV.data_ptr(), KS.data_ptr(), VS.data_ptr(), *tail,
+        )
+    else:
+        _launch(
+            "fused_decode", "decode_attention_bf16", dev, q.data_ptr(), CK.data_ptr(),
+            CV.data_ptr(), *tail,
+        )
+    decode_attention.launches += 1
+    return out
 
 
-def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
+decode_attention.launches = 0
+
+KERNELS = (flash_attention, ring_attention_stats, fused_update_decode_attention, decode_attention)

@@ -1,6 +1,9 @@
-// Helpers shared by the attention kernels: element loads, bf16 rounding,
-// warp and block reductions. Device code only; no PyTorch headers, so each
-// kernel source builds with nvcc alone into a library with a C interface.
+// Helpers shared by the kernels: element loads, exact integer-to-float
+// conversion, bf16 rounding, warp reductions, the tensor-core fragment helpers
+// (mma.sync m16n8k16, ldmatrix, staging into bf16 shared memory) and
+// asynchronous copies into shared memory. Device code only; no PyTorch
+// headers, so each kernel source builds with nvcc alone into a library with a
+// C interface.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -52,6 +55,85 @@ __device__ __forceinline__ float group_sum(float x, int width) {
   for (int off = width / 2; off > 0; off /= 2)
     x += __shfl_xor_sync(0xffffffffu, x, off, width);
   return x;
+}
+
+// Four integers held in the bytes of u, each offset by `bias` (u = v + bias in
+// [0, 255]) -> fp32, exactly, without the slow integer-to-float unit: the byte
+// becomes the low mantissa bits of 2^23 as an fp32, and (2^23 + u) - (2^23 +
+// bias) = v. For int8 bytes u = w ^ 0x80808080 with bias 128; for nibbles n
+// held one per byte, u = n ^ 0x08080808 with bias 8, which sign-extends them
+// ((n ^ 8) - 8 is (v << 28) >> 28 of a low nibble and v >> 4 of a high one).
+__device__ __forceinline__ void biased_bytes_to_float(uint32_t u, float bias, float* f) {
+  const float magic = 8388608.f + bias;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - magic;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - magic;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - magic;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - magic;
+}
+
+// ---- tensor cores: mma.sync m16n8k16, bf16 in, fp32 accumulate ----
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Eight consecutive elements -> eight bf16 in shared memory (16 bytes).
+__device__ __forceinline__ void stage8(const __nv_bfloat16* src, __nv_bfloat16* dst) {
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+}
+
+__device__ __forceinline__ void stage8(const int8_t* src, __nv_bfloat16* dst) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  float f[8];
+  biased_bytes_to_float(raw.x ^ 0x80808080u, 128.f, f);
+  biased_bytes_to_float(raw.y ^ 0x80808080u, 128.f, f + 4);
+  *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                                              pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+}
+
+// ---- asynchronous copies, global -> shared, 16 bytes (both 16-byte aligned) ----
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(src));
+}
+
+// The copies started since the last commit become one group; a wait returns
+// when all but the newest kPending groups of this thread have landed.
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 }  // namespace mit

@@ -55,52 +55,10 @@ inline size_t flash_tile_smem_bytes() {
          sizeof(int) * (2 * kRows + 2 * kKeys) + sizeof(float) * 2 * kKeys;
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 // e^x as 2^(x log2 e): exp2f is a few instructions where an accurate expf
 // (no fast-math here) is some twenty, and this loop takes 34 per tile and
 // thread. It differs from expf by a few ulp, far inside the bf16 output.
 __device__ __forceinline__ float exp_(float x) { return exp2f(x * 1.4426950408889634f); }
-
-// Eight consecutive elements -> eight bf16 in shared memory (16 bytes).
-__device__ __forceinline__ void stage8(const __nv_bfloat16* src, __nv_bfloat16* dst) {
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-}
-
-__device__ __forceinline__ void stage8(const int8_t* src, __nv_bfloat16* dst) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(src);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
-  uint4 out;
-  uint32_t* o = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    o[i] = pack_bf16(static_cast<float>(c[2 * i]), static_cast<float>(c[2 * i + 1]));
-  *reinterpret_cast<uint4*>(dst) = out;
-}
 
 template <typename KT, bool kScaled>
 __global__ void __launch_bounds__(kThreads, 3) flash_tile_kernel(

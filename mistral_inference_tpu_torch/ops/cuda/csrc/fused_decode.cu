@@ -1,8 +1,15 @@
-// K2: one decode step's ring write and ring-only attention, fused.
+// K2: one decode step's ring write and ring-only attention, fused; and K6,
+// the same attention with no write.
 //
-// Replaces mistral_inference_tpu/ops/pallas/attention.py::
+// K2 replaces mistral_inference_tpu/ops/pallas/attention.py::
 // fused_update_decode_attention (kernel _fused_decode_kernel, tile loop
-// _fused_tile_attend).
+// _fused_tile_attend). K6 replaces ::decode_attention (kernel
+// _decode_attn_kernel) of the same file: it is this kernel instantiated
+// without the write (kWrite = false), for the decode route that writes the
+// ring with cache.update_stacked first. It takes any kv_pos and kv_valid, so
+// it cannot know a row's fill: where K2 stops at min(q_pos + 1, window), K6
+// asks each span's 128 slots whether the query sees any of them and skips the
+// span if not.
 //
 // Function, for T = 1: quantize this step's K and V per (token, kv head) and
 // write them into slot write_slot[b] of layer li of the stacked ring, in
@@ -56,7 +63,7 @@ __device__ __forceinline__ float block_max(float x, float* red) {
 // Partials: part_acc (B, H, nspan, D) unnormalized sums, part_ml
 // (B, H, nspan, 2) running max and sum; a span with no visible slot leaves
 // acc = 0, m = kNegInf, l = 0.
-template <typename KT, bool kScaled>
+template <typename KT, bool kScaled, bool kWrite>
 __global__ void __launch_bounds__(kDecThreads) fused_decode_kernel(
     const __nv_bfloat16* __restrict__ xq, const __nv_bfloat16* __restrict__ xk,
     const __nv_bfloat16* __restrict__ xv, KT* ck, KT* cv, float* ks, float* vs, int li,
@@ -87,8 +94,8 @@ __global__ void __launch_bounds__(kDecThreads) fused_decode_kernel(
   __shared__ float ksc_s[kSlots], vsc_s[kSlots];
 
   // ---- 1. write this step's K/V, by the block whose span holds the slot ----
-  const int slot = write_slot[b];
-  if (slot >= lo && slot < lo + kSpan) {  // uniform over the block
+  const int slot = kWrite ? write_slot[b] : -1;
+  if (kWrite && slot >= lo && slot < lo + kSpan) {  // uniform over the block
     const size_t src = (static_cast<size_t>(b) * Hkv + j) * D + tid;
     const size_t dst = static_cast<size_t>(slot) * HD + j * D + tid;
     if constexpr (kScaled) {
@@ -114,7 +121,19 @@ __global__ void __launch_bounds__(kDecThreads) fused_decode_kernel(
     if (g < G) Qs[g][tid] = __bfloat162float(xq[(static_cast<size_t>(b) * H + j * G + g) * D + tid]);
   __syncthreads();  // orders the ring write before every read below
   const int qp = q_pos[b];
-  const int hi = min(min(lo + kSpan, S), min(qp + 1, window));
+  int hi = min(lo + kSpan, S);
+  if constexpr (kWrite) {
+    hi = min(hi, min(qp + 1, window));
+  } else {
+    static_assert(kSpan == kDecThreads, "one thread asks for each slot of the span");
+    const int s = lo + tid;
+    bool seen = false;
+    if (s < S) {
+      const int delta = qp - kv_pos[static_cast<size_t>(b) * S + s];
+      seen = kv_valid[static_cast<size_t>(b) * S + s] && delta >= 0 && delta < window;
+    }
+    if (!__syncthreads_or(seen)) hi = lo;  // an empty partial: acc = 0, m = kNegInf, l = 0
+  }
 
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
   float acc[kMaxGroup];
@@ -229,7 +248,7 @@ __global__ void __launch_bounds__(kDecThreads) decode_merge_kernel(
   out[head * D + threadIdx.x] = __float2bfloat16_rn(L > 0.f ? A / L : 0.f);
 }
 
-template <typename KT, bool kScaled>
+template <typename KT, bool kScaled, bool kWrite>
 int launch_fused_decode(const void* xq, const void* xk, const void* xv, void* ck, void* cv,
                         void* ks, void* vs, int li, int window, const void* write_slot,
                         const void* q_pos, const void* kv_pos, const void* kv_valid,
@@ -238,7 +257,7 @@ int launch_fused_decode(const void* xq, const void* xk, const void* xv, void* ck
   if (H % Hkv != 0 || H / Hkv > kMaxGroup) return cudaErrorInvalidValue;
   const int nspan = (S + kSpan - 1) / kSpan;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fused_decode_kernel<KT, kScaled><<<dim3(nspan, Hkv, B), kDecThreads, 0, st>>>(
+  fused_decode_kernel<KT, kScaled, kWrite><<<dim3(nspan, Hkv, B), kDecThreads, 0, st>>>(
       static_cast<const __nv_bfloat16*>(xq), static_cast<const __nv_bfloat16*>(xk),
       static_cast<const __nv_bfloat16*>(xv), static_cast<KT*>(ck), static_cast<KT*>(cv),
       static_cast<float*>(ks), static_cast<float*>(vs), li, window,
@@ -266,7 +285,7 @@ extern "C" int fused_decode_int8(const void* xq, const void* xk, const void* xv,
                                  const void* kv_pos, const void* kv_valid, void* out,
                                  void* part_acc, void* part_ml, int B, int S, int H, int Hkv,
                                  float scale, void* stream) {
-  return mit::launch_fused_decode<int8_t, true>(xq, xk, xv, ck, cv, ks, vs, li, window,
+  return mit::launch_fused_decode<int8_t, true, true>(xq, xk, xv, ck, cv, ks, vs, li, window,
                                                 write_slot, q_pos, kv_pos, kv_valid, out,
                                                 part_acc, part_ml, B, S, H, Hkv, scale,
                                                 stream);
@@ -278,7 +297,29 @@ extern "C" int fused_decode_bf16(const void* xq, const void* xk, const void* xv,
                                  const void* kv_valid, void* out, void* part_acc,
                                  void* part_ml, int B, int S, int H, int Hkv, float scale,
                                  void* stream) {
-  return mit::launch_fused_decode<__nv_bfloat16, false>(
+  return mit::launch_fused_decode<__nv_bfloat16, false, true>(
       xq, xk, xv, ck, cv, nullptr, nullptr, li, window, write_slot, q_pos, kv_pos,
+      kv_valid, out, part_acc, part_ml, B, S, H, Hkv, scale, stream);
+}
+
+// K6: the ring is only read (the pointers are not const because the kernel
+// template is shared with the writing instantiation).
+extern "C" int decode_attention_int8(const void* xq, void* ck, void* cv, void* ks, void* vs,
+                                     int li, int window, const void* q_pos, const void* kv_pos,
+                                     const void* kv_valid, void* out, void* part_acc,
+                                     void* part_ml, int B, int S, int H, int Hkv, float scale,
+                                     void* stream) {
+  return mit::launch_fused_decode<int8_t, true, false>(
+      xq, nullptr, nullptr, ck, cv, ks, vs, li, window, nullptr, q_pos, kv_pos, kv_valid, out,
+      part_acc, part_ml, B, S, H, Hkv, scale, stream);
+}
+
+extern "C" int decode_attention_bf16(const void* xq, void* ck, void* cv, int li, int window,
+                                     const void* q_pos, const void* kv_pos,
+                                     const void* kv_valid, void* out, void* part_acc,
+                                     void* part_ml, int B, int S, int H, int Hkv, float scale,
+                                     void* stream) {
+  return mit::launch_fused_decode<__nv_bfloat16, false, false>(
+      xq, nullptr, nullptr, ck, cv, nullptr, nullptr, li, window, nullptr, q_pos, kv_pos,
       kv_valid, out, part_acc, part_ml, B, S, H, Hkv, scale, stream);
 }

@@ -1,4 +1,4 @@
-"""The plain versions of the port's three attention kernels against the JAX
+"""The plain versions of the port's four attention kernels against the JAX
 package's Pallas kernels (run in interpret mode on the CPU, as
 tests/test_pallas.py and tests/test_fused_decode.py run them) and against
 the XLA oracle, at those files' shapes, in fp32.
@@ -6,7 +6,8 @@ the XLA oracle, at those files' shapes, in fp32.
 Tolerances: 2e-5 for flash attention and 3e-4 for the ring + chunk merge
 (those files' own tolerances against the same oracle); for the fused decode
 kernel the updated ring and scales are equal and the output agrees within
-3e-5. Rows that see no key are junk in the Pallas kernels; the port returns
+3e-5; for the read-only decode kernel 2e-4, tests/test_pallas.py's own
+tolerance against the XLA oracle. Rows that see no key are junk in the Pallas kernels; the port returns
 0 with m = -1e30 and l = 0 there, checked separately.
 
 The CUDA kernels themselves need the card: tests/test_torch_cuda.py holds
@@ -21,6 +22,7 @@ import torch
 from mistral_inference_tpu import cache as jcache
 from mistral_inference_tpu.ops.attention import attend, attend_scaled, sliding_window_mask
 from mistral_inference_tpu.ops.pallas import attention as jpal
+from mistral_inference_tpu_torch.ops import cuda as cuda_ops
 from mistral_inference_tpu_torch.ops.cuda import attention as tk
 
 
@@ -211,9 +213,58 @@ def test_fused_decode_plain_matches_pallas(kv_quant, S, window, kv_len, live):
     np.testing.assert_allclose(out[rows], np.asarray(jout)[rows], atol=3e-5, rtol=3e-5)
 
 
+@pytest.mark.parametrize("kv_quant", ["int8", "bf16"])
+@pytest.mark.parametrize("S,Hkv,H", [(40, 2, 4), (1100, 2, 8)])
+def test_decode_attention_plain_matches_pallas(S, Hkv, H, kv_quant):
+    """K6's plain version against the Pallas decode kernel (interpret mode)
+    and the XLA oracle, at tests/test_pallas.py::
+    test_decode_attention_matches_oracle's shapes: the real ring at layer 1 of
+    a 3-layer stack, holes in kv_valid, a window shorter than the ring. The
+    ring is not written."""
+    rng = np.random.default_rng(S)
+    B, D, L, li = 2, 128, 3, 1
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    kq, vq, ks, vs, t_ks, t_vs = _scaled_ring(rng, B, S, Hkv, D, kv_quant)
+    kv_pos = np.tile(np.arange(S, dtype=np.int32)[None], (B, 1))
+    q_pos = np.full((B, 1), S - 1, np.int32)
+    kv_valid = rng.random((B, S)) > 0.2
+    w = S - 3
+
+    def stack3(x):
+        return None if x is None else np.stack([np.zeros_like(x), x, np.zeros_like(x) + 1])
+
+    CK, CV, KS, VS = stack3(kq), stack3(vq), stack3(t_ks), stack3(t_vs)
+    jout = jpal.decode_attention(
+        jnp.asarray(q), jnp.asarray(CK), jnp.asarray(CV),
+        None if KS is None else jnp.asarray(KS), None if VS is None else jnp.asarray(VS),
+        jnp.int32(li), jnp.asarray(q_pos), jnp.asarray(kv_pos), jnp.asarray(kv_valid),
+        jnp.int32(w), interpret=True,
+    )
+    k_deq = kq.reshape(B, S, Hkv, D).astype(np.float32) * np.moveaxis(ks, 1, 2)[..., None]
+    v_deq = vq.reshape(B, S, Hkv, D).astype(np.float32) * np.moveaxis(vs, 1, 2)[..., None]
+    mask = sliding_window_mask(jnp.asarray(q_pos), jnp.asarray(kv_pos), jnp.ones((B, 1), bool),
+                               jnp.asarray(kv_valid), jnp.int32(w))
+    oracle = np.asarray(attend(jnp.asarray(q), jnp.asarray(k_deq), jnp.asarray(v_deq), mask))
+
+    stacks = [None if a is None else _t(a) for a in (CK, CV, KS, VS)]
+    before = [None if t is None else t.clone() for t in stacks]
+    args = (_t(q), *stacks, li, _t(q_pos), _t(kv_pos), _t(kv_valid), w)
+    out = tk.decode_attention_plain(*args)
+    assert out.shape == (B, 1, H * D)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout).reshape(B, 1, H * D),
+                               atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(out.numpy(), oracle.reshape(B, 1, H * D), atol=2e-4, rtol=2e-4)
+    # On CPU tensors the wrapper is the plain version; (B,) positions too.
+    assert torch.equal(tk.decode_attention(*args), out)
+    assert torch.equal(tk.decode_attention(*args[:6], _t(q_pos[:, 0]), *args[7:]), out)
+    for a, b in zip(stacks, before):
+        assert a is None or torch.equal(a, b)
+
+
 def test_wrappers_count_only_kernel_launches():
     """On CPU tensors a wrapper runs its plain version and counts nothing."""
-    tk.reset_launch_counts()
+    cuda_ops.reset_launch_counts()
     q, k, v, q_pos, kv_pos, q_valid, kv_valid = _attention_case(1, 4, 4, 2, 1, 128)
     tk.flash_attention(*(_t(a) for a in (q, k, v, q_pos, kv_pos, q_valid, kv_valid)), 8)
-    assert [fn.launches for fn in tk.KERNELS] == [0, 0, 0]
+    assert len(tk.KERNELS) == 4 and len(cuda_ops.all_kernels()) == 6
+    assert [fn.launches for fn in cuda_ops.all_kernels()] == [0] * 6

@@ -7,7 +7,9 @@ They import no JAX, so they run where the port runs:
 
 Tolerances: the int8 ring bytes and scales that the fused decode kernel
 writes are equal to the plain write; outputs agree within 1e-2 (bf16
-outputs, fp32 sums in another order) and the fp32 stats within 1e-4.
+outputs, fp32 sums in another order) and the fp32 stats within 1e-4. The
+quantized matmuls are held to the same 1e-2 + 1e-2 |ref|, and the stacked and
+repeated launches of K3 to equal bits.
 ``python3 chip_smoke.py`` runs the same comparisons at the model's shapes.
 """
 
@@ -15,7 +17,9 @@ import pytest
 import torch
 
 from mistral_inference_tpu_torch import cache as tcache
+from mistral_inference_tpu_torch.ops import cuda as cuda_ops
 from mistral_inference_tpu_torch.ops.cuda import attention as tk
+from mistral_inference_tpu_torch.ops.linear import linear
 
 
 @pytest.mark.cuda
@@ -25,7 +29,7 @@ def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
     dev = "cuda"
-    tk.reset_launch_counts()
+    cuda_ops.reset_launch_counts()
     g = torch.Generator(device=dev).manual_seed(0)
     B, T, H, Hkv, D, L, S, window = 2, 70, 32, 8, 128, 2, 256, 200
     bf = torch.bfloat16
@@ -66,7 +70,7 @@ def test_kernels_match_plain_on_card():
         assert torch.equal(a, b)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
     # Each wrapper counted its own launches, and the plain versions none.
-    assert [fn.launches for fn in tk.KERNELS] == [1, 1, 1]
+    assert [fn.launches for fn in tk.KERNELS] == [1, 1, 1, 0]
 
 
 @pytest.mark.cuda
@@ -81,7 +85,7 @@ def test_wrappers_reject_bad_operands_on_card():
     k = torch.zeros((B, T, Hkv, D), dtype=bf, device=dev)
     pos = torch.arange(T, dtype=torch.int32, device=dev)[None].repeat(B, 1)
     valid = torch.ones((B, T), dtype=torch.bool, device=dev)
-    tk.reset_launch_counts()
+    cuda_ops.reset_launch_counts()
     with pytest.raises(ValueError, match="kv_pos"):
         tk.flash_attention(q, k, k, pos, pos[:, :5], valid, valid, 16)
     with pytest.raises(TypeError, match="k must be"):
@@ -89,4 +93,128 @@ def test_wrappers_reject_bad_operands_on_card():
     with pytest.raises(ValueError, match="q_valid"):
         tk.ring_attention_stats(q, k.view(B, T, -1), k.view(B, T, -1), None, None, pos, pos,
                                 valid[:1], valid, 16)
-    assert [fn.launches for fn in tk.KERNELS] == [0, 0, 0]
+    with pytest.raises(TypeError, match="x must be"):
+        linear(torch.zeros((4, 256), device=dev), {
+            "q": torch.zeros((256, 128), dtype=torch.int8, device=dev),
+            "scale": torch.ones((2, 128), device=dev)})
+    assert [fn.launches for fn in cuda_ops.all_kernels()] == [0] * 6
+
+
+def _quantized(g, K, N, bits, group, lead=()):
+    from mistral_inference_tpu_torch.ops.linear import quantize_weight
+
+    w = torch.randn((*lead, K, N), generator=g, device="cuda") * 0.05
+    qw = quantize_weight(w, bits, group)
+    return qw["q4" if bits == 4 else "q"], qw["scale"]
+
+
+# bf16 outputs of fp32 sums taken in another order: one bf16 ulp of the result.
+BF16_TOL = dict(atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,M,K,N,group", [
+    (8, 4, 512, 256, 128),
+    (4, 4, 512, 256, 128),
+    (8, 1, 512, 256, 64),
+    (4, 2, 128, 256, 32),     # K / 2 = 64 stored rows, group < 128
+    (4, 3, 384, 128, 128),    # odd group count: a group straddles the halves
+    (8, 256, 1024, 384, 128),  # the most rows the decode band sends
+    (4, 37, 2048, 512, 128),  # rows that do not fill the last row block
+])
+def test_matmul_quant_matches_plain_on_card(bits, M, K, N, group):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    from mistral_inference_tpu_torch.ops.cuda import matmul_quant as mq
+
+    g = torch.Generator(device="cuda").manual_seed(bits + K + N)
+    L = 3
+    q, scale = _quantized(g, K, N, bits, group, lead=(L,))
+    x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+    before = mq.matmul_quant.launches
+    for li in (0, 2):
+        ref = mq.matmul_quant_plain(x, q[li], scale[li])
+        out = mq.matmul_quant(x, q[li].contiguous(), scale[li].contiguous())
+        stacked = mq.matmul_quant_stacked(x, q, scale, li)
+        again = mq.matmul_quant_stacked(x, q, scale, li)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+        assert torch.equal(out, stacked), "the stacked form is the same kernel on an offset"
+        assert torch.equal(stacked, again), "no atomics: the same bits on every run"
+    assert mq.matmul_quant.launches == before + 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("E,n_tiles,TM,K,N,group,stacked", [
+    (1, 2, 256, 512, 256, 128, False),   # the dense prefill case
+    (3, 4, 128, 512, 192, 64, False),    # mixed tile_group
+    (3, 3, 128, 256, 128, 32, True),     # (L, E, ...) stack with a layer index
+])
+def test_moe_matmul_ragged_matches_plain_on_card(bits, E, n_tiles, TM, K, N, group, stacked):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    from mistral_inference_tpu_torch.ops.cuda import moe_matmul as mm
+
+    g = torch.Generator(device="cuda").manual_seed(bits + E + K)
+    lead = (2, E) if stacked else (E,)
+    q, scale = _quantized(g, K, N, bits, group, lead=lead)
+    x = torch.randn((n_tiles * TM, K), generator=g, device="cuda").to(torch.bfloat16)
+    tg = torch.tensor([(3 * t + 1) % E for t in range(n_tiles)], dtype=torch.int32, device="cuda")
+    li = 1 if stacked else None
+    before = mm.moe_matmul_quant_ragged.launches
+    out = mm.moe_matmul_quant_ragged(x, q, scale, tg, li)
+    ref = mm.moe_matmul_quant_ragged_plain(x, q, scale, tg, li)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    assert mm.moe_matmul_quant_ragged.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [True, False])
+def test_decode_attention_matches_plain_on_card(int8):
+    """K6 over a stored ring with holes (kv_valid) and a window shorter than
+    the ring, which the fused kernel's fill rule would not cover."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    dev, bf = "cuda", torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(5)
+    L, B, S, H, Hkv, D = 3, 2, 1100 // 128 * 128 + 128, 32, 8, 128
+    kf = torch.randn((L, B, S, Hkv, D), generator=g, device=dev)
+    vf = torch.randn((L, B, S, Hkv, D), generator=g, device=dev)
+    if int8:
+        CK, KS = tcache._quantize_ring(kf)
+        CV, VS = tcache._quantize_ring(vf)
+        KS, VS = KS.transpose(2, 3).contiguous(), VS.transpose(2, 3).contiguous()
+    else:
+        CK, CV, KS, VS = kf.to(bf), vf.to(bf), None, None
+    CK, CV = CK.reshape(L, B, S, -1), CV.reshape(L, B, S, -1)
+    q = torch.randn((B, 1, H, D), generator=g, device=dev).to(bf)
+    kv_pos = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+    q_pos = torch.full((B, 1), S - 1, dtype=torch.int32, device=dev)
+    kv_valid = torch.rand((B, S), generator=g, device=dev) > 0.2
+    kv_valid[1, :700] = False  # whole spans without a visible slot
+    before = tk.decode_attention.launches
+    rings = [None if t is None else t.clone() for t in (CK, CV, KS, VS)]
+    out = tk.decode_attention(q, CK, CV, KS, VS, 1, q_pos, kv_pos, kv_valid, S - 3)
+    ref = tk.decode_attention_plain(q, CK, CV, KS, VS, 1, q_pos, kv_pos, kv_valid, S - 3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    for a, b in zip((CK, CV, KS, VS), rings):
+        assert a is None or torch.equal(a, b), "decode_attention must not write the ring"
+    assert tk.decode_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_quantize_weight_on_card_matches_cpu():
+    """The card's quantizer gives the CPU's bytes and scales (it divides by a
+    tensor: a host scalar would become a multiply by the reciprocal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mistral_inference_tpu_torch.ops.linear import quantize_weight
+
+    w = torch.randn((1024, 768), generator=torch.Generator().manual_seed(0)) * 0.02
+    for bits in (8, 4):
+        cpu, card = quantize_weight(w, bits), quantize_weight(w.cuda(), bits)
+        for k in cpu:
+            assert torch.equal(cpu[k], card[k].cpu()), (bits, k)

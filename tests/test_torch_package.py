@@ -39,9 +39,13 @@ def _imports(tree):
 
 
 def test_sources_found():
-    assert len(SOURCES) >= 12
+    assert len(SOURCES) >= 18
+    for module in ("ops/linear.py", "ops/cuda/matmul_quant.py", "ops/cuda/moe_matmul.py",
+                   "quant/weights.py"):
+        assert PKG / module in SOURCES
     assert sorted(p.name for p in (PKG / "ops" / "cuda" / "csrc").glob("*.cu")) == [
-        "flash_attention.cu", "fused_decode.cu", "ring_attention.cu",
+        "flash_attention.cu", "fused_decode.cu", "matmul_quant.cu", "moe_matmul.cu",
+        "ring_attention.cu",
     ]
 
 
