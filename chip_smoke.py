@@ -8,30 +8,33 @@ Phases, each printing one JSON line:
 1. card: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: every kernel of ``mistral_inference_tpu_torch/ops/cuda/csrc`` is
    compiled from the checkout with nvcc (sm_90a).
-3. kernels: each of the six CUDA kernels against its plain PyTorch version
-   on the same inputs on the card, at the Mistral-7B shapes (H=32, Hkv=8,
-   D=128; the four linears of a layer at 4, 256 and 2048 rows, int8 and
-   int4), with its time (CUDA-event median), the plain version's time, the
-   time of one PyTorch library call for the same function where one exists,
-   and the card's least time for the work (bytes or flops, from this run's
-   inputs).
-4. main paths: ``generate()`` on ``mistral-7b-v0.1`` at full width with
-   random bf16 weights from a seed and an int8 KV ring, over 4 prompts of
-   ragged length, one longer than the 4096 window so the ring wraps. Three
-   paths, each with the launch counts set to 0 before it and read after it:
-   bf16 weights (8 layers); weights quantized to int4, all 32 layers, every
-   linear through the quantized-matmul kernels; int8 weights with the
-   non-fused decode route (8 layers). Each checks that greedy tokens repeat,
-   the decode == prefill invariant, that top-p sampling is fixed by its
-   seed, and that every kernel of the path was launched.
+3. kernels: each of the seven CUDA kernels against its plain PyTorch version
+   on the same inputs on the card, at the Mistral-7B and Mixtral-8x7B shapes
+   (H=32, Hkv=8, D=128; the four linears of a layer at 4, 256 and 2048 rows,
+   and a layer's eight experts at a capacity of 4 and 128 and at 6144 sorted
+   rows, int8 and int4), with its time (CUDA-event median), the plain
+   version's time, the time of one PyTorch library call for the same function
+   where one exists, and the card's least time for the work (bytes or flops,
+   from this run's inputs).
+4. main paths: ``generate()`` at full width with random bf16 weights from a
+   seed and an int8 KV ring, over 4 prompts of ragged length, one longer than
+   the 4096 window so the ring wraps. Four paths, each with the launch counts
+   set to 0 before it and read after it. On ``mistral-7b-v0.1``, 8 layers
+   each: bf16 weights; weights quantized to int4, every linear through the
+   quantized-matmul kernels; int8 weights with the non-fused decode route. On
+   ``mixtral-8x7b``, all 32 layers: int4 weights, ``moe_impl="dispatch"``,
+   the experts through K5 (prefill, a weight per tile) and K8 (decode). Each
+   checks that greedy tokens repeat, the decode == prefill invariant, that
+   top-p sampling is fixed by its seed, and that every kernel of the path was
+   launched.
 
 Then a ``kernels`` line, the nvidia-smi line, and last the device line.
 Any failure raises and the script exits non-zero. Without a CUDA device,
 or without the package beside it, it exits non-zero and prints no result.
 nvcc's build logs (``-Xptxas -v``: registers, shared memory) go to stderr.
-``--profile`` adds to the int4 path's line a torch.profiler breakdown of the
-prefill and of one decode step, with the decode step's aten calls and the
-host's time to enqueue it.
+``--profile`` adds to the lines of the two int4 paths a torch.profiler
+breakdown of the prefill and of one decode step, with the decode step's aten
+calls and the host's time to enqueue it.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -56,33 +60,62 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 MODEL = "mistral-7b-v0.1"
+MOE_MODEL = "mixtral-8x7b"
 PROMPT_LENS = (4300, 1537, 700, 45)  # the first is longer than the 4096 window
+WINDOW = 4096
 CHUNK = 512
 GREEDY_TOKENS = 32
 TOPP_TOKENS = 16
-REPEATS = 5  # timed generate() calls per median on the full-depth path
+REPEATS = 3  # timed generate() calls per median
 
 K1, K2, K4 = "flash_attention", "fused_update_decode_attention", "ring_attention_stats"
 K3, K5, K6 = "matmul_quant", "moe_matmul_quant_ragged", "decode_attention"
-# (label, layers, weight quantization, fused decode route, timed calls per
-# median, kernels the path must launch). The int4 path is the full model; the
-# other two are cut in depth, never in width, to keep the run short.
-PATHS = (
-    ("bf16", 8, None, True, 3, (K1, K4, K2)),
-    ("int4", 32, "int4", True, REPEATS, (K1, K4, K2, K3, K5)),
-    ("int8-nonfused-decode", 8, "int8", False, 3, (K1, K4, K6, K3, K5)),
-)
+K8 = "moe_matmul_quant"
 # decode == prefill: the greedy decode logprobs and the teacher-forced
 # prefill logprobs of the same tokens go through the same int8 ring bytes
 # (the fused decode kernel's write is bit-identical to the prefill's), but
 # with bf16 weights and activations the two paths round at different
 # places: T=1 against T=512 GEMMs (other cuBLAS kernels and summation
 # orders), K2 against K4+K1+merge. With quantized weights the linears are K3
-# (fp32 FMAs) in decode and K5 (tensor cores) in prefill: the same rounding
-# points, other summation orders. Random 7B weights pass those bf16
-# differences through 32 layers, so the bound is on the bf16 scale, not fp32.
+# (fp32 FMAs) in decode and K5 (tensor cores) in prefill, the experts K8 and
+# K5: the same rounding points, other summation orders. Random weights pass
+# those bf16 differences through the layers, so the bound is on the bf16
+# scale, not fp32.
 INVARIANT_MAX_NATS = 0.25
 INVARIANT_MEAN_NATS = 0.05
+# A sparse-MoE path adds a discontinuity: where a token's second and third
+# router logits nearly tie, those bf16 differences send it to another expert
+# in one pass than in the other, and the logits that step predicts are then
+# another function of the weights (random experts are uncorrelated, so a swap
+# at a near-even routing weight moves them far). So the MoE path splits its
+# generated tokens: a logprob whose decode step routed as the prefill did in
+# every layer is held to the dense bound above; all of them together to the
+# bound below; and at most MOE_FLIP_SHARE of the (token, layer) routings may
+# differ.
+MOE_INVARIANT_MAX_NATS = 2.5
+MOE_INVARIANT_MEAN_NATS = 0.2
+MOE_FLIP_SHARE = 0.1
+
+
+class MainPath(NamedTuple):
+    label: str
+    model: str
+    layers: int
+    quant: Optional[str]  # weight quantization
+    fused: bool  # decode route: K2, or update_stacked + K6
+    expected: Tuple[str, ...]  # kernels the path must launch
+    bound: Tuple[float, float] = (INVARIANT_MAX_NATS, INVARIANT_MEAN_NATS)
+
+
+# The Mixtral path is the full model; the dense paths are cut in depth, never
+# in width, to keep the run short.
+PATHS = (
+    MainPath("bf16", MODEL, 8, None, True, (K1, K4, K2)),
+    MainPath("int4", MODEL, 8, "int4", True, (K1, K4, K2, K3, K5)),
+    MainPath("int8-nonfused-decode", MODEL, 8, "int8", False, (K1, K4, K6, K3, K5)),
+    MainPath("mixtral-int4", MOE_MODEL, 32, "int4", True, (K1, K4, K2, K3, K5, K8),
+             (MOE_INVARIANT_MAX_NATS, MOE_INVARIANT_MEAN_NATS)),
+)
 
 
 def emit(obj) -> None:
@@ -408,16 +441,20 @@ def check_k2(gen):
 
 # The four linears of one mistral-7b layer as (name, K = in, N = out).
 LINEARS = (("wqkv", 4096, 6144), ("wo", 4096, 4096), ("w13", 4096, 28672), ("w2", 14336, 4096))
+# The two expert stacks of one mixtral-8x7b layer, eight experts each.
+EXPERT_LINEARS = (("w13", 4096, 28672), ("w2", 14336, 4096))
+EXPERTS = 8
 GROUP = 128
 
 
 def quant_stack(gen, L, K, N, bits):
-    """A stack of L quantized weights (true quantization of N(0, 1) / sqrt(K))."""
+    """A stack of L quantized weights (true quantization of N(0, 1) / sqrt(K)),
+    made one weight at a time: only one is ever held in fp32."""
     from mistral_inference_tpu_torch.ops.linear import quantize_weight
 
-    w = randn(gen, L, K, N) * K**-0.5
-    qw = quantize_weight(w, bits, GROUP)
-    return qw["q4" if bits == 4 else "q"], qw["scale"]
+    qs = [quantize_weight(randn(gen, K, N) * K**-0.5, bits, GROUP) for _ in range(L)]
+    return (torch.stack([qw["q4" if bits == 4 else "q"] for qw in qs]),
+            torch.stack([qw["scale"] for qw in qs]))
 
 
 def linear_library_ms(x, leaf):
@@ -555,6 +592,26 @@ def check_k5(gen):
         require(ok, f"K5 disagrees with its plain version (int{bits}, E=4, layer 1 of 2): {err}")
         worst = max(worst, err)
         del q, scale, x
+    # A Mixtral layer's eight experts over one chunk's sorted assignments:
+    # 4 x 512 tokens, top-2, in (16 + 8) tiles of 256. The last five tiles
+    # lie past the last expert's rows and carry the clamped index E - 1.
+    E, rows8 = 8, 6144
+    tg8 = torch.tensor([0, 0, 0, 1, 1, 2, 2, 2, 3, 3, 4, 4, 5, 5, 5, 6, 6, 7, 7] + [7] * 5,
+                       dtype=torch.int32, device="cuda")
+    e8 = {"ms": 0.0, "bound_ms": 0.0}
+    for name, K, N in EXPERT_LINEARS:
+        q, scale = quant_stack(gen, E, K, N, 4)
+        x = randn(gen, rows8, K, dtype=torch.bfloat16)
+        out = moe_matmul_quant_ragged(x, q, scale, tg8)
+        ref = moe_matmul_quant_ragged_plain(x, q, scale, tg8)
+        torch.cuda.synchronize()
+        ok, err = close(out, ref, 1e-2, 1e-2)
+        require(ok, f"K5 disagrees with its plain version (int4, E=8, {name} {K}x{N}): {err}")
+        worst = max(worst, err)
+        e8[f"{name}_ms"] = timed_ms(lambda: moe_matmul_quant_ragged(x, q, scale, tg8), reps=5)
+        e8["ms"] += e8[f"{name}_ms"]
+        e8["bound_ms"] += bound(2.0 * rows8 * K * N, nbytes(x, q, scale, tg8) + 2 * rows8 * N)[0]
+        del q, scale, x, out, ref
     return {
         "name": K5, "kernel": "K5", "route": "cuda",
         "source": "mistral_inference_tpu_torch/ops/cuda/csrc/moe_matmul.cu",
@@ -563,12 +620,102 @@ def check_k5(gen):
         "bound_by": by.pop() if len(by) == 1 else "operations",
         "shape": "the sums over one layer's four int4 linears (as K3) at 2048 rows = 4 x 512 in "
                  "8 tiles of 256, E=1; by_shape has each linear, int4 and int8; also checked: "
-                 "E=4 in a 2-layer stack with a mixed tile_group and layer 1",
+                 "E=4 in a 2-layer stack with a mixed tile_group and layer 1; experts_e8 is the "
+                 "sum over a Mixtral layer's int4 w13 and w2 at E=8, 6144 sorted rows in 24 tiles "
+                 "of 256, the last five past the last expert's rows",
+        "experts_e8": e8,
         "library": "F.linear(x, dequant(w).T): library_ms dequantizes inside the timed call "
                    "(the same inputs), library_predequant_ms takes a bf16 weight made before",
         "by_shape": shapes,
         "tolerance": "abs 1e-2 + rel 1e-2 on bf16 outputs (fp32 sums in another order, one "
                      "rounding to bf16)",
+    }
+
+
+def dispatch_buffers(gen, C, K, tokens=4, top_k=2):
+    """Capacity buffers (E, C, K) as a decode step of ``tokens`` rows fills
+    them: each token in the next free slot of ``top_k`` distinct random
+    experts. Returns the buffers and the experts that hold a row."""
+    x = torch.zeros((EXPERTS, C, K), dtype=torch.bfloat16, device="cuda")
+    fill = [0] * EXPERTS
+    for _ in range(tokens):
+        row = randn(gen, K, dtype=torch.bfloat16)
+        for e in torch.randperm(EXPERTS, generator=gen, device="cuda")[:top_k].tolist():
+            x[e, fill[e]] = row
+            fill[e] += 1
+    return x, [e for e in range(EXPERTS) if fill[e]]
+
+
+def check_k8(gen):
+    from mistral_inference_tpu_torch.ops.cuda.moe_matmul import (
+        moe_matmul_quant, moe_matmul_quant_plain, moe_matmul_quant_stacked,
+    )
+    from mistral_inference_tpu_torch.ops.linear import dequant
+
+    E, L, li = EXPERTS, 2, 1
+    worst, shapes = 0.0, {}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "library_predequant_ms")
+    total = {k: 0.0 for k in keys}
+    live_counts = []
+    for bits in (4, 8):
+        for name, K, N in EXPERT_LINEARS:
+            q, scale = quant_stack(gen, L * E, K, N, bits)
+            q, scale = q.view(L, E, -1, N), scale.view(L, E, -1, N)
+            ql, sl = q[li].contiguous(), scale[li].contiguous()
+            rec = {}
+            # The main path's decode buffers (B = 4, top-2: C = 4, some
+            # experts empty); every slot of every expert full; C = 128.
+            routed, live = dispatch_buffers(gen, 4, K)
+            for case, x in (("decode", routed), ("full", randn(gen, E, 4, K, dtype=torch.bfloat16)),
+                            ("c128", randn(gen, E, 128, K, dtype=torch.bfloat16))):
+                ref = moe_matmul_quant_plain(x, ql, sl)
+                out = moe_matmul_quant_stacked(x, q, scale, li)
+                one = moe_matmul_quant(x, ql, sl)
+                again = moe_matmul_quant_stacked(x, q, scale, li)
+                torch.cuda.synchronize()
+                what = f"int{bits} {name} {K}x{N} {case}"
+                ok, err = close(out, ref, 1e-2, 1e-2)
+                require(ok, f"K8 disagrees with its plain version ({what}): {err}")
+                require(torch.equal(out, one), f"K8 stacked and unstacked forms differ ({what})")
+                require(torch.equal(out, again), f"K8 is not the same bits on a second run ({what})")
+                worst = max(worst, err)
+                rec[f"{case}_ms"] = timed_ms(lambda: moe_matmul_quant_stacked(x, q, scale, li),
+                                             reps=5 if case == "c128" else 10)
+            x = routed
+            # Least time: the stored bytes and scales of the experts that hold
+            # a row, the buffers in and out.
+            live_bytes = len(live) * (nbytes(ql, sl) // E)
+            b_ms, b_by = bound(2.0 * 4 * len(live) * K * N, live_bytes + nbytes(x) + 2 * E * 4 * N)
+            leaf = {("q4" if bits == 4 else "q"): ql, "scale": sl}
+            w = dequant(leaf, x.dtype)
+            lib_pre = timed_ms(lambda: torch.bmm(x, w))
+            del w
+            rec.update(
+                live_experts=len(live), bound_ms=b_ms, bound_by=b_by,
+                library_ms=timed_ms(lambda: torch.bmm(x, dequant(leaf, x.dtype)), reps=5),
+                library_predequant_ms=lib_pre,
+                plain_ms=timed_ms(lambda: moe_matmul_quant_plain(x, ql, sl), reps=5))
+            shapes[f"int{bits}_{name}"] = rec
+            if bits == 4:
+                live_counts.append(len(live))
+                for k in keys:
+                    total[k] += rec["decode_ms"] if k == "ms" else rec[k]
+            del q, scale, ql, sl
+    return {
+        "name": K8, "kernel": "K8", "route": "cuda",
+        "source": "mistral_inference_tpu_torch/ops/cuda/csrc/moe_expert_matmul.cu",
+        "replaces": "mistral_inference_tpu/ops/pallas/moe_matmul.py:56",
+        "max_abs_err": worst, **total, "bound_by": "bytes",
+        "shape": "the sums over one Mixtral layer's two int4 expert stacks (E=8; w13 4096x28672, "
+                 "w2 14336x4096; group 128) at the decode buffers of B=4, top-2 (C=4; "
+                 f"{live_counts} experts hold a row), read from layer 1 of a 2-layer stack; "
+                 "by_shape has each stack, int4 and int8, also with every slot full and at C=128",
+        "library": "torch.bmm(x, dequant(w)) over all 8 experts: library_ms dequantizes inside "
+                   "the timed call (the same inputs), library_predequant_ms takes a bf16 weight "
+                   "made before",
+        "by_shape": shapes,
+        "tolerance": "abs 1e-2 + rel 1e-2 on bf16 outputs (fp32 sums in another order, one "
+                     "rounding to bf16); stacked, unstacked and repeated launches equal bits",
     }
 
 
@@ -655,8 +802,56 @@ def check_k6(gen):
 # ---------------------------------------------------------------------------
 
 
-def main_path(card: str, profile: bool, label: str, n_layers: int, quant, fused: bool,
-              repeats: int, expected):
+class RouteLog:
+    """Records the experts every router call picks while it is entered."""
+
+    def __init__(self):
+        self.picks = []
+
+    def __enter__(self):
+        from mistral_inference_tpu_torch.models import transformer as tf
+
+        self._tf, self._route = tf, tf._route
+
+        def logged(x, gate, top_k):
+            idx, w = self._route(x, gate, top_k)
+            self.picks.append(idx)
+            return idx, w
+
+        tf._route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self._tf._route = self._route
+
+
+def routing_flips(run, prompts, gen, n_layers: int):
+    """For each generated token, in how many layers it chose another set of
+    experts in the decode step that made it than in the teacher-forced prefill
+    of prompt + generated tokens: (B, steps) int. A router near-tie that falls
+    the other way sends a token through other experts in the two passes, which
+    the decode == prefill gap then shows."""
+    B, steps = len(prompts), len(gen[0])
+    with RouteLog() as dec:
+        (again, _), _ = run(prompts, max_tokens=steps, temperature=0.0)
+    require(again == gen, "greedy tokens differ between two runs")
+    with RouteLog() as pre:
+        run([p + g for p, g in zip(prompts, gen)], max_tokens=0, temperature=0.0)
+    # Decode: the last steps * layers calls, step-major, each (B, k).
+    d = torch.stack(dec.picks[-steps * n_layers:]).view(steps, n_layers, B, -1)
+    # Prefill: chunk-major calls of (B * CHUNK, k) -> (layers, B, positions, k).
+    chunks = len(pre.picks) // n_layers
+    f = torch.stack(pre.picks).view(chunks, n_layers, B, CHUNK, -1)
+    f = f.permute(1, 2, 0, 3, 4).reshape(n_layers, B, chunks * CHUNK, -1)
+    flips = []
+    for b, p in enumerate(prompts):
+        teacher = f[:, b, len(p): len(p) + steps]  # (layers, steps, k)
+        same = (d[:, :, b].transpose(0, 1).sort(-1).values == teacher.sort(-1).values).all(-1)
+        flips.append((~same).sum(0))
+    return torch.stack(flips).cpu().numpy()
+
+
+def main_path(card: str, profile: bool, path: MainPath):
     """Drive one path of PATHS; returns (its summary line, its launch counts)."""
     import numpy as np
 
@@ -666,17 +861,24 @@ def main_path(card: str, profile: bool, label: str, n_layers: int, quant, fused:
     from mistral_inference_tpu_torch.models.registry import get_args
     from mistral_inference_tpu_torch.ops import cuda as kern
 
-    args = get_args(MODEL)
+    label, quant, repeats = path.label, path.quant, REPEATS
+    args = get_args(path.model)
     args.kv_quant = "int8"
-    args.n_layers = n_layers
+    args.n_layers = path.layers
+    args.sliding_window = WINDOW  # the 7B preset's own; given to Mixtral so that its ring wraps too
+    if args.moe:
+        args.moe_impl = "dispatch"
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = Transformer.random(args, dtype=torch.bfloat16, seed=0)
-    if quant is not None:
-        # True quantization of the bf16 weights, so the logits keep their scale.
-        model.quantize(quant)
+    # True quantization of weights drawn in bf16, so the logits keep their
+    # scale; each weight is quantized as it is drawn, so the dense form of the
+    # model (93 GB for Mixtral) never exists.
+    model = Transformer.random(args, dtype=torch.bfloat16, seed=0, quant=quant)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    tf.FUSED_DECODE = fused
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    tf.FUSED_DECODE = path.fused
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, args.vocab_size, n).tolist() for n in PROMPT_LENS]
 
@@ -718,32 +920,60 @@ def main_path(card: str, profile: bool, label: str, n_layers: int, quant, fused:
     # decode == prefill: teacher-force prompt + generated tokens.
     full = [p + g for p, g in zip(prompts, gen)]
     (_, lps_tf), _ = run(full, max_tokens=0, temperature=0.0)
-    diffs = np.concatenate([
+    diffs = np.stack([
         np.abs(np.array(a[-GREEDY_TOKENS:]) - np.array(b[-GREEDY_TOKENS:]))
         for a, b in zip(lps, lps_tf)
-    ])
-    require(float(diffs.max()) <= INVARIANT_MAX_NATS and float(diffs.mean()) <= INVARIANT_MEAN_NATS,
+    ])  # (B, steps)
+    invariant = {"phase": "invariant", "path": label, "max_nats": float(diffs.max()),
+                 "mean_nats": float(diffs.mean()), "bound": path.bound}
+    if args.moe:
+        flips = routing_flips(run, prompts, gen, path.layers)
+        # Logprob t comes from the forward of token t - 1 (the first from the
+        # prefill in both passes): it is "same-routed" if that step chose the
+        # prefill's experts in every layer.
+        same = np.concatenate([np.ones((len(prompts), 1), bool), flips[:, :-1] == 0], axis=1)
+        invariant.update(
+            routings_differing=int(flips.sum()), routings_compared=flips.size * path.layers,
+            flip_share_bound=MOE_FLIP_SHARE,
+            same_routed_logprobs=int(same.sum()), logprobs=same.size,
+            same_routed_max_nats=float(diffs[same].max()),
+            same_routed_mean_nats=float(diffs[same].mean()),
+            same_routed_bound=(INVARIANT_MAX_NATS, INVARIANT_MEAN_NATS),
+            rerouted_max_nats=float(diffs[~same].max()) if (~same).any() else 0.0,
+            rerouted_mean_nats=float(diffs[~same].mean()) if (~same).any() else 0.0)
+    emit(invariant)
+    require(float(diffs.max()) <= path.bound[0] and float(diffs.mean()) <= path.bound[1],
             f"decode != prefill: max {diffs.max()} mean {diffs.mean()} nats")
+    if args.moe:
+        require(invariant["same_routed_max_nats"] <= INVARIANT_MAX_NATS
+                and invariant["same_routed_mean_nats"] <= INVARIANT_MEAN_NATS,
+                "decode != prefill on logprobs whose step routed as the prefill did")
+        require(flips.sum() <= MOE_FLIP_SHARE * flips.size * path.layers,
+                f"{int(flips.sum())} of {flips.size * path.layers} routings differ")
 
     # top-p sampling, twice with one seed.
     (s1, _), topp_s = run(prompts, max_tokens=TOPP_TOKENS, temperature=0.7, top_p=0.9, seed=1)
     (s2, _), _ = run(prompts, max_tokens=TOPP_TOKENS, temperature=0.7, top_p=0.9, seed=1)
     require(s1 == s2, "top-p tokens differ between two runs with one seed")
     launches = counts()
-    for name in expected:
+    for name in path.expected:
         require(launches[name] > 0, f"{name} was not launched on the {label} path")
-    require(fused or launches[K2] == 0, "the non-fused decode route launched the fused kernel")
+    require(path.fused or launches[K2] == 0,
+            "the non-fused decode route launched the fused kernel")
     breakdown = profile_generate(model, prompts) if profile else None
     tf.FUSED_DECODE = True
 
     decode_s = total_s - ttft_s
     return {
-        "phase": "main_path", "path": label, "model": MODEL, "layers": n_layers,
+        "phase": "main_path", "path": label, "model": path.model, "layers": path.layers,
         "params": tf.param_count(model.params),
         "weights": "bf16 random (seed 0)" + (f", quantized to {quant} (group 128)" if quant else ""),
-        "decode_route": "fused (K2)" if fused else "update_stacked + decode_attention (K6)",
+        "moe": f"{args.moe.num_experts} experts, top-{args.moe.num_experts_per_tok}, "
+               f"moe_impl={args.moe_impl}" if args.moe else None,
+        "decode_route": "fused (K2)" if path.fused else "update_stacked + decode_attention (K6)",
         "kv_ring": "int8", "prompt_lens": PROMPT_LENS,
         "chunk_size": CHUNK, "window": args.sliding_window, "init_s": init_s,
+        "init_peak_mem_gb": init_peak_gb, "weights_gb": weights_gb,
         "ttft_s": ttft_s,
         "ttft_note": f"median of {repeats} warm generate(max_tokens=1): chunked prefill "
                      "of all prompts plus one step",
@@ -754,7 +984,9 @@ def main_path(card: str, profile: bool, label: str, n_layers: int, quant, fused:
         "peak_mem_gb": peak_gb, "launches": launches,
         "launches_per_greedy_generate": per_greedy,
         "invariant_max_nats": float(diffs.max()), "invariant_mean_nats": float(diffs.mean()),
-        "invariant_bound": [INVARIANT_MAX_NATS, INVARIANT_MEAN_NATS],
+        "invariant_bound": path.bound,
+        "invariant_moe": {k: v for k, v in invariant.items()
+                          if k not in ("phase", "path", "max_nats", "mean_nats", "bound")} or None,
         "topp_s": topp_s, "topp_identical": True, "card": card, "profile": breakdown,
     }, launches
 
@@ -772,7 +1004,9 @@ def kernel_ms(prof, calls: int = 1):
                                    ("fused_decode", "K2/K6 fused_decode"),
                                    ("decode_merge", "K2/K6 fused_decode"),
                                    ("matmul_quant", "K3 matmul_quant"),
-                                   ("moe_matmul", "K5 moe_matmul"), ("gemm", "matmul"),
+                                   ("moe_matmul", "K5 moe_matmul"),
+                                   ("moe_expert_matmul", "K8 moe_expert_matmul"),
+                                   ("gemm", "matmul"),
                                    ("gemv", "matmul"), ("xmma", "matmul"), ("cutlass", "matmul"),
                                    ("nvjet", "matmul"), ("splitkreduce", "matmul")) if k in name),
                    "other")
@@ -831,7 +1065,8 @@ def decode_step_probe(model, B: int, fill: int = 3000, steps: int = 10):
     cache = model.alloc_cache(B, fill + 2 * steps + 16)
     start = torch.full((B,), fill, dtype=torch.int32, device=dev)
     cache.kv_len = start
-    tok = torch.ones((B, 1), dtype=torch.long, device=dev)
+    # A token of its own for each row, so that an MoE layer routes them apart.
+    tok = torch.arange(1, B + 1, dtype=torch.long, device=dev)[:, None]
     ones = torch.ones((B,), dtype=torch.int32, device=dev)
     for _ in range(3):
         model.forward(tok, ones, cache)
@@ -885,32 +1120,30 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for check in (check_k1, check_k4, check_k2, check_k3, check_k5, check_k6):
+    for check in (check_k1, check_k4, check_k2, check_k3, check_k5, check_k8, check_k6):
         rows.append(check(gen))
         emit({"phase": "kernel", "card": card, **rows[-1]})
         torch.cuda.empty_cache()
 
-    # Each kernel's launches on the path that is the full model where it runs
-    # there (int4, 32 layers), else on the path that runs it (K6: non-fused).
-    launches = {}
-    for label, n_layers, quant, fused, repeats, expected in PATHS:
-        summary, counted = main_path(card, "--profile" in sys.argv[1:] and label == "int4",
-                                     label, n_layers, quant, fused, repeats, expected)
+    # Each kernel's launches on the path that runs it at the greatest depth:
+    # the full Mixtral model for all but K6, which only the non-fused route runs.
+    launches, depth = {}, {}
+    for path in PATHS:
+        summary, counted = main_path(
+            card, "--profile" in sys.argv[1:] and path.quant == "int4", path)
         emit(summary)
-        for name in expected:
-            if label == "int4" or name not in PATHS[1][5]:
-                launches[name] = counted[name]
+        for name in path.expected:
+            if path.layers > depth.get(name, 0):
+                launches[name], depth[name] = counted[name], path.layers
         torch.cuda.empty_cache()
-    kernels = []
-    for r in rows:
-        kernels.append({
-            "name": r["name"], "route": r["route"], "source": r["source"],
-            "replaces": r["replaces"], "launches": launches[r["name"]],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-        })
-    emit({"kernels": kernels})
+    emit({"kernels": [
+        {"name": r["name"], "route": r["route"], "source": r["source"],
+         "replaces": r["replaces"], "launches": launches[r["name"]],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"]}
+        for r in rows
+    ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

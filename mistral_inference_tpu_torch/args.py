@@ -1,8 +1,8 @@
-"""Model configuration for the dense decoder path.
+"""Model configuration for the decoder, dense or sparse-MoE.
 
-Counterpart of ``mistral_inference_tpu/args.py::TransformerArgs``, cut to the
-fields the dense path reads. MoE, LoRA and vision arrive with later slices
-of the port.
+Counterpart of ``mistral_inference_tpu/args.py::TransformerArgs`` and
+``::MoeArgs``, cut to the fields the ported paths read. LoRA and vision
+arrive with later slices of the port.
 """
 
 from __future__ import annotations
@@ -10,6 +10,17 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Union
+
+
+@dataclass
+class MoeArgs:
+    num_experts: int
+    num_experts_per_tok: int
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "MoeArgs":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
 
 
 @dataclass
@@ -26,6 +37,8 @@ class TransformerArgs:
     max_batch_size: int = 0
     # Rotary base; None means the reference default 1e6.
     rope_theta: Optional[float] = None
+    # Sparse mixture of experts in place of the dense feed-forward.
+    moe: Optional[MoeArgs] = None
     # Scalar, per-layer list (tiled to n_layers), or None = full context.
     sliding_window: Optional[Union[int, List[Optional[int]]]] = None
     # KV ring element type: "bf16" (the model dtype) or "int8" with one fp32
@@ -34,6 +47,12 @@ class TransformerArgs:
     # Weight quantization state: "bf16" (the model dtype), "int8" or "int4"
     # weight-only. Set by ``Transformer.quantize``.
     quant: str = "bf16"
+    # MoE compute strategy: "dense" evaluates every expert on every token
+    # (exact, the oracle); "dispatch" routes tokens into per-expert capacity
+    # buffers (assignments over an expert's capacity contribute zero) and,
+    # above 256 rows, through the drop-free sorted grouped product.
+    moe_impl: str = "dense"
+    moe_capacity_factor: float = 2.0
 
     def __post_init__(self) -> None:
         if self.n_heads % self.n_kv_heads:
@@ -42,6 +61,8 @@ class TransformerArgs:
             raise ValueError(f"kv_quant must be 'bf16' or 'int8', got {self.kv_quant!r}")
         if self.quant not in ("bf16", "int8", "int4"):
             raise ValueError(f"quant must be 'bf16', 'int8' or 'int4', got {self.quant!r}")
+        if self.moe_impl not in ("dense", "dispatch"):
+            raise ValueError(f"moe_impl must be 'dense' or 'dispatch', got {self.moe_impl!r}")
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TransformerArgs":
@@ -49,5 +70,10 @@ class TransformerArgs:
         d = dict(d)
         if d.get("sliding_window") is None and d.get("_sliding_window") is not None:
             d["sliding_window"] = d["_sliding_window"]
+        if d.get("lora") is not None:
+            raise ValueError("live LoRA adapters are not ported yet")
         names = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: v for k, v in d.items() if k in names})
+        kw = {k: v for k, v in d.items() if k in names}
+        if isinstance(kw.get("moe"), dict):
+            kw["moe"] = MoeArgs.from_dict(kw["moe"])
+        return cls(**kw)

@@ -8,8 +8,13 @@ After conversion both compute the same function. A quantized JAX leaf,
 ``{"q" | "q4": int8 (L, in', out), "scale": fp32 (L, groups, out)}``, keeps
 its (in, out) layout and its bytes: it becomes one such leaf per layer, and
 the leaves that fuse are concatenated along out, which grouped quantization
-per output column makes exact. The input is a tree of numpy arrays (for
-example ``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
+per output column makes exact. An MoE tree (``layers["moe"]``: ``gate (L,
+dim, E)``, ``w1`` / ``w3 (L, E, dim, hidden)``, ``w2 (L, E, hidden, dim)``,
+plain or quantized) becomes per layer a router ``gate (E, dim)`` and the expert
+stacks ``w13 (E, dim, 2 hidden)`` and ``w2 (E, hidden, dim)``, which keep the
+(in, out) layout in both forms: they are applied as ``x @ w``. The input is a
+tree of numpy arrays (for example ``jax.tree.map(np.asarray, params)``), so
+this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -21,12 +26,13 @@ import torch
 
 from mistral_inference_tpu_torch.models.transformer import Params
 
-# port weight -> the JAX leaves stacked along its out dim
+# port weight -> the JAX leaves stacked along its out dim; "ffn" stands for
+# the tree's feed-forward family, "feed_forward" or "moe"
 _LINEAR = {
     "wqkv": (("attention", "wq"), ("attention", "wk"), ("attention", "wv")),
     "wo": (("attention", "wo"),),
-    "w13": (("feed_forward", "w1"), ("feed_forward", "w3")),
-    "w2": (("feed_forward", "w2"),),
+    "w13": (("ffn", "w1"), ("ffn", "w3")),
+    "w2": (("ffn", "w2"),),
 }
 
 
@@ -43,13 +49,14 @@ def params_from_numpy(
     tree: Dict[str, Any],
     device: Union[str, torch.device] = "cpu",
 ) -> Params:
-    """Dense JAX params (numpy leaves), plain or weight-only quantized ->
-    this port's params. Raises on the trees the port does not carry yet (MoE,
-    LoRA)."""
+    """Dense or MoE JAX params (numpy leaves), plain or weight-only quantized
+    -> this port's params. Raises on the trees the port does not carry yet
+    (LoRA)."""
     layers = tree["layers"]
-    if "moe" in layers or "feed_forward" not in layers:
-        raise ValueError("only dense feed-forward trees convert in this slice")
-    for group in ("attention", "feed_forward"):
+    ffn = "moe" if "moe" in layers else "feed_forward"
+    if ffn not in layers:
+        raise ValueError("the tree has neither a feed_forward nor a moe family")
+    for group in ("attention", ffn):
         for name in layers[group]:
             if name.endswith("_lora"):
                 raise ValueError(f"{group}.{name}: LoRA leaves do not convert yet")
@@ -60,13 +67,17 @@ def params_from_numpy(
             "attention_norm": _tensor(layers["attention_norm"][i], device),
             "ffn_norm": _tensor(layers["ffn_norm"][i], device),
         }
+        if ffn == "moe":
+            lw["gate"] = _tensor(np.asarray(layers["moe"]["gate"][i]).T, device)
         for key, leaves in _LINEAR.items():
-            parts = [layers[group][name] for group, name in leaves]
+            parts = [layers[ffn if group == "ffn" else group][name] for group, name in leaves]
             if isinstance(parts[0], dict):
                 lw[key] = {
                     k: _tensor(np.concatenate([np.asarray(p[k][i]) for p in parts], axis=-1), device)
                     for k in parts[0]
                 }
+            elif np.asarray(parts[0][i]).ndim == 3:  # expert stacks stay (E, in, out)
+                lw[key] = _tensor(np.concatenate([np.asarray(p[i]) for p in parts], axis=-1), device)
             else:
                 w = [np.asarray(p[i]).T for p in parts]
                 lw[key] = _tensor(np.concatenate(w, axis=0), device)

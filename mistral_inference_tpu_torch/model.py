@@ -1,5 +1,5 @@
-"""Host handle around the dense forward, with bf16 or weight-only quantized
-linears (counterpart of
+"""Host handle around the forward (dense or sparse-MoE), with bf16 or
+weight-only quantized linears (counterpart of
 ``mistral_inference_tpu/model.py::Transformer``)."""
 
 from __future__ import annotations
@@ -50,12 +50,20 @@ class Transformer:
         dtype: torch.dtype = torch.bfloat16,
         seed: int = 0,
         device: Optional[Union[str, torch.device]] = None,
+        quant: Optional[str] = None,
+        group: int = 128,
     ) -> "Transformer":
         """Random weights from ``seed``, made directly on ``device`` (the card
-        unless ``device="cpu"``)."""
+        unless ``device="cpu"``). With ``quant`` ("int8" | "int4") every big
+        linear is quantized as it is drawn: the same model as
+        ``random(...).quantize(quant)``, without ever holding its dense form,
+        which for Mixtral-8x7B exceeds the card."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return cls(args, tf.init_params(args, dtype, gen, dev), dtype, dev)
+        params = tf.init_params(args, dtype, gen, dev, quant, group)
+        if quant is not None:
+            args.quant = quant
+        return cls(args, params, dtype, dev)
 
     def quantize(self, mode: str, group: int = 128) -> "Transformer":
         """Weight-only quantization in place: "int8" | "int4"

@@ -1,15 +1,16 @@
 """Architecture presets for random-weight runs at published widths.
 
-Counterpart of ``mistral_inference_tpu/models/registry.py`` (the two dense
-Mistral-7B presets). Real checkpoints carry their own ``params.json``.
+Counterpart of ``mistral_inference_tpu/models/registry.py`` (the dense
+Mistral-7B and the sparse-MoE Mixtral presets). Real checkpoints carry their
+own ``params.json``.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import copy
 from typing import Dict
 
-from mistral_inference_tpu_torch.args import TransformerArgs
+from mistral_inference_tpu_torch.args import MoeArgs, TransformerArgs
 
 REGISTRY: Dict[str, TransformerArgs] = {
     "mistral-7b-v0.1": TransformerArgs(
@@ -21,9 +22,19 @@ REGISTRY: Dict[str, TransformerArgs] = {
         dim=4096, n_layers=32, head_dim=128, hidden_dim=14336, n_heads=32,
         n_kv_heads=8, norm_eps=1e-5, vocab_size=32_768, rope_theta=1e6,
     ),
+    "mixtral-8x7b": TransformerArgs(
+        dim=4096, n_layers=32, head_dim=128, hidden_dim=14336, n_heads=32,
+        n_kv_heads=8, norm_eps=1e-5, vocab_size=32_000, rope_theta=1e6,
+        moe=MoeArgs(num_experts=8, num_experts_per_tok=2),
+    ),
+    "mixtral-8x22b": TransformerArgs(
+        dim=6144, n_layers=56, head_dim=128, hidden_dim=16384, n_heads=48,
+        n_kv_heads=8, norm_eps=1e-5, vocab_size=32_768, rope_theta=1e6,
+        moe=MoeArgs(num_experts=8, num_experts_per_tok=2),
+    ),
 }
 
 
 def get_args(name: str) -> TransformerArgs:
-    """A fresh copy of a preset (callers may edit kv_quant or depth)."""
-    return dataclasses.replace(REGISTRY[name])
+    """A fresh copy of a preset (callers may edit kv_quant, moe_impl or depth)."""
+    return copy.deepcopy(REGISTRY[name])

@@ -1,5 +1,5 @@
-"""Dense decoder-only Transformer (Mistral-7B family), counterpart of
-``mistral_inference_tpu/models/transformer.py``.
+"""Decoder-only Transformer, dense (Mistral-7B family) or sparse-MoE (Mixtral
+family), counterpart of ``mistral_inference_tpu/models/transformer.py``.
 
 Parameters are a plain dict of tensors with a list of per-layer dicts; a
 linear weight is stored (out_features, in_features) and applied with
@@ -18,6 +18,22 @@ stack is a Python loop. Attention goes through the CUDA kernels of
 * decode (T == 1): ``fused_update_decode_attention``, which writes the ring
   and attends ring-only; or, with ``FUSED_DECODE`` off, ``update_stacked``
   and then ``decode_attention``, the read-only kernel.
+
+With ``args.moe`` a layer's feed-forward is a router ``gate`` (E, dim) in the
+model dtype and two expert stacks applied as ``x @ w``: ``w13`` (E, dim, 2 *
+hidden), w1 and w3 fused along out, and ``w2`` (E, hidden, dim); each is a
+plain tensor or a quantized leaf. ``args.moe_impl`` picks the compute:
+
+* ``"dense"`` (``_moe_ffn``): every expert on every token, combined with the
+  routing matrix; plain batched products, the oracle.
+* ``"dispatch"`` (``_moe_ffn_dispatch``): up to 256 rows, capacity buffers
+  (E, C, dim) whose expert products go through ``moe_matmul_quant`` (K8) for
+  quantized leaves; above, ``_moe_ffn_ragged``: the assignments sorted by
+  expert and padded to 256-row tiles through ``moe_matmul_quant_ragged``
+  (K5, one weight per tile), which drops nothing.
+
+With quantized experts no routing step waits for the card: every shape is
+fixed by the row count.
 
 On CPU tensors the same names run their plain versions, so the CPU tests run
 the decomposition the card runs.
@@ -45,7 +61,19 @@ from mistral_inference_tpu_torch.ops.cuda.attention import (
     merge_attention_parts,
     ring_attention_stats,
 )
-from mistral_inference_tpu_torch.ops.linear import is_quantized, linear
+from mistral_inference_tpu_torch.ops.cuda.moe_matmul import (
+    moe_matmul_quant,
+    moe_matmul_quant_ragged,
+    moe_matmul_quant_stacked,
+)
+from mistral_inference_tpu_torch.ops.linear import (
+    DEFAULT_GROUP,
+    Weight,
+    dequant,
+    is_quantized,
+    linear,
+    quantize_weight,
+)
 from mistral_inference_tpu_torch.ops.norm import rms_norm
 from mistral_inference_tpu_torch.ops.rope import apply_rope, rope_for_positions
 
@@ -59,34 +87,75 @@ DEFAULT_ROPE_THETA = 1e6
 # ``decode_attention`` (K6). Both leave the same ring bytes.
 FUSED_DECODE = True
 
+MOE_RAGGED_ROWS = 256  # above this, dispatch routes to the sorted ragged path
+MOE_RAGGED_TM = 256  # row tile of the sorted grouped product (K5)
+MOE_EXPERT_ROWS_MAX = 128  # K8 up to this capacity
+
 
 def init_params(
     args: TransformerArgs,
     dtype: torch.dtype,
     generator: torch.Generator,
     device: torch.device,
+    quant: Optional[str] = None,
+    group: int = DEFAULT_GROUP,
 ) -> Params:
     """Random weights with the JAX package's distributions: linear weights
     N(0, 1) / sqrt(fan_in), embeddings N(0, 1), norms 1. Generated directly
-    in ``dtype`` on ``device`` (no fp32 copy of a 7B model)."""
+    in ``dtype`` on ``device`` (no fp32 copy of a 7B model).
+
+    With ``quant`` ("int8" | "int4") each big linear is quantized as soon as
+    it is drawn and its dense form dropped, one expert at a time, so a model
+    whose dense form exceeds the device (Mixtral-8x7B) is made without it:
+    the peak is the quantized model plus one weight's fp32 copy. The draws
+    are those of ``quant=None``, so the result equals quantizing afterwards.
+    """
+    if quant not in (None, "int8", "int4"):
+        raise ValueError(f"quant must be None, 'int8' or 'int4', got {quant!r}")
+    bits = {None: 0, "int8": 8, "int4": 4}[quant]
     D, Dh, F_ = args.dim, args.head_dim, args.hidden_dim
     H, Hkv, V = args.n_heads, args.n_kv_heads, args.vocab_size
 
+    def draw(shape: Tuple[int, int], fan_in: int) -> torch.Tensor:
+        w = torch.randn(shape, generator=generator, dtype=dtype, device=device)
+        return w.mul_(fan_in**-0.5)
+
     def lin(out_f: int, in_f: int) -> torch.Tensor:
-        w = torch.randn((out_f, in_f), generator=generator, dtype=dtype, device=device)
-        return w.mul_(in_f**-0.5)
+        return draw((out_f, in_f), in_f)
+
+    def big(out_f: int, in_f: int) -> Weight:
+        w = lin(out_f, in_f)
+        return quantize_weight(w.t(), bits, group) if bits else w
+
+    def experts(in_f: int, out_f: int) -> Weight:
+        """An (E, in, out) stack, applied as x @ w."""
+        ws = []
+        for _ in range(args.moe.num_experts):
+            w = draw((in_f, out_f), in_f)
+            ws.append(quantize_weight(w, bits, group) if bits else w)
+        if bits:
+            return {k: torch.stack([w[k] for w in ws]) for k in ws[0]}
+        return torch.stack(ws)
 
     def ones(n: int) -> torch.Tensor:
         return torch.ones((n,), dtype=dtype, device=device)
+
+    def ffn() -> Params:
+        if args.moe:
+            return {
+                "gate": lin(args.moe.num_experts, D),
+                "w13": experts(D, 2 * F_),  # w1, w3 stacked on out
+                "w2": experts(F_, D),
+            }
+        return {"w13": big(2 * F_, D), "w2": big(D, F_)}
 
     layers = [
         {
             "attention_norm": ones(D),
             "ffn_norm": ones(D),
-            "wqkv": lin((H + 2 * Hkv) * Dh, D),  # wq, wk, wv stacked on out
-            "wo": lin(D, H * Dh),
-            "w13": lin(2 * F_, D),  # w1, w3 stacked on out
-            "w2": lin(D, F_),
+            "wqkv": big((H + 2 * Hkv) * Dh, D),  # wq, wk, wv stacked on out
+            "wo": big(D, H * Dh),
+            **ffn(),
         }
         for _ in range(args.n_layers)
     ]
@@ -102,6 +171,181 @@ def _dense_ffn(x: torch.Tensor, w: Params) -> torch.Tensor:
     """SwiGLU: w2(silu(w1 x) * w3 x)."""
     gate, up = linear(x, w["w13"]).chunk(2, dim=-1)
     return linear(F.silu(gate) * up, w["w2"])
+
+
+# ---------------------------------------------------------------------------
+# Sparse mixture of experts
+# ---------------------------------------------------------------------------
+
+
+def _route(x: torch.Tensor, gate: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k experts of each token and their softmax weights in fp32 (over
+    the selected logits, like the reference): (N, k) int64, (N, k) fp32.
+    Equal logits go to the lower expert index first, as ``jax.lax.top_k``
+    orders them: a stable descending sort, since ``torch.topk`` promises no
+    tie order on the card and bf16 gate logits do tie."""
+    logits = F.linear(x, gate)  # (N, E)
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return idx[:, :top_k], torch.softmax(vals[:, :top_k].float(), dim=-1)
+
+
+def _expert_weight(w: Weight, dtype: torch.dtype) -> torch.Tensor:
+    """An expert stack as a dense (E, in, out) tensor."""
+    return dequant(w, dtype) if is_quantized(w) else w
+
+
+def _swiglu(h13: torch.Tensor) -> torch.Tensor:
+    gate, up = h13.chunk(2, dim=-1)
+    return F.silu(gate) * up
+
+
+def _moe_ffn(x: torch.Tensor, w: Params, top_k: int) -> torch.Tensor:
+    """Top-k routed SwiGLU experts, every expert evaluated on every token and
+    combined with the routing matrix: exact, and the oracle of the other two.
+    x (N, D)."""
+    E = w["gate"].shape[0]
+    top_idx, top_w = _route(x, w["gate"], top_k)
+    combine = (F.one_hot(top_idx, E).float() * top_w[..., None]).sum(dim=1).to(x.dtype)  # (N, E)
+    hidden = _swiglu(torch.matmul(x, _expert_weight(w["w13"], x.dtype)))  # (E, N, F)
+    expert_out = torch.bmm(hidden, _expert_weight(w["w2"], x.dtype))  # (E, N, D)
+    return torch.einsum("ne,end->nd", combine, expert_out)
+
+
+def _ragged_kernel_gate(x: torch.Tensor, w: Params) -> bool:
+    """K5 takes both expert stacks quantized, with dim and hidden (each the
+    reduction of one product and the width of the other) multiples of 256."""
+    if not (is_quantized(w["w13"]) and is_quantized(w["w2"])):
+        return False
+    hidden = w["w13"]["scale"].shape[-1] // 2
+    return x.shape[-1] % 256 == 0 and hidden % 256 == 0
+
+
+def _moe_ffn_ragged(x: torch.Tensor, w: Params, top_k: int) -> torch.Tensor:
+    """Drop-free sorted grouped-product MoE, the prefill path: the N * k
+    assignments sorted by expert (stable, so ties keep token order), each
+    projection one grouped product over the sorted rows, the weighted outputs
+    gathered back per token.
+
+    Quantized expert stacks go through ``moe_matmul_quant_ragged`` (K5): each
+    expert's rows are padded to whole ``MOE_RAGGED_TM``-row tiles inside a
+    buffer of the worst-case size, which depends on the row count alone, and
+    every tile carries its expert's index. Anything else runs one plain
+    product per expert on its own rows, which reads the counts on the host.
+    """
+    N, D = x.shape
+    E = w["gate"].shape[0]
+    top_idx, top_w = _route(x, w["gate"], top_k)
+    flat_e = top_idx.reshape(-1)  # (N k,) token-major
+    order = torch.argsort(flat_e, stable=True)
+    tok = order // top_k  # source token of each sorted row
+    counts = F.one_hot(flat_e, E).sum(dim=0)  # (E,), no host sync
+    NK = N * top_k
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(NK, device=x.device)  # flat -> sorted position
+    wts = top_w.reshape(-1).to(x.dtype)
+
+    if _ragged_kernel_gate(x, w):
+        TM = MOE_RAGGED_TM
+        # Worst-case padded rows, a whole number of tiles: the per-expert
+        # sizes rounded up to TM sum to at most NK + E (TM - 1).
+        Mp = (-(-NK // TM) + E) * TM
+        padded = -(-counts // TM) * TM
+        cum_pad = torch.cumsum(padded, 0)
+        offsets = cum_pad - padded  # padded start of each expert's rows
+        starts = torch.cumsum(counts, 0) - counts  # sorted start of each expert's rows
+        # Padded position p belongs to expert g_of_p at rank j; pad rows read
+        # a row of their expert (or row 0) and are discarded at the gather
+        # back. Tiles past the last expert's rows carry the clamped E - 1.
+        p = torch.arange(Mp, device=x.device)
+        g_of_p = torch.searchsorted(cum_pad, p, right=True).clamp_max(E - 1)
+        j = p - offsets[g_of_p]
+        sorted_idx = (starts[g_of_p] + torch.minimum(j, counts[g_of_p] - 1)).clamp(0, NK - 1)
+        xs_p = x[tok[sorted_idx]]  # (Mp, D) padded sorted rows
+        tile_group = g_of_p[::TM].to(torch.int32).contiguous()
+
+        def mm(inp: torch.Tensor, leaf: Weight) -> torch.Tensor:
+            q = leaf["q4"] if "q4" in leaf else leaf["q"]
+            return moe_matmul_quant_ragged(inp, q, leaf["scale"], tile_group, leaf.get("li"))
+
+        out_p = mm(_swiglu(mm(xs_p, w["w13"])), w["w2"])  # (Mp, D)
+        pos_f = offsets[flat_e] + (inv - starts[flat_e])  # (N k,) token-major
+        out = out_p[pos_f]
+    else:
+        sizes = counts.tolist()  # the host waits for the counts here
+        w13, w2 = _expert_weight(w["w13"], x.dtype), _expert_weight(w["w2"], x.dtype)
+        rows = torch.split(x[tok], sizes)  # rows grouped by expert
+        out = torch.cat([_swiglu(r @ w13[e]) @ w2[e] for e, r in enumerate(rows)])[inv]
+    return (out * wts[:, None]).reshape(N, top_k, D).sum(dim=1)
+
+
+def _expert_mm(inp: torch.Tensor, leaf: Weight) -> torch.Tensor:
+    """(E, C, in) @ (E, in, out). A quantized leaf at a decode-sized capacity
+    goes through ``moe_matmul_quant`` (K8), which streams each live expert's
+    stored bytes once; anything else is a plain batched product on a dense
+    weight."""
+    if is_quantized(leaf):
+        C, K = inp.shape[-2:]
+        if C <= MOE_EXPERT_ROWS_MAX and K % 256 == 0 and leaf["scale"].shape[-1] % 128 == 0:
+            q = leaf["q4"] if "q4" in leaf else leaf["q"]
+            if "li" in leaf:  # (L, E, ...) stack: read in place
+                return moe_matmul_quant_stacked(inp, q, leaf["scale"], leaf["li"])
+            return moe_matmul_quant(inp, q, leaf["scale"])
+    return torch.bmm(inp, _expert_weight(leaf, inp.dtype))
+
+
+def moe_capacity(n_rows: int, top_k: int, n_experts: int, capacity_factor: float) -> int:
+    """Slots per expert: ceil(N k factor / E), at least 8, at most N."""
+    C = max(8, int(-(-n_rows * top_k * capacity_factor // n_experts)))
+    return min(C, n_rows)
+
+
+def _moe_ffn_dispatch(
+    x: torch.Tensor, w: Params, top_k: int, capacity_factor: float
+) -> torch.Tensor:
+    """Capacity-bounded expert dispatch: tokens go into per-expert buffers of
+    ``moe_capacity`` slots in token-major order (pad tokens of ragged rows
+    included: they are rows like any other here), each expert runs its SwiGLU
+    on its own (C, D) buffer, and outputs gather back weighted by the router.
+    Assignments beyond an expert's capacity contribute zero. Above
+    ``MOE_RAGGED_ROWS`` rows the drop-free ``_moe_ffn_ragged`` takes over."""
+    N, D = x.shape
+    E = w["gate"].shape[0]
+    if N > MOE_RAGGED_ROWS:
+        return _moe_ffn_ragged(x, w, top_k)
+    C = moe_capacity(N, top_k, E, capacity_factor)
+    top_idx, top_w = _route(x, w["gate"], top_k)
+
+    flat_e = top_idx.reshape(-1)  # (N k,) token-major
+    onehot = F.one_hot(flat_e, E)
+    slot = (torch.cumsum(onehot, 0) * onehot).sum(dim=-1) - 1  # rank within its expert
+    keep = slot < C
+
+    # The buffers by gather: src[e, c] is the token in slot c of expert e, or
+    # N, a row of zeros. Every kept (e, slot) has exactly one source, so the
+    # buffers do not depend on the order of the writes below; the dropped
+    # assignments all land in column C, which is cut off.
+    NK = N * top_k
+    src = torch.full((E, C + 1), N, dtype=torch.long, device=x.device)
+    src[flat_e, torch.where(keep, slot, C)] = torch.arange(NK, device=x.device) // top_k
+    buf = torch.cat([x, x.new_zeros((1, D))])[src[:, :C]]  # (E, C, D)
+
+    out_buf = _expert_mm(_swiglu(_expert_mm(buf, w["w13"])), w["w2"])  # (E, C, D)
+
+    gathered = out_buf[flat_e, slot.clamp_max(C - 1)]  # (N k, D)
+    weights = (top_w.reshape(-1) * keep.float()).to(x.dtype)
+    return (gathered * weights[:, None]).reshape(N, top_k, D).sum(dim=1)
+
+
+def _moe_block(x: torch.Tensor, w: Params, args: TransformerArgs) -> torch.Tensor:
+    """The MoE feed-forward of one layer on x (B, T, D), all B T positions as
+    rows, by ``args.moe_impl``."""
+    rows = x.reshape(-1, x.shape[-1])
+    k = args.moe.num_experts_per_tok
+    if args.moe_impl == "dispatch":
+        out = _moe_ffn_dispatch(rows, w, k, args.moe_capacity_factor)
+    else:
+        out = _moe_ffn(rows, w, k)
+    return out.reshape(x.shape)
 
 
 class RingInputs(NamedTuple):
@@ -249,7 +493,8 @@ def forward(
             rms_norm(h, lw["attention_norm"], args.norm_eps), lw, cache, li, positions,
             token_valid, rope_cs, rings[window], args,
         )
-        h = h + _dense_ffn(rms_norm(h, lw["ffn_norm"], args.norm_eps), lw)
+        x = rms_norm(h, lw["ffn_norm"], args.norm_eps)
+        h = h + (_moe_block(x, lw, args) if args.moe else _dense_ffn(x, lw))
     cache.kv_len = new_total
     h = rms_norm(h, params["norm"], args.norm_eps)
     if head == "none":

@@ -1,36 +1,53 @@
-"""Row-tiled quantized matmul with a weight per tile: wrapper, launch counter
-and plain PyTorch version (counterpart of
-``mistral_inference_tpu/ops/pallas/moe_matmul.py::moe_matmul_quant_ragged``).
+"""The two quantized matmuls of the MoE feed-forward: wrappers, launch
+counters and plain PyTorch versions (counterpart of
+``mistral_inference_tpu/ops/pallas/moe_matmul.py``). Two hand-written CUDA
+kernels for Hopper, both with the grouped-dequant rounding points of
+``ops/cuda/matmul_quant.py`` (fp32 dot per group, the scale after the dot,
+fp32 sum over groups, one cast).
 
-One hand-written CUDA kernel for Hopper (K5, ``csrc/moe_matmul.cu``). Rows of
-``x (Mp, K)`` come in ``n_tiles`` tiles of ``TM = Mp / n_tiles``; tile ``t``
-is multiplied by the quantized weight ``q[tile_group[t]]`` of an ``(E, ...)``
-stack, or ``q[li, tile_group[t]]`` of an ``(L, E, ...)`` stack, with the
-grouped-dequant rounding points of ``ops/cuda/matmul_quant.py`` (fp32 dot per
-group, the scale after the dot, fp32 sum over groups, one cast). Dense
-prefill is the E = 1 case; sorted-by-expert MoE prefill the general one. Pad
-rows are computed like any other row: the caller discards them.
+K5, ``moe_matmul_quant_ragged`` (``csrc/moe_matmul.cu``): row-tiled, a weight
+per tile. Rows of ``x (Mp, K)`` come in ``n_tiles`` tiles of ``TM = Mp /
+n_tiles``; tile ``t`` is multiplied by the quantized weight
+``q[tile_group[t]]`` of an ``(E, ...)`` stack, or ``q[li, tile_group[t]]`` of
+an ``(L, E, ...)`` stack. Dense prefill is the E = 1 case; sorted-by-expert
+MoE prefill the general one. Pad rows are computed like any other row: the
+caller discards them. ``tile_group`` is read on the device; the host never
+waits for it.
 
-``tile_group`` is read on the device; the host never waits for it. The
-wrapper launches the kernel for CUDA tensors, and for nothing else: on CPU
-tensors it runs ``moe_matmul_quant_ragged_plain``. There is no fallback from
-a CUDA tensor to the plain version.
+K8, ``moe_matmul_quant`` and ``moe_matmul_quant_stacked``
+(``csrc/moe_expert_matmul.cu``): per expert, its capacity buffer ``x[e] (C,
+K)`` times its own weight, one launch for all experts; the MoE decode step.
+The stacked name reads layer ``li`` of an ``(L, E, ...)`` stack through a
+pointer offset, so no layer is ever copied. Row blocks that hold only zeros
+(empty capacity slots) read no weight. ``moe_matmul_quant.launches`` counts
+the kernel's launches through either name.
+
+The wrappers launch a kernel for CUDA tensors, and for nothing else: on CPU
+tensors they run the plain versions. There is no fallback from a CUDA tensor
+to a plain version.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from mistral_inference_tpu_torch.ops.cuda import _call
-from mistral_inference_tpu_torch.ops.cuda.matmul_quant import _weight_bits, grouped_dot_plain
+from mistral_inference_tpu_torch.ops.cuda.matmul_quant import (
+    _weight_bits,
+    _workspace,
+    grouped_dot_plain,
+)
 
 _P, _I = _call.P, _call.I
 _SIGS = {
     ("moe_matmul", "moe_matmul_quant_ragged_bf16"): [_P] * 5 + [_I] * 8 + [_P],
+    ("moe_expert_matmul", "moe_matmul_quant_splits"): [_I] * 6,
+    ("moe_expert_matmul", "moe_matmul_quant_bf16"): [_P] * 5 + [_I] * 6 + [_P],
 }
+_kernel = functools.partial(_call.kernel, _SIGS)
 _launch = functools.partial(_call.launch, _SIGS)
 _need = _call.need
 
@@ -102,4 +119,89 @@ def moe_matmul_quant_ragged(
 
 moe_matmul_quant_ragged.launches = 0
 
-KERNELS = (moe_matmul_quant_ragged,)
+# (E, C, K, N, ng, bits) -> reduction splits K8 uses for that shape
+_SPLITS: Dict[Tuple[int, ...], int] = {}
+
+
+def moe_matmul_quant_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8: one grouped-dequant product per expert, empty
+    slots included. x (E, C, K), q (E, K', N), scale (E, ng, N) -> (E, C, N)
+    in x.dtype."""
+    return torch.stack(
+        [grouped_dot_plain(x[e], q[e], scale[e]) for e in range(x.shape[0])]
+    ).to(x.dtype)
+
+
+def _expert_splits(key: Tuple[int, ...]) -> int:
+    n = _SPLITS.get(key)
+    if n is None:
+        n = _kernel("moe_expert_matmul", "moe_matmul_quant_splits")(*key)
+        if n < 1:
+            E, C, K, N, ng, _ = key
+            raise ValueError(
+                f"the CUDA kernel takes N % 128 == 0, K % 8 == 0 and a group size that is a "
+                f"multiple of 4; got E={E} C={C} K={K} N={N} groups={ng}"
+            )
+        _SPLITS[key] = n
+    return n
+
+
+def _run_experts(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, layer: int) -> torch.Tensor:
+    """Launch K8 on q (E, K', N) and scale (E, ng, N), or on layer ``layer``
+    of q (L, E, K', N) and scale (L, E, ng, N)."""
+    E, C, K = x.shape
+    stored, N = q.shape[-2:]
+    lead = tuple(q.shape[:-3])
+    L = lead[0] if lead else 1
+    bits, ng, _ = _weight_bits(x, q, scale)
+    dev = x.device
+    _need(x, "x", torch.bfloat16, (E, C, K), dev)
+    _need(q, "q", torch.int8, lead + (E, stored, N), dev)
+    _need(scale, "scale", torch.float32, lead + (E, ng, N), dev)
+    if not 0 <= layer < L:
+        raise ValueError(f"layer index {layer} out of range for {L} layers")
+    splits = _expert_splits((E, C, K, N, ng, bits))
+    part = _workspace(dev, splits * E * C * N).data_ptr() if splits > 1 else None
+    out = torch.empty((E, C, N), dtype=torch.bfloat16, device=dev)
+    _launch(
+        "moe_expert_matmul", "moe_matmul_quant_bf16", dev, x.data_ptr(),
+        q.data_ptr() + layer * E * stored * N, scale.data_ptr() + layer * E * ng * N * 4,
+        out.data_ptr(), part, E, C, K, N, ng, bits,
+    )
+    moe_matmul_quant.launches += 1
+    return out
+
+
+def moe_matmul_quant(
+    x: torch.Tensor,  # (E, C, K) bf16 on the card: the experts' capacity buffers
+    q: torch.Tensor,  # (E, K, N) int8 | (E, K / 2, N) packed int4
+    scale: torch.Tensor,  # (E, ng, N) fp32
+) -> torch.Tensor:
+    """K8. ``x[e] @ dequant(q[e])`` for every expert -> (E, C, N) in x.dtype."""
+    if x.dim() != 3 or q.dim() != 3 or scale.dim() != 3:
+        raise ValueError("moe_matmul_quant takes x (E, C, K), q (E, K', N) and scale (E, ng, N)")
+    if not x.is_cuda:
+        return moe_matmul_quant_plain(x, q, scale)
+    return _run_experts(x, q, scale, 0)
+
+
+moe_matmul_quant.launches = 0
+
+
+def moe_matmul_quant_stacked(
+    x: torch.Tensor,  # (E, C, K)
+    q: torch.Tensor,  # (L, E, K, N) int8 | (L, E, K / 2, N) packed int4
+    scale: torch.Tensor,  # (L, E, ng, N) fp32
+    li: int,
+) -> torch.Tensor:
+    """K8 on layer ``li`` of a stack, read in place: ``x[e] @ dequant(q[li, e])``."""
+    if x.dim() != 3 or q.dim() != 4 or scale.dim() != 4:
+        raise ValueError(
+            "moe_matmul_quant_stacked takes x (E, C, K), q (L, E, K', N) and scale (L, E, ng, N)"
+        )
+    if not x.is_cuda:
+        return moe_matmul_quant_plain(x, q[int(li)], scale[int(li)])
+    return _run_experts(x, q, scale, int(li))
+
+
+KERNELS = (moe_matmul_quant_ragged, moe_matmul_quant)

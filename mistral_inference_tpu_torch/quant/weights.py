@@ -1,15 +1,17 @@
-"""Weight-only quantization of a dense transformer's params tree (counterpart
-of ``mistral_inference_tpu/quant/weights.py``).
+"""Weight-only quantization of a transformer's params tree, dense or MoE
+(counterpart of ``mistral_inference_tpu/quant/weights.py``).
 
-Quantizes the big linears of every layer (``wqkv``, ``wo``, ``w13``, ``w2``)
-to int8 or packed int4 with grouped fp32 scales (``ops/linear.py``).
-Embeddings, norms and the output head stay in the model dtype: they are a
-small share of the bytes and the usual accuracy-critical tails.
+Quantizes the big linears of every layer (``wqkv``, ``wo``, ``w13``, ``w2``;
+in an MoE layer the last two are (E, in, out) expert stacks, quantized in
+one call with the experts as a leading axis) to int8 or packed int4 with
+grouped fp32 scales (``ops/linear.py``). Embeddings, norms, the MoE router
+``gate`` and the output head stay in the model dtype: they are a small share
+of the bytes and the usual accuracy-critical tails.
 
 This port keeps wq|wk|wv and w1|w3 fused along ``out``. Grouped quantization
 is per output column, so the fused quantized leaf is exactly the
 concatenation along ``out`` of the separate leaves' bytes and scales.
-The MoE and Mamba families wait for their slices.
+The Mamba family waits for its slice.
 """
 
 from __future__ import annotations
@@ -35,9 +37,10 @@ def _bits(mode: str) -> int:
 
 def quantize_params(params: Params, mode: str, group: int = DEFAULT_GROUP) -> Params:
     """mode: "int8" | "int4". Mutates (and returns) the tree: each big linear
-    (out, in) becomes a {"q" | "q4", "scale"} leaf (in, out), one weight at a
-    time, and the dense tensor is dropped as it converts, so the peak stays
-    one weight's fp32 copy above the steady state. Refuses a tree that is
+    (out, in), or expert stack (E, in, out), becomes a {"q" | "q4", "scale"}
+    leaf (..., in, out), one weight at a time, and the dense tensor is dropped
+    as it converts, so the peak stays one weight's fp32 copy above the steady
+    state. Refuses a tree that is
     already quantized: re-quantizing packed bytes would be nonsense."""
     bits = _bits(mode)
     for i, lw in enumerate(params["layers"]):
@@ -46,7 +49,7 @@ def quantize_params(params: Params, mode: str, group: int = DEFAULT_GROUP) -> Pa
                 raise ValueError(f"layers[{i}].{leaf} is already quantized")
         for leaf in QUANT_LEAVES:
             w = lw.pop(leaf)
-            lw[leaf] = quantize_weight(w.t(), bits, group)
+            lw[leaf] = quantize_weight(w if w.dim() == 3 else w.t(), bits, group)
             del w
     return params
 
@@ -67,13 +70,16 @@ def init_quantized_params(
     bits = _bits(mode)
     key = "q4" if bits == 4 else "q"
 
-    def rand_quant(out_f: int, in_f: int) -> Dict[str, torch.Tensor]:
+    def rand_quant(*shape: int) -> Dict[str, torch.Tensor]:
+        """For a plain weight (out, in) or an expert stack (E, in, out)."""
+        lead, (in_f, out_f) = shape[:-2], (shape[-2:] if len(shape) == 3 else shape[::-1])
         g = min(group, in_f)
         stored = in_f // 2 if bits == 4 else in_f
         q = torch.randint(
-            -128, 128, (stored, out_f), generator=generator, dtype=torch.int8, device=device
+            -128, 128, (*lead, stored, out_f), generator=generator, dtype=torch.int8,
+            device=device,
         )
-        scale = torch.full((in_f // g, out_f), 0.01, dtype=torch.float32, device=device)
+        scale = torch.full((*lead, in_f // g, out_f), 0.01, dtype=torch.float32, device=device)
         return {key: q, "scale": scale}
 
     # Everything but the big linears comes from a one-layer template.

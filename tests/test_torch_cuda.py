@@ -9,7 +9,7 @@ Tolerances: the int8 ring bytes and scales that the fused decode kernel
 writes are equal to the plain write; outputs agree within 1e-2 (bf16
 outputs, fp32 sums in another order) and the fp32 stats within 1e-4. The
 quantized matmuls are held to the same 1e-2 + 1e-2 |ref|, and the stacked and
-repeated launches of K3 to equal bits.
+repeated launches of K3 and K8 to equal bits.
 ``python3 chip_smoke.py`` runs the same comparisons at the model's shapes.
 """
 
@@ -97,7 +97,7 @@ def test_wrappers_reject_bad_operands_on_card():
         linear(torch.zeros((4, 256), device=dev), {
             "q": torch.zeros((256, 128), dtype=torch.int8, device=dev),
             "scale": torch.ones((2, 128), device=dev)})
-    assert [fn.launches for fn in cuda_ops.all_kernels()] == [0] * 6
+    assert [fn.launches for fn in cuda_ops.all_kernels()] == [0] * 7
 
 
 def _quantized(g, K, N, bits, group, lead=()):
@@ -168,6 +168,75 @@ def test_moe_matmul_ragged_matches_plain_on_card(bits, E, n_tiles, TM, K, N, gro
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
     assert mm.moe_matmul_quant_ragged.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,E,C,K,N,group", [
+    (8, 4, 8, 256, 512, 128),
+    (4, 4, 8, 256, 512, 128),
+    (8, 2, 16, 512, 256, 64),
+    (4, 8, 4, 2048, 384, 128),   # enough groups for a split reduction
+    (4, 3, 5, 384, 128, 128),    # odd group count; rows that do not fill a row block
+    (4, 2, 128, 512, 256, 128),  # the largest capacity the dispatch gate sends
+])
+def test_moe_matmul_quant_matches_plain_on_card(bits, E, C, K, N, group):
+    """K8 against its plain version: every expert on its own weight, empty
+    capacity slots (zero rows, which the kernel skips) giving zeros, the
+    stacked form the same kernel on an offset, one count per launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    from mistral_inference_tpu_torch.ops.cuda import moe_matmul as mm
+
+    g = torch.Generator(device="cuda").manual_seed(bits + E + K)
+    L = 2
+    q, scale = _quantized(g, K, N, bits, group, lead=(L, E))
+    x = torch.randn((E, C, K), generator=g, device="cuda").to(torch.bfloat16)
+    x[0, C // 2:] = 0  # a half-filled expert
+    x[-1] = 0  # an expert with no row at all
+    before = mm.moe_matmul_quant.launches
+    for li in (0, 1):
+        ref = mm.moe_matmul_quant_plain(x, q[li], scale[li])
+        out = mm.moe_matmul_quant(x, q[li].contiguous(), scale[li].contiguous())
+        stacked = mm.moe_matmul_quant_stacked(x, q, scale, li)
+        again = mm.moe_matmul_quant_stacked(x, q, scale, li)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+        assert not bool(out[-1].any()) and not bool(out[0, C // 2:].any())
+        assert torch.equal(out, stacked), "the stacked form is the same kernel on an offset"
+        assert torch.equal(stacked, again), "no atomics: the same bits on every run"
+    assert mm.moe_matmul_quant.launches == before + 6
+
+
+@pytest.mark.cuda
+def test_moe_matmul_quant_rejects_bad_operands_on_card():
+    """K8's wrapper refuses wrong dtypes, devices, shapes and non-contiguous
+    operands, as K5's does, and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    from mistral_inference_tpu_torch.ops.cuda import moe_matmul as mm
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    E, C, K, N = 2, 4, 256, 128
+    q, scale = _quantized(g, K, N, 8, 128, lead=(E,))
+    x = torch.zeros((E, C, K), dtype=torch.bfloat16, device="cuda")
+    before = mm.moe_matmul_quant.launches
+    with pytest.raises(TypeError, match="x must be"):
+        mm.moe_matmul_quant(x.float(), q, scale)
+    with pytest.raises(TypeError, match="q must be"):
+        mm.moe_matmul_quant(x, q.to(torch.int16), scale)
+    with pytest.raises(ValueError, match="scale is on"):
+        mm.moe_matmul_quant(x, q, scale.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        mm.moe_matmul_quant(x.transpose(0, 1).contiguous().transpose(0, 1), q, scale)
+    with pytest.raises(ValueError, match="q must have shape"):
+        mm.moe_matmul_quant(x, q[:1], scale)
+    with pytest.raises(ValueError, match="N % 128"):
+        mm.moe_matmul_quant(x, q[..., :64].contiguous(), scale[..., :64].contiguous())
+    with pytest.raises(ValueError, match="out of range"):
+        mm.moe_matmul_quant_stacked(x, q[None], scale[None], 1)
+    with pytest.raises(ValueError, match="takes x"):
+        mm.moe_matmul_quant(x, q[None], scale[None])
+    assert mm.moe_matmul_quant.launches == before
 
 
 @pytest.mark.cuda

@@ -44,8 +44,12 @@ def test_sources_found():
                    "quant/weights.py"):
         assert PKG / module in SOURCES
     assert sorted(p.name for p in (PKG / "ops" / "cuda" / "csrc").glob("*.cu")) == [
-        "flash_attention.cu", "fused_decode.cu", "matmul_quant.cu", "moe_matmul.cu",
-        "ring_attention.cu",
+        "flash_attention.cu", "fused_decode.cu", "matmul_quant.cu", "moe_expert_matmul.cu",
+        "moe_matmul.cu", "ring_attention.cu",
+    ]
+    # K3 and K8 share their device code, K1 and K4 theirs.
+    assert sorted(p.name for p in (PKG / "ops" / "cuda" / "csrc").glob("*.cuh")) == [
+        "common.cuh", "dequant_dot.cuh", "flash_tile.cuh",
     ]
 
 
@@ -129,7 +133,8 @@ def test_cpu_only_on_request():
     assert all(t.device.type == "cpu" for t in model.params["layers"][0].values())
 
 
-@pytest.mark.parametrize("name", ["mistral-7b-v0.1", "mistral-7b-v0.3"])
+@pytest.mark.parametrize("name", ["mistral-7b-v0.1", "mistral-7b-v0.3", "mixtral-8x7b",
+                                  "mixtral-8x22b"])
 def test_registry_matches_jax_presets(name):
     """The presets carry the JAX package's published widths."""
     import dataclasses
