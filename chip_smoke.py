@@ -8,11 +8,12 @@ Phases, each printing one JSON line:
 1. card: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: every kernel of ``mistral_inference_tpu_torch/ops/cuda/csrc`` is
    compiled from the checkout with nvcc (sm_90a).
-3. kernels: each of the seven CUDA kernels against its plain PyTorch version
+3. kernels: each of the eight CUDA kernels against its plain PyTorch version
    on the same inputs on the card, at the Mistral-7B and Mixtral-8x7B shapes
    (H=32, Hkv=8, D=128; the four linears of a layer at 4, 256 and 2048 rows,
    and a layer's eight experts at a capacity of 4 and 128 and at 6144 sorted
-   rows, int8 and int4), with its time (CUDA-event median), the plain
+   rows, int8 and int4; a speculative verify chunk of 5 and of 8 tokens),
+   with its time (CUDA-event median), the plain
    version's time, the time of one PyTorch library call for the same function
    where one exists, and the card's least time for the work (bytes or flops,
    from this run's inputs).
@@ -27,6 +28,22 @@ Phases, each printing one JSON line:
    checks that greedy tokens repeat, the decode == prefill invariant, that
    top-p sampling is fixed by its seed, and that every kernel of the path was
    launched.
+5. speculation: a probe that the verify forward's operations give a row the
+   same bits among 20 or 32 rows as among 4, then four paths of
+   ``generate(..., draft_model=...)`` on ``mistral-7b-v0.1`` with int4 weights
+   and an int8 ring, each beside plain greedy ``generate()`` on the same model
+   in the same run: the target as its own draft at all 32 layers (every draft
+   accepted), an independent 2-layer draft at 8 layers (none accepted), prompt
+   lookup at 8 layers with 8-token verify chunks, all three on a ring that
+   never wraps and so through the fused verify kernel; and the 2-layer draft
+   again with a prompt longer than the window, where the ring wraps, the
+   verify forward writes nothing and ``scatter_chunk`` commits. Each checks the
+   fused verify kernel's launches (layers x verify forwards, or 0), that greedy
+   tokens repeat and equal plain greedy decoding's (on the wrapping path: may
+   differ only at a near-tie of the target's two best logits), the logprob
+   count, the emitted logprobs against a teacher-forced prefill, and that
+   top-p speculation is fixed by its seed; and prints accepted drafts, target
+   forwards per token and tokens/s beside plain decoding's.
 
 Then a ``kernels`` line, the nvidia-smi line, and last the device line.
 Any failure raises and the script exits non-zero. Without a CUDA device,
@@ -34,7 +51,8 @@ or without the package beside it, it exits non-zero and prints no result.
 nvcc's build logs (``-Xptxas -v``: registers, shared memory) go to stderr.
 ``--profile`` adds to the lines of the two int4 paths a torch.profiler
 breakdown of the prefill and of one decode step, with the decode step's aten
-calls and the host's time to enqueue it.
+calls and the host's time to enqueue it. ``--kernels=k2,k7`` runs phases 1 and
+2 and only the named kernels' checks, and prints no result line.
 """
 
 from __future__ import annotations
@@ -71,6 +89,7 @@ REPEATS = 3  # timed generate() calls per median
 K1, K2, K4 = "flash_attention", "fused_update_decode_attention", "ring_attention_stats"
 K3, K5, K6 = "matmul_quant", "moe_matmul_quant_ragged", "decode_attention"
 K8 = "moe_matmul_quant"
+K7 = "fused_verify_chunk_attention"
 # decode == prefill: the greedy decode logprobs and the teacher-forced
 # prefill logprobs of the same tokens go through the same int8 ring bytes
 # (the fused decode kernel's write is bit-identical to the prefill's), but
@@ -542,9 +561,12 @@ def check_k3(gen):
 
 
 def check_k5(gen):
+    import torch.nn.functional as F
+
     from mistral_inference_tpu_torch.ops.cuda.moe_matmul import (
         moe_matmul_quant_ragged, moe_matmul_quant_ragged_plain,
     )
+    from mistral_inference_tpu_torch.ops.linear import dequant
 
     rows, TM = 2048, 256
     tiles = rows // TM
@@ -598,7 +620,8 @@ def check_k5(gen):
     E, rows8 = 8, 6144
     tg8 = torch.tensor([0, 0, 0, 1, 1, 2, 2, 2, 3, 3, 4, 4, 5, 5, 5, 6, 6, 7, 7] + [7] * 5,
                        dtype=torch.int32, device="cuda")
-    e8 = {"ms": 0.0, "bound_ms": 0.0}
+    e8 = {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+          "library_predequant_ms": 0.0}
     for name, K, N in EXPERT_LINEARS:
         q, scale = quant_stack(gen, E, K, N, 4)
         x = randn(gen, rows8, K, dtype=torch.bfloat16)
@@ -611,7 +634,22 @@ def check_k5(gen):
         e8[f"{name}_ms"] = timed_ms(lambda: moe_matmul_quant_ragged(x, q, scale, tg8), reps=5)
         e8["ms"] += e8[f"{name}_ms"]
         e8["bound_ms"] += bound(2.0 * rows8 * K * N, nbytes(x, q, scale, tg8) + 2 * rows8 * N)[0]
-        del q, scale, x, out, ref
+        e8["plain_ms"] += timed_ms(
+            lambda: moe_matmul_quant_ragged_plain(x, q, scale, tg8), reps=3)
+        # The yardstick: no one call takes a weight per tile, so one F.linear
+        # per expert on its own rows, all eight inside the timed call.
+        spans = [(e, [t for t, g in enumerate(tg8.tolist()) if g == e]) for e in range(E)]
+        spans = [(e, ts[0] * TM, (ts[-1] + 1) * TM) for e, ts in spans]
+        leaves = [{"q4": q[e], "scale": scale[e]} for e in range(E)]
+
+        def per_expert(ws):
+            return [F.linear(x[a:b], w) for (e, a, b), w in zip(spans, ws)]
+
+        e8["library_ms"] += timed_ms(
+            lambda: per_expert([dequant(l, x.dtype).t() for l in leaves]), reps=3)
+        ws = [dequant(l, x.dtype).t().contiguous() for l in leaves]
+        e8["library_predequant_ms"] += timed_ms(lambda: per_expert(ws), reps=5)
+        del q, scale, x, out, ref, ws, leaves
     return {
         "name": K5, "kernel": "K5", "route": "cuda",
         "source": "mistral_inference_tpu_torch/ops/cuda/csrc/moe_matmul.cu",
@@ -622,7 +660,8 @@ def check_k5(gen):
                  "8 tiles of 256, E=1; by_shape has each linear, int4 and int8; also checked: "
                  "E=4 in a 2-layer stack with a mixed tile_group and layer 1; experts_e8 is the "
                  "sum over a Mixtral layer's int4 w13 and w2 at E=8, 6144 sorted rows in 24 tiles "
-                 "of 256, the last five past the last expert's rows",
+                 "of 256, the last five past the last expert's rows, with its plain version's "
+                 "time and, as library time, one F.linear per expert on its own rows",
         "experts_e8": e8,
         "library": "F.linear(x, dequant(w).T): library_ms dequantizes inside the timed call "
                    "(the same inputs), library_predequant_ms takes a bf16 weight made before",
@@ -794,6 +833,165 @@ def check_k6(gen):
         "library": "SDPA with a mask on one layer's ring dequantized to bf16 before the call",
         "tolerance": "abs 1e-2 + rel 1e-2 (bf16 output, fp32 sums in another order); the ring "
                      "is unchanged",
+    }
+
+
+def check_k7(gen):
+    import torch.nn.functional as F
+
+    from mistral_inference_tpu_torch.cache import _quantize_ring, dequant_layer, slot_positions
+    from mistral_inference_tpu_torch.ops.attention import sliding_window_mask
+    from mistral_inference_tpu_torch.ops.cuda.attention import (
+        fused_update_decode_attention, fused_verify_chunk_attention,
+        fused_verify_chunk_attention_plain,
+    )
+
+    bf = torch.bfloat16
+    L, B, S, window, li = 32, 4, 4096, 4096, 5
+    worst, main, checked = 0.0, None, []
+
+    def ring(int8):
+        if int8:
+            CK, KS = _quantize_ring(randn(gen, L, B, S, HKV, D))
+            CV, VS = _quantize_ring(randn(gen, L, B, S, HKV, D))
+            KS, VS = KS.permute(0, 1, 3, 2).contiguous(), VS.permute(0, 1, 3, 2).contiguous()
+        else:
+            CK, CV, KS, VS = randn(gen, L, B, S, HKV, D, dtype=bf), randn(
+                gen, L, B, S, HKV, D, dtype=bf), None, None
+        return [CK.reshape(L, B, S, HKV * D), CV.reshape(L, B, S, HKV * D), KS, VS]
+
+    def clones(stacks):
+        return [None if t is None else t.clone() for t in stacks]
+
+    # (T, fills, live rows, int8): T = 5 with slots 126..130 across a span's
+    # edge and a dead row (the timed case); T = 8, the most, with slots
+    # 124..131 across an edge and a chunk that ends in the ring's last slot;
+    # a bf16 ring.
+    for T, kv_len, live, int8 in ((5, [126, 1000, 2999, 4000], [1, 1, 1, 0], True),
+                                  (8, [3000, 124, 4088, 37], [1, 1, 1, 1], True),
+                                  (5, [126, 1000, 2999, 4000], [1, 1, 1, 0], False)):
+        kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        live = torch.tensor(live, dtype=torch.int32, device="cuda")
+        steps = torch.arange(T, dtype=torch.int32, device="cuda")
+        q_pos = kv_len[:, None] + steps[None]
+        write_slot0 = torch.where(live > 0, kv_len % window, -1).to(torch.int32)
+        slot_pos, slot_valid = slot_positions(kv_len + live * T, window, S)
+        stacks = ring(int8)
+        start = clones(stacks)
+        xq = randn(gen, B, T, H, D, dtype=bf)
+        xk, xv = randn(gen, B, T, HKV, D, dtype=bf) * 3, randn(gen, B, T, HKV, D, dtype=bf)
+        case = f"T={T}, int8={int8}, kv_len={kv_len.tolist()}, live={live.tolist()}"
+        tail = (li, window, write_slot0, q_pos, slot_pos, slot_valid)
+        out = fused_verify_chunk_attention(xq, xk, xv, *stacks, *tail)
+        plain_stacks = clones(start)
+        ref = fused_verify_chunk_attention_plain(xq, xk, xv, *plain_stacks, *tail)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("CK", "CV", "KS", "VS"), stacks, plain_stacks):
+            if a is not None:
+                require(torch.equal(a, b), f"K7 ring {name} after the write is not bit-identical "
+                                           f"to the plain write ({case}): "
+                                           f"{int((a != b).sum())} elements differ")
+        ok, err = close(out, ref, 1e-2, 1e-2)
+        require(ok, f"K7 output disagrees with its plain version ({case}): {err}")
+        worst = max(worst, err)
+        # A second launch on the ring it has written: the same bits.
+        again = fused_verify_chunk_attention(xq, xk, xv, *stacks, *tail)
+        require(torch.equal(again, out), f"K7 is not the same bits on a second run ({case})")
+        # T sequential K2 steps from the same start give query t's bits and
+        # the same ring: what lets greedy speculation equal greedy decoding.
+        seq = clones(start)
+        for t in range(T):
+            sp, sv = slot_positions(kv_len + live * (t + 1), window, S)
+            ws = torch.where(live > 0, (kv_len + t) % window, -1).to(torch.int32)
+            o = fused_update_decode_attention(
+                xq[:, t:t + 1].contiguous(), xk[:, t:t + 1].contiguous(),
+                xv[:, t:t + 1].contiguous(), *seq, li, window, ws, q_pos[:, t].contiguous(),
+                sp, sv)
+            rows = live > 0
+            require(torch.equal(o[rows, 0], out[rows, t]),
+                    f"K7 query {t} differs in bits from a K2 step at its position ({case})")
+        torch.cuda.synchronize()
+        for a, b in zip(stacks, seq):
+            require(a is None or torch.equal(a, b), f"K7's ring differs from T K2 steps' ({case})")
+        # T = 1 is K2: the same output bits and ring.
+        one, two = clones(start), clones(start)
+        sp, sv = slot_positions(kv_len + live, window, S)
+        o7 = fused_verify_chunk_attention(
+            xq[:, :1].contiguous(), xk[:, :1].contiguous(), xv[:, :1].contiguous(), *one, li,
+            window, write_slot0, q_pos[:, :1].contiguous(), sp, sv)
+        o2 = fused_update_decode_attention(
+            xq[:, :1].contiguous(), xk[:, :1].contiguous(), xv[:, :1].contiguous(), *two, li,
+            window, write_slot0, q_pos[:, 0].contiguous(), sp, sv)
+        torch.cuda.synchronize()
+        require(torch.equal(o7, o2), f"K7 at T = 1 differs in bits from K2 ({case})")
+        for a, b in zip(one, two):
+            require(a is None or torch.equal(a, b), f"K7 at T = 1 wrote another ring than K2 ({case})")
+        checked.append(case)
+        if main is None:
+            main = (xq, xk, xv, *stacks, *tail)
+            main_live = live
+        del stacks, start, plain_stacks, seq, one, two
+
+    xq, xk, xv, CK, CV, KS, VS, li, window, write_slot0, q_pos, slot_pos, slot_valid = main
+    T = xq.shape[1]
+    ones = torch.ones((B, T), dtype=torch.bool, device="cuda")
+    mask = sliding_window_mask(q_pos, slot_pos, ones, slot_valid, window)
+    # Bytes: each (row, slot) pair that any query of the row sees, once (int8
+    # K and V for every KV head plus their fp32 scales); the T slots a live
+    # row writes; the small operands in and the output out.
+    seen = float(mask.any(dim=1).sum())
+    ring_bytes = seen * HKV * (2 * D + 2 * 4)
+    write_bytes = float(main_live.sum()) * T * HKV * (2 * D + 2 * 4)
+    small = nbytes(xq, xk, xv, write_slot0, q_pos, slot_pos, slot_valid) + 2 * B * T * H * D
+    b_ms, b_by = bound(4.0 * D * H * float(mask.sum()), ring_bytes + write_bytes + small)
+    layer = [0]
+
+    def cycle_layers():
+        # The next layer of the 32-layer stack on each call, as a verify
+        # forward takes them, so the timed ring is never the one just read.
+        layer[0] = (layer[0] + 1) % L
+        args = list(main)
+        args[7] = layer[0]
+        return fused_verify_chunk_attention(*args)
+
+    plain_stacks = [t.clone() for t in (CK, CV, KS, VS)]
+    kh = dequant_layer(CK[li], KS[li], bf, HKV).transpose(1, 2).contiguous()
+    vh = dequant_layer(CV[li], VS[li], bf, HKV).transpose(1, 2).contiguous()
+    qh, m = xq.transpose(1, 2).contiguous(), mask[:, None].contiguous()
+    xs = [[x[:, t:t + 1].contiguous() for x in (xq, xk, xv)] for t in range(T)]
+    qps = [q_pos[:, t].contiguous() for t in range(T)]
+
+    def k2_loop():
+        # The same chunk as T single-token launches, which read the ring T times.
+        layer[0] = (layer[0] + 1) % L
+        for t in range(T):
+            fused_update_decode_attention(*xs[t], CK, CV, KS, VS, layer[0], window, write_slot0,
+                                          qps[t], slot_pos, slot_valid)
+
+    return {
+        "name": K7, "kernel": "K7", "route": "cuda",
+        "source": "mistral_inference_tpu_torch/ops/cuda/csrc/fused_decode.cu",
+        "replaces": "mistral_inference_tpu/ops/pallas/attention.py:1552",
+        "max_abs_err": worst,
+        "ms": timed_ms(cycle_layers),
+        "plain_ms": timed_ms(lambda: fused_verify_chunk_attention_plain(
+            xq, xk, xv, *plain_stacks, *main[7:])),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bound": "each (row, slot) pair that any query of the row sees, once (int8 K and V of "
+                 "every KV head and their fp32 scales), plus the T slots a live row writes, "
+                 "the small operands in and the output out, over the card's memory rate",
+        "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=m, enable_gqa=True)),
+        "k2_loop_ms": timed_ms(k2_loop),
+        "shape": "B=4 T=5 over a 32-layer int8 ring stack of S=4096 (fills 126, 1000, 2999 and a "
+                 "dead row at 4000; row 0's slots 126..130 cross a span's edge) H=32 Hkv=8 D=128",
+        "checked": checked,
+        "library": "SDPA with a mask on one layer's ring dequantized to bf16 before the call, "
+                   "after the write: no one PyTorch call writes the ring and attends",
+        "k2_loop": "the same chunk as T launches of K2, which read the ring T times",
+        "tolerance": "ring bytes and scales bit-identical to the plain write; output abs 1e-2 + "
+                     "rel 1e-2 (bf16 output, fp32 sums in another order); a second launch, T "
+                     "sequential K2 steps (outputs and ring) and K2 at T = 1 equal bits",
     }
 
 
@@ -991,6 +1189,282 @@ def main_path(card: str, profile: bool, path: MainPath):
     }, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 4, continued: the speculation paths
+# ---------------------------------------------------------------------------
+
+
+class SpecPath(NamedTuple):
+    label: str
+    layers: int
+    draft: str  # "self" | "small" (an independent 2-layer model) | "lookup"
+    K: int  # spec_tokens: a verify chunk is K + 1 tokens
+    prompt_lens: Tuple[int, ...]
+    fused: bool  # the gate opens: verify through K7; else K4 + K1, scatter_chunk
+
+
+# Two bf16 ulps of a logit between 4 and 8: how close the target's two best
+# logits must be where the wrap-safe verify route may pick the other one.
+NEAR_TIE_GAP = 0.0625
+SPEC_PROMPT_LENS = (1537, 700, 45)  # span < 4096: the ring never wraps
+REPEATED_BLOCK = 50  # the lookup path's 700-token prompt repeats a block of this length
+SPEC_PATHS = (
+    SpecPath("spec-self-draft", 32, "self", 4, SPEC_PROMPT_LENS, True),
+    SpecPath("spec-small-draft", 8, "small", 4, SPEC_PROMPT_LENS, True),
+    SpecPath("lookup", 8, "lookup", 7, SPEC_PROMPT_LENS, True),
+    SpecPath("spec-small-draft-wrapping", 8, "small", 4, PROMPT_LENS, False),
+)
+
+
+class AcceptLog:
+    """Records every block's accept counts while it is entered."""
+
+    def __init__(self):
+        self.accepts = []  # one (n_iters, B) array per block
+
+    def __enter__(self):
+        from mistral_inference_tpu_torch import speculative as sp
+
+        self._sp, self._walk = sp, sp._walk_emits
+
+        def logged(emits, lps, acc, *rest):
+            self.accepts.append(acc)
+            return self._walk(emits, lps, acc, *rest)
+
+        sp._walk_emits = logged
+        return self
+
+    def __exit__(self, *exc):
+        self._sp._walk_emits = self._walk
+
+    @property
+    def verify_forwards(self) -> int:
+        return sum(a.shape[0] for a in self.accepts)
+
+
+def divergences(model, prompts, spec, plain):
+    """Where greedy speculation left plain greedy decoding: for each row that
+    did, the step, the two tokens, and the target's top-2 logits at that step
+    as a teacher-forced prefill of the row's prompt and plain tokens gives
+    them."""
+    from mistral_inference_tpu_torch.generate import prefill_prompts
+
+    found = []
+    for row, (a, b) in enumerate(zip(spec, plain)):
+        if a == b:
+            continue
+        step = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        full = prompts[row] + b[:step]
+        cache = model.alloc_cache(1, len(full))
+        with torch.inference_mode():
+            _, carry = prefill_prompts(model, [full], cache, CHUNK, want_logprobs=False)
+        top = carry[0].topk(2)
+        found.append({"row": row, "step": step, "spec_token": a[step], "plain_token": b[step],
+                      "top2_tokens": top.indices.tolist(), "top2_logits": top.values.tolist(),
+                      "top2_gap": float(top.values[0] - top.values[1])})
+    return found
+
+
+def spec_path(card: str, path: SpecPath):
+    """Drive one path of SPEC_PATHS; returns (its summary line, its launch
+    counts per greedy speculative generate())."""
+    import numpy as np
+
+    from mistral_inference_tpu_torch.generate import generate
+    from mistral_inference_tpu_torch.model import Transformer
+    from mistral_inference_tpu_torch.models.registry import get_args
+    from mistral_inference_tpu_torch.ops import cuda as kern
+
+    def preset(layers, window):
+        args = get_args(MODEL)
+        args.kv_quant, args.n_layers, args.sliding_window = "int8", layers, window
+        return args
+
+    args = preset(path.layers, WINDOW)
+    model = Transformer.random(args, dtype=torch.bfloat16, seed=0, quant="int4")
+    if path.draft == "self":
+        draft = model
+    elif path.draft == "small":
+        # A draft whose window is under the span it must hold is refused (its
+        # rewind needs a ring that never wraps): on the wrapping path the
+        # draft is made without a window.
+        draft = Transformer.random(preset(2, WINDOW if path.fused else None),
+                                   dtype=torch.bfloat16, seed=1, quant="int4")
+    else:
+        draft = "lookup"
+    torch.cuda.synchronize()
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, args.vocab_size, n).tolist() for n in path.prompt_lens]
+    if path.draft == "lookup":
+        block = prompts[1][:REPEATED_BLOCK]
+        prompts[1] = (block * (len(prompts[1]) // REPEATED_BLOCK + 1))[:len(prompts[1])]
+    B = len(prompts)
+
+    def run(p, spec: bool, **kw):
+        if spec:
+            kw.update(draft_model=draft, spec_tokens=path.K)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = generate(p, model, chunk_size=CHUNK, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in kern.all_kernels()}
+
+    kern.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run(prompts, True, max_tokens=2, temperature=0.0)  # first-call set-up
+    before = counts()
+    with AcceptLog() as log:
+        (gen, lps), spec_s = run(prompts, True, max_tokens=GREEDY_TOKENS, temperature=0.0)
+    per_greedy = {k: n - before[k] for k, n in counts().items()}
+    forwards = log.verify_forwards
+    accepts = np.concatenate(log.accepts)  # (iterations, B)
+    (again, _), t = run(prompts, True, max_tokens=GREEDY_TOKENS, temperature=0.0)
+    require(again == gen, f"{path.label}: greedy tokens differ between two runs")
+    spec_s = min(spec_s, t)
+    spec1_s = min(run(prompts, True, max_tokens=1, temperature=0.0)[1] for _ in range(2))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lens = path.prompt_lens
+    require(all(len(g) == GREEDY_TOKENS for g in gen), "wrong number of generated tokens")
+    require(all(len(lp) == n - 1 + GREEDY_TOKENS for lp, n in zip(lps, lens)),
+            "wrong number of logprobs")
+    require(all(math.isfinite(x) for lp in lps for x in lp), "non-finite logprob")
+    want = path.layers * forwards if path.fused else 0
+    require(per_greedy[K7] == want,
+            f"{path.label}: K7 launched {per_greedy[K7]} times, expected {want} "
+            f"({path.layers} layers x {forwards} verify forwards)")
+    expected = [K1, K4, K5, K3] + ([K7] if path.fused else []) + (
+        [] if path.draft == "lookup" else [K2])
+    for name in expected:
+        require(per_greedy[name] > 0, f"{name} was not launched on the {path.label} path")
+
+    # Plain greedy generate() on the same model, in the same call.
+    (plain, plain_lps), plain_s = run(prompts, False, max_tokens=GREEDY_TOKENS, temperature=0.0)
+    plain_s = min(plain_s, run(prompts, False, max_tokens=GREEDY_TOKENS, temperature=0.0)[1])
+    plain1_s = min(run(prompts, False, max_tokens=1, temperature=0.0)[1] for _ in range(2))
+    diverged = divergences(model, prompts, gen, plain)
+    for d in diverged:
+        emit({"phase": "divergence", "path": path.label, **d})
+    if path.fused:
+        # Every operation of the verify forward gives a row the bits a decode
+        # step gives it (row_count_probe, check_k7): the tokens are equal.
+        require(not diverged,
+                f"{path.label}: greedy speculation left plain greedy generate(): {diverged}")
+    else:
+        # The no-write verify attends through K4 + K1 + merge (tensor cores,
+        # the chunk's K/V not yet in the ring) where a decode step attends
+        # through K2: the same function, other sums, as prefill against
+        # decode. Its logits differ in their last bf16 bit, so it may leave
+        # plain greedy, but only at a step where the target's two best logits
+        # nearly tie, and only for the other of the two.
+        for d in diverged:
+            require(d["top2_gap"] <= NEAR_TIE_GAP and d["spec_token"] in d["top2_tokens"]
+                    and d["plain_token"] in d["top2_tokens"],
+                    f"{path.label}: greedy speculation left plain greedy generate() away "
+                    f"from a near-tie: {d}")
+    same = {d["row"]: d["step"] for d in diverged}
+    lp_gap = max(abs(a - b) for i, (x, y) in enumerate(zip(lps, plain_lps))
+                 for a, b in list(zip(x, y))[:len(x) - GREEDY_TOKENS + same.get(i, GREEDY_TOKENS)])
+
+    # The emitted logprobs against a teacher-forced prefill of prompt + output.
+    full = [p + g for p, g in zip(prompts, gen)]
+    (_, lps_tf), _ = run(full, False, max_tokens=0, temperature=0.0)
+    diffs = np.stack([
+        np.abs(np.array(a[-GREEDY_TOKENS:]) - np.array(b[-GREEDY_TOKENS:]))
+        for a, b in zip(lps, lps_tf)
+    ])
+    require(float(diffs.max()) <= INVARIANT_MAX_NATS and float(diffs.mean()) <= INVARIANT_MEAN_NATS,
+            f"{path.label}: speculation != prefill: max {diffs.max()} mean {diffs.mean()} nats")
+
+    # top-p speculation, twice with one seed.
+    (s1, l1), topp_s = run(prompts, True, max_tokens=TOPP_TOKENS, temperature=0.7, top_p=0.9, seed=1)
+    (s2, _), _ = run(prompts, True, max_tokens=TOPP_TOKENS, temperature=0.7, top_p=0.9, seed=1)
+    require(s1 == s2, f"{path.label}: top-p tokens differ between two runs with one seed")
+    require(all(len(g) == TOPP_TOKENS for g in s1)
+            and all(len(lp) == n - 1 + TOPP_TOKENS for lp, n in zip(l1, lens)),
+            "wrong number of sampled tokens or logprobs")
+    launches = counts()
+    require(path.fused or launches[K7] == 0, "the wrap-safe route launched the fused verify kernel")
+
+    emitted = B * (GREEDY_TOKENS - 1)  # the first token comes from the prefill
+    return {
+        "phase": "spec_path", "path": path.label, "model": MODEL, "layers": path.layers,
+        "weights": "bf16 random (seed 0), quantized to int4 (group 128)",
+        "draft": {"self": "the target itself", "lookup": "prompt lookup (n-gram 2)",
+                  "small": "2 layers of the same widths (seed 1, int4)"}[path.draft],
+        "spec_tokens": path.K, "verify_route": "fused (K7)" if path.fused
+        else "no-write verify (K4 + K1) + scatter_chunk", "kv_ring": "int8",
+        "prompt_lens": lens, "chunk_size": CHUNK, "window": WINDOW, "weights_gb": weights_gb,
+        "verify_forwards": forwards,
+        "mean_accepted_drafts": float(accepts.mean()),
+        "accepted_drafts_by_row": accepts.mean(axis=0).tolist(),
+        "target_forwards_per_emitted_token": forwards * B / emitted,
+        "forwards_note": f"{forwards} verify forwards of {B} rows for {emitted} tokens after "
+                         "the first; a block runs 8 iterations, so rows that are done ride along",
+        "tokens_equal_plain_greedy": not diverged, "divergences_at_near_ties": diverged,
+        "near_tie_gap": None if path.fused else NEAR_TIE_GAP,
+        "max_logprob_gap_to_plain_greedy": lp_gap,
+        "logprob_gap_note": "over the prompt and the tokens up to a row's first divergence",
+        "spec_greedy_s": spec_s, "spec_first_token_s": spec1_s,
+        "spec_tokens_per_s": emitted / (spec_s - spec1_s),
+        "plain_greedy_s": plain_s, "plain_first_token_s": plain1_s,
+        "plain_tokens_per_s": emitted / (plain_s - plain1_s),
+        "timing_note": "each the faster of 2 warm calls; tokens/s is B*(32-1) over generate(32) "
+                       "less generate(1), which holds the prefills (the draft's too)",
+        "invariant_max_nats": float(diffs.max()), "invariant_mean_nats": float(diffs.mean()),
+        "invariant_bound": (INVARIANT_MAX_NATS, INVARIANT_MEAN_NATS),
+        "peak_mem_gb": peak_gb, "launches": launches,
+        "launches_per_greedy_generate": per_greedy,
+        "topp_s": topp_s, "topp_identical": True, "card": card,
+    }, per_greedy
+
+
+def row_count_probe(gen):
+    """Does an operation of the verify forward give a row the same bits among
+    20 rows (B = 4 x T = 5) or 32 as among 4 (a decode step)? Greedy
+    speculation equals greedy decoding token for token only if every one
+    does. K3 must (its split over K is chosen for one row block up to 32
+    rows); the others are PyTorch's and are reported."""
+    import torch.nn.functional as F
+
+    from mistral_inference_tpu_torch.ops.cuda.matmul_quant import matmul_quant
+    from mistral_inference_tpu_torch.ops.norm import rms_norm
+
+    bf = torch.bfloat16
+    same = {}
+    k3_ms = {4: 0.0, 20: 0.0, 32: 0.0}  # sums over one layer's four int4 linears
+    for name, K, N in LINEARS:
+        q, scale = quant_stack(gen, 1, K, N, 4)
+        x = randn(gen, 32, K, dtype=bf)
+        few = matmul_quant(x[:4].contiguous(), q[0], scale[0])
+        for rows in (20, 32):
+            many = matmul_quant(x[:rows].contiguous(), q[0], scale[0])
+            same[f"K3 int4 {name} rows4==rows{rows}"] = bool(torch.equal(few, many[:4]))
+        for rows in k3_ms:
+            xr = x[:rows].contiguous()
+            k3_ms[rows] += timed_ms(lambda: matmul_quant(xr, q[0], scale[0]), reps=5)
+        del q, scale
+    x = randn(gen, 32, 4096, dtype=bf)
+    head = randn(gen, 32000, 4096, dtype=bf) * 4096**-0.5
+    w = torch.ones((4096,), dtype=bf, device="cuda")
+    for rows in (15, 20, 32):
+        n = rows // 5  # the decode step of that batch
+        same[f"cuBLAS head rows{n}==rows{rows}"] = bool(torch.equal(
+            F.linear(x[:n], head), F.linear(x[:rows], head)[:n]))
+        same[f"rms_norm rows{n}==rows{rows}"] = bool(torch.equal(
+            rms_norm(x[:n], w, 1e-5), rms_norm(x[:rows], w, 1e-5)[:n]))
+    torch.cuda.synchronize()
+    for key, ok in same.items():
+        require(ok or not key.startswith("K3"), f"{key}: K3's bits depend on the row count")
+    return {"phase": "row_count_probe", "same_bits": same,
+            "k3_layer_ms_by_rows": {str(k): v for k, v in k3_ms.items()},
+            "k3_note": "K3 over one layer's four int4 linears: a verify forward of B x (K + 1) "
+                       "rows reads each weight once per 4-row block"}
+
+
 def kernel_ms(prof, calls: int = 1):
     """Kernel time per call by category from a torch.profiler run, and in
     all (kernel events only: an operator's entry repeats its kernels')."""
@@ -1120,10 +1594,17 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for check in (check_k1, check_k4, check_k2, check_k3, check_k5, check_k8, check_k6):
+    checks = (check_k1, check_k4, check_k2, check_k3, check_k5, check_k8, check_k6, check_k7)
+    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:] if a.startswith("--kernels=")]
+    for check in checks:
+        if only and check.__name__.removeprefix("check_") not in only[0]:
+            continue
         rows.append(check(gen))
         emit({"phase": "kernel", "card": card, **rows[-1]})
         torch.cuda.empty_cache()
+    if only:  # a part of the run, for work on one kernel: no result line
+        print(card, flush=True)
+        return 0
 
     # Each kernel's launches on the path that runs it at the greatest depth:
     # the full Mixtral model for all but K6, which only the non-fused route runs.
@@ -1135,6 +1616,13 @@ def main() -> int:
         for name in path.expected:
             if path.layers > depth.get(name, 0):
                 launches[name], depth[name] = counted[name], path.layers
+        torch.cuda.empty_cache()
+    emit(row_count_probe(gen))
+    for spath in SPEC_PATHS:
+        summary, counted = spec_path(card, spath)
+        emit(summary)
+        if spath.fused and spath.layers > depth.get(K7, 0):
+            launches[K7], depth[K7] = counted[K7], spath.layers
         torch.cuda.empty_cache()
     emit({"kernels": [
         {"name": r["name"], "route": r["route"], "source": r["source"],

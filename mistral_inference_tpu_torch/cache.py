@@ -151,6 +151,94 @@ def update_stacked(
     CV[li, b_idx, slot] = v_sel.reshape(N, -1).to(CV.dtype)
 
 
+def scatter_chunk(
+    cache: KVCache,
+    chunk_k: torch.Tensor,  # (L, B, T, Hkv, Dh) rope'd keys, before quantization
+    chunk_v: torch.Tensor,
+    accept: torch.Tensor,  # (B,) int32: how many leading chunk tokens to write
+) -> KVCache:
+    """Write the first ``accept[b]`` tokens of an already-computed chunk's
+    K/V into every layer's ring, in place, and advance ``kv_len`` by
+    ``accept``. Returns the cache.
+
+    This is the speculative-decoding commit: the verify forward ran with
+    ``write_cache=False`` (it attended [ring ++ chunk] without touching the
+    ring) and returned these per-layer chunk K/V stacks; only the accepted
+    prefix is ever written, so rejected draft tokens cannot clobber live
+    ring entries even when the ring wraps. int8 rings quantize on write
+    with the rule of ``update_stacked``: the committed bytes are those a
+    plain decode step would have written."""
+    T = chunk_k.shape[2]
+    steps = torch.arange(T, dtype=torch.int32, device=accept.device)
+    accept = accept.to(torch.int32)
+    positions = cache.kv_len[:, None] + steps[None, :]
+    token_valid = steps[None, :] < accept[:, None]
+    new_total = cache.kv_len + accept
+    # A chunk no longer than the smallest window lands in T distinct slots
+    # per row, so the write has a fixed shape and the host never waits for
+    # the card (a speculative block commits once per iteration). A longer
+    # chunk overwrites itself and goes through ring_writes, which does wait.
+    masked = T <= min(cache.windows)
+    plans = {}  # one write plan per window, shared by its layers
+    for li, window in enumerate(cache.windows):
+        if window not in plans:
+            if masked:
+                plans[window] = ((positions % window).long(), token_valid)
+            else:
+                plans[window] = ring_writes(positions, token_valid, new_total, window)
+        update = _update_stacked_masked if masked else update_stacked
+        update(
+            cache.k, cache.v, cache.k_scale, cache.v_scale, li, chunk_k[li], chunk_v[li],
+            plans[window],
+        )
+    cache.kv_len = new_total
+    return cache
+
+
+def _update_stacked_masked(
+    CK: torch.Tensor,  # (L, B, W, Hkv*Dh), updated in place
+    CV: torch.Tensor,
+    KS: Optional[torch.Tensor],
+    VS: Optional[torch.Tensor],
+    li: int,
+    xk: torch.Tensor,  # (B, T, Hkv, Dh)
+    xv: torch.Tensor,
+    plan: Tuple[torch.Tensor, torch.Tensor],  # slot (B, T) int64; write (B, T) bool
+) -> None:
+    """``update_stacked`` with a fixed shape: every token's slot is written,
+    with its new value where ``write`` is set and with what the slot already
+    held elsewhere. The slots of one row must be distinct."""
+    slot, write = plan
+    B, T = slot.shape
+    rows = torch.arange(B, device=slot.device)[:, None]
+    if KS is not None:
+        xk, k_scale = _quantize_ring(xk)
+        xv, v_scale = _quantize_ring(xv)
+        for S_, new in ((KS, k_scale), (VS, v_scale)):
+            S_[li, rows, :, slot] = torch.where(write[..., None], new, S_[li, rows, :, slot])
+    for C, new in ((CK, xk), (CV, xv)):
+        new = new.reshape(B, T, -1).to(C.dtype)
+        C[li, rows, slot] = torch.where(write[..., None], new, C[li, rows, slot])
+
+
+def rewind(cache: KVCache, new_len: torch.Tensor) -> KVCache:
+    """Set ``kv_len`` to ``new_len`` (per row), in place. ONLY safe on a
+    ring that never wrapped (window >= every position ever written): there
+    the slots at or past ``new_len`` recover position s - W < 0 in
+    ``slot_positions`` and are invalid, while slots below it still recover
+    pos = s. On a wrapped ring the overwritten-then-rewound slots would
+    bring back stale positions pointing at clobbered bytes. Two callers
+    rely on this: the draft cache of ``speculative.py`` (always
+    full-context), and the target cache on the fused verify route
+    (``write_cache="spec"`` writes all K+1 candidates into the ring, then
+    the caller advances ``kv_len`` past the accepted prefix), which
+    ``speculative._spec_fused_ok`` opens only when min(windows) covers every
+    reachable position. The wrap-safe route keeps the target ring clean
+    instead: no-write verify, then ``scatter_chunk``."""
+    cache.kv_len = new_len.to(torch.int32)
+    return cache
+
+
 def dequant_layer(
     ck: torch.Tensor,  # (B, W, Hkv*Dh) one layer's ring
     ks: Optional[torch.Tensor],  # (B, Hkv, W) fp32, or None for bf16 rings

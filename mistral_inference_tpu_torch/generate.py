@@ -9,7 +9,7 @@ tokens and logprobs on the device and the host reads them once per block.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,7 +40,18 @@ def sample(
     return sample_top_p(probs, top_p, generator)
 
 
-def _nucleus_threshold(probs: torch.Tensor, p: float) -> torch.Tensor:
+TopP = Union[float, torch.Tensor]  # one nucleus size, or one per row (B,)
+
+
+def _p_col(p: TopP, probs: torch.Tensor) -> TopP:
+    """top_p as something that broadcasts against (..., 1) sums: a float
+    stays one; a (B,) tensor of per-row nucleus sizes gains trailing axes."""
+    if isinstance(p, (int, float)):
+        return float(p)
+    return p.float().reshape(probs.shape[0], *([1] * (probs.dim() - 1)))
+
+
+def _nucleus_threshold(probs: torch.Tensor, p: TopP) -> torch.Tensor:
     """The largest float t whose strictly-above mass sum(probs[probs > t])
     still exceeds p, found without a sort by a 31-step radix search on the
     fp32 bit pattern (int32 order is float order for non-negative floats;
@@ -54,11 +65,14 @@ def _nucleus_threshold(probs: torch.Tensor, p: float) -> torch.Tensor:
     return t.view(torch.float32)
 
 
-def top_p_probs(probs: torch.Tensor, p: float) -> torch.Tensor:
+def top_p_probs(probs: torch.Tensor, p: TopP) -> torch.Tensor:
     """The renormalized nucleus distribution (highest-probability tokens
-    with cumulative mass > p kept, the rest zeroed)."""
+    with cumulative mass > p kept, the rest zeroed). Exposed apart from
+    sampling because speculative rejection sampling needs the filtered
+    distributions of both models, not just a draw. ``p`` is a float or a
+    (B,) tensor, one nucleus size per row of ``probs`` (B, ..., V)."""
     probs = probs.float()
-    filtered = torch.where(probs > _nucleus_threshold(probs, p), probs, 0.0)
+    filtered = torch.where(probs > _nucleus_threshold(probs, _p_col(p, probs)), probs, 0.0)
     return filtered / filtered.sum(-1, keepdim=True)
 
 
@@ -83,18 +97,73 @@ def _prefill_step(
     cache,
     carry: torch.Tensor,  # (B, V) previous chunk's last prelogits
     attend_cache: bool,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One prompt chunk. Returns (teacher-forced logprobs (B, T), each row's
-    last valid prelogits, carried over when the row has no token here)."""
+    want_logprobs: bool = True,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """One prompt chunk. Returns (teacher-forced logprobs (B, T), or None
+    without ``want_logprobs``; each row's last valid prelogits, carried over
+    when the row has no token here)."""
     hidden = model.forward(tokens, seqlens, cache, attend_cache, head="none")
     B = hidden.shape[0]
     rows = torch.arange(B, device=hidden.device)
     last = tf.output_head(model.params, hidden[rows, (seqlens - 1).clamp_min(0).long()])
     last = torch.where((seqlens > 0)[:, None], last, carry)
+    if not want_logprobs:
+        return None, last
     logprobs = _sliced_teacher_logprobs(
         hidden, tokens, carry, lambda h: tf.output_head(model.params, h)
     )
     return logprobs, last
+
+
+def prefill_prompts(
+    model: Transformer,
+    encoded_prompts: Sequence[Sequence[int]],
+    cache,
+    chunk_size: Optional[int],
+    want_logprobs: bool = True,
+) -> Tuple[List[List[float]], torch.Tensor]:
+    """Chunked prefill of ragged prompts into ``cache`` (in place). Returns
+    (per-row teacher-forced logprobs, seqlen - 1 each, empty lists without
+    ``want_logprobs``; each row's prelogits after its last prompt token).
+    ``generate`` and the speculative generators share it; a draft model
+    prefills without logprobs."""
+    B = len(encoded_prompts)
+    seqlens = [len(p) for p in encoded_prompts]
+    max_prompt_len = max(seqlens)
+    if chunk_size is None:
+        chunk_size = max_prompt_len
+    device = model.device
+    logprobs: List[List[float]] = [[] for _ in range(B)]
+    carry = torch.zeros((B, model.args.vocab_size), dtype=torch.float32, device=device)
+    for s in range(0, max_prompt_len, chunk_size):
+        first = s == 0
+        chunk_lens = np.array([min(max(n - s, 0), chunk_size) for n in seqlens], np.int32)
+        chunk_tok = np.zeros((B, chunk_size), np.int64)
+        for i, p in enumerate(encoded_prompts):
+            row = p[s : s + chunk_size]
+            chunk_tok[i, : len(row)] = row
+        lp_d, carry = _prefill_step(
+            model, torch.from_numpy(chunk_tok).to(device),
+            torch.from_numpy(chunk_lens).to(device), cache, carry, attend_cache=not first,
+            want_logprobs=want_logprobs,
+        )
+        if want_logprobs:
+            lp = lp_d.cpu().numpy()
+            for i in range(B):
+                n = int(chunk_lens[i])
+                if n:
+                    logprobs[i].extend(lp[i, (1 if first else 0) : n].tolist())
+    return logprobs, carry
+
+
+def check_prompts(encoded_prompts: Sequence[Sequence[int]], vocab_size: int) -> None:
+    """Raise on an empty batch, an empty prompt or a token id out of range."""
+    if len(encoded_prompts) == 0:
+        raise ValueError("no prompts")
+    if min(len(p) for p in encoded_prompts) <= 0:
+        raise ValueError("every prompt needs at least one token")
+    if any(not 0 <= t < vocab_size for p in encoded_prompts for t in p):
+        raise ValueError(f"prompt token id out of range [0, {vocab_size})")
 
 
 def _sliced_teacher_logprobs(hidden, tokens, carry, head_fp32, TS: int = 64):
@@ -158,51 +227,43 @@ def generate(
     seed: int = 0,
     decode_block: int = 32,
     top_p: float = DEFAULT_TOP_P,
-    draft_model: Optional[Transformer] = None,
+    draft_model: Union[Transformer, str, None] = None,
+    spec_tokens: int = 4,
 ) -> Tuple[List[List[int]], List[List[float]]]:
     """Generate on the model's device (the card unless the model was made
     with ``device="cpu"``). Returns (generated tokens per row, logprobs per
     row): seqlen - 1 teacher-forced prompt transitions, then one entry per
     generated token. Sampling draws from a ``torch.Generator`` seeded with
-    ``seed``, so a seed fixes the tokens on one device."""
+    ``seed``, so a seed fixes the tokens on one device.
+
+    ``draft_model`` switches decoding to speculative decoding
+    (``speculative.py``): the same greedy tokens from fewer target forwards.
+    A ``Transformer`` drafts ``spec_tokens`` tokens per verify forward; the
+    string "lookup" (or "ngram") proposes them from the row's own history,
+    with no draft model."""
+    has_images = any(len(im) > 0 for im in images)
     if draft_model is not None:
-        raise NotImplementedError("speculative decoding is not ported yet")
-    if any(len(im) > 0 for im in images):
+        if has_images:
+            raise ValueError("speculative decoding does not take image inputs")
+        from mistral_inference_tpu_torch import speculative
+
+        kw = dict(max_tokens=max_tokens, temperature=temperature, spec_tokens=spec_tokens,
+                  chunk_size=chunk_size, eos_id=eos_id, seed=seed, top_p=top_p)
+        if isinstance(draft_model, str):
+            if draft_model not in ("lookup", "ngram"):
+                raise ValueError(f"draft_model must be a Transformer, 'lookup' or 'ngram', "
+                                 f"got {draft_model!r}")
+            return speculative.generate_lookup(encoded_prompts, model, **kw)
+        return speculative.generate_speculative(encoded_prompts, model, draft_model, **kw)
+    if has_images:
         raise NotImplementedError("image inputs are not ported yet")
+    check_prompts(encoded_prompts, model.args.vocab_size)
     B = len(encoded_prompts)
-    if B == 0:
-        raise ValueError("no prompts")
-    seqlens = [len(p) for p in encoded_prompts]
-    if min(seqlens) <= 0:
-        raise ValueError("every prompt needs at least one token")
-    V = model.args.vocab_size
-    if any(not 0 <= t < V for p in encoded_prompts for t in p):
-        raise ValueError(f"prompt token id out of range [0, {V})")
-    max_prompt_len = max(seqlens)
+    max_prompt_len = max(len(p) for p in encoded_prompts)
     device = model.device
 
     cache = model.alloc_cache(B, max_prompt_len + max_tokens)
-    if chunk_size is None:
-        chunk_size = max_prompt_len
-
-    logprobs: List[List[float]] = [[] for _ in range(B)]
-    carry = torch.zeros((B, V), dtype=torch.float32, device=device)
-    for s in range(0, max_prompt_len, chunk_size):
-        first = s == 0
-        chunk_lens = np.array([min(max(n - s, 0), chunk_size) for n in seqlens], np.int32)
-        chunk_tok = np.zeros((B, chunk_size), np.int64)
-        for i, p in enumerate(encoded_prompts):
-            row = p[s : s + chunk_size]
-            chunk_tok[i, : len(row)] = row
-        lp_d, carry = _prefill_step(
-            model, torch.from_numpy(chunk_tok).to(device),
-            torch.from_numpy(chunk_lens).to(device), cache, carry, attend_cache=not first,
-        )
-        lp = lp_d.cpu().numpy()
-        for i in range(B):
-            n = int(chunk_lens[i])
-            if n:
-                logprobs[i].extend(lp[i, (1 if first else 0) : n].tolist())
+    logprobs, carry = prefill_prompts(model, encoded_prompts, cache, chunk_size)
 
     generator = torch.Generator(device=device).manual_seed(seed)
     generated: List[List[int]] = [[] for _ in range(B)]

@@ -96,11 +96,13 @@ class Transformer:
         cache: KVCache,
         attend_cache: bool = True,
         head: str = "full",
-    ) -> torch.Tensor:
+        write_cache: Union[bool, str] = True,
+    ):
         """Prelogits (B, T, V) fp32, or hidden states with ``head="none"``.
-        The cache is updated in place."""
+        The cache is updated in place. ``write_cache`` (False | "spec") is
+        speculative decoding's verify pass: see ``models.transformer.forward``."""
         with torch.inference_mode():
             return tf.forward(
                 self.params, tokens.to(self.device), seqlens.to(self.device), cache,
-                self.args, attend_cache, head=head,
+                self.args, attend_cache, head=head, write_cache=write_cache,
             )

@@ -17,7 +17,11 @@ stack is a Python loop. Attention goes through the CUDA kernels of
   ``merge_attention_parts``;
 * decode (T == 1): ``fused_update_decode_attention``, which writes the ring
   and attends ring-only; or, with ``FUSED_DECODE`` off, ``update_stacked``
-  and then ``decode_attention``, the read-only kernel.
+  and then ``decode_attention``, the read-only kernel;
+* a speculative verify chunk (``write_cache="spec"``, T <= 8 over a ring that
+  never wraps): ``fused_verify_chunk_attention``, which writes all T
+  candidates and attends ring-only. With ``write_cache=False`` the verify
+  chunk takes the later-chunk route above and writes nothing.
 
 With ``args.moe`` a layer's feed-forward is a router ``gate`` (E, dim) in the
 model dtype and two expert stacks applied as ``x @ w``: ``w13`` (E, dim, 2 *
@@ -41,7 +45,7 @@ the decomposition the card runs.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -58,6 +62,7 @@ from mistral_inference_tpu_torch.ops.cuda.attention import (
     decode_attention,
     flash_attention,
     fused_update_decode_attention,
+    fused_verify_chunk_attention,
     merge_attention_parts,
     ring_attention_stats,
 )
@@ -353,12 +358,15 @@ class RingInputs(NamedTuple):
     is the same for every layer of that window, so ``forward`` makes it once
     per window, not once per layer."""
 
-    write_slot: Optional[torch.Tensor]  # fused decode: (B,) int32 slot, -1 = none
-    # prefill and non-fused decode: cache.ring_writes
+    # fused decode and fused verify: (B,) int32 slot of the chunk's first
+    # token, -1 = none
+    write_slot: Optional[torch.Tensor]
+    # prefill and non-fused decode: cache.ring_writes; None when nothing is
+    # written (write_cache=False)
     writes: Optional[Tuple[torch.Tensor, ...]]
-    # (B, W) position and validity of each slot: after a decode step's write,
-    # before a prefill chunk's; None for the first chunk, which attends to
-    # itself alone.
+    # (B, W) position and validity of each slot: after the write of a decode
+    # step or a fused verify chunk, before a prefill chunk's; None for the
+    # first chunk, which attends to itself alone.
     slot_pos: Optional[torch.Tensor]
     slot_valid: Optional[torch.Tensor]
 
@@ -371,10 +379,20 @@ def _ring_inputs(
     kv_len: torch.Tensor,  # (B,) fill before this chunk
     new_total: torch.Tensor,  # (B,) fill after it
     attend_cache: bool,
+    write_cache: Union[bool, str] = True,
 ) -> RingInputs:
     """RingInputs of one window: a decode step (T == 1 over the ring) gets
     its write slot (fused route) or write plan (non-fused route) and the
-    ring's state after the write; a prefill chunk its write plan."""
+    ring's state after the write; a fused verify chunk its first write slot
+    and the state after all T writes; a prefill chunk its write plan; a
+    no-write verify chunk the ring's state alone."""
+    if attend_cache and write_cache == "spec":
+        # Valid only on a ring that never wraps, so every valid token is
+        # written: the T slots are consecutive from the first token's.
+        write_slot0 = torch.where(token_valid[:, 0], positions[:, 0] % window, -1)
+        return RingInputs(
+            write_slot0.to(torch.int32), None, *slot_positions(new_total, window, W)
+        )
     if attend_cache and positions.shape[1] == 1:
         after = slot_positions(new_total, window, W)
         if not FUSED_DECODE:
@@ -385,7 +403,7 @@ def _ring_inputs(
         should = token_valid[:, 0] & (pos >= new_total - window)
         write_slot = torch.where(should, pos % window, -1).to(torch.int32)
         return RingInputs(write_slot, None, *after)
-    writes = ring_writes(positions, token_valid, new_total, window)
+    writes = ring_writes(positions, token_valid, new_total, window) if write_cache else None
     if not attend_cache:
         return RingInputs(None, writes, None, None)
     return RingInputs(None, writes, *slot_positions(kv_len, window, W))
@@ -401,9 +419,12 @@ def _attention_block(
     rope_cs: Tuple[torch.Tensor, torch.Tensor],
     ring: RingInputs,
     args: TransformerArgs,
-) -> torch.Tensor:
-    """One layer's attention; writes this chunk's K/V into layer ``li`` of
-    the ring in place."""
+    write_cache: Union[bool, str] = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One layer's attention; unless ``write_cache`` is False it writes this
+    chunk's K/V into layer ``li`` of the ring in place. Returns (the block's
+    output, this chunk's rope'd K, its V: (B, T, Hkv, Dh) before
+    quantization)."""
     B, T, _ = h.shape
     H, Hkv, Dh = args.n_heads, args.n_kv_heads, args.head_dim
     window = cache.windows[li]
@@ -416,6 +437,19 @@ def _attention_block(
     xk = apply_rope(xk.view(B, T, Hkv, Dh), cos, sin)
     xv = xv.reshape(B, T, Hkv, Dh).contiguous()
 
+    if write_cache == "spec" and ring.write_slot is not None:
+        # Speculative verify, fused: write ALL T candidate tokens into
+        # consecutive slots, then attend every query ring-only; causality
+        # inside the chunk is position arithmetic. Valid ONLY on a ring that
+        # never wraps (the caller checked that min(windows) covers every
+        # position): nothing is evicted, rejected slots stay invisible (the
+        # caller advances kv_len only past accepted tokens) and are
+        # overwritten when real tokens reach those positions.
+        out = fused_verify_chunk_attention(
+            xq, xk, xv, CK, CV, KS, VS, li, window, ring.write_slot, positions,
+            ring.slot_pos, ring.slot_valid,
+        )
+        return linear(out, w["wo"]), xk, xv
     if ring.write_slot is not None:
         # Decode: write the ring first, then attend ring-only. Safe for T == 1:
         # the query's own key cannot be evicted by a later token of the chunk.
@@ -423,7 +457,7 @@ def _attention_block(
             xq, xk, xv, CK, CV, KS, VS, li, window, ring.write_slot, positions[:, 0],
             ring.slot_pos, ring.slot_valid,
         )
-        return linear(out, w["wo"])
+        return linear(out, w["wo"]), xk, xv
     if T == 1 and ring.slot_pos is not None:
         # Decode, non-fused route: the same write through update_stacked,
         # then the read-only kernel over the ring as it now stands.
@@ -431,7 +465,7 @@ def _attention_block(
         out = decode_attention(
             xq, CK, CV, KS, VS, li, positions, ring.slot_pos, ring.slot_valid, window
         )
-        return linear(out, w["wo"])
+        return linear(out, w["wo"]), xk, xv
 
     # Under an int8 ring the chunk attends to quantize-rounded copies of its
     # own K/V, so prefill logits see what decode later reads from the ring.
@@ -451,8 +485,12 @@ def _attention_block(
         out = flash_attention(
             xq, xk_att, xv_att, positions, positions, token_valid, token_valid, window
         )
-    update_stacked(CK, CV, KS, VS, li, xk, xv, ring.writes)
-    return linear(out, w["wo"])
+    if ring.writes is not None:
+        update_stacked(CK, CV, KS, VS, li, xk, xv, ring.writes)
+    return linear(out, w["wo"]), xk, xv
+
+
+ChunkKV = Tuple[torch.Tensor, torch.Tensor]
 
 
 def forward(
@@ -463,15 +501,36 @@ def forward(
     args: TransformerArgs,
     attend_cache: bool,
     head: str = "full",
-) -> torch.Tensor:
+    write_cache: Union[bool, str] = True,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, ChunkKV]]:
     """One chunk pass (a prefill chunk or one decode step).
 
     Returns prelogits (B, T, V) fp32, or with ``head="none"`` the final-norm
     hidden states (B, T, D). The cache is updated IN PLACE: every layer's
     ring gets this chunk's K/V and ``cache.kv_len`` advances by ``seqlens``.
+
+    ``write_cache`` has three values, the last two for speculative decoding's
+    verify pass over a chunk ``[t0, d_1 .. d_K]``:
+
+    * ``True``: as above.
+    * ``False``: the chunk attends [ring ++ chunk] exactly like a prefill
+      chunk but the ring and ``kv_len`` are left untouched, and the return is
+      ``(prelogits, (chunk_k, chunk_v))``: the per-layer rope'd K/V stacks
+      (L, B, T, Hkv, Dh), before quantization, of which ``cache.scatter_chunk``
+      later writes just the accepted prefix. Rejected draft tokens therefore
+      never touch the ring, which keeps the commit safe even when the ring
+      wraps. Needs T > 1 over a ring (``attend_cache``).
+    * ``"spec"``: ALL T candidate tokens are written into consecutive ring
+      slots and every query attends ring-only at the fill after the write;
+      ``kv_len`` is NOT advanced: the caller moves it past the accepted
+      prefix (``cache.rewind``). Only for rings that never wrap.
     """
     B, T = tokens.shape
     device = tokens.device
+    if write_cache is not True and not attend_cache:
+        raise ValueError("a verify pass (write_cache other than True) attends to the ring")
+    if write_cache is False and T == 1:
+        raise ValueError("no-write (speculative verify) requires T > 1")
     kv_len = cache.kv_len
     seqlens = seqlens.to(torch.int32)
     new_total = kv_len + seqlens
@@ -483,23 +542,32 @@ def forward(
     theta = args.rope_theta or DEFAULT_ROPE_THETA
     rope_cs = rope_for_positions(positions, args.head_dim, theta)
     rings: Dict[int, RingInputs] = {}
+    chunk_k: List[torch.Tensor] = []
+    chunk_v: List[torch.Tensor] = []
     for li, lw in enumerate(params["layers"]):
         window = cache.windows[li]
         if window not in rings:
             rings[window] = _ring_inputs(
-                window, cache.size, positions, token_valid, kv_len, new_total, attend_cache
+                window, cache.size, positions, token_valid, kv_len, new_total, attend_cache,
+                write_cache,
             )
-        h = h + _attention_block(
+        attn_out, xk, xv = _attention_block(
             rms_norm(h, lw["attention_norm"], args.norm_eps), lw, cache, li, positions,
-            token_valid, rope_cs, rings[window], args,
+            token_valid, rope_cs, rings[window], args, write_cache,
         )
+        h = h + attn_out
+        if write_cache is False:
+            chunk_k.append(xk)
+            chunk_v.append(xv)
         x = rms_norm(h, lw["ffn_norm"], args.norm_eps)
         h = h + (_moe_block(x, lw, args) if args.moe else _dense_ffn(x, lw))
-    cache.kv_len = new_total
+    if write_cache is True:
+        cache.kv_len = new_total
     h = rms_norm(h, params["norm"], args.norm_eps)
-    if head == "none":
-        return h
-    return output_head(params, h)
+    out = h if head == "none" else output_head(params, h)
+    if write_cache is False:
+        return out, (torch.stack(chunk_k), torch.stack(chunk_v))
+    return out
 
 
 def output_head(params: Params, h: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Attention kernels of the dense path: wrappers, launch counters and plain
 PyTorch versions (counterpart of ``mistral_inference_tpu/ops/pallas/attention.py``).
 
-Four hand-written CUDA kernels for Hopper (sources in ``csrc/``, built by
+Five hand-written CUDA kernels for Hopper (sources in ``csrc/``, built by
 ``_build.py``):
 
 * ``flash_attention`` (K1, ``csrc/flash_attention.cu``): a chunk's attention
@@ -13,6 +13,9 @@ Four hand-written CUDA kernels for Hopper (sources in ``csrc/``, built by
 * ``decode_attention`` (K6, the write-free instantiation of
   ``csrc/fused_decode.cu``): T = 1 attention over one layer of the stacked
   ring, for the decode route that writes the ring with ``update_stacked``.
+* ``fused_verify_chunk_attention`` (K7, the T <= 8 instantiation of
+  ``csrc/fused_decode.cu``): a speculative verify chunk's T candidate K/V
+  written to consecutive ring slots, then all T queries attending ring-only.
 
 Each wrapper launches its kernel for CUDA tensors, and for nothing else: on
 CPU tensors it runs the plain version in this module, which computes the
@@ -45,6 +48,8 @@ _SIGS = {
     ("fused_decode", "fused_decode_bf16"): [_P] * 5 + [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _P],
     ("fused_decode", "decode_attention_int8"): [_P] * 5 + [_I, _I] + [_P] * 6 + [_I] * 4 + [_F, _P],
     ("fused_decode", "decode_attention_bf16"): [_P] * 3 + [_I, _I] + [_P] * 6 + [_I] * 4 + [_F, _P],
+    ("fused_decode", "fused_verify_int8"): [_P] * 7 + [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _P],
+    ("fused_decode", "fused_verify_bf16"): [_P] * 5 + [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _P],
     ("fused_decode", "fused_decode_span"): [],
 }
 _kernel = functools.partial(_call.kernel, _SIGS)
@@ -83,7 +88,7 @@ def attend_stats_plain(
     kv_valid: torch.Tensor,  # (B, S) bool
     window: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The function all four kernels compute, written out: fp32 dots, the
+    """The function all five kernels compute, written out: fp32 dots, the
     key scale after the dot, probabilities (times the value scale) rounded to
     q.dtype before the PV product. Returns (out (B, T, H, D) in q.dtype,
     m (B, T, H) fp32, l (B, T, H) fp32)."""
@@ -123,17 +128,21 @@ def merge_attention_parts(o1, m1, l1, o2, m2, l2) -> torch.Tensor:
 
 
 def _ring_write_plain(xk, xv, CK, CV, KS, VS, li: int, write_slot) -> None:
+    """Rows with write_slot >= 0 write their T tokens (xk, xv: (B, T, Hkv, D))
+    into slots write_slot, write_slot + 1, ... of layer ``li``, in place."""
+    T = xk.shape[1]
     rows = (write_slot >= 0).nonzero(as_tuple=True)[0]
-    slots = write_slot[rows].long()
-    k_new, v_new = xk[rows, 0], xv[rows, 0]  # (N, Hkv, D)
+    steps = torch.arange(T, device=xk.device)
+    slots = write_slot[rows].long()[:, None] + steps  # (N, T)
+    k_new, v_new = xk[rows], xv[rows]  # (N, T, Hkv, D)
     n = rows.shape[0]
     if KS is not None:
         k_new, k_s = _quantize_ring(k_new)
         v_new, v_s = _quantize_ring(v_new)
-        KS[li, rows, :, slots] = k_s
-        VS[li, rows, :, slots] = v_s
-    CK[li, rows, slots] = k_new.reshape(n, -1).to(CK.dtype)
-    CV[li, rows, slots] = v_new.reshape(n, -1).to(CV.dtype)
+        KS[li, rows[:, None], :, slots] = k_s
+        VS[li, rows[:, None], :, slots] = v_s
+    CK[li, rows[:, None], slots] = k_new.reshape(n, T, -1).to(CK.dtype)
+    CV[li, rows[:, None], slots] = v_new.reshape(n, T, -1).to(CV.dtype)
 
 
 def fused_update_decode_attention_plain(
@@ -168,6 +177,25 @@ def decode_attention_plain(
         torch.ones((B, 1), dtype=torch.bool, device=q.device), kv_valid, window,
     )
     return out.reshape(B, 1, H * D)
+
+
+def fused_verify_chunk_attention_plain(
+    xq, xk, xv, CK, CV, KS, VS, li, window, write_slot0, q_pos, kv_pos, kv_valid
+) -> torch.Tensor:
+    """Plain version of K7: the ring write of update_stacked for all T chunk
+    tokens of every live row (in place, slots write_slot0 .. write_slot0 +
+    T - 1), then ring-only attention of every query at its own position.
+    Returns (B, T, H * D)."""
+    B, T, H, D = xq.shape
+    S, Hkv = CK.shape[2], xk.shape[2]
+    _ring_write_plain(xk, xv, CK, CV, KS, VS, li, write_slot0)
+    out, _, _ = attend_stats_plain(
+        xq, CK[li].reshape(B, S, Hkv, D), CV[li].reshape(B, S, Hkv, D),
+        None if KS is None else KS[li], None if VS is None else VS[li],
+        q_pos.reshape(B, T), kv_pos,
+        torch.ones((B, T), dtype=torch.bool, device=xq.device), kv_valid, window,
+    )
+    return out.reshape(B, T, H * D)
 
 
 # ---------------------------------------------------------------------------
@@ -431,4 +459,95 @@ def decode_attention(
 
 decode_attention.launches = 0
 
-KERNELS = (flash_attention, ring_attention_stats, fused_update_decode_attention, decode_attention)
+
+VERIFY_MAX_TOKENS = 8  # chunk tokens K7 takes
+VERIFY_MAX_ROWS = 32  # and query rows per KV head (query heads per KV head x tokens): kMaxRows
+
+
+def fused_verify_chunk_attention(
+    xq: torch.Tensor,  # (B, T, H, D), T <= 8
+    xk: torch.Tensor,  # (B, T, Hkv, D) post-rope, pre-quantization
+    xv: torch.Tensor,
+    CK: torch.Tensor,  # (L, B, S, Hkv * D) ring, updated IN PLACE
+    CV: torch.Tensor,
+    KS: Optional[torch.Tensor],  # (L, B, Hkv, S) fp32, updated in place; None for bf16
+    VS: Optional[torch.Tensor],
+    li: int,
+    window: int,
+    write_slot0: torch.Tensor,  # (B,) int32 slot of the chunk's first token, -1 = dead row
+    q_pos: torch.Tensor,  # (B, T) int32
+    kv_pos: torch.Tensor,  # (B, S) int32, slot positions AFTER the write
+    kv_valid: torch.Tensor,  # (B, S) bool
+) -> torch.Tensor:
+    """K7. Writes a speculative verify chunk's T candidate K/V into T
+    consecutive slots of layer ``li`` of the ring in place (the JAX kernel
+    returns aliased buffers instead), then attends every query ring-only:
+    query t sees the slots whose position is at most its own, so causality
+    inside the chunk is position arithmetic. Only for a ring that never
+    wraps (``write_slot0 + T <= window``): a rejected candidate stays in its
+    slot, hidden by ``kv_len``, until the real token of that position
+    overwrites it. Returns (B, T, H * D)."""
+    B, T, H, D = xq.shape
+    L, S = CK.shape[0], CK.shape[2]
+    Hkv = xk.shape[2]
+    if not 1 <= T <= VERIFY_MAX_TOKENS:
+        raise ValueError(
+            f"fused_verify_chunk_attention takes 1..{VERIFY_MAX_TOKENS} tokens, got {T}"
+        )
+    if not xq.is_cuda:
+        return fused_verify_chunk_attention_plain(
+            xq, xk, xv, CK, CV, KS, VS, int(li), int(window), write_slot0, q_pos,
+            kv_pos, kv_valid,
+        )
+    dev = xq.device
+    bf = torch.bfloat16
+    if D != 128:
+        raise ValueError("the CUDA kernels take head_dim 128")
+    if H % Hkv or (H // Hkv) * T > VERIFY_MAX_ROWS:
+        raise ValueError(
+            f"the kernel takes at most {VERIFY_MAX_ROWS} query rows per KV head, got "
+            f"{H // Hkv} heads x {T} tokens"
+        )
+    _need(xq, "xq", bf, (B, T, H, D), dev)
+    _need(xk, "xk", bf, (B, T, Hkv, D), dev)
+    _need(xv, "xv", bf, (B, T, Hkv, D), dev)
+    scaled = KS is not None
+    rdt = torch.int8 if scaled else bf
+    _need(CK, "CK", rdt, (L, B, S, Hkv * D), dev)
+    _need(CV, "CV", rdt, (L, B, S, Hkv * D), dev)
+    if not 0 <= int(li) < L:
+        raise ValueError(f"layer index {li} out of range for {L} layers")
+    ws = _meta(write_slot0, "write_slot0", torch.int32, (B,), dev)
+    qp = _meta(q_pos, "q_pos", torch.int32, (B, T), dev)
+    kp = _meta(kv_pos, "kv_pos", torch.int32, (B, S), dev)
+    kv = _meta(kv_valid, "kv_valid", torch.bool, (B, S), dev)
+    out = torch.empty((B, T, H * D), dtype=bf, device=dev)
+    part_acc, part_ml = _span_partials(B * T, H, S, D, dev)
+    tail = (
+        int(li), int(window), ws.data_ptr(), qp.data_ptr(), kp.data_ptr(),
+        kv.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        B, T, S, H, Hkv, D**-0.5,
+    )
+    if scaled:
+        _need(KS, "KS", torch.float32, (L, B, Hkv, S), dev)
+        _need(VS, "VS", torch.float32, (L, B, Hkv, S), dev)
+        _launch(
+            "fused_decode", "fused_verify_int8", dev, xq.data_ptr(), xk.data_ptr(),
+            xv.data_ptr(), CK.data_ptr(), CV.data_ptr(), KS.data_ptr(), VS.data_ptr(),
+            *tail,
+        )
+    else:
+        _launch(
+            "fused_decode", "fused_verify_bf16", dev, xq.data_ptr(), xk.data_ptr(),
+            xv.data_ptr(), CK.data_ptr(), CV.data_ptr(), *tail,
+        )
+    fused_verify_chunk_attention.launches += 1
+    return out
+
+
+fused_verify_chunk_attention.launches = 0
+
+KERNELS = (
+    flash_attention, ring_attention_stats, fused_update_decode_attention, decode_attention,
+    fused_verify_chunk_attention,
+)

@@ -1,5 +1,7 @@
-// K2: one decode step's ring write and ring-only attention, fused; and K6,
-// the same attention with no write.
+// K2: one decode step's ring write and ring-only attention, fused; K6, the
+// same attention with no write; and K7, the write and the attention for the
+// T <= 8 candidate tokens of a speculative verify chunk. One kernel template
+// serves the three.
 //
 // K2 replaces mistral_inference_tpu/ops/pallas/attention.py::
 // fused_update_decode_attention (kernel _fused_decode_kernel, tile loop
@@ -9,47 +11,72 @@
 // ring with cache.update_stacked first. It takes any kv_pos and kv_valid, so
 // it cannot know a row's fill: where K2 stops at min(q_pos + 1, window), K6
 // asks each span's 128 slots whether the query sees any of them and skips the
-// span if not.
+// span if not. K7 replaces ::fused_verify_chunk_attention (kernel
+// _fused_verify_kernel): K2 is its T = 1 case. The TPU kernel's 16-slot
+// read-modify-write groups, lane-aligned scale windows and DMA semaphores
+// exist because a TPU DMA moves aligned tiles; a CUDA thread stores a byte
+// where it wants, so none of that is here.
 //
-// Function, for T = 1: quantize this step's K and V per (token, kv head) and
-// write them into slot write_slot[b] of layer li of the stacked ring, in
-// place (write_slot = -1 writes nothing); then attend each query head over
-// its KV head's ring slots with 0 <= q_pos - kv_pos < window and kv_valid,
-// scales applied after the dots. A row's slots at or past its fill
-// min(q_pos + 1, window) are never visible (kv_pos and kv_valid come from
-// cache.slot_positions after the write) and are skipped.
+// Function, for T query tokens per row (T = 1 for K2 and K6): quantize the
+// chunk's K and V per (token, kv head) and write token t into slot
+// write_slot[b] + t of layer li of the stacked ring, in place (write_slot =
+// -1 writes nothing for that row); then attend each query head of each token
+// over its KV head's ring slots with 0 <= q_pos[b, t] - kv_pos < window and
+// kv_valid, scales applied after the dots. kv_pos and kv_valid come from
+// cache.slot_positions after the write, so a row's slots at or past its fill
+// min(q_pos[b, 0] + T, window) are never visible and are skipped, and query
+// t does not see the candidates after it: their positions are larger than
+// its own. The T slots never wrap (the caller's precondition: a ring that
+// holds every position it has been given), so a candidate that is later
+// rejected stays in its slot, hidden by the caller's kv_len, until the real
+// token of that position overwrites it.
 //
 // Design: the ring is cut into spans of kSpan slots, and one block of 128
 // threads runs per (span, kv head, batch row), so a B = 4 step over a 4096-slot
 // ring fills the card with 1024 blocks; thread d owns head-dim element d. The
-// write comes first, made by the one block whose span holds the slot: the
-// int8 rule is that of cache._quantize_ring bit for bit (fp32 absmax / 127
-// with a floor of 1e-8, IEEE division, rintf = round half to even, clip to
-// +-127; this file must not be built with fast-math). A (token, head) scale
-// depends only on this block's head, so the block that writes a slot's bytes
-// for head j is the only block that ever reads them, and __syncthreads()
-// orders the write before the reads: no other block touches this row's
-// head-j columns in this span. Each block then streams its span in 32-slot
-// tiles through shared memory, skipping slots at or past the row's own fill
-// min(q_pos + 1, window); warp w scores heads w and w + 4 (one slot per lane)
-// with a running max and sum, and the PV product runs with one output column
-// per thread. The block leaves an unnormalized partial (acc, m, l) per query
-// head, and a second kernel merges the spans of each (row, head) exactly.
+// write comes first. The T slots can straddle two spans (slot0 = 126, T = 5):
+// each block writes those of the T slots that lie in its own span. The int8
+// rule is that of cache._quantize_ring bit for bit (fp32 absmax / 127 with a
+// floor of 1e-8, IEEE division, rintf = round half to even, clip to +-127;
+// this file must not be built with fast-math). A (token, head) scale depends
+// only on this block's head, so the block that writes a slot's bytes for head
+// j is the only block that ever reads them, and __syncthreads() orders the
+// write before the reads: no other block touches this row's head-j columns in
+// this span. Each block then streams its span in 32-slot tiles through shared
+// memory, ONCE for all its G * T query rows (row r = t * G + g): warp w
+// scores rows w, w + 4, ... (one slot per lane) with a running max and sum per
+// row, and the PV product runs with one output column per thread and one
+// accumulator per row. The block leaves an unnormalized partial (acc, m, l)
+// per query row, and a second kernel merges the spans of each (row, token,
+// head) exactly.
+//
+// Every query row goes through the same spans, the same 32-slot tiles and the
+// same sums in the same order whatever T is and whichever warp takes it: a
+// slot the row does not see adds an exact 0 to its sums. So query t of a K7
+// launch has the bits of a K2 launch at that position over the same ring, and
+// greedy speculation can agree with plain greedy decoding token for token.
+//
+// kRows, the rows a block has room for, is a template parameter (shared
+// memory and accumulator registers grow with it), chosen at launch as the
+// smallest instantiated value that holds G * T.
 //
 // What bounds it on the H100: bytes. Each call reads each row's visible
 // slots of K and V once (int8 or bf16) plus scales, and does 4 * D flops per
-// (head, slot): about 4 flops per byte, far below the 295 flop/byte ridge.
-// Reading each KV head's slots once for all G query heads, and spreading the
-// ring over enough blocks to keep every SM loading, is what the design does
-// about it.
+// (query row, slot): about 4 * T flops per byte, at most 32, far below the
+// 295 flop/byte ridge. Reading each KV head's slots once for all G * T query
+// rows (a loop of T single-token launches would read them T times), and
+// spreading the ring over enough blocks to keep every SM loading, is what the
+// design does about it.
 #include "common.cuh"
 
 namespace mit {
 
 constexpr int kDecThreads = 128;  // one thread per head-dim element
+constexpr int kDecWarps = kDecThreads / 32;
 constexpr int kSlots = 32;        // ring slots per tile, one per lane
 constexpr int kSpan = 128;        // ring slots per block
-constexpr int kMaxGroup = 8;      // query heads per KV head
+constexpr int kMaxRows = 32;      // query rows (heads per KV head x tokens) per block
+constexpr int kMaxTokens = 8;     // tokens of a verify chunk
 
 __device__ __forceinline__ float block_max(float x, float* red) {
   x = group_max(x, 32);
@@ -60,22 +87,44 @@ __device__ __forceinline__ float block_max(float x, float* red) {
   return r;
 }
 
-// Partials: part_acc (B, H, nspan, D) unnormalized sums, part_ml
-// (B, H, nspan, 2) running max and sum; a span with no visible slot leaves
+// A block's shared memory. Above 48 KB (kRows = 32) it is dynamic shared
+// memory, so every instantiation takes it that way.
+template <int kRows>
+struct DecodeSmem {
+  float Qs[kRows][kHeadDim];
+  float Ks[kSlots][kHeadDim + 1];  // +1: conflict-free reads by slot
+  float Vs[kSlots][kHeadDim];
+  float Ps[kRows][kSlots];
+  float alpha[kRows];
+  int qpos[kRows];
+  int head[kRows];   // (b * T + t) * H + query head, of each row
+  int token[kRows];  // t of each row
+  int tpos[kMaxTokens];  // q_pos[b, t]
+  float red[4];
+  int kpos[kSlots];
+  int kval[kSlots];
+  float ksc[kSlots], vsc[kSlots];
+};
+
+// Partials: part_acc (B, T, H, nspan, D) unnormalized sums, part_ml
+// (B, T, H, nspan, 2) running max and sum; a span with no visible slot leaves
 // acc = 0, m = kNegInf, l = 0.
-template <typename KT, bool kScaled, bool kWrite>
+template <typename KT, bool kScaled, bool kWrite, int kRows>
 __global__ void __launch_bounds__(kDecThreads) fused_decode_kernel(
     const __nv_bfloat16* __restrict__ xq, const __nv_bfloat16* __restrict__ xk,
     const __nv_bfloat16* __restrict__ xv, KT* ck, KT* cv, float* ks, float* vs, int li,
     int window, const int* __restrict__ write_slot, const int* __restrict__ q_pos,
     const int* __restrict__ kv_pos, const uint8_t* __restrict__ kv_valid,
-    float* __restrict__ part_acc, float* __restrict__ part_ml, int B, int S, int H, int Hkv,
-    float scale) {
+    float* __restrict__ part_acc, float* __restrict__ part_ml, int B, int T, int S, int H,
+    int Hkv, float scale) {
   constexpr int D = kHeadDim;
+  constexpr int kRW = kRows / kDecWarps;  // rows per warp
+  static_assert(kRows % kDecWarps == 0, "rows are dealt to the warps in turn");
   const int span = blockIdx.x, nspan = gridDim.x, j = blockIdx.y, b = blockIdx.z;
   const int lo = span * kSpan;
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int G = H / Hkv;
+  const int R = G * T;  // live query rows, r = t * G + g
   const size_t HD = static_cast<size_t>(Hkv) * D;
   // Layer li, batch row b. The ring is read and written through these plain
   // (non-restrict) pointers, so no load takes the non-coherent path.
@@ -84,61 +133,84 @@ __global__ void __launch_bounds__(kDecThreads) fused_decode_kernel(
   float* ks_row = kScaled ? ks + ((static_cast<size_t>(li) * B + b) * Hkv + j) * S : nullptr;
   float* vs_row = kScaled ? vs + ((static_cast<size_t>(li) * B + b) * Hkv + j) * S : nullptr;
 
-  __shared__ float red[4];
-  __shared__ float Qs[kMaxGroup][D];
-  __shared__ float Ks[kSlots][D + 1];  // +1: conflict-free reads by slot
-  __shared__ float Vs[kSlots][D];
-  __shared__ float Ps[kMaxGroup][kSlots];
-  __shared__ float alpha_s[kMaxGroup];
-  __shared__ int kok_s[kSlots];
-  __shared__ float ksc_s[kSlots], vsc_s[kSlots];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DecodeSmem<kRows>& sm = *reinterpret_cast<DecodeSmem<kRows>*>(smem_raw);
 
-  // ---- 1. write this step's K/V, by the block whose span holds the slot ----
-  const int slot = kWrite ? write_slot[b] : -1;
-  if (kWrite && slot >= lo && slot < lo + kSpan) {  // uniform over the block
-    const size_t src = (static_cast<size_t>(b) * Hkv + j) * D + tid;
-    const size_t dst = static_cast<size_t>(slot) * HD + j * D + tid;
-    if constexpr (kScaled) {
-      const float xkf = __bfloat162float(xk[src]);
-      const float xvf = __bfloat162float(xv[src]);
-      const float sk = fmaxf(block_max(fabsf(xkf), red) / 127.f, 1e-8f);
-      const float sv = fmaxf(block_max(fabsf(xvf), red) / 127.f, 1e-8f);
-      ck_row[dst] = static_cast<int8_t>(fminf(fmaxf(rintf(xkf / sk), -127.f), 127.f));
-      cv_row[dst] = static_cast<int8_t>(fminf(fmaxf(rintf(xvf / sv), -127.f), 127.f));
-      if (tid == 0) {
-        ks_row[slot] = sk;
-        vs_row[slot] = sv;
+  // ---- 1. write the chunk's K/V: each block the slots that lie in its span ----
+  const int slot0 = kWrite ? write_slot[b] : -1;
+  if (kWrite && slot0 >= 0) {
+    for (int t = 0; t < T; ++t) {
+      const int slot = slot0 + t;
+      if (slot < lo || slot >= lo + kSpan || slot >= S) continue;  // uniform over the block
+      const size_t src = ((static_cast<size_t>(b) * T + t) * Hkv + j) * D + tid;
+      const size_t dst = static_cast<size_t>(slot) * HD + j * D + tid;
+      if constexpr (kScaled) {
+        const float xkf = __bfloat162float(xk[src]);
+        const float xvf = __bfloat162float(xv[src]);
+        const float sk = fmaxf(block_max(fabsf(xkf), sm.red) / 127.f, 1e-8f);
+        const float sv = fmaxf(block_max(fabsf(xvf), sm.red) / 127.f, 1e-8f);
+        ck_row[dst] = static_cast<int8_t>(fminf(fmaxf(rintf(xkf / sk), -127.f), 127.f));
+        cv_row[dst] = static_cast<int8_t>(fminf(fmaxf(rintf(xvf / sv), -127.f), 127.f));
+        if (tid == 0) {
+          ks_row[slot] = sk;
+          vs_row[slot] = sv;
+        }
+      } else {
+        ck_row[dst] = xk[src];
+        cv_row[dst] = xv[src];
       }
-    } else {
-      ck_row[dst] = xk[src];
-      cv_row[dst] = xv[src];
     }
   }
 
-  // ---- 2. the query heads and this block's live slots ----
+  // ---- 2. the query rows and this block's live slots ----
+  {
+    int t = 0, g = 0;  // row r = t * G + g, stepped without a division
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g)
-    if (g < G) Qs[g][tid] = __bfloat162float(xq[(static_cast<size_t>(b) * H + j * G + g) * D + tid]);
+    for (int r = 0; r < kRows; ++r) {
+      float qv = 0.f;  // rows past R score zeros and are never read back
+      if (r < R) {
+        const int head = (b * T + t) * H + j * G + g;  // of out and of the partials
+        qv = __bfloat162float(xq[static_cast<size_t>(head) * D + tid]);
+        if (tid == 0) {
+          sm.head[r] = head;
+          sm.token[r] = t;
+        }
+      }
+      sm.Qs[r][tid] = qv;
+      if (tid == 0) sm.alpha[r] = 1.f;
+      if (++g == G) g = 0, ++t;
+    }
+  }
+  if (tid < T) sm.tpos[tid] = q_pos[b * T + tid];
+  // Rows past R keep P = 0 and alpha = 1, so their accumulators stay 0.
+  for (int e = R * kSlots + tid; e < kRows * kSlots; e += kDecThreads)
+    sm.Ps[e / kSlots][e % kSlots] = 0.f;
   __syncthreads();  // orders the ring write before every read below
-  const int qp = q_pos[b];
+  // Each row's query position; the tile loop's first barrier publishes it.
+  if (tid < R) sm.qpos[tid] = sm.tpos[sm.token[tid]];
+  const int qp0 = sm.tpos[0];
   int hi = min(lo + kSpan, S);
   if constexpr (kWrite) {
-    hi = min(hi, min(qp + 1, window));
+    hi = min(hi, min(qp0 + T, window));
   } else {
+    // One query token (the launcher refuses more): one thread asks for each
+    // slot of the span.
     static_assert(kSpan == kDecThreads, "one thread asks for each slot of the span");
     const int s = lo + tid;
     bool seen = false;
     if (s < S) {
-      const int delta = qp - kv_pos[static_cast<size_t>(b) * S + s];
+      const int delta = qp0 - kv_pos[static_cast<size_t>(b) * S + s];
       seen = kv_valid[static_cast<size_t>(b) * S + s] && delta >= 0 && delta < window;
     }
     if (!__syncthreads_or(seen)) hi = lo;  // an empty partial: acc = 0, m = kNegInf, l = 0
   }
 
-  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
-  float acc[kMaxGroup];
+  float m_r[kRW], l_r[kRW];
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) acc[g] = 0.f;
+  for (int k = 0; k < kRW; ++k) m_r[k] = kNegInf, l_r[k] = 0.f;
+  float acc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
 
   // ---- 3. attend over [lo, hi) ----
   for (int s0 = lo; s0 < hi; s0 += kSlots) {
@@ -154,80 +226,91 @@ __global__ void __launch_bounds__(kDecThreads) fused_decode_kernel(
       }
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        Ks[c][d0 + i] = xk8[i];
-        Vs[c][d0 + i] = xv8[i];
+        sm.Ks[c][d0 + i] = xk8[i];
+        sm.Vs[c][d0 + i] = xv8[i];
       }
     }
     if (tid < kSlots) {
       const int s = s0 + tid;
-      bool ok = false;
+      int pos = 0, ok = 0;
       float a = 0.f, bb = 0.f;
       if (s < hi) {
-        const int delta = qp - kv_pos[static_cast<size_t>(b) * S + s];
-        ok = kv_valid[static_cast<size_t>(b) * S + s] && delta >= 0 && delta < window;
+        pos = kv_pos[static_cast<size_t>(b) * S + s];
+        ok = kv_valid[static_cast<size_t>(b) * S + s];
         if (kScaled) {
           a = ks_row[s];
           bb = vs_row[s];
         }
       }
-      kok_s[tid] = ok;
-      ksc_s[tid] = a;
-      vsc_s[tid] = bb;
+      sm.kpos[tid] = pos;
+      sm.kval[tid] = ok;
+      sm.ksc[tid] = a;
+      sm.vsc[tid] = bb;
     }
     __syncthreads();
 
+    // Scores: this lane's slot against the warp's rows, the slot's K read
+    // once for all of them; each row's dot runs over d in order.
+    float sc[kRW];
 #pragma unroll
-    for (int k2 = 0; k2 < 2; ++k2) {
-      const int g = w + 4 * k2;
-      if (g < G) {  // uniform over the warp
-        float sc = 0.f;
+    for (int k = 0; k < kRW; ++k) sc[k] = 0.f;
 #pragma unroll 8
-        for (int d = 0; d < D; ++d) sc = fmaf(Qs[g][d], Ks[lane][d], sc);
-        sc *= kScaled ? ksc_s[lane] * scale : scale;
-        const bool ok = kok_s[lane];
-        const float mx = group_max(ok ? sc : kNegInf, 32);
-        const float m_new = fmaxf(m_r[k2], mx);
-        const float alpha = m_r[k2] > 0.5f * kNegInf ? expf(m_r[k2] - m_new) : 0.f;
-        const float p = ok ? expf(sc - m_new) : 0.f;
-        l_r[k2] = alpha * l_r[k2] + group_sum(p, 32);
-        m_r[k2] = m_new;
-        Ps[g][lane] = round_bf16(kScaled ? p * vsc_s[lane] : p);
-        if (lane == 0) alpha_s[g] = alpha;
+    for (int d = 0; d < D; ++d) {
+      const float kd = sm.Ks[lane][d];
+#pragma unroll
+      for (int k = 0; k < kRW; ++k) sc[k] = fmaf(sm.Qs[w + kDecWarps * k][d], kd, sc[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kRW; ++k) {
+      const int r = w + kDecWarps * k;
+      if (r < R) {  // uniform over the warp
+        const float s = sc[k] * (kScaled ? sm.ksc[lane] * scale : scale);
+        const int delta = sm.qpos[r] - sm.kpos[lane];
+        const bool ok = sm.kval[lane] && delta >= 0 && delta < window;
+        const float mx = group_max(ok ? s : kNegInf, 32);
+        const float m_new = fmaxf(m_r[k], mx);
+        const float alpha = m_r[k] > 0.5f * kNegInf ? expf(m_r[k] - m_new) : 0.f;
+        const float p = ok ? expf(s - m_new) : 0.f;
+        l_r[k] = alpha * l_r[k] + group_sum(p, 32);
+        m_r[k] = m_new;
+        sm.Ps[r][lane] = round_bf16(kScaled ? p * sm.vsc[lane] : p);
+        if (lane == 0) sm.alpha[r] = alpha;
       }
     }
     __syncthreads();
 
+    // PV: this thread's column of V read once per slot for all rows; each
+    // row's sum runs over the tile's slots in order.
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) {
-      if (g < G) {
-        float a = acc[g] * alpha_s[g];
+    for (int r = 0; r < kRows; ++r) acc[r] *= sm.alpha[r];
 #pragma unroll 8
-        for (int c = 0; c < kSlots; ++c) a = fmaf(Ps[g][c], Vs[c][tid], a);
-        acc[g] = a;
-      }
+    for (int c = 0; c < kSlots; ++c) {
+      const float vc = sm.Vs[c][tid];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(sm.Ps[r][c], vc, acc[r]);
     }
   }
 
-  // ---- 4. this span's partial per query head ----
-  const size_t head0 = static_cast<size_t>(b) * H + j * G;
+  // ---- 4. this span's partial per query row ----
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g)
-    if (g < G) part_acc[((head0 + g) * nspan + span) * D + tid] = acc[g];
+  for (int r = 0; r < kRows; ++r)
+    if (r < R) part_acc[(static_cast<size_t>(sm.head[r]) * nspan + span) * D + tid] = acc[r];
   if (lane == 0) {
 #pragma unroll
-    for (int k2 = 0; k2 < 2; ++k2) {
-      const int g = w + 4 * k2;
-      if (g < G) {
-        part_ml[((head0 + g) * nspan + span) * 2] = m_r[k2];
-        part_ml[((head0 + g) * nspan + span) * 2 + 1] = l_r[k2];
+    for (int k = 0; k < kRW; ++k) {
+      const int r = w + kDecWarps * k;
+      if (r < R) {
+        const size_t at = (static_cast<size_t>(sm.head[r]) * nspan + span) * 2;
+        part_ml[at] = m_r[k];
+        part_ml[at + 1] = l_r[k];
       }
     }
   }
 }
 
-// One block per (query head, row): softmax-weighted merge of the spans'
-// partials, out = sum_i e^(m_i - M) acc_i / sum_i e^(m_i - M) l_i, and 0
-// for a row that sees no slot.
+// One block per (query head, row and token): softmax-weighted merge of the
+// spans' partials, out = sum_i e^(m_i - M) acc_i / sum_i e^(m_i - M) l_i, and
+// 0 for a query that sees no slot.
 __global__ void __launch_bounds__(kDecThreads) decode_merge_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
     __nv_bfloat16* __restrict__ out, int H, int nspan) {
@@ -248,25 +331,63 @@ __global__ void __launch_bounds__(kDecThreads) decode_merge_kernel(
   out[head * D + threadIdx.x] = __float2bfloat16_rn(L > 0.f ? A / L : 0.f);
 }
 
-template <typename KT, bool kScaled, bool kWrite>
-int launch_fused_decode(const void* xq, const void* xk, const void* xv, void* ck, void* cv,
+template <typename KT, bool kScaled, bool kWrite, int kRows>
+cudaError_t launch_rows(const void* xq, const void* xk, const void* xv, void* ck, void* cv,
                         void* ks, void* vs, int li, int window, const void* write_slot,
                         const void* q_pos, const void* kv_pos, const void* kv_valid,
-                        void* out, void* part_acc, void* part_ml, int B, int S, int H,
-                        int Hkv, float scale, void* stream) {
-  if (H % Hkv != 0 || H / Hkv > kMaxGroup) return cudaErrorInvalidValue;
-  const int nspan = (S + kSpan - 1) / kSpan;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fused_decode_kernel<KT, kScaled, kWrite><<<dim3(nspan, Hkv, B), kDecThreads, 0, st>>>(
+                        void* part_acc, void* part_ml, int B, int T, int S, int H, int Hkv,
+                        float scale, int nspan, cudaStream_t st) {
+  auto kernel = fused_decode_kernel<KT, kScaled, kWrite, kRows>;
+  constexpr size_t smem = sizeof(DecodeSmem<kRows>);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<dim3(nspan, Hkv, B), kDecThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(xq), static_cast<const __nv_bfloat16*>(xk),
       static_cast<const __nv_bfloat16*>(xv), static_cast<KT*>(ck), static_cast<KT*>(cv),
       static_cast<float*>(ks), static_cast<float*>(vs), li, window,
       static_cast<const int*>(write_slot), static_cast<const int*>(q_pos),
       static_cast<const int*>(kv_pos), static_cast<const uint8_t*>(kv_valid),
-      static_cast<float*>(part_acc), static_cast<float*>(part_ml), B, S, H, Hkv, scale);
-  cudaError_t err = cudaGetLastError();
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), B, T, S, H, Hkv, scale);
+  return cudaGetLastError();
+}
+
+template <typename KT, bool kScaled, bool kWrite>
+int launch_fused_decode(const void* xq, const void* xk, const void* xv, void* ck, void* cv,
+                        void* ks, void* vs, int li, int window, const void* write_slot,
+                        const void* q_pos, const void* kv_pos, const void* kv_valid,
+                        void* out, void* part_acc, void* part_ml, int B, int T, int S, int H,
+                        int Hkv, float scale, void* stream) {
+  if (H % Hkv != 0 || T < 1 || T > kMaxTokens || (!kWrite && T != 1)) return cudaErrorInvalidValue;
+  const int R = H / Hkv * T;
+  if (R > kMaxRows) return cudaErrorInvalidValue;
+  const int nspan = (S + kSpan - 1) / kSpan;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+#define MIT_DECODE_ROWS(n)                                                                   \
+  launch_rows<KT, kScaled, kWrite, n>(xq, xk, xv, ck, cv, ks, vs, li, window, write_slot,   \
+                                      q_pos, kv_pos, kv_valid, part_acc, part_ml, B, T, S,  \
+                                      H, Hkv, scale, nspan, st)
+  if (R <= 4) {
+    err = MIT_DECODE_ROWS(4);
+  } else if (R <= 8) {
+    err = MIT_DECODE_ROWS(8);
+  } else if constexpr (kWrite) {  // more than one token: the verify chunk only
+    if (R <= 16) {
+      err = MIT_DECODE_ROWS(16);
+    } else if (R <= 20) {
+      err = MIT_DECODE_ROWS(20);
+    } else {
+      err = MIT_DECODE_ROWS(kMaxRows);
+    }
+  } else {
+    return cudaErrorInvalidValue;
+  }
+#undef MIT_DECODE_ROWS
   if (err != cudaSuccess) return err;
-  decode_merge_kernel<<<dim3(H, B), kDecThreads, 0, st>>>(
+  decode_merge_kernel<<<dim3(H, B * T), kDecThreads, 0, st>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
       static_cast<__nv_bfloat16*>(out), H, nspan);
   return cudaGetLastError();
@@ -275,7 +396,7 @@ int launch_fused_decode(const void* xq, const void* xk, const void* xv, void* ck
 }  // namespace mit
 
 // Ring slots per block, so that the caller can size the partials:
-// part_acc (B, H, nspan, D) and part_ml (B, H, nspan, 2) fp32 with
+// part_acc (B, T, H, nspan, D) and part_ml (B, T, H, nspan, 2) fp32 with
 // nspan = ceil(S / fused_decode_span()).
 extern "C" int fused_decode_span() { return mit::kSpan; }
 
@@ -287,7 +408,7 @@ extern "C" int fused_decode_int8(const void* xq, const void* xk, const void* xv,
                                  float scale, void* stream) {
   return mit::launch_fused_decode<int8_t, true, true>(xq, xk, xv, ck, cv, ks, vs, li, window,
                                                 write_slot, q_pos, kv_pos, kv_valid, out,
-                                                part_acc, part_ml, B, S, H, Hkv, scale,
+                                                part_acc, part_ml, B, 1, S, H, Hkv, scale,
                                                 stream);
 }
 
@@ -299,7 +420,32 @@ extern "C" int fused_decode_bf16(const void* xq, const void* xk, const void* xv,
                                  void* stream) {
   return mit::launch_fused_decode<__nv_bfloat16, false, true>(
       xq, xk, xv, ck, cv, nullptr, nullptr, li, window, write_slot, q_pos, kv_pos,
-      kv_valid, out, part_acc, part_ml, B, S, H, Hkv, scale, stream);
+      kv_valid, out, part_acc, part_ml, B, 1, S, H, Hkv, scale, stream);
+}
+
+// K7: xq (B, T, H, D), xk and xv (B, T, Hkv, D), write_slot0 (B,), q_pos
+// (B, T), out (B, T, H * D); T <= kMaxTokens and H / Hkv * T <= kMaxRows.
+extern "C" int fused_verify_int8(const void* xq, const void* xk, const void* xv, void* ck,
+                                 void* cv, void* ks, void* vs, int li, int window,
+                                 const void* write_slot0, const void* q_pos,
+                                 const void* kv_pos, const void* kv_valid, void* out,
+                                 void* part_acc, void* part_ml, int B, int T, int S, int H,
+                                 int Hkv, float scale, void* stream) {
+  return mit::launch_fused_decode<int8_t, true, true>(xq, xk, xv, ck, cv, ks, vs, li, window,
+                                                write_slot0, q_pos, kv_pos, kv_valid, out,
+                                                part_acc, part_ml, B, T, S, H, Hkv, scale,
+                                                stream);
+}
+
+extern "C" int fused_verify_bf16(const void* xq, const void* xk, const void* xv, void* ck,
+                                 void* cv, int li, int window, const void* write_slot0,
+                                 const void* q_pos, const void* kv_pos,
+                                 const void* kv_valid, void* out, void* part_acc,
+                                 void* part_ml, int B, int T, int S, int H, int Hkv,
+                                 float scale, void* stream) {
+  return mit::launch_fused_decode<__nv_bfloat16, false, true>(
+      xq, xk, xv, ck, cv, nullptr, nullptr, li, window, write_slot0, q_pos, kv_pos,
+      kv_valid, out, part_acc, part_ml, B, T, S, H, Hkv, scale, stream);
 }
 
 // K6: the ring is only read (the pointers are not const because the kernel
@@ -311,7 +457,7 @@ extern "C" int decode_attention_int8(const void* xq, void* ck, void* cv, void* k
                                      void* stream) {
   return mit::launch_fused_decode<int8_t, true, false>(
       xq, nullptr, nullptr, ck, cv, ks, vs, li, window, nullptr, q_pos, kv_pos, kv_valid, out,
-      part_acc, part_ml, B, S, H, Hkv, scale, stream);
+      part_acc, part_ml, B, 1, S, H, Hkv, scale, stream);
 }
 
 extern "C" int decode_attention_bf16(const void* xq, void* ck, void* cv, int li, int window,
@@ -321,5 +467,5 @@ extern "C" int decode_attention_bf16(const void* xq, void* ck, void* cv, int li,
                                      void* stream) {
   return mit::launch_fused_decode<__nv_bfloat16, false, false>(
       xq, nullptr, nullptr, ck, cv, nullptr, nullptr, li, window, nullptr, q_pos, kv_pos,
-      kv_valid, out, part_acc, part_ml, B, S, H, Hkv, scale, stream);
+      kv_valid, out, part_acc, part_ml, B, 1, S, H, Hkv, scale, stream);
 }

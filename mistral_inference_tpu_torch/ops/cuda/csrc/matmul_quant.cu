@@ -32,7 +32,17 @@ __global__ void __launch_bounds__(256) matmul_quant_reduce_kernel(
   dequant_dot_reduce(part, out, splits, MN);
 }
 
-inline int mq_blocks(int M, int N) { return (N / kMqCols) * mq_row_blocks(M); }
+// The blocks before the split, from which the split is chosen. Up to
+// kMqSameSplitRows rows count as one row block, so a row's sums are split and
+// added in the same order at 4 rows (a decode step) as at 20 or 32 (a
+// speculative verify chunk) and its result has the same bits: the verify
+// forward then picks the tokens plain decoding picks. More row blocks than
+// that shrink the split, as the card is full without it.
+constexpr int kMqSameSplitRows = 32;
+
+inline int mq_blocks(int M, int N) {
+  return (N / kMqCols) * (M <= kMqSameSplitRows ? 1 : mq_row_blocks(M));
+}
 
 }  // namespace mit
 

@@ -124,3 +124,70 @@ def test_dequant_layer_matches():
 def test_kv_quant_rejects_unknown():
     with pytest.raises(ValueError):
         tcache.kv_cache_dtype("fp4", torch.bfloat16)
+
+
+def _caches(kv_quant, rng, kv_len, L=3, B=3, W=128, Hkv=2, Dh=8, windows=(5, 5, 5)):
+    """The same stored ring as a KVCache of each package."""
+    CK, CV, KS, VS = _ring(kv_quant, rng, L, B, W, Hkv, Dh)
+    empty = jnp.ones((L, 0, 0, 0), jnp.float32)
+    jc = jcache.KVCache(
+        k=jnp.asarray(CK), v=jnp.asarray(CV), kv_len=jnp.asarray(kv_len),
+        windows=jnp.asarray(windows, jnp.int32),
+        k_scale=empty if KS is None else jnp.asarray(KS),
+        v_scale=empty if VS is None else jnp.asarray(VS),
+    )
+    t = [None if a is None else torch.from_numpy(a.copy()) for a in (CK, CV, KS, VS)]
+    tc = tcache.KVCache(k=t[0], v=t[1], kv_len=torch.from_numpy(kv_len.copy()),
+                        windows=list(windows), k_scale=t[2], v_scale=t[3])
+    return jc, tc
+
+
+def _same_cache(tc, jc):
+    np.testing.assert_array_equal(tc.k.numpy(), np.asarray(jc.k))
+    np.testing.assert_array_equal(tc.v.numpy(), np.asarray(jc.v))
+    np.testing.assert_array_equal(tc.kv_len.numpy(), np.asarray(jc.kv_len))
+    if tc.k_scale is not None:
+        np.testing.assert_array_equal(tc.k_scale.numpy(), np.asarray(jc.k_scale))
+        np.testing.assert_array_equal(tc.v_scale.numpy(), np.asarray(jc.v_scale))
+
+
+@pytest.mark.parametrize("kv_quant", ["bf16", "int8"])
+@pytest.mark.parametrize("T,windows", [
+    (4, (5, 5, 5)),   # a wrapping ring, the chunk shorter than the window: the fixed-shape write
+    (4, (5, 7, 128)),  # per-layer windows
+    (9, (5, 5, 5)),   # a chunk longer than the window overwrites itself: the write plan
+])
+def test_scatter_chunk_matches(kv_quant, T, windows):
+    """The speculative commit on a ring that wraps, with accept = 0, part and
+    all of T: ring bytes, scales and kv_len equal the JAX package's, and what
+    was not accepted is not written."""
+    rng = np.random.default_rng(4)
+    L, B, Hkv, Dh = 3, 3, 2, 8
+    kv_len = np.array([3, 11, 8], np.int32)
+    jc, tc = _caches(kv_quant, rng, kv_len, L, B, 128, Hkv, Dh, windows)
+    before = tc.k.clone()
+    ck = rng.standard_normal((L, B, T, Hkv, Dh)).astype(np.float32)
+    cv = rng.standard_normal((L, B, T, Hkv, Dh)).astype(np.float32)
+    accept = np.array([0, 2, T], np.int32)
+    jout = jcache.scatter_chunk(jc, jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(accept))
+    out = tcache.scatter_chunk(tc, torch.from_numpy(ck), torch.from_numpy(cv),
+                               torch.from_numpy(accept))
+    assert out is tc  # in place
+    _same_cache(tc, jout)
+    assert tc.kv_len.tolist() == [3, 13, 8 + T]
+    assert torch.equal(tc.k[:, 0], before[:, 0]), "a row that accepted nothing is untouched"
+
+
+def test_rewind_matches():
+    rng = np.random.default_rng(5)
+    kv_len = np.array([9, 4, 0], np.int32)
+    jc, tc = _caches("int8", rng, kv_len, windows=(128, 128, 128))
+    new_len = np.array([6, 4, 0], np.int32)
+    jout = jcache.rewind(jc, jnp.asarray(new_len))
+    assert tcache.rewind(tc, torch.from_numpy(new_len)) is tc
+    _same_cache(tc, jout)
+    # On a ring that never wrapped the slots past new_len are invalid again.
+    jp, jv = jcache.slot_positions(jout.kv_len, jnp.int32(128), 128)
+    tp, tv = tcache.slot_positions(tc.kv_len, 128, 128)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    assert tv[0].sum() == 6 and not tv[0, 6:].any()

@@ -5,8 +5,9 @@ They import no JAX, so they run where the port runs:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances: the int8 ring bytes and scales that the fused decode kernel
-writes are equal to the plain write; outputs agree within 1e-2 (bf16
+Tolerances: the int8 ring bytes and scales that the fused decode and fused
+verify kernels write are equal to the plain write, and a verify chunk's query
+t has the bits of a decode step at its position; outputs agree within 1e-2 (bf16
 outputs, fp32 sums in another order) and the fp32 stats within 1e-4. The
 quantized matmuls are held to the same 1e-2 + 1e-2 |ref|, and the stacked and
 repeated launches of K3 and K8 to equal bits.
@@ -70,7 +71,7 @@ def test_kernels_match_plain_on_card():
         assert torch.equal(a, b)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
     # Each wrapper counted its own launches, and the plain versions none.
-    assert [fn.launches for fn in tk.KERNELS] == [1, 1, 1, 0]
+    assert [fn.launches for fn in tk.KERNELS] == [1, 1, 1, 0, 0]
 
 
 @pytest.mark.cuda
@@ -97,7 +98,7 @@ def test_wrappers_reject_bad_operands_on_card():
         linear(torch.zeros((4, 256), device=dev), {
             "q": torch.zeros((256, 128), dtype=torch.int8, device=dev),
             "scale": torch.ones((2, 128), device=dev)})
-    assert [fn.launches for fn in cuda_ops.all_kernels()] == [0] * 7
+    assert [fn.launches for fn in cuda_ops.all_kernels()] == [0] * 8
 
 
 def _quantized(g, K, N, bits, group, lead=()):
@@ -287,3 +288,126 @@ def test_quantize_weight_on_card_matches_cpu():
         cpu, card = quantize_weight(w, bits), quantize_weight(w.cuda(), bits)
         for k in cpu:
             assert torch.equal(cpu[k], card[k].cpu()), (bits, k)
+
+
+def _verify_case(int8, T, kv_len, live, L=3, B=4, S=384, H=32, Hkv=8, D=128, seed=7):
+    dev, bf = "cuda", torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kf = torch.randn((L, B, S, Hkv, D), generator=g, device=dev)
+    vf = torch.randn((L, B, S, Hkv, D), generator=g, device=dev)
+    if int8:
+        CK, KS = tcache._quantize_ring(kf)
+        CV, VS = tcache._quantize_ring(vf)
+        KS, VS = KS.transpose(2, 3).contiguous(), VS.transpose(2, 3).contiguous()
+    else:
+        CK, CV, KS, VS = kf.to(bf), vf.to(bf), None, None
+    stacks = [CK.reshape(L, B, S, -1), CV.reshape(L, B, S, -1), KS, VS]
+    xq = torch.randn((B, T, H, D), generator=g, device=dev).to(bf)
+    xk = torch.randn((B, T, Hkv, D), generator=g, device=dev).to(bf) * 3
+    xv = torch.randn((B, T, Hkv, D), generator=g, device=dev).to(bf)
+    kv_len = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    live = torch.tensor(live, dtype=torch.int32, device=dev)
+    q_pos = kv_len[:, None] + torch.arange(T, dtype=torch.int32, device=dev)[None]
+    return stacks, (xq, xk, xv), kv_len, live, q_pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("T,kv_len,live", [
+    (5, [126, 0, 379, 40], [1, 1, 1, 0]),   # across a span's edge, empty, the ring's end, dead
+    (8, [124, 250, 376, 7], [1, 1, 1, 1]),  # the most tokens
+    (1, [127, 128, 0, 383], [1, 1, 0, 1]),  # K2's case
+])
+def test_fused_verify_matches_plain_on_card(int8, T, kv_len, live):
+    """K7 against its plain version (ring bytes and scales equal, output
+    within bf16 rounding) and against T sequential K2 steps (equal bits:
+    query t of the chunk is a decode step at its position)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    S = window = 384
+    stacks, (xq, xk, xv), kv_len, live, q_pos = _verify_case(int8, T, kv_len, live, S=S)
+    start = [None if t is None else t.clone() for t in stacks]
+    plain = [None if t is None else t.clone() for t in stacks]
+    ws0 = torch.where(live > 0, kv_len % window, -1).to(torch.int32)
+    slot_pos, slot_valid = tcache.slot_positions(kv_len + live * T, window, S)
+    before = tk.fused_verify_chunk_attention.launches
+    out = tk.fused_verify_chunk_attention(xq, xk, xv, *stacks, 1, window, ws0, q_pos,
+                                          slot_pos, slot_valid)
+    ref = tk.fused_verify_chunk_attention_plain(xq, xk, xv, *plain, 1, window, ws0, q_pos,
+                                                slot_pos, slot_valid)
+    torch.cuda.synchronize()
+    assert tk.fused_verify_chunk_attention.launches == before + 1
+    for a, b in zip(stacks, plain):
+        assert a is None or torch.equal(a, b)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    rows = live > 0
+    for t in range(T):
+        sp, sv = tcache.slot_positions(kv_len + live * (t + 1), window, S)
+        ws = torch.where(rows, (kv_len + t) % window, -1).to(torch.int32)
+        step = tk.fused_update_decode_attention(
+            xq[:, t:t + 1].contiguous(), xk[:, t:t + 1].contiguous(),
+            xv[:, t:t + 1].contiguous(), *start, 1, window, ws, q_pos[:, t].contiguous(), sp, sv)
+        assert torch.equal(step[rows, 0], out[rows, t]), f"query {t} is not a K2 step's bits"
+    for a, b in zip(stacks, start):
+        assert a is None or torch.equal(a, b), "T K2 steps leave another ring"
+
+
+@pytest.mark.cuda
+def test_fused_verify_rejects_bad_operands_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    S = window = 384
+    stacks, (xq, xk, xv), kv_len, live, q_pos = _verify_case(True, 5, [1, 2, 3, 4], [1, 1, 1, 1], S=S)
+    ws0 = (kv_len % window).to(torch.int32)
+    slot_pos, slot_valid = tcache.slot_positions(kv_len + 5, window, S)
+    before = tk.fused_verify_chunk_attention.launches
+    with pytest.raises(ValueError, match="q_pos"):
+        tk.fused_verify_chunk_attention(xq, xk, xv, *stacks, 1, window, ws0, q_pos[:, :1],
+                                        slot_pos, slot_valid)
+    with pytest.raises(TypeError, match="xk must be"):
+        tk.fused_verify_chunk_attention(xq, xk.float(), xv, *stacks, 1, window, ws0, q_pos,
+                                        slot_pos, slot_valid)
+    with pytest.raises(ValueError, match="out of range"):
+        tk.fused_verify_chunk_attention(xq, xk, xv, *stacks, 3, window, ws0, q_pos,
+                                        slot_pos, slot_valid)
+    wide = xq.reshape(4, 5, 8, 4 * 128)[..., :128].contiguous().repeat(1, 1, 8, 1)  # 64 heads
+    with pytest.raises(ValueError, match="query rows"):
+        tk.fused_verify_chunk_attention(wide, xk, xv, *stacks, 1, window, ws0, q_pos,
+                                        slot_pos, slot_valid)
+    assert tk.fused_verify_chunk_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_greedy_speculation_equals_greedy_on_card():
+    """A 2-layer model at the kernels' head shapes: the fused verify route
+    (K7, with K3 at B x (K + 1) rows) gives plain greedy generate()'s tokens,
+    and the wrap-safe route runs without K7."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    from mistral_inference_tpu_torch.args import TransformerArgs
+    from mistral_inference_tpu_torch.generate import generate
+    from mistral_inference_tpu_torch.model import Transformer
+
+    def make(layers, window, seed):
+        args = TransformerArgs(dim=512, n_layers=layers, head_dim=128, hidden_dim=1024,
+                               n_heads=8, n_kv_heads=2, norm_eps=1e-5, vocab_size=1000,
+                               rope_theta=1e4, sliding_window=window, kv_quant="int8")
+        return Transformer.random(args, dtype=torch.bfloat16, seed=seed, quant="int4")
+
+    model, draft = make(2, 512, 0), make(1, None, 1)
+    prompts = [list(range(1, 40)), [5, 9, 2], list(range(7, 150))]
+    ref = generate(prompts, model, max_tokens=16, temperature=0.0)
+    for dm, k in ((draft, 4), (model, 4), ("lookup", 7)):
+        before = tk.fused_verify_chunk_attention.launches
+        out = generate(prompts, model, max_tokens=16, temperature=0.0, draft_model=dm, spec_tokens=k)
+        assert tk.fused_verify_chunk_attention.launches > before
+        assert out[0] == ref[0]
+        assert max(abs(a - b) for x, y in zip(out[1], ref[1]) for a, b in zip(x, y)) <= 1e-3
+    small = make(2, 128, 0)  # the ring wraps: no-write verify + scatter_chunk
+    ref = generate(prompts, small, max_tokens=16, temperature=0.0)
+    before = tk.fused_verify_chunk_attention.launches
+    out = generate(prompts, small, max_tokens=16, temperature=0.0, draft_model=draft)
+    assert tk.fused_verify_chunk_attention.launches == before
+    assert all(len(g) == 16 for g in out[0])
+    agree = sum(a == b for x, y in zip(out[0], ref[0]) for a, b in zip(x, y))
+    assert agree >= 24, "the wrap-safe route may leave plain greedy only at a near-tie"

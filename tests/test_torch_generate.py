@@ -139,6 +139,11 @@ def test_eos_early_exit():
 def test_unported_arguments_raise():
     _, model = pair(0)
     with pytest.raises(NotImplementedError):
-        generate(PROMPTS, model, max_tokens=1, temperature=0.0, draft_model=model)
-    with pytest.raises(NotImplementedError):
         generate(PROMPTS, model, [[np.zeros((4, 4, 3))]], max_tokens=1, temperature=0.0)
+    # Speculation is ported; images beside a draft are refused, and a draft
+    # is a Transformer or the name of the draft-free proposer.
+    with pytest.raises(ValueError, match="image"):
+        generate(PROMPTS, model, [[np.zeros((4, 4, 3))]], max_tokens=1, temperature=0.0,
+                 draft_model=model)
+    with pytest.raises(ValueError, match="lookup"):
+        generate(PROMPTS, model, max_tokens=1, temperature=0.0, draft_model="medusa")
