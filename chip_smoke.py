@@ -8,11 +8,12 @@ Phases, each printing one JSON line:
 1. card: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: every kernel of ``mistral_inference_tpu_torch/ops/cuda/csrc`` is
    compiled from the checkout with nvcc (sm_90a).
-3. kernels: each of the eight CUDA kernels against its plain PyTorch version
+3. kernels: each of the nine CUDA kernels against its plain PyTorch version
    on the same inputs on the card, at the Mistral-7B and Mixtral-8x7B shapes
    (H=32, Hkv=8, D=128; the four linears of a layer at 4, 256 and 2048 rows,
    and a layer's eight experts at a capacity of 4 and 128 and at 6144 sorted
-   rows, int8 and int4; a speculative verify chunk of 5 and of 8 tokens),
+   rows, int8 and int4; a speculative verify chunk of 5 and of 8 tokens) and
+   the Codestral-Mamba SSD step (B=4, a 64-layer fp32 and bf16 state),
    with its time (CUDA-event median), the plain
    version's time, the time of one PyTorch library call for the same function
    where one exists, and the card's least time for the work (bytes or flops,
@@ -45,13 +46,26 @@ Phases, each printing one JSON line:
    top-p speculation is fixed by its seed; and prints accepted drafts, target
    forwards per token and tokens/s beside plain decoding's.
 
+6. Mamba2: ``generate_mamba`` on ``codestral-mamba-7b`` (dim 4096, d_inner
+   8192, 128 SSD heads of 64, 8 groups, d_state 128, vocab 32768) with random
+   bf16 weights from a seed, over the prompts of phase 4 with chunk 512.
+   ``mamba-bf16``: all 64 layers, bf16 weights, fp32 SSD state, every decode
+   step's SSD through K9 (64 launches per decode forward), the linears
+   through cuBLAS. ``mamba-int4-bf16-state``: 8 layers, int4 weights (K3 in
+   decode, K5 in prefill), bf16 state. Each checks that greedy tokens repeat,
+   K9's launches, decode == prefill, top-p per seed and the path's kernels.
+   ``mamba-lookup``: 8 layers int4, ``draft_model="lookup"`` with K = 7 beside
+   plain greedy (verify and commit through the chunked SSD and K3 at
+   B x (K + 1) rows, K9 not launched), tokens equal to plain greedy's but at
+   a near-tie, the logprob count, speculation == prefill, top-p per seed.
+
 Then a ``kernels`` line, the nvidia-smi line, and last the device line.
 Any failure raises and the script exits non-zero. Without a CUDA device,
 or without the package beside it, it exits non-zero and prints no result.
 nvcc's build logs (``-Xptxas -v``: registers, shared memory) go to stderr.
-``--profile`` adds to the lines of the two int4 paths a torch.profiler
-breakdown of the prefill and of one decode step, with the decode step's aten
-calls and the host's time to enqueue it. ``--kernels=k2,k7`` runs phases 1 and
+``--profile`` adds to the lines of the two int4 paths and the two Mamba
+main paths a torch.profiler breakdown of the prefill and of one decode step,
+with the decode step's aten calls and the host's time to enqueue it. ``--kernels=k2,k7`` runs phases 1 and
 2 and only the named kernels' checks, and prints no result line.
 """
 
@@ -75,6 +89,7 @@ SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's 1.98 GHz boost clock
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): used for
 # each kernel's least time, stated against the card's full 700 W limit.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 MODEL = "mistral-7b-v0.1"
@@ -90,6 +105,7 @@ K1, K2, K4 = "flash_attention", "fused_update_decode_attention", "ring_attention
 K3, K5, K6 = "matmul_quant", "moe_matmul_quant_ragged", "decode_attention"
 K8 = "moe_matmul_quant"
 K7 = "fused_verify_chunk_attention"
+K9 = "fused_ssd_step_stacked"
 # decode == prefill: the greedy decode logprobs and the teacher-forced
 # prefill logprobs of the same tokens go through the same int8 ring bytes
 # (the fused decode kernel's write is bit-identical to the prefill's), but
@@ -188,8 +204,8 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bound(flops: float, bytes_: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, bytes_ / PEAK_BYTES
+def bound(flops: float, bytes_: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, bytes_ / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -995,6 +1011,81 @@ def check_k7(gen):
     }
 
 
+# Codestral-Mamba-7B's SSD widths: 128 heads of 64, d_state 128, 8 groups, 64 layers.
+SSD_L, SSD_NH, SSD_HD, SSD_DS, SSD_NG = 64, 128, 64, 128, 8
+
+
+def check_k9(gen):
+    """K9 at Codestral-Mamba's shapes, B = 4, on layer 37 of a 64-layer
+    stack, fp32 and bf16 states: the state's bits against the plain
+    version's, a dead row, the other layers, a second launch."""
+    from mistral_inference_tpu_torch.ops.cuda.ssd_step import (
+        fused_ssd_step_stacked, fused_ssd_step_stacked_plain,
+    )
+
+    B, li, dead = 4, 37, 3
+    L, NH, HD, DS, NG = SSD_L, SSD_NH, SSD_HD, SSD_DS, SSD_NG
+    out = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        ssm = randn(gen, L, B, NH, HD, DS, dtype=dtype)
+        start = ssm.clone()
+        # dt as the model makes it (softplus'ed, in [1e-3, 0.1]); A in [-16, -1].
+        dt = torch.rand((B, NH), generator=gen, device="cuda") * 0.099 + 1e-3
+        dt[dead] = 0.0  # a dead row: a = 1, dtx = 0
+        A = -(1.0 + 15.0 * torch.rand((NH,), generator=gen, device="cuda"))
+        a = torch.exp(dt * A)
+        dtx = dt[..., None] * randn(gen, B, NH, HD)
+        Bm, Cm = randn(gen, B, NG, DS), randn(gen, B, NG, DS)
+        y = fused_ssd_step_stacked(a, dtx, Bm, Cm, ssm, li)
+        plain = start[li : li + 1].clone()
+        y_ref = fused_ssd_step_stacked_plain(a, dtx, Bm, Cm, plain, 0)
+        torch.cuda.synchronize()
+        case = f"{name} state, B={B}, layer {li} of {L}"
+        require(torch.equal(ssm[li], plain[0]),
+                f"K9 state bits differ from the plain version's ({case}): "
+                f"{int((ssm[li] != plain[0]).sum())} elements")
+        require(torch.equal(ssm[li, dead], start[li, dead]), f"K9 changed a dead row ({case})")
+        require(torch.equal(ssm[:li], start[:li]) and torch.equal(ssm[li + 1 :], start[li + 1 :]),
+                f"K9 touched another layer ({case})")
+        ok, err = close(y, y_ref, 1e-5, 1e-5)
+        require(ok, f"K9 y disagrees with its plain version ({case}): {err}")
+        ssm[li] = start[li]
+        again = fused_ssd_step_stacked(a, dtx, Bm, Cm, ssm, li)
+        torch.cuda.synchronize()
+        require(torch.equal(again, y) and torch.equal(ssm[li], plain[0]),
+                f"K9 is not the same bits on a second run ({case})")
+        del start, plain
+        state_bytes = 2 * B * NH * HD * DS * ssm.element_size()  # layer li read once, written once
+        b_ms, b_by = bound(5.0 * B * NH * HD * DS, state_bytes + nbytes(a, dtx, Bm, Cm, y),
+                           PEAK_FP32_FLOPS)
+        out[name] = {
+            "max_abs_err": err,
+            "ms": timed_ms(lambda: fused_ssd_step_stacked(a, dtx, Bm, Cm, ssm, li)),
+            "plain_ms": timed_ms(lambda: fused_ssd_step_stacked_plain(a, dtx, Bm, Cm, ssm, li)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        del ssm
+    f32 = out["fp32"]
+    return {
+        "name": K9, "kernel": "K9", "route": "cuda",
+        "source": "mistral_inference_tpu_torch/ops/cuda/csrc/ssd_step.cu",
+        "replaces": "mistral_inference_tpu/ops/pallas/ssd_step.py:78",
+        "max_abs_err": max(o["max_abs_err"] for o in out.values()),
+        "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+        "bound_by": f32["bound_by"], "library_ms": None,
+        "bf16_state": out["bf16"],
+        "shape": f"B={B} nh={NH} hd={HD} ds={DS} ng={NG}, layer {li} of a {L}-layer fp32 "
+                 "state stack (bf16_state: the same on a bf16 stack); row 3 dead",
+        "bound": "the layer's state read once and written once, the small operands in and y "
+                 "out, over the card's memory rate; 5 fp32 operations per state element over "
+                 "the 67 TFLOP/s fp32 peak",
+        "library": "none: no one PyTorch call updates the state and reduces it",
+        "tolerance": "state bit-identical to the plain version (fp32 and bf16), dead row and the "
+                     "other 63 layers bit-unchanged, a second launch equal bits; y abs 1e-5 + "
+                     "rel 1e-5 (fp32 sums in another order)",
+    }
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main paths
 # ---------------------------------------------------------------------------
@@ -1049,6 +1140,76 @@ def routing_flips(run, prompts, gen, n_layers: int):
     return torch.stack(flips).cpu().numpy()
 
 
+def timed_run(generate_fn, model, **fixed):
+    """``generate_fn`` on ``model`` with chunk CHUNK and ``fixed`` keywords,
+    timed on the host between two synchronizations: (result, seconds)."""
+
+    def run(p, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = generate_fn(p, model, chunk_size=CHUNK, **fixed, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+    return run
+
+
+def launch_counts():
+    from mistral_inference_tpu_torch.ops import cuda as kern
+
+    return {fn.__name__: fn.launches for fn in kern.all_kernels()}
+
+
+def greedy_phase(run, prompts, vocab_size: int, counts, repeats: int = REPEATS):
+    """What every main path runs first: the greedy calls. Returns (tokens,
+    logprobs, TTFT s, greedy generate(32) s, the launches of one greedy
+    call). The first call of a process also pays cuBLAS and allocator
+    set-up; the timed calls come after it. Decode time is the difference of
+    two medians (32 tokens less 1), and the host, which bounds decode, shares
+    its cores, so each is the median of ``repeats`` calls."""
+    run(prompts, max_tokens=2, temperature=0.0)
+    ttft_s = statistics.median(
+        run(prompts, max_tokens=1, temperature=0.0)[1] for _ in range(repeats))
+    before = counts()
+    (gen, lps), t0 = run(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)
+    per_greedy = {k: n - before[k] for k, n in counts().items()}
+    totals = [t0]
+    for _ in range(repeats - 1):
+        (again, _), t = run(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)
+        require(again == gen, "greedy tokens differ between two runs")
+        totals.append(t)
+    require(all(len(g) == GREEDY_TOKENS for g in gen), "wrong number of generated tokens")
+    require(all(0 <= t < vocab_size for g in gen for t in g), "token out of range")
+    require(all(len(lp) == len(p) - 1 + GREEDY_TOKENS for lp, p in zip(lps, prompts)),
+            "wrong number of logprobs")
+    require(all(math.isfinite(x) for lp in lps for x in lp), "non-finite logprob")
+    return gen, lps, ttft_s, statistics.median(totals), per_greedy
+
+
+def prefill_gap(run, prompts, gen, lps):
+    """decode == prefill: the |gap| (B, steps) between each generated
+    token's logprob and a teacher-forced prefill's of prompt + tokens."""
+    import numpy as np
+
+    full = [p + g for p, g in zip(prompts, gen)]
+    (_, lps_tf), _ = run(full, max_tokens=0, temperature=0.0)
+    return np.stack([
+        np.abs(np.array(a[-len(g):]) - np.array(b[-len(g):])) for a, b, g in zip(lps, lps_tf, gen)
+    ])
+
+
+def topp_phase(run, prompts, **kw) -> float:
+    """top-p sampling, twice with one seed: the same tokens. Returns the
+    first call's seconds."""
+    (s1, l1), topp_s = run(prompts, max_tokens=TOPP_TOKENS, temperature=0.7, top_p=0.9, seed=1,
+                           **kw)
+    (s2, _), _ = run(prompts, max_tokens=TOPP_TOKENS, temperature=0.7, top_p=0.9, seed=1, **kw)
+    require(s1 == s2, "top-p tokens differ between two runs with one seed")
+    require(all(len(g) == TOPP_TOKENS for g in s1)
+            and all(len(lp) == len(p) - 1 + TOPP_TOKENS for lp, p in zip(l1, prompts)),
+            "wrong number of sampled tokens or logprobs")
+    return topp_s
+
+
 def main_path(card: str, profile: bool, path: MainPath):
     """Drive one path of PATHS; returns (its summary line, its launch counts)."""
     import numpy as np
@@ -1080,48 +1241,13 @@ def main_path(card: str, profile: bool, path: MainPath):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, args.vocab_size, n).tolist() for n in PROMPT_LENS]
 
-    def run(p, **kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = generate(p, model, chunk_size=CHUNK, **kw)
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t
-
-    def counts():
-        return {fn.__name__: fn.launches for fn in kern.all_kernels()}
-
+    run = timed_run(generate, model)
     kern.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    # The first generate() of a process also pays cuBLAS and allocator
-    # set-up; the timed calls come after it. Decode time is the difference of
-    # two medians (32 tokens less 1), and the host, which bounds decode,
-    # shares its cores, so each is the median of ``repeats`` calls.
-    run(prompts, max_tokens=2, temperature=0.0)
-    ttft_s = statistics.median(
-        run(prompts, max_tokens=1, temperature=0.0)[1] for _ in range(repeats))
-    before = counts()
-    (gen, lps), t0 = run(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)
-    per_greedy = {k: n - before[k] for k, n in counts().items()}
-    totals = [t0]
-    for _ in range(repeats - 1):
-        (again, _), t = run(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)
-        require(again == gen, "greedy tokens differ between two runs")
-        totals.append(t)
-    total_s = statistics.median(totals)
+    gen, lps, ttft_s, total_s, per_greedy = greedy_phase(run, prompts, args.vocab_size,
+                                                         launch_counts, repeats)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    require(all(len(g) == GREEDY_TOKENS for g in gen), "wrong number of generated tokens")
-    require(all(0 <= t < args.vocab_size for g in gen for t in g), "token out of range")
-    require(all(len(lp) == n - 1 + GREEDY_TOKENS for lp, n in zip(lps, PROMPT_LENS)),
-            "wrong number of logprobs")
-    require(all(math.isfinite(x) for lp in lps for x in lp), "non-finite logprob")
-
-    # decode == prefill: teacher-force prompt + generated tokens.
-    full = [p + g for p, g in zip(prompts, gen)]
-    (_, lps_tf), _ = run(full, max_tokens=0, temperature=0.0)
-    diffs = np.stack([
-        np.abs(np.array(a[-GREEDY_TOKENS:]) - np.array(b[-GREEDY_TOKENS:]))
-        for a, b in zip(lps, lps_tf)
-    ])  # (B, steps)
+    diffs = prefill_gap(run, prompts, gen, lps)
     invariant = {"phase": "invariant", "path": label, "max_nats": float(diffs.max()),
                  "mean_nats": float(diffs.mean()), "bound": path.bound}
     if args.moe:
@@ -1149,16 +1275,13 @@ def main_path(card: str, profile: bool, path: MainPath):
         require(flips.sum() <= MOE_FLIP_SHARE * flips.size * path.layers,
                 f"{int(flips.sum())} of {flips.size * path.layers} routings differ")
 
-    # top-p sampling, twice with one seed.
-    (s1, _), topp_s = run(prompts, max_tokens=TOPP_TOKENS, temperature=0.7, top_p=0.9, seed=1)
-    (s2, _), _ = run(prompts, max_tokens=TOPP_TOKENS, temperature=0.7, top_p=0.9, seed=1)
-    require(s1 == s2, "top-p tokens differ between two runs with one seed")
-    launches = counts()
+    topp_s = topp_phase(run, prompts)
+    launches = launch_counts()
     for name in path.expected:
         require(launches[name] > 0, f"{name} was not launched on the {label} path")
     require(path.fused or launches[K2] == 0,
             "the non-fused decode route launched the fused kernel")
-    breakdown = profile_generate(model, prompts) if profile else None
+    breakdown = profile_generate(model, prompts, generate) if profile else None
     tf.FUSED_DECODE = True
 
     decode_s = total_s - ttft_s
@@ -1242,22 +1365,26 @@ class AcceptLog:
         return sum(a.shape[0] for a in self.accepts)
 
 
-def divergences(model, prompts, spec, plain):
+def transformer_carry(model, tokens):
+    """The prelogits after a teacher-forced prefill of ``tokens`` (1, V)."""
+    from mistral_inference_tpu_torch.generate import prefill_prompts
+
+    cache = model.alloc_cache(1, len(tokens))
+    with torch.inference_mode():
+        return prefill_prompts(model, [tokens], cache, CHUNK, want_logprobs=False)[1]
+
+
+def divergences(model, prompts, spec, plain, carry_of=transformer_carry):
     """Where greedy speculation left plain greedy decoding: for each row that
     did, the step, the two tokens, and the target's top-2 logits at that step
     as a teacher-forced prefill of the row's prompt and plain tokens gives
-    them."""
-    from mistral_inference_tpu_torch.generate import prefill_prompts
-
+    them (``carry_of(model, tokens)``)."""
     found = []
     for row, (a, b) in enumerate(zip(spec, plain)):
         if a == b:
             continue
         step = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-        full = prompts[row] + b[:step]
-        cache = model.alloc_cache(1, len(full))
-        with torch.inference_mode():
-            _, carry = prefill_prompts(model, [full], cache, CHUNK, want_logprobs=False)
+        carry = carry_of(model, prompts[row] + b[:step])
         top = carry[0].topk(2)
         found.append({"row": row, "step": step, "spec_token": a[step], "plain_token": b[step],
                       "top2_tokens": top.indices.tolist(), "top2_logits": top.values.tolist(),
@@ -1300,32 +1427,22 @@ def spec_path(card: str, path: SpecPath):
         block = prompts[1][:REPEATED_BLOCK]
         prompts[1] = (block * (len(prompts[1]) // REPEATED_BLOCK + 1))[:len(prompts[1])]
     B = len(prompts)
-
-    def run(p, spec: bool, **kw):
-        if spec:
-            kw.update(draft_model=draft, spec_tokens=path.K)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = generate(p, model, chunk_size=CHUNK, **kw)
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t
-
-    def counts():
-        return {fn.__name__: fn.launches for fn in kern.all_kernels()}
+    spec = timed_run(generate, model, draft_model=draft, spec_tokens=path.K)
+    plain_run = timed_run(generate, model)
 
     kern.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    run(prompts, True, max_tokens=2, temperature=0.0)  # first-call set-up
-    before = counts()
+    spec(prompts, max_tokens=2, temperature=0.0)  # first-call set-up
+    before = launch_counts()
     with AcceptLog() as log:
-        (gen, lps), spec_s = run(prompts, True, max_tokens=GREEDY_TOKENS, temperature=0.0)
-    per_greedy = {k: n - before[k] for k, n in counts().items()}
+        (gen, lps), spec_s = spec(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)
+    per_greedy = {k: n - before[k] for k, n in launch_counts().items()}
     forwards = log.verify_forwards
     accepts = np.concatenate(log.accepts)  # (iterations, B)
-    (again, _), t = run(prompts, True, max_tokens=GREEDY_TOKENS, temperature=0.0)
+    (again, _), t = spec(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)
     require(again == gen, f"{path.label}: greedy tokens differ between two runs")
     spec_s = min(spec_s, t)
-    spec1_s = min(run(prompts, True, max_tokens=1, temperature=0.0)[1] for _ in range(2))
+    spec1_s = min(spec(prompts, max_tokens=1, temperature=0.0)[1] for _ in range(2))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     lens = path.prompt_lens
     require(all(len(g) == GREEDY_TOKENS for g in gen), "wrong number of generated tokens")
@@ -1342,9 +1459,9 @@ def spec_path(card: str, path: SpecPath):
         require(per_greedy[name] > 0, f"{name} was not launched on the {path.label} path")
 
     # Plain greedy generate() on the same model, in the same call.
-    (plain, plain_lps), plain_s = run(prompts, False, max_tokens=GREEDY_TOKENS, temperature=0.0)
-    plain_s = min(plain_s, run(prompts, False, max_tokens=GREEDY_TOKENS, temperature=0.0)[1])
-    plain1_s = min(run(prompts, False, max_tokens=1, temperature=0.0)[1] for _ in range(2))
+    (plain, plain_lps), plain_s = plain_run(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)
+    plain_s = min(plain_s, plain_run(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)[1])
+    plain1_s = min(plain_run(prompts, max_tokens=1, temperature=0.0)[1] for _ in range(2))
     diverged = divergences(model, prompts, gen, plain)
     for d in diverged:
         emit({"phase": "divergence", "path": path.label, **d})
@@ -1370,23 +1487,11 @@ def spec_path(card: str, path: SpecPath):
                  for a, b in list(zip(x, y))[:len(x) - GREEDY_TOKENS + same.get(i, GREEDY_TOKENS)])
 
     # The emitted logprobs against a teacher-forced prefill of prompt + output.
-    full = [p + g for p, g in zip(prompts, gen)]
-    (_, lps_tf), _ = run(full, False, max_tokens=0, temperature=0.0)
-    diffs = np.stack([
-        np.abs(np.array(a[-GREEDY_TOKENS:]) - np.array(b[-GREEDY_TOKENS:]))
-        for a, b in zip(lps, lps_tf)
-    ])
+    diffs = prefill_gap(plain_run, prompts, gen, lps)
     require(float(diffs.max()) <= INVARIANT_MAX_NATS and float(diffs.mean()) <= INVARIANT_MEAN_NATS,
             f"{path.label}: speculation != prefill: max {diffs.max()} mean {diffs.mean()} nats")
-
-    # top-p speculation, twice with one seed.
-    (s1, l1), topp_s = run(prompts, True, max_tokens=TOPP_TOKENS, temperature=0.7, top_p=0.9, seed=1)
-    (s2, _), _ = run(prompts, True, max_tokens=TOPP_TOKENS, temperature=0.7, top_p=0.9, seed=1)
-    require(s1 == s2, f"{path.label}: top-p tokens differ between two runs with one seed")
-    require(all(len(g) == TOPP_TOKENS for g in s1)
-            and all(len(lp) == n - 1 + TOPP_TOKENS for lp, n in zip(l1, lens)),
-            "wrong number of sampled tokens or logprobs")
-    launches = counts()
+    topp_s = topp_phase(spec, prompts)
+    launches = launch_counts()
     require(path.fused or launches[K7] == 0, "the wrap-safe route launched the fused verify kernel")
 
     emitted = B * (GREEDY_TOKENS - 1)  # the first token comes from the prefill
@@ -1419,6 +1524,209 @@ def spec_path(card: str, path: SpecPath):
         "peak_mem_gb": peak_gb, "launches": launches,
         "launches_per_greedy_generate": per_greedy,
         "topp_s": topp_s, "topp_identical": True, "card": card,
+    }, per_greedy
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the Mamba2 paths
+# ---------------------------------------------------------------------------
+
+MAMBA_MODEL = "codestral-mamba-7b"
+
+
+class MambaPath(NamedTuple):
+    label: str
+    layers: int
+    quant: Optional[str]  # weight quantization
+    bf16_state: bool  # the SSD state stored in bf16, else fp32
+    expected: Tuple[str, ...]  # kernels the path must launch
+    bound: Tuple[float, float] = (INVARIANT_MAX_NATS, INVARIANT_MEAN_NATS)
+
+
+# The full model in bf16 is the path that counts; the int4 path with a bf16
+# state is cut in depth, never in width. A bf16 state rounds once per token in
+# decode and once per 512-token chunk in prefill, so decode and prefill store
+# different roundings of one fp32 state. Measured on that path: 0.0626 max /
+# 0.0120 mean nats, the same in every run (greedy tokens repeat), well inside
+# the dense bound, which it therefore keeps.
+MAMBA_PATHS = (
+    MambaPath("mamba-bf16", 64, None, False, (K9,)),
+    MambaPath("mamba-int4-bf16-state", 8, "int4", True, (K9, K3, K5)),
+)
+MAMBA_LOOKUP_LAYERS = 8
+MAMBA_LOOKUP_K = 7
+
+
+def mamba_model(layers: int, quant: Optional[str], bf16_state: bool):
+    from mistral_inference_tpu_torch.model import Mamba
+    from mistral_inference_tpu_torch.models.registry import get_args
+
+    args = get_args(MAMBA_MODEL)
+    args.n_layers = layers
+    return Mamba.random(args, dtype=torch.bfloat16, seed=0, quant=quant,
+                        ssm_dtype=torch.bfloat16 if bf16_state else torch.float32)
+
+
+def mamba_path(card: str, profile: bool, path: MambaPath):
+    """Drive one path of MAMBA_PATHS through ``generate_mamba``: the greedy
+    repeat, K9's launches (layers x decode forwards), decode == prefill,
+    top-p per seed. Returns (its summary line, its launch counts)."""
+    import numpy as np
+
+    from mistral_inference_tpu_torch.generate import generate_mamba
+    from mistral_inference_tpu_torch.models import transformer as tf
+    from mistral_inference_tpu_torch.ops import cuda as kern
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = mamba_model(path.layers, path.quant, path.bf16_state)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    args = model.args
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, args.vocab_size, n).tolist() for n in PROMPT_LENS]
+    run = timed_run(generate_mamba, model)
+
+    kern.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    gen, lps, ttft_s, total_s, per_greedy = greedy_phase(run, prompts, args.vocab_size,
+                                                         launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = path.layers * GREEDY_TOKENS
+    require(per_greedy[K9] == want,
+            f"{path.label}: K9 launched {per_greedy[K9]} times in a greedy generate_mamba, "
+            f"expected {want} ({path.layers} layers x {GREEDY_TOKENS} decode forwards)")
+    diffs = prefill_gap(run, prompts, gen, lps)
+    emit({"phase": "invariant", "path": path.label, "max_nats": float(diffs.max()),
+          "mean_nats": float(diffs.mean()), "bound": path.bound})
+    require(float(diffs.max()) <= path.bound[0] and float(diffs.mean()) <= path.bound[1],
+            f"{path.label}: decode != prefill: max {diffs.max()} mean {diffs.mean()} nats")
+    topp_s = topp_phase(run, prompts)
+    launches = launch_counts()
+    for name in path.expected:
+        require(launches[name] > 0, f"{name} was not launched on the {path.label} path")
+    breakdown = profile_generate(model, prompts, generate_mamba) if profile else None
+
+    decode_s = total_s - ttft_s
+    return {
+        "phase": "mamba_path", "path": path.label, "model": MAMBA_MODEL, "layers": path.layers,
+        "params": tf.param_count(model.params),
+        "weights": "bf16 random (seed 0)" + (f", quantized to {path.quant} (group 128)"
+                                              if path.quant else ""),
+        "ssm_state": "bf16" if path.bf16_state else "fp32",
+        "prompt_lens": PROMPT_LENS, "chunk_size": CHUNK, "ssd_chunk": min(128, CHUNK),
+        "init_s": init_s, "init_peak_mem_gb": init_peak_gb, "weights_gb": weights_gb,
+        "ttft_s": ttft_s,
+        "ttft_note": "median of 3 warm generate_mamba(max_tokens=1): chunked prefill of all "
+                     "prompts plus one step",
+        "greedy_total_s": total_s,
+        "decode_tokens_per_s": len(PROMPT_LENS) * (GREEDY_TOKENS - 1) / decode_s,
+        "decode_note": "B*(32-1) tokens over median generate_mamba(32) time less median "
+                       "generate_mamba(1) time, medians of 3",
+        "peak_mem_gb": peak_gb, "launches": launches,
+        "launches_per_greedy_generate": per_greedy,
+        "invariant_max_nats": float(diffs.max()), "invariant_mean_nats": float(diffs.mean()),
+        "invariant_bound": path.bound,
+        "topp_s": topp_s, "topp_identical": True, "card": card, "profile": breakdown,
+    }, launches
+
+
+def mamba_carry(model, tokens):
+    from mistral_inference_tpu_torch.generate import prefill_mamba
+
+    with torch.inference_mode():
+        return prefill_mamba(model, [tokens], CHUNK)[1]
+
+
+def mamba_lookup_path(card: str):
+    """``generate_mamba(draft_model="lookup")`` on the int4 Codestral-Mamba
+    cut to MAMBA_LOOKUP_LAYERS, beside plain greedy ``generate_mamba`` on the
+    same model. Its verify and commit forwards take T = K + 1 through the
+    chunked SSD, so K9 must read 0 on the speculative call, and K3 runs at
+    B x (K + 1) rows. Plain decoding goes through K9, so the tokens may leave
+    plain greedy only at a near-tie. Returns (its summary line, the launches
+    of one greedy speculative call)."""
+    import numpy as np
+
+    from mistral_inference_tpu_torch.generate import generate_mamba
+
+    model = mamba_model(MAMBA_LOOKUP_LAYERS, "int4", False)
+    torch.cuda.synchronize()
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, model.args.vocab_size, n).tolist() for n in SPEC_PROMPT_LENS]
+    block = prompts[1][:REPEATED_BLOCK]
+    prompts[1] = (block * (len(prompts[1]) // REPEATED_BLOCK + 1))[:len(prompts[1])]
+    B = len(prompts)
+    spec = timed_run(generate_mamba, model, draft_model="lookup", spec_tokens=MAMBA_LOOKUP_K)
+    plain_run = timed_run(generate_mamba, model)
+
+    spec(prompts, max_tokens=2, temperature=0.0)  # first-call set-up
+    before = launch_counts()
+    with AcceptLog() as log:
+        (gen, lps), spec_s = spec(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)
+    per_greedy = {k: n - before[k] for k, n in launch_counts().items()}
+    forwards = log.verify_forwards
+    accepts = np.concatenate(log.accepts)
+    (again, _), t = spec(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)
+    require(again == gen, "mamba-lookup: greedy tokens differ between two runs")
+    spec_s = min(spec_s, t)
+    spec1_s = min(spec(prompts, max_tokens=1, temperature=0.0)[1] for _ in range(2))
+    require(all(len(g) == GREEDY_TOKENS for g in gen), "wrong number of generated tokens")
+    require(all(len(lp) == n - 1 + GREEDY_TOKENS for lp, n in zip(lps, SPEC_PROMPT_LENS)),
+            "wrong number of logprobs")
+    require(all(math.isfinite(x) for lp in lps for x in lp), "non-finite logprob")
+    require(per_greedy[K9] == 0, f"mamba-lookup: K9 launched {per_greedy[K9]} times, expected 0")
+    for name in (K3, K5):
+        require(per_greedy[name] > 0, f"{name} was not launched on the mamba-lookup path")
+
+    (plain, plain_lps), plain_s = plain_run(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)
+    plain_s = min(plain_s, plain_run(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)[1])
+    plain1_s = min(plain_run(prompts, max_tokens=1, temperature=0.0)[1] for _ in range(2))
+    diverged = divergences(model, prompts, gen, plain, mamba_carry)
+    for d in diverged:
+        emit({"phase": "divergence", "path": "mamba-lookup", **d})
+        # Verify and commit run the chunked SSD over K + 1 tokens where a
+        # decode step runs K9: other fp32 sums, so the logits may differ in
+        # their last bf16 bit. A row may leave plain greedy only where its two
+        # best logits nearly tie, and only for the other of the two.
+        require(d["top2_gap"] <= NEAR_TIE_GAP and d["spec_token"] in d["top2_tokens"]
+                and d["plain_token"] in d["top2_tokens"],
+                f"mamba-lookup: greedy speculation left plain greedy away from a near-tie: {d}")
+    same = {d["row"]: d["step"] for d in diverged}
+    lp_gap = max(abs(a - b) for i, (x, y) in enumerate(zip(lps, plain_lps))
+                 for a, b in list(zip(x, y))[:len(x) - GREEDY_TOKENS + same.get(i, GREEDY_TOKENS)])
+    diffs = prefill_gap(plain_run, prompts, gen, lps)
+    require(float(diffs.max()) <= INVARIANT_MAX_NATS and float(diffs.mean()) <= INVARIANT_MEAN_NATS,
+            f"mamba-lookup: speculation != prefill: max {diffs.max()} mean {diffs.mean()} nats")
+    topp_s = topp_phase(spec, prompts)
+
+    emitted = B * (GREEDY_TOKENS - 1)  # the first token comes from the prefill
+    return {
+        "phase": "mamba_lookup_path", "path": "mamba-lookup", "model": MAMBA_MODEL,
+        "layers": MAMBA_LOOKUP_LAYERS,
+        "weights": "bf16 random (seed 0), quantized to int4 (group 128)", "ssm_state": "fp32",
+        "draft": "prompt lookup (n-gram 2)", "spec_tokens": MAMBA_LOOKUP_K,
+        "prompt_lens": SPEC_PROMPT_LENS, "chunk_size": CHUNK, "weights_gb": weights_gb,
+        "verify_forwards": forwards, "mean_accepted_drafts": float(accepts.mean()),
+        "accepted_drafts_by_row": accepts.mean(axis=0).tolist(),
+        "forwards_per_emitted_token": 2 * forwards * B / emitted,
+        "forwards_note": f"{forwards} verify and {forwards} commit forwards of {B} rows for "
+                         f"{emitted} tokens after the first",
+        "tokens_equal_plain_greedy": not diverged, "divergences_at_near_ties": diverged,
+        "near_tie_gap": NEAR_TIE_GAP, "max_logprob_gap_to_plain_greedy": lp_gap,
+        "spec_greedy_s": spec_s, "spec_first_token_s": spec1_s,
+        "spec_tokens_per_s": emitted / (spec_s - spec1_s),
+        "plain_greedy_s": plain_s, "plain_first_token_s": plain1_s,
+        "plain_tokens_per_s": emitted / (plain_s - plain1_s),
+        "timing_note": "each the faster of 2 warm calls; tokens/s is B*(32-1) over "
+                       "generate_mamba(32) less generate_mamba(1)",
+        "invariant_max_nats": float(diffs.max()), "invariant_mean_nats": float(diffs.mean()),
+        "invariant_bound": (INVARIANT_MAX_NATS, INVARIANT_MEAN_NATS),
+        "launches_per_greedy_generate": per_greedy, "topp_s": topp_s, "topp_identical": True,
+        "card": card,
     }, per_greedy
 
 
@@ -1480,6 +1788,7 @@ def kernel_ms(prof, calls: int = 1):
                                    ("matmul_quant", "K3 matmul_quant"),
                                    ("moe_matmul", "K5 moe_matmul"),
                                    ("moe_expert_matmul", "K8 moe_expert_matmul"),
+                                   ("ssd_step", "K9 ssd_step"),
                                    ("gemm", "matmul"),
                                    ("gemv", "matmul"), ("xmma", "matmul"), ("cutlass", "matmul"),
                                    ("nvjet", "matmul"), ("splitkreduce", "matmul")) if k in name),
@@ -1489,21 +1798,19 @@ def kernel_ms(prof, calls: int = 1):
     return sum(cats.values()), dict(sorted(cats.items(), key=lambda kv: -kv[1])), sorted(top)[::-1]
 
 
-def profile_generate(model, prompts):
-    """Where the time goes. Prefill: generate(max_tokens=0) over all prompts
-    under torch.profiler, its wall time, kernel time by category and the
-    card's idle share (1 - kernel time / wall; one stream, kernels do not
+def profile_generate(model, prompts, generate_fn):
+    """Where the time goes. Prefill: ``generate_fn(max_tokens=0)`` over all
+    prompts under torch.profiler, its wall time, kernel time by category and
+    the card's idle share (1 - kernel time / wall; one stream, kernels do not
     overlap). Decode: decode_step_probe."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
-    from mistral_inference_tpu_torch.generate import generate
-
-    generate(prompts, model, chunk_size=CHUNK, temperature=0.0, max_tokens=0)
+    generate_fn(prompts, model, chunk_size=CHUNK, temperature=0.0, max_tokens=0)
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        generate(prompts, model, chunk_size=CHUNK, temperature=0.0, max_tokens=0)
+        generate_fn(prompts, model, chunk_size=CHUNK, temperature=0.0, max_tokens=0)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t)
     busy, cats, top = kernel_ms(prof)
@@ -1518,12 +1825,34 @@ def profile_generate(model, prompts):
 
 
 def decode_step_probe(model, B: int, fill: int = 3000, steps: int = 10):
-    """One decode step (model.forward, T=1) at B rows over rings holding
-    ``fill`` tokens: its aten calls; the host's time to enqueue it (median
-    of ``steps``, each started with the card idle); the wall time per step
-    of ``steps`` steps in a row; and its kernel time by category
-    (torch.profiler). Enqueue time above kernel time means the host bounds
-    decode, and the card idles for the difference."""
+    """One decode step (model.forward, T=1) at B rows: over rings holding
+    ``fill`` tokens for a Transformer; for a Mamba over the state a 512-token
+    prefill leaves (its step's work does not depend on how many tokens are
+    behind it). step_probe measures it."""
+    dev = model.device
+    # A token of its own for each row, so that an MoE layer routes them apart.
+    tok = torch.arange(1, B + 1, dtype=torch.long, device=dev)[:, None]
+    ones = torch.ones((B,), dtype=torch.int32, device=dev)
+    if hasattr(model, "alloc_state"):
+        state = model.alloc_state(B)
+        prompt = torch.randint(1, model.args.vocab_size, (B, CHUNK), device=dev)
+        model.forward(prompt, torch.full((B,), CHUNK, device=dev), state, chunk=128)
+        return {"state_after_prefill_of": CHUNK, **step_probe(
+            lambda: model.forward(tok, ones, state, chunk=1), lambda: None, B, steps)}
+    cache = model.alloc_cache(B, fill + 2 * steps + 16)
+    start = torch.full((B,), fill, dtype=torch.int32, device=dev)
+    cache.kv_len = start
+    return {"fill": fill, **step_probe(lambda: model.forward(tok, ones, cache),
+                                       lambda: setattr(cache, "kv_len", start), B, steps)}
+
+
+def step_probe(step, reset, B: int, steps: int):
+    """A decode step's aten calls; the host's time to enqueue it (median of
+    ``steps``, each started with the card idle); the wall time per step of
+    ``steps`` steps in a row; and its kernel time by category
+    (torch.profiler). ``reset`` rewinds what the steps advanced. Enqueue time
+    above kernel time means the host bounds decode, and the card idles for
+    the difference."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -1535,37 +1864,30 @@ def decode_step_probe(model, B: int, fill: int = 3000, steps: int = 10):
             Count.calls += 1
             return func(*args, **(kwargs or {}))
 
-    dev = model.device
-    cache = model.alloc_cache(B, fill + 2 * steps + 16)
-    start = torch.full((B,), fill, dtype=torch.int32, device=dev)
-    cache.kv_len = start
-    # A token of its own for each row, so that an MoE layer routes them apart.
-    tok = torch.arange(1, B + 1, dtype=torch.long, device=dev)[:, None]
-    ones = torch.ones((B,), dtype=torch.int32, device=dev)
     for _ in range(3):
-        model.forward(tok, ones, cache)
+        step()
     with Count():
-        model.forward(tok, ones, cache)
+        step()
     enqueue = []
     for _ in range(steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        model.forward(tok, ones, cache)
+        step()
         enqueue.append(1e3 * (time.perf_counter() - t))
-    cache.kv_len = start
+    reset()
     torch.cuda.synchronize()
     t = time.perf_counter()
     for _ in range(steps):
-        model.forward(tok, ones, cache)
+        step()
     torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t) / steps
-    cache.kv_len = start
+    reset()
     with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            model.forward(tok, ones, cache)
+            step()
         torch.cuda.synchronize()
     busy, cats, _ = kernel_ms(prof, steps)
-    return {"rows": B, "fill": fill, "aten_calls": Count.calls,
+    return {"rows": B, "aten_calls": Count.calls,
             "host_enqueue_ms": statistics.median(enqueue), "wall_ms": wall, "kernel_ms": busy,
             "device_idle_share": 1.0 - busy / wall, "kernel_ms_by_category": cats}
 
@@ -1594,7 +1916,8 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    checks = (check_k1, check_k4, check_k2, check_k3, check_k5, check_k8, check_k6, check_k7)
+    checks = (check_k1, check_k4, check_k2, check_k3, check_k5, check_k8, check_k6, check_k7,
+              check_k9)
     only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:] if a.startswith("--kernels=")]
     for check in checks:
         if only and check.__name__.removeprefix("check_") not in only[0]:
@@ -1624,6 +1947,15 @@ def main() -> int:
         if spath.fused and spath.layers > depth.get(K7, 0):
             launches[K7], depth[K7] = counted[K7], spath.layers
         torch.cuda.empty_cache()
+    # K9's launches per greedy generate_mamba on the full 64-layer model.
+    for mpath in MAMBA_PATHS:
+        summary, counted = mamba_path(card, "--profile" in sys.argv[1:], mpath)
+        emit(summary)
+        if mpath.layers > depth.get(K9, 0):
+            launches[K9], depth[K9] = counted[K9], mpath.layers
+        torch.cuda.empty_cache()
+    emit(mamba_lookup_path(card)[0])
+    torch.cuda.empty_cache()
     emit({"kernels": [
         {"name": r["name"], "route": r["route"], "source": r["source"],
          "replaces": r["replaces"], "launches": launches[r["name"]],

@@ -1,8 +1,9 @@
-"""Model configuration for the decoder, dense or sparse-MoE.
+"""Model configuration: the decoder, dense or sparse-MoE, and the Mamba2
+family.
 
-Counterpart of ``mistral_inference_tpu/args.py::TransformerArgs`` and
-``::MoeArgs``, cut to the fields the ported paths read. LoRA and vision
-arrive with later slices of the port.
+Counterpart of ``mistral_inference_tpu/args.py::TransformerArgs``,
+``::MoeArgs`` and ``::MambaArgs``, cut to the fields the ported paths read.
+LoRA and vision arrive with later slices of the port.
 """
 
 from __future__ import annotations
@@ -77,3 +78,58 @@ class TransformerArgs:
         if isinstance(kw.get("moe"), dict):
             kw["moe"] = MoeArgs.from_dict(kw["moe"])
         return cls(**kw)
+
+
+@dataclass
+class MambaArgs:
+    """Mamba2 (Codestral-Mamba). The SSD widths default to the reference's
+    ``ssm_cfg``: d_state 128, d_conv 4, expand 2, headdim 64."""
+
+    dim: int
+    n_layers: int
+    vocab_size: int
+    n_groups: int
+    rms_norm: bool
+    residual_in_fp32: bool
+    fused_add_norm: bool
+    pad_vocab_size_multiple: int
+    tie_embeddings: bool
+    model_type: str = "mamba"
+    # Weight quantization state: "bf16" (the model dtype), "int8" or "int4"
+    # weight-only. Set by ``Mamba.quantize``.
+    quant: str = "bf16"
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    headdim: int = 64
+
+    def __post_init__(self) -> None:
+        if self.model_type != "mamba":
+            raise ValueError(f"model_type must be 'mamba', got {self.model_type!r}")
+        if self.quant not in ("bf16", "int8", "int4"):
+            raise ValueError(f"quant must be 'bf16', 'int8' or 'int4', got {self.quant!r}")
+        if self.d_inner % self.headdim or self.n_ssm_heads % self.n_groups:
+            raise ValueError("headdim must divide d_inner and n_groups the SSD heads")
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.dim
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.headdim
+
+    @property
+    def conv_dim(self) -> int:
+        """Channels of the depthwise conv: x | B | C."""
+        return self.d_inner + 2 * self.n_groups * self.d_state
+
+    @property
+    def padded_vocab_size(self) -> int:
+        m = self.pad_vocab_size_multiple
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "MambaArgs":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})

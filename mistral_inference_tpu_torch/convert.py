@@ -15,6 +15,11 @@ stacks ``w13 (E, dim, 2 hidden)`` and ``w2 (E, hidden, dim)``, which keep the
 (in, out) layout in both forms: they are applied as ``x @ w``. The input is a
 tree of numpy arrays (for example ``jax.tree.map(np.asarray, params)``), so
 this module needs no JAX.
+
+``mamba_params_from_numpy`` does the same for a Mamba2 tree
+(``models/mamba.py``): ``z_proj | x_proj | b_proj | c_proj`` become one
+``in_proj`` along out, the three conv segments one (K, conv_dim) conv, and
+the head ``lm_head (dim, V)`` an ``(V, dim)`` weight.
 """
 
 from __future__ import annotations
@@ -88,3 +93,53 @@ def params_from_numpy(
         "norm": _tensor(tree["norm"], device),
         "output": _tensor(np.asarray(tree["output"]).T, device),
     }
+
+
+_MAMBA_IN_PROJ = ("z_proj", "x_proj", "b_proj", "c_proj")
+
+
+def _mamba_linear(parts, i: int, device):
+    """Layer i of the JAX (L, in, out) stacks ``parts``, fused along out:
+    a quantized leaf keeps (in, out) and its bytes; a plain one becomes
+    (out, in)."""
+    if isinstance(parts[0], dict):
+        return {
+            k: _tensor(np.concatenate([np.asarray(p[k][i]) for p in parts], axis=-1), device)
+            for k in parts[0]
+        }
+    return _tensor(np.concatenate([np.asarray(p[i]) for p in parts], axis=-1).T, device)
+
+
+def mamba_params_from_numpy(
+    tree: Dict[str, Any],
+    device: Union[str, torch.device] = "cpu",
+) -> Params:
+    """Mamba2 JAX params (numpy leaves), plain or weight-only quantized ->
+    this port's params (``models/mamba.py``)."""
+    layers = tree["layers"]
+    out_layers = []
+    for i in range(np.asarray(layers["norm"]).shape[0]):
+        def seg(name: str) -> np.ndarray:
+            return np.concatenate(
+                [np.asarray(layers[f"{name}_{s}"][i]) for s in ("x", "B", "C")], axis=-1)
+
+        out_layers.append({
+            "norm": _tensor(layers["norm"][i], device),
+            "in_proj": _mamba_linear([layers[k] for k in _MAMBA_IN_PROJ], i, device),
+            "dt_proj": _tensor(np.asarray(layers["dt_proj"][i]).T, device),
+            "conv_w": _tensor(seg("conv_w"), device),
+            "conv_b": _tensor(seg("conv_b"), device),
+            "A_log": _tensor(layers["A_log"][i], device),
+            "D": _tensor(layers["D"][i], device),
+            "dt_bias": _tensor(layers["dt_bias"][i], device),
+            "mixer_norm": _tensor(layers["mixer_norm"][i], device),
+            "out_proj": _mamba_linear([layers["out_proj"]], i, device),
+        })
+    params = {
+        "embedding": _tensor(tree["embedding"], device),
+        "layers": out_layers,
+        "norm_f": _tensor(tree["norm_f"], device),
+    }
+    if "lm_head" in tree:
+        params["lm_head"] = _tensor(np.asarray(tree["lm_head"]).T, device)
+    return params

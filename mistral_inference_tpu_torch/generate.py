@@ -1,5 +1,6 @@
 """Batched generation: chunked prefill, then decode in blocks (counterpart of
-``mistral_inference_tpu/generate.py``).
+``mistral_inference_tpu/generate.py``), for a ``Transformer`` (``generate``)
+and a ``Mamba`` (``generate_mamba``).
 
 Returns ``(generated_tokens, logprobs)`` where the logprobs of a row are its
 teacher-forced prompt transitions followed by one entry per generated token.
@@ -9,13 +10,14 @@ tokens and logprobs on the device and the host reads them once per block.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mistral_inference_tpu_torch.model import Transformer
+from mistral_inference_tpu_torch.model import Mamba, Transformer
+from mistral_inference_tpu_torch.models import mamba as mm
 from mistral_inference_tpu_torch.models import transformer as tf
 
 DEFAULT_TOP_P = 0.8  # the reference's decode loop uses top_p = 0.8
@@ -128,32 +130,44 @@ def prefill_prompts(
     ``generate`` and the speculative generators share it; a draft model
     prefills without logprobs."""
     B = len(encoded_prompts)
+    logprobs: List[List[float]] = [[] for _ in range(B)]
+    carry = torch.zeros((B, model.args.vocab_size), dtype=torch.float32, device=model.device)
+    for first, tokens, chunk_lens in _prompt_chunks(encoded_prompts, chunk_size, model.device):
+        lp_d, carry = _prefill_step(
+            model, tokens, chunk_lens, cache, carry, attend_cache=not first,
+            want_logprobs=want_logprobs,
+        )
+        if want_logprobs:
+            _extend_logprobs(logprobs, lp_d, chunk_lens, first)
+    return logprobs, carry
+
+
+def _prompt_chunks(encoded_prompts: Sequence[Sequence[int]], chunk_size: Optional[int], device):
+    """The prompts cut into chunks of ``chunk_size`` (the longest prompt when
+    None), each padded to (B, chunk_size): yields (first chunk?, tokens,
+    valid tokens per row (B,) int32), on ``device``."""
     seqlens = [len(p) for p in encoded_prompts]
     max_prompt_len = max(seqlens)
     if chunk_size is None:
         chunk_size = max_prompt_len
-    device = model.device
-    logprobs: List[List[float]] = [[] for _ in range(B)]
-    carry = torch.zeros((B, model.args.vocab_size), dtype=torch.float32, device=device)
     for s in range(0, max_prompt_len, chunk_size):
-        first = s == 0
         chunk_lens = np.array([min(max(n - s, 0), chunk_size) for n in seqlens], np.int32)
-        chunk_tok = np.zeros((B, chunk_size), np.int64)
+        chunk_tok = np.zeros((len(encoded_prompts), chunk_size), np.int64)
         for i, p in enumerate(encoded_prompts):
             row = p[s : s + chunk_size]
             chunk_tok[i, : len(row)] = row
-        lp_d, carry = _prefill_step(
-            model, torch.from_numpy(chunk_tok).to(device),
-            torch.from_numpy(chunk_lens).to(device), cache, carry, attend_cache=not first,
-            want_logprobs=want_logprobs,
-        )
-        if want_logprobs:
-            lp = lp_d.cpu().numpy()
-            for i in range(B):
-                n = int(chunk_lens[i])
-                if n:
-                    logprobs[i].extend(lp[i, (1 if first else 0) : n].tolist())
-    return logprobs, carry
+        tokens, lens = torch.from_numpy(chunk_tok), torch.from_numpy(chunk_lens)
+        yield s == 0, tokens.to(device), lens.to(device)
+
+
+def _extend_logprobs(logprobs: List[List[float]], lp_d: torch.Tensor, chunk_lens: torch.Tensor,
+                     first: bool) -> None:
+    """Append a chunk's teacher-forced logprobs (B, T) to each row's list:
+    its valid positions, less the first prompt token, which has none."""
+    lp, lens = lp_d.cpu().numpy(), chunk_lens.cpu().numpy()
+    for i, n in enumerate(lens):
+        if n:
+            logprobs[i].extend(lp[i, (1 if first else 0) : int(n)].tolist())
 
 
 def check_prompts(encoded_prompts: Sequence[Sequence[int]], vocab_size: int) -> None:
@@ -183,30 +197,64 @@ def _sliced_teacher_logprobs(hidden, tokens, carry, head_fp32, TS: int = 64):
 
 
 def _decode_block(
-    model: Transformer,
+    step: Callable[[torch.Tensor], torch.Tensor],
     prelogits: torch.Tensor,  # (B, V)
-    cache,
     n_steps: int,
     temperature: float,
     top_p: float,
     generator: Optional[torch.Generator],
 ) -> Tuple[np.ndarray, np.ndarray, torch.Tensor]:
-    """n_steps of [sample -> logprob -> forward]; tokens and logprobs stay
-    on the device until the one host sync at the end of the block.
-    Returns (tokens (n, B), logprobs (n, B), the last prelogits)."""
-    B = prelogits.shape[0]
-    ones = torch.ones((B,), dtype=torch.int32, device=prelogits.device)
+    """n_steps of [sample -> logprob -> ``step``], where ``step(tokens (B,))``
+    is one T = 1 forward returning the next prelogits (B, V); tokens and
+    logprobs stay on the device until the one host sync at the end of the
+    block. Returns (tokens (n, B), logprobs (n, B), the last prelogits)."""
     toks, lps = [], []
     for _ in range(n_steps):
         tok = sample(prelogits, temperature, top_p, generator)
         lps.append(F.log_softmax(prelogits, dim=-1).gather(-1, tok[:, None])[:, 0])
         toks.append(tok)
-        prelogits = model.forward(tok[:, None], ones, cache, attend_cache=True)[:, 0]
+        prelogits = step(tok)
     return (
         torch.stack(toks).cpu().numpy(),
         torch.stack(lps).cpu().numpy(),
         prelogits,
     )
+
+
+def _decode_loop(
+    step: Callable[[torch.Tensor], torch.Tensor],
+    carry: torch.Tensor,
+    logprobs: List[List[float]],
+    *,
+    max_tokens: int,
+    eos_id: Optional[int],
+    decode_block: int,
+    temperature: float,
+    top_p: float,
+    seed: int,
+) -> Tuple[List[List[int]], List[List[float]]]:
+    """Decode blocks from the prefill's ``carry`` until ``max_tokens``, or
+    until every row has emitted ``eos_id`` (the step on which the last row
+    finishes is not appended). Sampling draws from a ``torch.Generator``
+    seeded with ``seed``. Returns (generated tokens, ``logprobs`` extended)."""
+    B = len(logprobs)
+    generator = torch.Generator(device=carry.device).manual_seed(seed)
+    generated: List[List[int]] = [[] for _ in range(B)]
+    is_finished = np.zeros((B,), bool)
+    done = 0
+    while done < max_tokens:
+        n = max_tokens - done if eos_id is None else min(decode_block, max_tokens - done)
+        toks, lps, carry = _decode_block(step, carry, n, temperature, top_p, generator)
+        for t in range(n):
+            if eos_id is not None:
+                is_finished |= toks[t] == eos_id
+                if is_finished.all():
+                    return generated, logprobs
+            for i in range(B):
+                generated[i].append(int(toks[t, i]))
+                logprobs[i].append(float(lps[t, i]))
+        done += n
+    return generated, logprobs
 
 
 # ---------------------------------------------------------------------------
@@ -264,25 +312,101 @@ def generate(
 
     cache = model.alloc_cache(B, max_prompt_len + max_tokens)
     logprobs, carry = prefill_prompts(model, encoded_prompts, cache, chunk_size)
+    ones = torch.ones((B,), dtype=torch.int32, device=device)
+    return _decode_loop(
+        lambda tok: model.forward(tok[:, None], ones, cache, attend_cache=True)[:, 0],
+        carry, logprobs, max_tokens=max_tokens, eos_id=eos_id, decode_block=decode_block,
+        temperature=temperature, top_p=top_p, seed=seed,
+    )
 
-    generator = torch.Generator(device=device).manual_seed(seed)
-    generated: List[List[int]] = [[] for _ in range(B)]
-    is_finished = np.zeros((B,), bool)
-    done = 0
-    while done < max_tokens:
-        n = max_tokens - done if eos_id is None else min(decode_block, max_tokens - done)
-        toks, lps, carry = _decode_block(model, carry, cache, n, temperature, top_p, generator)
-        stop = False
-        for t in range(n):
-            if eos_id is not None:
-                is_finished |= toks[t] == eos_id
-                if is_finished.all():
-                    stop = True
-                    break
-            for i in range(B):
-                generated[i].append(int(toks[t, i]))
-                logprobs[i].append(float(lps[t, i]))
-        done += n
-        if stop:
-            break
-    return generated, logprobs
+
+# ---------------------------------------------------------------------------
+# Mamba: the same contract, driving the recurrent state of models/mamba.py
+# ---------------------------------------------------------------------------
+
+
+def _mamba_prefill_step(
+    model: Mamba,
+    tokens: torch.Tensor,  # (B, T)
+    seqlens: torch.Tensor,  # (B,)
+    state: mm.MambaState,
+    carry: torch.Tensor,  # (B, V)
+    chunk: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One prompt chunk into ``state`` (in place). Returns (teacher-forced
+    logprobs (B, T), each row's last valid prelogits, or ``carry`` for a row
+    with no token here)."""
+    hidden = model.forward(tokens, seqlens, state, chunk, head="none")
+    rows = torch.arange(hidden.shape[0], device=hidden.device)
+    last = mm.apply_head(hidden[rows, (seqlens - 1).clamp_min(0).long()], model.params, model.args)
+    last = torch.where((seqlens > 0)[:, None], last, carry)
+    logprobs = _sliced_teacher_logprobs(
+        hidden, tokens, carry, lambda h: mm.apply_head(h, model.params, model.args)
+    )
+    return logprobs, last
+
+
+def prefill_mamba(
+    model: Mamba, encoded_prompts: Sequence[Sequence[int]], chunk_size: Optional[int]
+) -> Tuple[List[List[float]], torch.Tensor, mm.MambaState]:
+    """Chunked prefill of ragged prompts into a new state. Returns (per-row
+    teacher-forced logprobs, seqlen - 1 each; each row's prelogits after its
+    last prompt token; the state). The SSD's own chunk is min(128,
+    chunk_size). ``generate_mamba`` and the lookup generator share it."""
+    B = len(encoded_prompts)
+    state = model.alloc_state(B)
+    logprobs: List[List[float]] = [[] for _ in range(B)]
+    carry = torch.zeros((B, model.args.vocab_size), dtype=torch.float32, device=model.device)
+    for first, tokens, chunk_lens in _prompt_chunks(encoded_prompts, chunk_size, model.device):
+        lp_d, carry = _mamba_prefill_step(
+            model, tokens, chunk_lens, state, carry, min(mm.DEFAULT_CHUNK, tokens.shape[1])
+        )
+        _extend_logprobs(logprobs, lp_d, chunk_lens, first)
+    return logprobs, carry, state
+
+
+@torch.inference_mode()
+def generate_mamba(
+    encoded_prompts: Sequence[Sequence[int]],
+    model: Mamba,
+    *,
+    max_tokens: int,
+    temperature: float,
+    chunk_size: Optional[int] = None,
+    eos_id: Optional[int] = None,
+    seed: int = 0,
+    decode_block: int = 32,
+    top_p: float = DEFAULT_TOP_P,
+    draft_model: Optional[str] = None,
+    spec_tokens: int = 8,
+) -> Tuple[List[List[int]], List[List[float]]]:
+    """``generate`` for a Mamba model, with the same output contract: per row
+    the generated tokens, and logprobs of seqlen - 1 teacher-forced prompt
+    transitions then one per generated token; sampling from a
+    ``torch.Generator`` seeded with ``seed``; EOS stops when every row has
+    emitted it.
+
+    ``draft_model="lookup"`` (or "ngram") decodes by prompt-lookup
+    speculation (``speculative.generate_lookup_mamba``): the same greedy
+    tokens from fewer sequential forwards. A Mamba has no draft-model mode:
+    a recurrent draft would need a rewind of its own state."""
+    if draft_model is not None:
+        if draft_model not in ("lookup", "ngram"):
+            raise ValueError(f"Mamba speculation is draft-free: draft_model must be 'lookup' or "
+                             f"'ngram', got {draft_model!r}")
+        from mistral_inference_tpu_torch.speculative import generate_lookup_mamba
+
+        return generate_lookup_mamba(
+            encoded_prompts, model, max_tokens=max_tokens, temperature=temperature,
+            spec_tokens=spec_tokens, chunk_size=chunk_size, eos_id=eos_id, seed=seed,
+            top_p=top_p,
+        )
+    check_prompts(encoded_prompts, model.args.vocab_size)
+    logprobs, carry, state = prefill_mamba(model, encoded_prompts, chunk_size)
+    # Each decode step is one T = 1 forward, whose SSD goes through K9.
+    ones = torch.ones((len(encoded_prompts),), dtype=torch.int32, device=model.device)
+    return _decode_loop(
+        lambda tok: model.forward(tok[:, None], ones, state, chunk=1)[:, 0],
+        carry, logprobs, max_tokens=max_tokens, eos_id=eos_id, decode_block=decode_block,
+        temperature=temperature, top_p=top_p, seed=seed,
+    )

@@ -1,6 +1,7 @@
-"""Host handle around the forward (dense or sparse-MoE), with bf16 or
-weight-only quantized linears (counterpart of
-``mistral_inference_tpu/model.py::Transformer``)."""
+"""Host handles around the forwards: ``Transformer`` (dense or sparse-MoE)
+and ``Mamba`` (Mamba2), with bf16 or weight-only quantized linears
+(counterpart of ``mistral_inference_tpu/model.py::Transformer`` and
+``::Mamba``)."""
 
 from __future__ import annotations
 
@@ -8,8 +9,9 @@ from typing import Optional, Union
 
 import torch
 
-from mistral_inference_tpu_torch.args import TransformerArgs
+from mistral_inference_tpu_torch.args import MambaArgs, TransformerArgs
 from mistral_inference_tpu_torch.cache import KVCache
+from mistral_inference_tpu_torch.models import mamba as mm
 from mistral_inference_tpu_torch.models import transformer as tf
 
 MAX_SEQ_LEN = 128_000  # positions the reference's RoPE table covers
@@ -105,4 +107,74 @@ class Transformer:
             return tf.forward(
                 self.params, tokens.to(self.device), seqlens.to(self.device), cache,
                 self.args, attend_cache, head=head, write_cache=write_cache,
+            )
+
+
+class Mamba:
+    """Args, parameters (a dict of tensors on one device), the dtype and the
+    SSD state's dtype."""
+
+    def __init__(
+        self,
+        args: MambaArgs,
+        params: mm.Params,
+        dtype: torch.dtype = torch.bfloat16,
+        device: Optional[Union[str, torch.device]] = None,
+        ssm_dtype: torch.dtype = torch.float32,
+    ):
+        self.args = args
+        self.dtype = dtype
+        self.ssm_dtype = ssm_dtype
+        self.device = resolve_device(device)
+        self.params = params
+
+    @classmethod
+    def random(
+        cls,
+        args: MambaArgs,
+        dtype: torch.dtype = torch.bfloat16,
+        seed: int = 0,
+        device: Optional[Union[str, torch.device]] = None,
+        quant: Optional[str] = None,
+        ssm_dtype: torch.dtype = torch.float32,
+        group: int = 128,
+    ) -> "Mamba":
+        """Random weights from ``seed``, made directly on ``device`` (the card
+        unless ``device="cpu"``); with ``quant`` ("int8" | "int4") the big
+        projections are quantized as they are drawn."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = mm.init_params(args, dtype, gen, dev, quant, group)
+        if quant is not None:
+            args.quant = quant
+        return cls(args, params, dtype, dev, ssm_dtype)
+
+    def quantize(self, mode: str, group: int = 128) -> "Mamba":
+        """Weight-only quantization of ``in_proj`` and ``out_proj`` in place:
+        "int8" | "int4" (``quant/weights.py``). Returns self."""
+        from mistral_inference_tpu_torch.quant.weights import quantize_params
+
+        self.params = quantize_params(self.params, mode, group)
+        self.args.quant = mode
+        return self
+
+    def alloc_state(self, batch: int) -> mm.MambaState:
+        return mm.MambaState.alloc(self.args, batch, self.dtype, self.device, self.ssm_dtype)
+
+    def forward(
+        self,
+        tokens: torch.Tensor,  # (B, T)
+        seqlens: torch.Tensor,  # (B,)
+        state: mm.MambaState,
+        chunk: int = mm.DEFAULT_CHUNK,
+        head: str = "full",
+        write_state: bool = True,
+    ) -> torch.Tensor:
+        """Prelogits (B, T, vocab_size) fp32, or hidden states with
+        ``head="none"``. The state is updated in place unless
+        ``write_state=False``: see ``models.mamba.forward``."""
+        with torch.inference_mode():
+            return mm.forward(
+                self.params, tokens.to(self.device), seqlens.to(self.device), state,
+                self.args, chunk, head=head, write_state=write_state,
             )

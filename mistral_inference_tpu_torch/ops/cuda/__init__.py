@@ -11,9 +11,9 @@ from typing import Callable, Tuple
 
 
 def all_kernels() -> Tuple[Callable, ...]:
-    from mistral_inference_tpu_torch.ops.cuda import attention, matmul_quant, moe_matmul
+    from mistral_inference_tpu_torch.ops.cuda import attention, matmul_quant, moe_matmul, ssd_step
 
-    return attention.KERNELS + matmul_quant.KERNELS + moe_matmul.KERNELS
+    return attention.KERNELS + matmul_quant.KERNELS + moe_matmul.KERNELS + ssd_step.KERNELS
 
 
 def reset_launch_counts() -> None:

@@ -1,17 +1,19 @@
-"""Weight-only quantization of a transformer's params tree, dense or MoE
-(counterpart of ``mistral_inference_tpu/quant/weights.py``).
+"""Weight-only quantization of a params tree: a transformer, dense or MoE,
+or a Mamba2 model (counterpart of ``mistral_inference_tpu/quant/weights.py``).
 
-Quantizes the big linears of every layer (``wqkv``, ``wo``, ``w13``, ``w2``;
-in an MoE layer the last two are (E, in, out) expert stacks, quantized in
-one call with the experts as a leading axis) to int8 or packed int4 with
-grouped fp32 scales (``ops/linear.py``). Embeddings, norms, the MoE router
-``gate`` and the output head stay in the model dtype: they are a small share
-of the bytes and the usual accuracy-critical tails.
+Quantizes the big linears of every layer to int8 or packed int4 with grouped
+fp32 scales (``ops/linear.py``): a transformer's ``wqkv``, ``wo``, ``w13``,
+``w2`` (in an MoE layer the last two are (E, in, out) expert stacks, quantized
+in one call with the experts as a leading axis); a Mamba layer's ``in_proj``
+and ``out_proj``. Embeddings, norms, the MoE router ``gate``, the output head
+and Mamba's ``dt_proj`` (it feeds softplus(dt), the recurrence's decay rates),
+convs and SSD parameters stay in the model dtype: they are a small share of
+the bytes and the usual accuracy-critical tails.
 
-This port keeps wq|wk|wv and w1|w3 fused along ``out``. Grouped quantization
-is per output column, so the fused quantized leaf is exactly the
-concatenation along ``out`` of the separate leaves' bytes and scales.
-The Mamba family waits for its slice.
+This port keeps wq|wk|wv, w1|w3 and Mamba's z|x|B|C fused along ``out``.
+Grouped quantization is per output column, so the fused quantized leaf is
+exactly the concatenation along ``out`` of the separate leaves' bytes and
+scales.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from mistral_inference_tpu_torch.ops.linear import DEFAULT_GROUP, is_quantized, 
 Params = Dict[str, Any]
 
 QUANT_LEAVES = ("wqkv", "wo", "w13", "w2")
+MAMBA_QUANT_LEAVES = ("in_proj", "out_proj")
 
 
 def _bits(mode: str) -> int:
@@ -40,14 +43,16 @@ def quantize_params(params: Params, mode: str, group: int = DEFAULT_GROUP) -> Pa
     (out, in), or expert stack (E, in, out), becomes a {"q" | "q4", "scale"}
     leaf (..., in, out), one weight at a time, and the dense tensor is dropped
     as it converts, so the peak stays one weight's fp32 copy above the steady
-    state. Refuses a tree that is
-    already quantized: re-quantizing packed bytes would be nonsense."""
+    state. A Mamba tree (layers with ``in_proj``) quantizes its
+    ``MAMBA_QUANT_LEAVES``. Refuses a tree that is already quantized:
+    re-quantizing packed bytes would be nonsense."""
     bits = _bits(mode)
+    leaves = MAMBA_QUANT_LEAVES if "in_proj" in params["layers"][0] else QUANT_LEAVES
     for i, lw in enumerate(params["layers"]):
-        for leaf in QUANT_LEAVES:
+        for leaf in leaves:
             if is_quantized(lw[leaf]):
                 raise ValueError(f"layers[{i}].{leaf} is already quantized")
-        for leaf in QUANT_LEAVES:
+        for leaf in leaves:
             w = lw.pop(leaf)
             lw[leaf] = quantize_weight(w if w.dim() == 3 else w.t(), bits, group)
             del w

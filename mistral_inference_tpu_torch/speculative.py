@@ -1,6 +1,7 @@
 """Speculative decoding: draft-model speculation and draft-free prompt
-lookup, with exact greedy verify (counterpart of the transformer half of
-``mistral_inference_tpu/speculative.py``).
+lookup, with exact greedy verify (counterpart of
+``mistral_inference_tpu/speculative.py``); for a Mamba model, prompt lookup
+(``generate_lookup_mamba``, at the end).
 
 A verify forward over K + 1 tokens costs the host about what one decode
 step costs and emits up to K + 1 tokens.
@@ -57,11 +58,13 @@ from mistral_inference_tpu_torch.generate import (
     DEFAULT_TOP_P,
     TopP,
     check_prompts,
+    prefill_mamba,
     prefill_prompts,
     sample,
     top_p_probs,
 )
-from mistral_inference_tpu_torch.model import Transformer
+from mistral_inference_tpu_torch.model import Mamba, Transformer
+from mistral_inference_tpu_torch.models.mamba import MambaState
 from mistral_inference_tpu_torch.models import transformer as tf
 from mistral_inference_tpu_torch.ops.cuda.attention import VERIFY_MAX_ROWS, VERIFY_MAX_TOKENS
 
@@ -460,7 +463,8 @@ def _lookup_start(model, carry, encoded_prompts, temperature, top_p, max_tokens,
     return t0, streams, stream_lps, hist, hlen, eos_step
 
 
-def _check_spec_args(encoded_prompts, model: Transformer, spec_tokens: int) -> Tuple[int, int]:
+def _check_spec_args(encoded_prompts, model: Union[Transformer, Mamba],
+                     spec_tokens: int) -> Tuple[int, int]:
     K = int(spec_tokens)
     if K < 1:
         raise ValueError(f"spec_tokens must be at least 1, got {spec_tokens}")
@@ -592,6 +596,97 @@ def generate_speculative(
             _live_rows(streams, max_tokens, model.device),
             K=K, n_iters=n_iters, temperature=float(temperature), top_p=top_p,
             spec_fused=spec_fused,
+        )
+        _walk_emits(*out, streams, stream_lps, eos_step, eos_id)
+    return _finalize_streams(streams, stream_lps, logprobs, eos_step, eos_id, max_tokens)
+
+
+def _mamba_lookup_block(
+    model: Mamba,
+    t0: torch.Tensor,  # (B,) int64
+    state: MambaState,
+    hist: torch.Tensor,
+    hlen: torch.Tensor,
+    generator: Optional[torch.Generator],
+    temps: Optional[torch.Tensor] = None,
+    live: Optional[torch.Tensor] = None,
+    top_ps: Optional[torch.Tensor] = None,
+    *,
+    K: int,
+    n_iters: int,
+    temperature: float,
+    top_p: float,
+    ngram: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, BlockOut]:
+    """``_lookup_block`` for a Mamba. A recurrent state has no ring to
+    scatter into, so the commit differs: the verify forward scores the
+    whole (B, K + 1) chunk with ``write_state=False``, and a second forward
+    over the same chunk with ``seqlens = a + 1`` absorbs exactly the accepted
+    prefix. Tokens past ``seqlens`` enter with dt = 0 and zeroed conv inputs,
+    so they neither decay nor write the state: the committed state is that of
+    decoding the accepted tokens one by one. Both forwards go through the
+    chunked SSD, not K9. Returns (t0, hist, hlen, (emits, logprobs, accepts)
+    on the host); the state is updated in place. ``temps`` / ``live`` /
+    ``top_ps``: the contracts of ``_spec_block`` (dead rows verify with
+    seqlens 0 and commit nothing)."""
+    B, device = t0.shape[0], t0.device
+    live_b = torch.ones((B,), dtype=torch.bool, device=device) if live is None else live > 0
+    sampled, temp_col, greedy_rows = _row_rules(B, temperature, temps, device)
+    p_eff: TopP = top_p if top_ps is None else top_ps
+    verify_lens = torch.where(live_b, K + 1, 0).to(torch.int32)
+
+    emits, lps, accepts = [], [], []
+    for _ in range(n_iters):
+        drafts = _lookup_propose(hist, hlen, t0, K, ngram)  # (B, K)
+        chunk = torch.cat([t0[:, None], drafts], dim=1)  # (B, K + 1)
+        vlog = model.forward(chunk, verify_lens, state, chunk=K + 1, write_state=False)
+        a, emit, lp, bonus = _onehot_verify_accept(
+            vlog, drafts, generator, sampled=sampled, greedy_rows=greedy_rows,
+            temp_col=temp_col, p_eff=p_eff,
+        )
+        adv = torch.where(live_b, a + 1, 0).to(torch.int32)
+        model.forward(chunk, adv, state, chunk=K + 1, head="none")  # commit [t0, d_1 .. d_a]
+        hist, hlen = _append_hist(hist, hlen, emit, a, adv, live_b)
+        t0 = bonus[:, 0]
+        emits.append(emit)
+        lps.append(lp)
+        accepts.append(a)
+    return t0, hist, hlen, _fetch(emits, lps, accepts)
+
+
+@torch.inference_mode()
+def generate_lookup_mamba(
+    encoded_prompts: Sequence[Sequence[int]],
+    model: Mamba,
+    *,
+    max_tokens: int,
+    temperature: float = 0.0,
+    spec_tokens: int = 8,
+    ngram: int = 2,
+    chunk_size: Optional[int] = None,
+    eos_id: Optional[int] = None,
+    block_iters: int = 8,
+    top_p: float = DEFAULT_TOP_P,
+    seed: int = 0,
+) -> Tuple[List[List[int]], List[List[float]]]:
+    """Prompt-lookup speculative decoding for a Mamba model: the output
+    contract of ``generate_mamba``, and its greedy tokens. Each iteration
+    streams the weights and the state twice (verify, commit) for up to
+    K + 1 tokens, where plain decoding streams them once per token."""
+    K, _ = _check_spec_args(encoded_prompts, model, spec_tokens)
+    n_iters = int(block_iters)
+    logprobs, carry, state = prefill_mamba(model, encoded_prompts, chunk_size)
+
+    generator = torch.Generator(device=model.device).manual_seed(seed)
+    t0, streams, stream_lps, hist, hlen, eos_step = _lookup_start(
+        model, carry, encoded_prompts, temperature, top_p, max_tokens, K, n_iters, generator,
+        eos_id,
+    )
+    while not _all_done(streams, eos_step, max_tokens):
+        t0, hist, hlen, out = _mamba_lookup_block(
+            model, t0, state, hist, hlen, generator, None,
+            _live_rows(streams, max_tokens, model.device),
+            K=K, n_iters=n_iters, temperature=float(temperature), top_p=top_p, ngram=ngram,
         )
         _walk_emits(*out, streams, stream_lps, eos_step, eos_id)
     return _finalize_streams(streams, stream_lps, logprobs, eos_step, eos_id, max_tokens)

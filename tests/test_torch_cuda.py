@@ -10,7 +10,9 @@ verify kernels write are equal to the plain write, and a verify chunk's query
 t has the bits of a decode step at its position; outputs agree within 1e-2 (bf16
 outputs, fp32 sums in another order) and the fp32 stats within 1e-4. The
 quantized matmuls are held to the same 1e-2 + 1e-2 |ref|, and the stacked and
-repeated launches of K3 and K8 to equal bits.
+repeated launches of K3 and K8 to equal bits. K9's new state has the bits of
+its plain version (fp32 and bf16) and y agrees within 1e-5 (fp32 sums in
+another order).
 ``python3 chip_smoke.py`` runs the same comparisons at the model's shapes.
 """
 
@@ -98,7 +100,7 @@ def test_wrappers_reject_bad_operands_on_card():
         linear(torch.zeros((4, 256), device=dev), {
             "q": torch.zeros((256, 128), dtype=torch.int8, device=dev),
             "scale": torch.ones((2, 128), device=dev)})
-    assert [fn.launches for fn in cuda_ops.all_kernels()] == [0] * 8
+    assert all(fn.launches == 0 for fn in cuda_ops.all_kernels())
 
 
 def _quantized(g, K, N, bits, group, lead=()):
@@ -411,3 +413,110 @@ def test_greedy_speculation_equals_greedy_on_card():
     assert all(len(g) == 16 for g in out[0])
     agree = sum(a == b for x, y in zip(out[0], ref[0]) for a, b in zip(x, y))
     assert agree >= 24, "the wrap-safe route may leave plain greedy only at a near-tie"
+
+
+def _ssd_case(L, B, NH, HD, DS, NG, dtype, seed=11, dead=None):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ssm = torch.randn((L, B, NH, HD, DS), generator=g, device="cuda").to(dtype)
+    dt = torch.rand((B, NH), generator=g, device="cuda") * 0.1
+    if dead is not None:
+        dt[dead] = 0.0
+    A = -(1.0 + 15.0 * torch.rand((NH,), generator=g, device="cuda"))
+    dtx = dt[..., None] * torch.randn((B, NH, HD), generator=g, device="cuda")
+    Bm = torch.randn((B, NG, DS), generator=g, device="cuda")
+    Cm = torch.randn((B, NG, DS), generator=g, device="cuda")
+    return torch.exp(dt * A), dtx, Bm, Cm, ssm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,B,NH,HD,DS,NG,li", [(3, 2, 8, 16, 32, 4, 1), (2, 4, 128, 64, 128, 8, 1),
+                                                (1, 3, 6, 10, 12, 2, 0)])
+def test_ssd_step_matches_plain_on_card(dtype, L, B, NH, HD, DS, NG, li):
+    """K9: the state's new bits equal the plain version's (fp32 and bf16),
+    a dead row and the other layers keep theirs, y within 1e-5 (fp32 sums in
+    another order); one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    from mistral_inference_tpu_torch.ops.cuda import ssd_step as k9
+
+    cuda_ops.reset_launch_counts()
+    a, dtx, Bm, Cm, ssm = _ssd_case(L, B, NH, HD, DS, NG, dtype, dead=B - 1)
+    start = ssm.clone()
+    ptr = ssm.data_ptr()
+    y = k9.fused_ssd_step_stacked(a, dtx, Bm, Cm, ssm, li)
+    plain = start.clone()
+    y_ref = k9.fused_ssd_step_stacked_plain(a, dtx, Bm, Cm, plain, li)
+    torch.cuda.synchronize()
+    assert ssm.data_ptr() == ptr
+    assert torch.equal(ssm, plain)
+    assert torch.equal(ssm[li, B - 1], start[li, B - 1])
+    for other in range(L):
+        if other != li:
+            assert torch.equal(ssm[other], start[other])
+    torch.testing.assert_close(y, y_ref, atol=1e-5, rtol=1e-5)
+    assert k9.fused_ssd_step_stacked.launches == 1
+    # The depth-1 entry point is the same kernel on one layer's state.
+    one = start[li].clone()
+    y1 = k9.fused_ssd_step(a, dtx, Bm, Cm, one)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y) and torch.equal(one, plain[li])
+    assert k9.fused_ssd_step_stacked.launches == 2
+
+
+@pytest.mark.cuda
+def test_ssd_step_rejects_bad_operands_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    from mistral_inference_tpu_torch.ops.cuda import ssd_step as k9
+
+    cuda_ops.reset_launch_counts()
+    a, dtx, Bm, Cm, ssm = _ssd_case(2, 2, 8, 16, 32, 4, torch.float32)
+    with pytest.raises(TypeError):
+        k9.fused_ssd_step_stacked(a.double(), dtx, Bm, Cm, ssm, 0)
+    with pytest.raises(ValueError):
+        k9.fused_ssd_step_stacked(a, dtx.transpose(1, 2).contiguous().transpose(1, 2), Bm, Cm,
+                                  ssm, 0)
+    with pytest.raises(ValueError):
+        k9.fused_ssd_step_stacked(a, dtx, Bm, Cm, ssm, 2)
+    with pytest.raises(TypeError):
+        k9.fused_ssd_step_stacked(a, dtx, Bm, Cm, ssm.half(), 0)
+    a6, dtx6, B6, C6, ssm6 = _ssd_case(1, 2, 8, 16, 6, 4, torch.float32)
+    with pytest.raises(ValueError):
+        k9.fused_ssd_step_stacked(a6, dtx6, B6, C6, ssm6, 0)
+    assert k9.fused_ssd_step_stacked.launches == 0
+
+
+@pytest.mark.cuda
+def test_generate_mamba_on_card_matches_cpu():
+    """A small fp32 Mamba on the card (K9 in every decode step) against the
+    same weights on the CPU (K9's plain version): greedy tokens equal,
+    logprobs within 1e-3 (fp32 sums in other orders through 2 layers), and
+    the plain and lookup generators agree on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    from mistral_inference_tpu_torch.args import MambaArgs
+    from mistral_inference_tpu_torch.generate import generate_mamba
+    from mistral_inference_tpu_torch.model import Mamba
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = MambaArgs(dim=256, n_layers=2, vocab_size=512, n_groups=2, rms_norm=True,
+                     residual_in_fp32=True, fused_add_norm=True, pad_vocab_size_multiple=16,
+                     tie_embeddings=False, d_state=64, headdim=64)
+    cpu = Mamba.random(args, dtype=torch.float32, seed=5, device="cpu")
+    params = {k: v.cuda() for k, v in cpu.params.items() if k != "layers"}
+    params["layers"] = [{k: v.cuda() for k, v in lw.items()} for lw in cpu.params["layers"]]
+    card = Mamba(args, params, torch.float32, "cuda")
+    prompts = [list(range(1, 30)), [7, 3, 9], list(range(40, 51)) * 3]
+    cuda_ops.reset_launch_counts()
+    g_card, lp_card = generate_mamba(prompts, card, max_tokens=12, temperature=0.0, chunk_size=16)
+    from mistral_inference_tpu_torch.ops.cuda import ssd_step as k9
+
+    assert k9.fused_ssd_step_stacked.launches == 2 * 12
+    g_cpu, lp_cpu = generate_mamba(prompts, cpu, max_tokens=12, temperature=0.0, chunk_size=16)
+    assert g_card == g_cpu
+    for x, y in zip(lp_card, lp_cpu):
+        torch.testing.assert_close(torch.tensor(x), torch.tensor(y), atol=1e-3, rtol=0)
+    g_look, lp_look = generate_mamba(prompts, card, max_tokens=12, temperature=0.0,
+                                     chunk_size=16, draft_model="lookup", spec_tokens=4)
+    assert g_look == g_card and [len(x) for x in lp_look] == [len(x) for x in lp_card]

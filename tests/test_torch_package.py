@@ -41,11 +41,12 @@ def _imports(tree):
 def test_sources_found():
     assert len(SOURCES) >= 19
     for module in ("ops/linear.py", "ops/cuda/matmul_quant.py", "ops/cuda/moe_matmul.py",
-                   "quant/weights.py", "speculative.py"):
+                   "quant/weights.py", "speculative.py", "models/mamba.py",
+                   "ops/cuda/ssd_step.py"):
         assert PKG / module in SOURCES
     assert sorted(p.name for p in (PKG / "ops" / "cuda" / "csrc").glob("*.cu")) == [
         "flash_attention.cu", "fused_decode.cu", "matmul_quant.cu", "moe_expert_matmul.cu",
-        "moe_matmul.cu", "ring_attention.cu",
+        "moe_matmul.cu", "ring_attention.cu", "ssd_step.cu",
     ]
     # K3 and K8 share their device code, K1 and K4 theirs; K2, K6 and K7 are
     # instantiations of one kernel in fused_decode.cu.
@@ -112,30 +113,52 @@ def test_package_imports_without_jax_or_nvcc():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-3000:]
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
-    from mistral_inference_tpu_torch.model import Transformer
+def _raises_without_cuda(monkeypatch, family, preset):
+    from mistral_inference_tpu_torch import model
     from mistral_inference_tpu_torch.models.registry import get_args
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    args = get_args("mistral-7b-v0.1")
+    args = get_args(preset)
     args.n_layers = 1
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        Transformer.random(args)
+        getattr(model, family).random(args)
 
 
-def test_cpu_only_on_request():
-    from mistral_inference_tpu_torch.args import TransformerArgs
-    from mistral_inference_tpu_torch.model import Transformer
+def test_entry_points_raise_without_cuda(monkeypatch):
+    _raises_without_cuda(monkeypatch, "Transformer", "mistral-7b-v0.1")
 
-    args = TransformerArgs(dim=64, n_layers=1, head_dim=16, hidden_dim=128, n_heads=4,
-                           n_kv_heads=2, norm_eps=1e-5, vocab_size=64)
-    model = Transformer.random(args, dtype=torch.float32, seed=0, device="cpu")
+
+def test_mamba_entry_point_raises_without_cuda(monkeypatch):
+    _raises_without_cuda(monkeypatch, "Mamba", "codestral-mamba-7b")
+
+
+def _cpu_only_on_request(family, args):
+    from mistral_inference_tpu_torch import model as tmodel
+
+    model = getattr(tmodel, family).random(args, dtype=torch.float32, seed=0, device="cpu")
     assert model.device.type == "cpu"
     assert all(t.device.type == "cpu" for t in model.params["layers"][0].values())
 
 
+def test_cpu_only_on_request():
+    from mistral_inference_tpu_torch.args import TransformerArgs
+
+    _cpu_only_on_request("Transformer", TransformerArgs(
+        dim=64, n_layers=1, head_dim=16, hidden_dim=128, n_heads=4, n_kv_heads=2,
+        norm_eps=1e-5, vocab_size=64))
+
+
+def test_mamba_cpu_only_on_request():
+    from mistral_inference_tpu_torch.args import MambaArgs
+
+    _cpu_only_on_request("Mamba", MambaArgs(
+        dim=64, n_layers=1, vocab_size=64, n_groups=2, rms_norm=True, residual_in_fp32=True,
+        fused_add_norm=True, pad_vocab_size_multiple=16, tie_embeddings=False, d_state=16,
+        headdim=16))
+
+
 @pytest.mark.parametrize("name", ["mistral-7b-v0.1", "mistral-7b-v0.3", "mixtral-8x7b",
-                                  "mixtral-8x22b"])
+                                  "mixtral-8x22b", "codestral-mamba-7b"])
 def test_registry_matches_jax_presets(name):
     """The presets carry the JAX package's published widths."""
     import dataclasses
