@@ -8,13 +8,15 @@ Phases, each printing one JSON line:
 1. card: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: every kernel of ``mistral_inference_tpu_torch/ops/cuda/csrc`` is
    compiled from the checkout with nvcc (sm_90a).
-3. kernels: each of the nine CUDA kernels against its plain PyTorch version
+3. kernels: each of the ten CUDA kernels against its plain PyTorch version
    on the same inputs on the card, at the Mistral-7B and Mixtral-8x7B shapes
    (H=32, Hkv=8, D=128; the four linears of a layer at 4, 256 and 2048 rows,
    and a layer's eight experts at a capacity of 4 and 128 and at 6144 sorted
-   rows, int8 and int4; a speculative verify chunk of 5 and of 8 tokens) and
-   the Codestral-Mamba SSD step (B=4, a 64-layer fp32 and bf16 state),
-   with its time (CUDA-event median), the plain
+   rows, int8 and int4; a speculative verify chunk of 5 and of 8 tokens), the
+   Codestral-Mamba SSD step (B=4, a 64-layer fp32 and bf16 state) and the
+   Pixtral encoder's segment-masked attention (16 heads of 64 at N = 4096,
+   a padded 512 bucket, a 256 bucket, two images in one 3584 row), with its
+   time (CUDA-event median), the plain
    version's time, the time of one PyTorch library call for the same function
    where one exists, and the card's least time for the work (bytes or flops,
    from this run's inputs).
@@ -59,13 +61,28 @@ Phases, each printing one JSON line:
    B x (K + 1) rows, K9 not launched), tokens equal to plain greedy's but at
    a near-tie, the logprob count, speculation == prefill, top-p per seed.
 
-Then a ``kernels`` line, the nvidia-smi line, and last the device line.
+7. vision: ``generate(images=...)`` on ``pixtral-12b`` at full width and
+   depth (40 decoder layers, 24 encoder layers), random bf16 weights from a
+   seed, an int8 ring (no window), chunk 512, four rows: 12 text tokens, a
+   1024 x 1024 image and 40 more (4212 tokens); two images of 512 x 768 and
+   384 x 336 between text (2132); a 256 x 256 image and 30 tokens (302); 45
+   text tokens. Image tokens are laid out by ``images.image_token_layout``.
+   Checks greedy tokens repeat, K10's 96 launches per greedy call (24 layers
+   x 4 images), K1, K4 and K2 launched, decode == prefill with the same
+   images, top-p per seed, and that speculation with images is refused;
+   prints TTFT, the encoder's time for the four images beside it, decode
+   tokens/s and peak memory.
+
+Then a ``total`` line (the seconds since the start), a ``kernels`` line, the
+nvidia-smi line, and last the device line.
 Any failure raises and the script exits non-zero. Without a CUDA device,
 or without the package beside it, it exits non-zero and prints no result.
 nvcc's build logs (``-Xptxas -v``: registers, shared memory) go to stderr.
-``--profile`` adds to the lines of the two int4 paths and the two Mamba
-main paths a torch.profiler breakdown of the prefill and of one decode step,
-with the decode step's aten calls and the host's time to enqueue it. ``--kernels=k2,k7`` runs phases 1 and
+``--profile`` adds to the lines of the two int4 paths, the two Mamba
+main paths and the Pixtral path a torch.profiler breakdown of the prefill
+(on Pixtral: the encoder's linears, K10, the decoder's linears, K1 + K4,
+other) and of one decode step, with the decode step's aten calls and the
+host's time to enqueue it. ``--kernels=k2,k7`` runs phases 1 and
 2 and only the named kernels' checks, and prints no result line.
 """
 
@@ -1086,6 +1103,65 @@ def check_k9(gen):
     }
 
 
+# Pixtral's vision encoder: 16 heads of 64 over a 4096-patch image.
+VIS_H, VIS_D = 16, 64
+
+
+def check_k10(gen):
+    """K10 at Pixtral's encoder shapes: a full 1024 x 1024 image (N = 4096,
+    no padding, the timed case), a 504-patch image in its 512 bucket (8
+    padding rows of id -1), a 256-patch bucket, and two images of 1536 and
+    2048 patches in one N = 3584 row with ids 0 and 1 (the concatenated
+    block-diagonal form)."""
+    from mistral_inference_tpu_torch.ops.cuda.attention import (
+        segment_attention_plain, segment_flash_attention,
+    )
+
+    bf = torch.bfloat16
+    cases = (("image 4096", [(0, 4096)]), ("bucket 512, 8 padding", [(0, 504), (-1, 8)]),
+             ("bucket 256", [(0, 256)]), ("two images 1536 + 2048", [(0, 1536), (1, 2048)]))
+    worst, rows = 0.0, []
+    for label, parts in cases:
+        N = sum(n for _, n in parts)
+        seg = torch.cat([torch.full((n,), i, dtype=torch.int32, device="cuda")
+                         for i, n in parts])[None]
+        q, k, v = (randn(gen, 1, N, VIS_H, VIS_D, dtype=bf) for _ in range(3))
+        out = segment_flash_attention(q, k, v, seg)
+        ref = segment_attention_plain(q, k, v, seg)
+        torch.cuda.synchronize()
+        ok, err = close(out, ref, 1e-2, 1e-2)
+        require(ok, f"K10 disagrees with its plain version ({label}, N={N}): {err}")
+        worst = max(worst, err)
+        mask = seg[:, :, None] == seg[:, None, :]
+        b_ms, b_by = bound(4.0 * VIS_D * VIS_H * float(mask.sum()),
+                           nbytes(q, k, v, seg) + nbytes(q))
+        rows.append({
+            "case": label, "N": N, "max_abs_err": err,
+            "ms": timed_ms(lambda: segment_flash_attention(q, k, v, seg)),
+            "plain_ms": timed_ms(lambda: segment_attention_plain(q, k, v, seg), reps=3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_ms(q, k, v, mask),
+        })
+        del q, k, v, out, ref, mask
+    main = rows[0]
+    return {
+        "name": "segment_flash_attention", "kernel": "K10", "route": "cuda",
+        "source": "mistral_inference_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:140 (stock "
+                    "flash_attention with SegmentIds, called at "
+                    "mistral_inference_tpu/models/vision.py:161-197)",
+        "max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"], "cases": rows,
+        "shape": f"B=1 N=4096 H={VIS_H} D={VIS_D} bf16, one segment (a 1024 x 1024 image); "
+                 "cases: each of the four shapes",
+        "bound": "4 D H flops per visible (query, key) pair over the bf16 tensor-core peak; "
+                 "q, k, v, seg in and out once over the memory rate",
+        "library": "F.scaled_dot_product_attention with the (N, N) boolean segment mask",
+        "tolerance": "abs 1e-2 + rel 1e-2 on bf16 outputs (both sides round p to bf16 before "
+                     "the PV product; fp32 sums in another order)",
+    }
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main paths
 # ---------------------------------------------------------------------------
@@ -1730,6 +1806,199 @@ def mamba_lookup_path(card: str):
     }, per_greedy
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the multimodal path
+# ---------------------------------------------------------------------------
+
+PIXTRAL_MODEL = "pixtral-12b"
+K10 = "segment_flash_attention"
+# Pixtral's tekken has [IMG] = 10, [IMG_BREAK] = 12, [IMG_END] = 13.
+IMG_SPECIALS = {"[IMG]": 10, "[IMG_BREAK]": 12, "[IMG_END]": 13}
+# Each row: text runs (a token count) and images ((H, W) pixels), in order.
+PIXTRAL_ROWS = (
+    (12, (1024, 1024), 40),                    # 4096 patches, N = 4096 -> 4160 tokens
+    (8, (512, 768), 8, (384, 336), 20),        # 1536 patches -> 1568; 504, N = 512 -> 528
+    ((256, 256), 30),                          # 256 patches, N = 256 -> 272
+    (45,),                                     # text only
+)
+PIXTRAL_PROMPT_LENS = (4212, 2132, 302, 45)
+
+
+class ImageTokens:
+    """The token ids ``images.image_token_layout`` needs: a tokenizer's
+    ``special``, until the port has its tokenizers."""
+
+    @staticmethod
+    def special(name: str) -> int:
+        return IMG_SPECIALS[name]
+
+
+def pixtral_prompts(vargs, vocab_size: int, rng):
+    """PIXTRAL_ROWS as token ids laid out by ``image_token_layout``, with
+    random text ids clear of the special ids, and random preprocessed
+    (3, H, W) float32 images (preprocessing is host code the CPU tests hold)."""
+    import numpy as np
+
+    from mistral_inference_tpu_torch.images import image_token_layout
+
+    prompts, images = [], []
+    for row in PIXTRAL_ROWS:
+        ids, ims = [], []
+        for part in row:
+            if isinstance(part, int):
+                ids += rng.integers(16, vocab_size, part).tolist()
+            else:
+                ims.append(rng.standard_normal((3, *part)).astype(np.float32))
+                ids += image_token_layout(*part, vargs, ImageTokens)
+        prompts.append(ids)
+        images.append(ims)
+    require(tuple(len(p) for p in prompts) == PIXTRAL_PROMPT_LENS, "wrong Pixtral prompt lengths")
+    return prompts, images
+
+
+def pixtral_path(card: str, profile: bool):
+    """``generate(images=...)`` on ``pixtral-12b`` at full width and depth
+    (40 decoder layers, 24 encoder layers), random bf16 weights from seed 0,
+    an int8 ring (no window: it holds the whole context) and chunk 512, over
+    PIXTRAL_ROWS. Returns (its summary line, its launch counts)."""
+    import numpy as np
+
+    from mistral_inference_tpu_torch.generate import generate
+    from mistral_inference_tpu_torch.model import Transformer
+    from mistral_inference_tpu_torch.models import transformer as tf
+    from mistral_inference_tpu_torch.models.registry import get_args
+    from mistral_inference_tpu_torch.models.vision import image_features
+    from mistral_inference_tpu_torch.ops import cuda as kern
+
+    args = get_args(PIXTRAL_MODEL)
+    args.kv_quant = "int8"
+    vargs = args.vision_encoder
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Transformer.random(args, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    vision_params = tf.param_count(model.params["vision"])
+    prompts, images = pixtral_prompts(vargs, args.vocab_size, np.random.default_rng(0))
+    n_images = sum(len(ims) for ims in images)
+    run = timed_run(generate, model, images=images)
+
+    kern.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    gen, lps, ttft_s, total_s, per_greedy = greedy_phase(run, prompts, args.vocab_size,
+                                                         launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = vargs.num_hidden_layers * n_images
+    require(per_greedy[K10] == want,
+            f"pixtral: K10 launched {per_greedy[K10]} times in a greedy generate(), expected "
+            f"{want} ({vargs.num_hidden_layers} encoder layers x {n_images} images)")
+    diffs = prefill_gap(run, prompts, gen, lps)
+    bound_ = (INVARIANT_MAX_NATS, INVARIANT_MEAN_NATS)
+    emit({"phase": "invariant", "path": "pixtral", "max_nats": float(diffs.max()),
+          "mean_nats": float(diffs.mean()), "bound": bound_})
+    require(float(diffs.max()) <= bound_[0] and float(diffs.mean()) <= bound_[1],
+            f"pixtral: decode != prefill: max {diffs.max()} mean {diffs.mean()} nats")
+    topp_s = topp_phase(run, prompts)
+    launches = launch_counts()
+    for name in (K10, K1, K4, K2):
+        require(launches[name] > 0, f"{name} was not launched on the pixtral path")
+    try:
+        generate(prompts, model, images=images, max_tokens=2, temperature=0.0,
+                 draft_model="lookup")
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, "pixtral: speculation with images was not refused")
+
+    # The vision encoder's share of TTFT: image_features for the four images,
+    # one call each as embed_multimodal makes them, median of 3.
+    def encode_all():
+        for ims in images:
+            if ims:
+                image_features(model.params["vision"], vargs, ims, model.dtype)
+
+    encode_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        encode_all()
+        torch.cuda.synchronize()
+        encode_s.append(time.perf_counter() - t)
+    big = [images[0][0]]
+    big_ms = timed_ms(lambda: image_features(model.params["vision"], vargs, big, model.dtype),
+                      reps=5)
+    breakdown = pixtral_profile(model, prompts, images, encode_all) if profile else None
+
+    decode_s = total_s - ttft_s
+    return {
+        "phase": "pixtral_path", "path": "pixtral", "model": PIXTRAL_MODEL,
+        "layers": args.n_layers, "encoder_layers": vargs.num_hidden_layers,
+        "params": tf.param_count(model.params), "vision_params": vision_params,
+        "weights": "bf16 random (seed 0), decoder and vision encoder",
+        "kv_ring": "int8", "window": None, "chunk_size": CHUNK,
+        "prompt_lens": PIXTRAL_PROMPT_LENS,
+        "images": [[list(im.shape[1:]) for im in ims] for ims in images],
+        "init_s": init_s, "weights_gb": weights_gb, "ttft_s": ttft_s,
+        "ttft_note": "median of 3 warm generate(max_tokens=1): the four images through the "
+                     "encoder, then chunked prefill of all prompts plus one step",
+        "vision_encode_s": statistics.median(encode_s),
+        "vision_share_of_ttft": statistics.median(encode_s) / ttft_s,
+        "vision_note": "image_features for the four images, host clock between "
+                       "synchronizations, median of 3",
+        "image_1024x1024_ms": big_ms,
+        "greedy_total_s": total_s,
+        "decode_tokens_per_s": len(prompts) * (GREEDY_TOKENS - 1) / decode_s,
+        "decode_note": "B*(32-1) tokens over median generate(32) time less median "
+                       "generate(1) time, medians of 3",
+        "peak_mem_gb": peak_gb, "launches": launches,
+        "launches_per_greedy_generate": per_greedy,
+        "invariant_max_nats": float(diffs.max()), "invariant_mean_nats": float(diffs.mean()),
+        "invariant_bound": bound_, "speculation_with_images_refused": refused,
+        "topp_s": topp_s, "topp_identical": True, "card": card, "profile": breakdown,
+    }, launches
+
+
+def pixtral_profile(model, prompts, images, encode_all):
+    """Kernel time of the multimodal prefill (``generate(max_tokens=0)``)
+    and of the encoder alone (``encode_all``) under torch.profiler; the
+    decoder's linears are the prefill's cuBLAS time less the encoder's."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    from mistral_inference_tpu_torch.generate import generate
+
+    def prof(fn):
+        fn()
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CUDA]) as p:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t)
+        return wall, kernel_ms(p)
+
+    wall, (busy, cats, top) = prof(lambda: generate(
+        prompts, model, images=images, chunk_size=CHUNK, temperature=0.0, max_tokens=0))
+    enc_wall, (enc_busy, enc_cats, _) = prof(encode_all)
+    k10 = cats.get("K10 segment flash", 0.0)
+    return {
+        "prefill_all_prompts": {
+            "wall_ms": wall, "kernel_ms": busy, "device_idle_share": 1.0 - busy / wall,
+            "encoder_linears_ms": enc_cats.get("matmul", 0.0), "K10_ms": k10,
+            "decoder_linears_ms": cats.get("matmul", 0.0) - enc_cats.get("matmul", 0.0),
+            "K1_K4_ms": cats.get("K1/K4 flash_tile", 0.0),
+            "other_ms": busy - cats.get("matmul", 0.0) - k10 - cats.get("K1/K4 flash_tile", 0.0),
+            "kernel_ms_by_category": cats,
+            "top_kernels_ms": [[round(ms, 3), k] for ms, k in top[:12]],
+        },
+        "encoder_four_images": {"wall_ms": enc_wall, "kernel_ms": enc_busy,
+                                "device_idle_share": 1.0 - enc_busy / enc_wall,
+                                "kernel_ms_by_category": enc_cats},
+        "decode_step": decode_step_probe(model, len(prompts)),
+    }
+
+
 def row_count_probe(gen):
     """Does an operation of the verify forward give a row the same bits among
     20 rows (B = 4 x T = 5) or 32 as among 4 (a decode step)? Greedy
@@ -1782,6 +2051,12 @@ def kernel_ms(prof, calls: int = 1):
             continue
         ms = getattr(ev, "self_device_time_total", 0.0) / 1e3 / calls
         name = ev.key.lower()
+        # K10 is the flash_tile instantiation whose last template argument
+        # (kSegment) is true.
+        if "flash_tile" in name and ", true>" in name:
+            cats["K10 segment flash"] = cats.get("K10 segment flash", 0.0) + ms
+            top.append((ms, ev.key[:80]))
+            continue
         cat = next((c for k, c in (("flash_tile", "K1/K4 flash_tile"),
                                    ("fused_decode", "K2/K6 fused_decode"),
                                    ("decode_merge", "K2/K6 fused_decode"),
@@ -1893,6 +2168,7 @@ def step_probe(step, reset, B: int, steps: int):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1917,7 +2193,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     checks = (check_k1, check_k4, check_k2, check_k3, check_k5, check_k8, check_k6, check_k7,
-              check_k9)
+              check_k9, check_k10)
     only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:] if a.startswith("--kernels=")]
     for check in checks:
         if only and check.__name__.removeprefix("check_") not in only[0]:
@@ -1956,6 +2232,16 @@ def main() -> int:
         torch.cuda.empty_cache()
     emit(mamba_lookup_path(card)[0])
     torch.cuda.empty_cache()
+    # The multimodal path: K10's launches, and K1, K4 and K2 at 40 layers.
+    summary, counted = pixtral_path(card, "--profile" in sys.argv[1:])
+    emit(summary)
+    for name in (K10, K1, K4, K2):
+        if summary["layers"] > depth.get(name, 0):
+            launches[name], depth[name] = counted[name], summary["layers"]
+    torch.cuda.empty_cache()
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "note": "from the start of main(): the build, every check and path; not the "
+                  "interpreter's start and the import of torch"})
     emit({"kernels": [
         {"name": r["name"], "route": r["route"], "source": r["source"],
          "replaces": r["replaces"], "launches": launches[r["name"]],

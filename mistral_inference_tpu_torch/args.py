@@ -2,8 +2,8 @@
 family.
 
 Counterpart of ``mistral_inference_tpu/args.py::TransformerArgs``,
-``::MoeArgs`` and ``::MambaArgs``, cut to the fields the ported paths read.
-LoRA and vision arrive with later slices of the port.
+``::MoeArgs``, ``::VisionEncoderArgs`` and ``::MambaArgs``, cut to the fields
+the ported paths read. LoRA arrives with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -11,6 +11,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Union
+
+PATCH_MERGE = "patch_merge"
 
 
 @dataclass
@@ -20,6 +22,32 @@ class MoeArgs:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "MoeArgs":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+
+@dataclass(frozen=True)
+class VisionEncoderArgs:
+    """The Pixtral vision encoder: a pre-norm transformer over image patches
+    with 2-D RoPE, then an optional PatchMerger and a GELU adapter to the
+    decoder's width."""
+
+    hidden_size: int
+    num_channels: int
+    image_size: int
+    patch_size: int
+    intermediate_size: int
+    num_hidden_layers: int
+    num_attention_heads: int
+    rope_theta: float = 1e4  # of the 2-D RoPE
+    image_token_id: int = 10
+    adapter_bias: bool = True
+    spatial_merge_size: int = 1
+    add_pre_mm_projector_layer_norm: bool = False
+    mm_projector_id: str = ""
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "VisionEncoderArgs":
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})
 
@@ -54,6 +82,9 @@ class TransformerArgs:
     # above 256 rows, through the drop-free sorted grouped product.
     moe_impl: str = "dense"
     moe_capacity_factor: float = 2.0
+    # Pixtral-style image encoder whose features replace the image tokens'
+    # embeddings; None for a text-only model.
+    vision_encoder: Optional[VisionEncoderArgs] = None
 
     def __post_init__(self) -> None:
         if self.n_heads % self.n_kv_heads:
@@ -77,6 +108,8 @@ class TransformerArgs:
         kw = {k: v for k, v in d.items() if k in names}
         if isinstance(kw.get("moe"), dict):
             kw["moe"] = MoeArgs.from_dict(kw["moe"])
+        if isinstance(kw.get("vision_encoder"), dict):
+            kw["vision_encoder"] = VisionEncoderArgs.from_dict(kw["vision_encoder"])
         return cls(**kw)
 
 

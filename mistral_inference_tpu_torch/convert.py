@@ -20,6 +20,12 @@ this module needs no JAX.
 (``models/mamba.py``): ``z_proj | x_proj | b_proj | c_proj`` become one
 ``in_proj`` along out, the three conv segments one (K, conv_dim) conv, and
 the head ``lm_head (dim, V)`` an ``(V, dim)`` weight.
+
+A tree with a ``"vision"`` subtree (``models/vision.py``) carries it too:
+its linears (``(L, in, out)`` stacks and the adapter's, PatchMerger's
+``(in, out)`` weights) become ``(out, in)``, with q | k | v and w1 | w3 fused
+as in the decoder; ``patch_conv`` (O, I, P, P), the norms and the adapter
+biases are copied as they are.
 """
 
 from __future__ import annotations
@@ -87,12 +93,55 @@ def params_from_numpy(
                 w = [np.asarray(p[i]).T for p in parts]
                 lw[key] = _tensor(np.concatenate(w, axis=0), device)
         out_layers.append(lw)
-    return {
+    params = {
         "tok_embeddings": _tensor(tree["tok_embeddings"], device),
         "layers": out_layers,
         "norm": _tensor(tree["norm"], device),
         "output": _tensor(np.asarray(tree["output"]).T, device),
     }
+    if "vision" in tree:
+        params["vision"] = vision_params_from_numpy(tree["vision"], device)
+    return params
+
+
+def _linear_t(*parts: np.ndarray, device) -> torch.Tensor:
+    """(in, out) weights -> one (out, in) weight, the parts stacked on out."""
+    return _tensor(np.concatenate([np.asarray(p).T for p in parts], axis=0), device)
+
+
+def vision_params_from_numpy(
+    tree: Dict[str, Any],
+    device: Union[str, torch.device] = "cpu",
+) -> Params:
+    """The JAX vision encoder's params (numpy leaves) -> this port's
+    (``models/vision.py``)."""
+    layers = tree["layers"]
+    att, ffn = layers["attention"], layers["feed_forward"]
+    out: Params = {
+        "patch_conv": _tensor(tree["patch_conv"], device),
+        "ln_pre": _tensor(tree["ln_pre"], device),
+        "layers": [
+            {
+                "attention_norm": _tensor(layers["attention_norm"][i], device),
+                "ffn_norm": _tensor(layers["ffn_norm"][i], device),
+                "wqkv": _linear_t(att["wq"][i], att["wk"][i], att["wv"][i], device=device),
+                "wo": _linear_t(att["wo"][i], device=device),
+                "w13": _linear_t(ffn["w1"][i], ffn["w3"][i], device=device),
+                "w2": _linear_t(ffn["w2"][i], device=device),
+            }
+            for i in range(np.asarray(layers["attention_norm"]).shape[0])
+        ],
+        "adapter": {
+            name: {"w": _linear_t(lin["w"], device=device),
+                   **({"b": _tensor(lin["b"], device)} if "b" in lin else {})}
+            for name, lin in tree["adapter"].items()
+        },
+    }
+    if "patch_merger" in tree:
+        out["patch_merger"] = {"w": _linear_t(tree["patch_merger"]["w"], device=device)}
+    if "pre_mm_projector_norm" in tree:
+        out["pre_mm_projector_norm"] = _tensor(tree["pre_mm_projector_norm"], device)
+    return out
 
 
 _MAMBA_IN_PROJ = ("z_proj", "x_proj", "b_proj", "c_proj")

@@ -100,11 +100,13 @@ def _prefill_step(
     carry: torch.Tensor,  # (B, V) previous chunk's last prelogits
     attend_cache: bool,
     want_logprobs: bool = True,
+    input_embeds: Optional[torch.Tensor] = None,  # (B, T, D) for a multimodal chunk
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """One prompt chunk. Returns (teacher-forced logprobs (B, T), or None
     without ``want_logprobs``; each row's last valid prelogits, carried over
     when the row has no token here)."""
-    hidden = model.forward(tokens, seqlens, cache, attend_cache, head="none")
+    hidden = model.forward(tokens, seqlens, cache, attend_cache, head="none",
+                           input_embeds=input_embeds)
     B = hidden.shape[0]
     rows = torch.arange(B, device=hidden.device)
     last = tf.output_head(model.params, hidden[rows, (seqlens - 1).clamp_min(0).long()])
@@ -123,29 +125,37 @@ def prefill_prompts(
     cache,
     chunk_size: Optional[int],
     want_logprobs: bool = True,
+    input_embeds: Optional[torch.Tensor] = None,
 ) -> Tuple[List[List[float]], torch.Tensor]:
     """Chunked prefill of ragged prompts into ``cache`` (in place). Returns
     (per-row teacher-forced logprobs, seqlen - 1 each, empty lists without
     ``want_logprobs``; each row's prelogits after its last prompt token).
     ``generate`` and the speculative generators share it; a draft model
-    prefills without logprobs."""
+    prefills without logprobs. ``input_embeds`` (B, max prompt length, D),
+    the multimodal embeddings of the whole prompts, is sliced per chunk and
+    zero-padded like the tokens."""
     B = len(encoded_prompts)
     logprobs: List[List[float]] = [[] for _ in range(B)]
     carry = torch.zeros((B, model.args.vocab_size), dtype=torch.float32, device=model.device)
-    for first, tokens, chunk_lens in _prompt_chunks(encoded_prompts, chunk_size, model.device):
+    for s, tokens, chunk_lens in _prompt_chunks(encoded_prompts, chunk_size, model.device):
+        embeds = None
+        if input_embeds is not None:
+            T = tokens.shape[1]
+            embeds = input_embeds[:, s : s + T]
+            embeds = F.pad(embeds, (0, 0, 0, T - embeds.shape[1]))
         lp_d, carry = _prefill_step(
-            model, tokens, chunk_lens, cache, carry, attend_cache=not first,
-            want_logprobs=want_logprobs,
+            model, tokens, chunk_lens, cache, carry, attend_cache=s > 0,
+            want_logprobs=want_logprobs, input_embeds=embeds,
         )
         if want_logprobs:
-            _extend_logprobs(logprobs, lp_d, chunk_lens, first)
+            _extend_logprobs(logprobs, lp_d, chunk_lens, s == 0)
     return logprobs, carry
 
 
 def _prompt_chunks(encoded_prompts: Sequence[Sequence[int]], chunk_size: Optional[int], device):
     """The prompts cut into chunks of ``chunk_size`` (the longest prompt when
-    None), each padded to (B, chunk_size): yields (first chunk?, tokens,
-    valid tokens per row (B,) int32), on ``device``."""
+    None), each padded to (B, chunk_size): yields (the chunk's first position,
+    tokens, valid tokens per row (B,) int32), on ``device``."""
     seqlens = [len(p) for p in encoded_prompts]
     max_prompt_len = max(seqlens)
     if chunk_size is None:
@@ -157,7 +167,7 @@ def _prompt_chunks(encoded_prompts: Sequence[Sequence[int]], chunk_size: Optiona
             row = p[s : s + chunk_size]
             chunk_tok[i, : len(row)] = row
         tokens, lens = torch.from_numpy(chunk_tok), torch.from_numpy(chunk_lens)
-        yield s == 0, tokens.to(device), lens.to(device)
+        yield s, tokens.to(device), lens.to(device)
 
 
 def _extend_logprobs(logprobs: List[List[float]], lp_d: torch.Tensor, chunk_lens: torch.Tensor,
@@ -284,11 +294,16 @@ def generate(
     generated token. Sampling draws from a ``torch.Generator`` seeded with
     ``seed``, so a seed fixes the tokens on one device.
 
+    ``images[i]`` holds row i's preprocessed (C, H, W) images, in the order
+    of its image tokens (``images.encode_user_content`` lays both out): their
+    features are computed once for the whole prompts and replace the image
+    tokens' embeddings in the prefill.
+
     ``draft_model`` switches decoding to speculative decoding
     (``speculative.py``): the same greedy tokens from fewer target forwards.
     A ``Transformer`` drafts ``spec_tokens`` tokens per verify forward; the
     string "lookup" (or "ngram") proposes them from the row's own history,
-    with no draft model."""
+    with no draft model. It takes no images."""
     has_images = any(len(im) > 0 for im in images)
     if draft_model is not None:
         if has_images:
@@ -303,15 +318,19 @@ def generate(
                                  f"got {draft_model!r}")
             return speculative.generate_lookup(encoded_prompts, model, **kw)
         return speculative.generate_speculative(encoded_prompts, model, draft_model, **kw)
-    if has_images:
-        raise NotImplementedError("image inputs are not ported yet")
     check_prompts(encoded_prompts, model.args.vocab_size)
     B = len(encoded_prompts)
     max_prompt_len = max(len(p) for p in encoded_prompts)
     device = model.device
 
+    input_embeds = None
+    if has_images:
+        from mistral_inference_tpu_torch.models.vision import embed_multimodal
+
+        input_embeds = embed_multimodal(model, encoded_prompts, images)
     cache = model.alloc_cache(B, max_prompt_len + max_tokens)
-    logprobs, carry = prefill_prompts(model, encoded_prompts, cache, chunk_size)
+    logprobs, carry = prefill_prompts(model, encoded_prompts, cache, chunk_size,
+                                      input_embeds=input_embeds)
     ones = torch.ones((B,), dtype=torch.int32, device=device)
     return _decode_loop(
         lambda tok: model.forward(tok[:, None], ones, cache, attend_cache=True)[:, 0],
@@ -357,11 +376,11 @@ def prefill_mamba(
     state = model.alloc_state(B)
     logprobs: List[List[float]] = [[] for _ in range(B)]
     carry = torch.zeros((B, model.args.vocab_size), dtype=torch.float32, device=model.device)
-    for first, tokens, chunk_lens in _prompt_chunks(encoded_prompts, chunk_size, model.device):
+    for s, tokens, chunk_lens in _prompt_chunks(encoded_prompts, chunk_size, model.device):
         lp_d, carry = _mamba_prefill_step(
             model, tokens, chunk_lens, state, carry, min(mm.DEFAULT_CHUNK, tokens.shape[1])
         )
-        _extend_logprobs(logprobs, lp_d, chunk_lens, first)
+        _extend_logprobs(logprobs, lp_d, chunk_lens, s == 0)
     return logprobs, carry, state
 
 

@@ -99,14 +99,17 @@ class Transformer:
         attend_cache: bool = True,
         head: str = "full",
         write_cache: Union[bool, str] = True,
+        input_embeds: Optional[torch.Tensor] = None,
     ):
         """Prelogits (B, T, V) fp32, or hidden states with ``head="none"``.
         The cache is updated in place. ``write_cache`` (False | "spec") is
-        speculative decoding's verify pass: see ``models.transformer.forward``."""
+        speculative decoding's verify pass, and ``input_embeds`` (B, T, dim)
+        replaces the token embeddings: see ``models.transformer.forward``."""
         with torch.inference_mode():
             return tf.forward(
                 self.params, tokens.to(self.device), seqlens.to(self.device), cache,
                 self.args, attend_cache, head=head, write_cache=write_cache,
+                input_embeds=None if input_embeds is None else input_embeds.to(self.device),
             )
 
 

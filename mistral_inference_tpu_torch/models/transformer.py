@@ -164,12 +164,19 @@ def init_params(
         }
         for _ in range(args.n_layers)
     ]
-    return {
+    params = {
         "tok_embeddings": torch.randn((V, D), generator=generator, dtype=dtype, device=device),
         "layers": layers,
         "norm": ones(D),
         "output": lin(V, D),
     }
+    if args.vision_encoder is not None:
+        # Drawn last, so a text-only model's draws are unchanged; never
+        # quantized, as in the JAX package.
+        from mistral_inference_tpu_torch.models.vision import init_vision_params
+
+        params["vision"] = init_vision_params(args.vision_encoder, D, dtype, generator, device)
+    return params
 
 
 def _dense_ffn(x: torch.Tensor, w: Params) -> torch.Tensor:
@@ -502,8 +509,13 @@ def forward(
     attend_cache: bool,
     head: str = "full",
     write_cache: Union[bool, str] = True,
+    input_embeds: Optional[torch.Tensor] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, ChunkKV]]:
     """One chunk pass (a prefill chunk or one decode step).
+
+    ``input_embeds`` (B, T, D) in the model dtype, when given, replaces the
+    token embeddings: a multimodal prefill chunk, its image tokens' slots
+    holding image features (``models/vision.embed_multimodal``).
 
     Returns prelogits (B, T, V) fp32, or with ``head="none"`` the final-norm
     hidden states (B, T, D). The cache is updated IN PLACE: every layer's
@@ -538,7 +550,12 @@ def forward(
     positions = kv_len[:, None] + steps[None, :]
     token_valid = steps[None, :] < seqlens[:, None]
 
-    h = F.embedding(tokens.long(), params["tok_embeddings"])
+    if input_embeds is None:
+        h = F.embedding(tokens.long(), params["tok_embeddings"])
+    elif tuple(input_embeds.shape) != (B, T, params["tok_embeddings"].shape[1]):
+        raise ValueError(f"input_embeds must be (B, T, dim), got {tuple(input_embeds.shape)}")
+    else:
+        h = input_embeds
     theta = args.rope_theta or DEFAULT_ROPE_THETA
     rope_cs = rope_for_positions(positions, args.head_dim, theta)
     rings: Dict[int, RingInputs] = {}
@@ -577,12 +594,15 @@ def output_head(params: Params, h: torch.Tensor) -> torch.Tensor:
 
 def param_count(params: Params) -> int:
     """Logical weights: a quantized leaf counts its integers (two per packed
-    int4 byte), not its scales."""
+    int4 byte), not its scales. A vision encoder's weights count too."""
 
     def count(w) -> int:
         if is_quantized(w):
             return 2 * w["q4"].numel() if "q4" in w else w["q"].numel()
+        if isinstance(w, dict):
+            return sum(count(x) for x in w.values())
+        if isinstance(w, list):
+            return sum(count(x) for x in w)
         return w.numel()
 
-    n = sum(t.numel() for k, t in params.items() if k != "layers")
-    return n + sum(count(w) for lw in params["layers"] for w in lw.values())
+    return count(params)

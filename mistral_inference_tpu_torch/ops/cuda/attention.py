@@ -1,7 +1,7 @@
 """Attention kernels of the dense path: wrappers, launch counters and plain
 PyTorch versions (counterpart of ``mistral_inference_tpu/ops/pallas/attention.py``).
 
-Five hand-written CUDA kernels for Hopper (sources in ``csrc/``, built by
+Six hand-written CUDA kernels for Hopper (sources in ``csrc/``, built by
 ``_build.py``):
 
 * ``flash_attention`` (K1, ``csrc/flash_attention.cu``): a chunk's attention
@@ -16,6 +16,9 @@ Five hand-written CUDA kernels for Hopper (sources in ``csrc/``, built by
 * ``fused_verify_chunk_attention`` (K7, the T <= 8 instantiation of
   ``csrc/fused_decode.cu``): a speculative verify chunk's T candidate K/V
   written to consecutive ring slots, then all T queries attending ring-only.
+* ``segment_flash_attention`` (K10, the head-dim-64 segment-mask
+  instantiation of K1's tile loop in ``csrc/flash_attention.cu``): the vision
+  encoder's non-causal attention, where a patch sees only its own segment.
 
 Each wrapper launches its kernel for CUDA tensors, and for nothing else: on
 CPU tensors it runs the plain version in this module, which computes the
@@ -24,7 +27,7 @@ CUDA tensor to the plain version. Each wrapper counts its kernel launches in
 its ``launches`` attribute.
 
 The mask is position arithmetic (``0 <= q_pos - kv_pos < window`` with
-validity flags). A query row that sees no key returns 0 with m = -1e30 and
+validity flags), or for K10 segment equality. A query row that sees no key returns 0 with m = -1e30 and
 l = 0, the convention ``merge_attention_parts`` relies on.
 """
 
@@ -51,6 +54,7 @@ _SIGS = {
     ("fused_decode", "fused_verify_int8"): [_P] * 7 + [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _P],
     ("fused_decode", "fused_verify_bf16"): [_P] * 5 + [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _P],
     ("fused_decode", "fused_decode_span"): [],
+    ("flash_attention", "flash_attention_seg_bf16"): [_P] * 5 + [_I] * 3 + [_F, _P],
 }
 _kernel = functools.partial(_call.kernel, _SIGS)
 _launch = functools.partial(_call.launch, _SIGS)
@@ -88,10 +92,16 @@ def attend_stats_plain(
     kv_valid: torch.Tensor,  # (B, S) bool
     window: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The function all five kernels compute, written out: fp32 dots, the
-    key scale after the dot, probabilities (times the value scale) rounded to
-    q.dtype before the PV product. Returns (out (B, T, H, D) in q.dtype,
-    m (B, T, H) fp32, l (B, T, H) fp32)."""
+    """The function K1, K4, K2, K6 and K7 compute, written out: fp32 dots,
+    the key scale after the dot, probabilities (times the value scale)
+    rounded to q.dtype before the PV product. Returns (out (B, T, H, D) in
+    q.dtype, m (B, T, H) fp32, l (B, T, H) fp32)."""
+    mask = sliding_window_mask(q_pos, kv_pos, q_valid, kv_valid, window)
+    return _attend_masked_plain(q, k, v, k_scale, v_scale, mask)
+
+
+def _attend_masked_plain(q, k, v, k_scale, v_scale, mask):
+    """attend_stats_plain under any (B, T, S) boolean mask."""
     B, T, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
@@ -102,7 +112,7 @@ def attend_stats_plain(
         scores = scores * (k_scale.float()[:, :, None, None, :] * scale)
     else:
         scores = scores * scale
-    mask = sliding_window_mask(q_pos, kv_pos, q_valid, kv_valid, window)[:, None, None]
+    mask = mask[:, None, None]
     m = torch.where(mask, scores, NEG_INF).amax(dim=-1)  # (B, Hkv, G, T)
     p = torch.where(mask, torch.exp(scores - m[..., None]), 0.0)
     l = p.sum(dim=-1)
@@ -112,6 +122,21 @@ def attend_stats_plain(
     out = torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D).to(q.dtype)
     return out, m.permute(0, 3, 1, 2).reshape(B, T, H), l.permute(0, 3, 1, 2).reshape(B, T, H)
+
+
+def segment_attention_plain(
+    q: torch.Tensor,  # (B, N, H, D)
+    k: torch.Tensor,  # (B, N, H, D)
+    v: torch.Tensor,
+    seg: torch.Tensor,  # (B, N) int segment ids
+) -> torch.Tensor:
+    """Plain version of K10: a masked softmax in fp32 where query t sees key
+    s iff seg[t] == seg[s], probabilities rounded to q.dtype before the PV
+    product as the kernel rounds them. Returns (B, N, H * D)."""
+    B, N, H, D = q.shape
+    mask = seg[:, :, None] == seg[:, None, :]
+    out, _, _ = _attend_masked_plain(q, k, v, None, None, mask)
+    return out.reshape(B, N, H * D)
 
 
 def merge_attention_parts(o1, m1, l1, o2, m2, l2) -> torch.Tensor:
@@ -547,7 +572,43 @@ def fused_verify_chunk_attention(
 
 fused_verify_chunk_attention.launches = 0
 
+SEGMENT_HEAD_DIM = 64  # the head dim K10 is built for (Pixtral's encoder)
+
+
+def segment_flash_attention(
+    q: torch.Tensor,  # (B, N, H, D) bf16 on the card
+    k: torch.Tensor,  # (B, N, H, D)
+    v: torch.Tensor,
+    seg: torch.Tensor,  # (B, N) int32 segment ids: a patch sees its own segment only
+) -> torch.Tensor:
+    """K10, the vision encoder's attention. Returns (B, N, H * D).
+
+    Every N goes through the kernel: the JAX package's gate on the stock TPU
+    kernel, N >= 512 and N % 512 == 0, follows that kernel's block sizes, and
+    the 64-row tiles here take any N."""
+    B, N, H, D = q.shape
+    if not q.is_cuda:
+        return segment_attention_plain(q, k, v, seg)
+    dev = q.device
+    bf = torch.bfloat16
+    if D != SEGMENT_HEAD_DIM:
+        raise ValueError(f"the segment kernel takes head_dim {SEGMENT_HEAD_DIM}, got {D}")
+    _need(q, "q", bf, (B, N, H, D), dev)
+    _need(k, "k", bf, (B, N, H, D), dev)
+    _need(v, "v", bf, (B, N, H, D), dev)
+    sg = _meta(seg, "seg", torch.int32, (B, N), dev)
+    out = torch.empty((B, N, H * D), dtype=bf, device=dev)
+    _launch(
+        "flash_attention", "flash_attention_seg_bf16", dev, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), sg.data_ptr(), out.data_ptr(), B, N, H, D**-0.5,
+    )
+    segment_flash_attention.launches += 1
+    return out
+
+
+segment_flash_attention.launches = 0
+
 KERNELS = (
     flash_attention, ring_attention_stats, fused_update_decode_attention, decode_attention,
-    fused_verify_chunk_attention,
+    fused_verify_chunk_attention, segment_flash_attention,
 )

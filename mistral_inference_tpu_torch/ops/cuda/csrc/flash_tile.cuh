@@ -1,17 +1,24 @@
 // Tiled online-softmax attention over one KV head's keys, shared by the
-// flash_attention kernel (K1: bf16 chunk keys) and the ring_attention_stats
-// kernel (K4: a bf16 or int8 ring with per-(slot, head) scales).
+// flash_attention kernel (K1: bf16 chunk keys), the ring_attention_stats
+// kernel (K4: a bf16 or int8 ring with per-(slot, head) scales) and the
+// segment-masked vision encoder attention (K10).
 //
-// Function: for every query row (token t, head h), softmax over the keys s
-// with 0 <= q_pos[t] - kv_pos[s] < window, q_valid[t] and kv_valid[s], of
-// (q . k_s) * k_scale[s] * D^-1/2, times v_s * v_scale[s]. GQA: head h reads
-// KV head h / G. Returns the normalized output and the online-softmax
-// stats m (row max) and l (sum of exp) for an exact merge of two key sets.
-// A row that sees no key returns 0, m = -1e30, l = 0.
+// Function: for every query row (token t, head h), softmax over the visible
+// keys s of (q . k_s) * k_scale[s] * D^-1/2, times v_s * v_scale[s]. A key is
+// visible when q_valid[t] and kv_valid[s] hold and, by position (K1, K4),
+// 0 <= q_pos[t] - kv_pos[s] < window; or, with kSegment (K10), when the two
+// segment ids held in q_pos and kv_pos are equal: no position term, no
+// causality, no validity flags (every row is a token of some segment). GQA:
+// head h reads KV head h / G. Returns the normalized output and, where m_out
+// is given, the online-softmax stats m (row max) and l (sum of exp) for an
+// exact merge of two key sets. A row that sees no key returns 0, m = -1e30,
+// l = 0.
 //
 // Layouts (those of the JAX package's kernels): q and out (B, T, H, D);
 // keys and values (B, S, Hkv * D), which is also the (B, S, Hkv, D) layout of
-// a chunk's own K/V; scales (B, Hkv, S); m and l (B, T, H).
+// a chunk's own K/V; scales (B, Hkv, S); m and l (B, T, H). The head dim D
+// is a template parameter: 128 for the decoder (K1, K4), 64 for the Pixtral
+// encoder (K10).
 //
 // Design: one block of 4 warps per (T-tile, kv head, batch row). Its 64 rows
 // are 64/G query tokens times the G heads that share the KV head, so each
@@ -24,19 +31,21 @@
 // read with ldmatrix.trans. The running max and sum stay in registers, one
 // pair per row half of the thread's fragment. A tile in which no (query,
 // key) pair is visible is skipped, which halves the work of causal
-// self-attention. Numerics follow the TPU kernel: fp32 dots of bf16 (or
-// int8) values, scales applied after the dot, probabilities (times the
-// value scale) rounded to bf16 before the PV product.
+// self-attention and, under segments, skips the tiles of an image's queries
+// against another image's (or the bucket padding's) keys. Numerics follow
+// the TPU kernels: fp32 dots of bf16 (or int8) values, scales applied after
+// the dot, probabilities (times the value scale) rounded to bf16 before the
+// PV product.
 //
 // What bounds it on the H100: at the main path's shapes (T = 512 queries
-// over S = 512 chunk keys or S = 4096 ring slots, G = 4) the work is about
-// 4 * D flops per visible (query head, key) pair against a few MB of
-// operands, far above the 295 flop/byte ridge: it is compute-bound, and the
-// design puts the flops on the bf16 tensor cores. The launch bounds hold
-// the kernel to 170 registers so that three blocks (12 warps) share an SM
-// and hide each other's barriers and loads. It does not yet overlap the
-// next tile's loads with this tile's math (cp.async or TMA) nor use wgmma;
-// those are the next steps.
+// over S = 512 chunk keys or S = 4096 ring slots, G = 4; or a 4096-patch
+// image, N = 4096, 16 heads of 64) the work is about 4 * D flops per visible
+// (query head, key) pair against a few MB of operands, far above the 295
+// flop/byte ridge: it is compute-bound, and the design puts the flops on the
+// bf16 tensor cores. The launch bounds hold the kernel to 170 registers so
+// that three blocks (12 warps) share an SM and hide each other's barriers
+// and loads. It does not yet overlap the next tile's loads with this tile's
+// math (cp.async or TMA) nor use wgmma; those are the next steps.
 #pragma once
 
 #include "common.cuh"
@@ -46,12 +55,16 @@ namespace mit {
 constexpr int kRows = 64;      // query rows (token, head) per block
 constexpr int kKeys = 64;      // keys per S tile
 constexpr int kThreads = 128;  // 4 warps x 16 rows
-// bf16 elements per shared-memory row: +8 (16 bytes) makes the fragment
-// loads conflict-free and keeps every row 16-byte aligned for ldmatrix.
-constexpr int kStride = kHeadDim + 8;
+// bf16 elements per shared-memory row of head dim D: +8 (16 bytes) keeps
+// every row 16-byte aligned for ldmatrix and puts neighbouring rows 4 banks
+// apart (272 bytes at D = 128, 144 at D = 64), so the eight rows of a
+// fragment load fall in distinct banks.
+template <int D>
+constexpr int kStrideOf = D + 8;
 
+template <int D>
 inline size_t flash_tile_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (kRows + 2 * kKeys) * kStride +
+  return sizeof(__nv_bfloat16) * (kRows + 2 * kKeys) * kStrideOf<D> +
          sizeof(int) * (2 * kRows + 2 * kKeys) + sizeof(float) * 2 * kKeys;
 }
 
@@ -60,7 +73,7 @@ inline size_t flash_tile_smem_bytes() {
 // thread. It differs from expf by a few ulp, far inside the bf16 output.
 __device__ __forceinline__ float exp_(float x) { return exp2f(x * 1.4426950408889634f); }
 
-template <typename KT, bool kScaled>
+template <typename KT, bool kScaled, int D, bool kSegment>
 __global__ void __launch_bounds__(kThreads, 3) flash_tile_kernel(
     const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k,
     const KT* __restrict__ v, const float* __restrict__ k_scale,
@@ -69,7 +82,8 @@ __global__ void __launch_bounds__(kThreads, 3) flash_tile_kernel(
     const uint8_t* __restrict__ kv_valid, int window,
     __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
     float* __restrict__ l_out, int T, int S, int H, int Hkv, float scale) {
-  constexpr int D = kHeadDim;
+  static_assert(D % 16 == 0, "head dim: whole 16-wide k-steps of the QK product");
+  constexpr int kStride = kStrideOf<D>;
   const int G = H / Hkv;
   const int TQ = kRows / G;
   const int b = blockIdx.z, j = blockIdx.y, t0 = blockIdx.x * TQ;
@@ -101,7 +115,7 @@ __global__ void __launch_bounds__(kThreads, 3) flash_tile_kernel(
   }
   if (tid < kRows) {
     const int t = t0 + tid / G;
-    const bool ok = t < T && q_valid[static_cast<size_t>(b) * T + t];
+    const bool ok = t < T && (kSegment || q_valid[static_cast<size_t>(b) * T + t]);
     qpos_s[tid] = ok ? q_pos[static_cast<size_t>(b) * T + t] : 0;
     qok_s[tid] = ok;
   }
@@ -131,7 +145,7 @@ __global__ void __launch_bounds__(kThreads, 3) flash_tile_kernel(
     __syncthreads();  // the previous tile is done with Ks, Vs and the key metadata
     if (tid < kKeys) {
       const int s = s0 + tid;
-      const bool ok = s < S && kv_valid[static_cast<size_t>(b) * S + s];
+      const bool ok = s < S && (kSegment || kv_valid[static_cast<size_t>(b) * S + s]);
       kpos_s[tid] = ok ? kv_pos[static_cast<size_t>(b) * S + s] : 0;
       kok_s[tid] = ok;
       if (kScaled) {
@@ -153,7 +167,8 @@ __global__ void __launch_bounds__(kThreads, 3) flash_tile_kernel(
         for (int e = 0; e < 2; ++e) {
           const int c = nt * 8 + 2 * quad + e;
           const int delta = qpos[h] - kpos_s[c];
-          if (qok[h] && kok_s[c] && delta >= 0 && delta < window)
+          const bool see = kSegment ? delta == 0 : delta >= 0 && delta < window;
+          if (qok[h] && kok_s[c] && see)
             vis |= 1u << (h * 16 + nt * 2 + e);
         }
     if (!__syncthreads_or(vis != 0)) continue;  // no visible pair: skip the tile
@@ -266,8 +281,9 @@ __global__ void __launch_bounds__(kThreads, 3) flash_tile_kernel(
   }
 }
 
-// Launch on `stream`; returns the CUDA error code (0 = launched).
-template <typename KT, bool kScaled>
+// Launch on `stream`; returns the CUDA error code (0 = launched). K1 and K4
+// take the defaults: head dim 128, the position mask.
+template <typename KT, bool kScaled, int D = kHeadDim, bool kSegment = false>
 int launch_flash_tile(const void* q, const void* k, const void* v, const void* k_scale,
                       const void* v_scale, const void* q_pos, const void* kv_pos,
                       const void* q_valid, const void* kv_valid, int window, void* out,
@@ -276,8 +292,8 @@ int launch_flash_tile(const void* q, const void* k, const void* v, const void* k
   const int G = H / Hkv;
   if (G < 1 || G > kRows || kRows % G != 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   const int TQ = kRows / G;
-  const size_t smem = flash_tile_smem_bytes();
-  auto kern = flash_tile_kernel<KT, kScaled>;
+  const size_t smem = flash_tile_smem_bytes<D>();
+  auto kern = flash_tile_kernel<KT, kScaled, D, kSegment>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;

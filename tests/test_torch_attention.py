@@ -266,5 +266,5 @@ def test_wrappers_count_only_kernel_launches():
     cuda_ops.reset_launch_counts()
     q, k, v, q_pos, kv_pos, q_valid, kv_valid = _attention_case(1, 4, 4, 2, 1, 128)
     tk.flash_attention(*(_t(a) for a in (q, k, v, q_pos, kv_pos, q_valid, kv_valid)), 8)
-    assert len(tk.KERNELS) == 5 and len(cuda_ops.all_kernels()) == 9
-    assert [fn.launches for fn in cuda_ops.all_kernels()] == [0] * 9
+    assert len(tk.KERNELS) == 6 and len(cuda_ops.all_kernels()) == 10
+    assert [fn.launches for fn in cuda_ops.all_kernels()] == [0] * 10

@@ -12,7 +12,8 @@ outputs, fp32 sums in another order) and the fp32 stats within 1e-4. The
 quantized matmuls are held to the same 1e-2 + 1e-2 |ref|, and the stacked and
 repeated launches of K3 and K8 to equal bits. K9's new state has the bits of
 its plain version (fp32 and bf16) and y agrees within 1e-5 (fp32 sums in
-another order).
+another order). K10, the vision encoder's segment-masked attention, is held
+to 1e-2 + 1e-2 |ref| at the four shapes ``chip_smoke.py`` checks.
 ``python3 chip_smoke.py`` runs the same comparisons at the model's shapes.
 """
 
@@ -73,7 +74,7 @@ def test_kernels_match_plain_on_card():
         assert torch.equal(a, b)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
     # Each wrapper counted its own launches, and the plain versions none.
-    assert [fn.launches for fn in tk.KERNELS] == [1, 1, 1, 0, 0]
+    assert [fn.launches for fn in tk.KERNELS] == [1, 1, 1, 0, 0, 0]
 
 
 @pytest.mark.cuda
@@ -100,6 +101,17 @@ def test_wrappers_reject_bad_operands_on_card():
         linear(torch.zeros((4, 256), device=dev), {
             "q": torch.zeros((256, 128), dtype=torch.int8, device=dev),
             "scale": torch.ones((2, 128), device=dev)})
+    vq = torch.zeros((1, 64, 16, 64), dtype=bf, device=dev)
+    seg = torch.zeros((1, 64), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        tk.segment_flash_attention(q, q, q, pos)
+    with pytest.raises(TypeError, match="v must be"):
+        tk.segment_flash_attention(vq, vq, vq.float(), seg)
+    with pytest.raises(ValueError, match="seg"):
+        tk.segment_flash_attention(vq, vq, vq, seg[:, :60])
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.segment_flash_attention(vq, vq.transpose(1, 2).contiguous().transpose(1, 2), vq, seg)
+    assert len(cuda_ops.all_kernels()) == 10
     assert all(fn.launches == 0 for fn in cuda_ops.all_kernels())
 
 
@@ -520,3 +532,30 @@ def test_generate_mamba_on_card_matches_cpu():
     g_look, lp_look = generate_mamba(prompts, card, max_tokens=12, temperature=0.0,
                                      chunk_size=16, draft_model="lookup", spec_tokens=4)
     assert g_look == g_card and [len(x) for x in lp_look] == [len(x) for x in lp_card]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [
+    [(0, 4096)],               # a full 1024 x 1024 image
+    [(0, 504), (-1, 8)],       # a 384 x 336 image in its 512 bucket
+    [(0, 256)],                # a small bucket
+    [(0, 1536), (1, 2048)],    # two images in one block-diagonal row
+], ids=["image-4096", "bucket-512-padded", "bucket-256", "two-images-3584"])
+def test_segment_attention_matches_plain_on_card(parts):
+    """K10 against its plain version at the vision encoder's shapes (16 heads
+    of 64, bf16), within one bf16 ulp: both round p to bf16 before PV."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    N = sum(n for _, n in parts)
+    seg = torch.cat([torch.full((n,), i, dtype=torch.int32, device="cuda")
+                     for i, n in parts])[None]
+    q, k, v = (torch.randn((1, N, 16, 64), generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    cuda_ops.reset_launch_counts()
+    out = tk.segment_flash_attention(q, k, v, seg)
+    ref = tk.segment_attention_plain(q, k, v, seg)
+    torch.cuda.synchronize()
+    assert out.shape == (1, N, 16 * 64)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    assert tk.segment_flash_attention.launches == 1

@@ -138,7 +138,9 @@ def test_eos_early_exit():
 
 def test_unported_arguments_raise():
     _, model = pair(0)
-    with pytest.raises(NotImplementedError):
+    # Images are ported (tests/test_torch_vision_generate.py); a model
+    # without a vision encoder refuses them.
+    with pytest.raises(ValueError, match="no vision encoder"):
         generate(PROMPTS, model, [[np.zeros((4, 4, 3))]], max_tokens=1, temperature=0.0)
     # Speculation is ported; images beside a draft are refused, and a draft
     # is a Transformer or the name of the draft-free proposer.

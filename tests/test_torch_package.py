@@ -39,17 +39,18 @@ def _imports(tree):
 
 
 def test_sources_found():
-    assert len(SOURCES) >= 19
+    assert len(SOURCES) >= 21
     for module in ("ops/linear.py", "ops/cuda/matmul_quant.py", "ops/cuda/moe_matmul.py",
                    "quant/weights.py", "speculative.py", "models/mamba.py",
-                   "ops/cuda/ssd_step.py"):
+                   "ops/cuda/ssd_step.py", "models/vision.py", "images.py"):
         assert PKG / module in SOURCES
     assert sorted(p.name for p in (PKG / "ops" / "cuda" / "csrc").glob("*.cu")) == [
         "flash_attention.cu", "fused_decode.cu", "matmul_quant.cu", "moe_expert_matmul.cu",
         "moe_matmul.cu", "ring_attention.cu", "ssd_step.cu",
     ]
-    # K3 and K8 share their device code, K1 and K4 theirs; K2, K6 and K7 are
-    # instantiations of one kernel in fused_decode.cu.
+    # K3 and K8 share their device code, K1, K4 and K10 theirs (K10 is the
+    # head-dim-64 segment-mask instantiation in flash_attention.cu); K2, K6
+    # and K7 are instantiations of one kernel in fused_decode.cu.
     assert sorted(p.name for p in (PKG / "ops" / "cuda" / "csrc").glob("*.cuh")) == [
         "common.cuh", "dequant_dot.cuh", "flash_tile.cuh",
     ]
@@ -157,10 +158,15 @@ def test_mamba_cpu_only_on_request():
         headdim=16))
 
 
-@pytest.mark.parametrize("name", ["mistral-7b-v0.1", "mistral-7b-v0.3", "mixtral-8x7b",
-                                  "mixtral-8x22b", "codestral-mamba-7b"])
+PRESETS = ["mistral-7b-v0.1", "mistral-7b-v0.3", "mistral-nemo-12b", "codestral-22b",
+           "mixtral-8x7b", "mixtral-8x22b", "mistral-large-2-123b", "pixtral-12b",
+           "mistral-small-3.1-24b", "codestral-mamba-7b"]
+
+
+@pytest.mark.parametrize("name", PRESETS)
 def test_registry_matches_jax_presets(name):
-    """The presets carry the JAX package's published widths."""
+    """The presets carry the JAX package's published widths, field by field
+    (Pixtral's vision encoder too)."""
     import dataclasses
 
     from mistral_inference_tpu.models.registry import REGISTRY as JAX_REGISTRY
@@ -169,3 +175,10 @@ def test_registry_matches_jax_presets(name):
     ours = dataclasses.asdict(REGISTRY[name])
     theirs = dataclasses.asdict(JAX_REGISTRY[name])
     assert {k: theirs[k] for k in ours} == ours
+
+
+def test_registry_has_every_jax_preset():
+    from mistral_inference_tpu.models.registry import REGISTRY as JAX_REGISTRY
+    from mistral_inference_tpu_torch.models.registry import REGISTRY
+
+    assert sorted(REGISTRY) == sorted(JAX_REGISTRY) == sorted(PRESETS)
