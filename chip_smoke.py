@@ -9,7 +9,10 @@ Phases, each printing one JSON line:
 2. build: every kernel of ``mistral_inference_tpu_torch/ops/cuda/csrc`` is
    compiled from the checkout with nvcc (sm_90a).
 3. kernels: each of the ten CUDA kernels against its plain PyTorch version
-   on the same inputs on the card, at the Mistral-7B and Mixtral-8x7B shapes
+   on the same inputs on the card (K4, K2, K6 and K7 over an int8 ring, and
+   again, each a row of its own, over a float8_e4m3fn ring, where K2's and
+   K7's written bytes and scales equal cache._quantize_ring's), at the
+   Mistral-7B and Mixtral-8x7B shapes
    (H=32, Hkv=8, D=128; the four linears of a layer at 4, 256 and 2048 rows,
    and a layer's eight experts at a capacity of 4 and 128 and at 6144 sorted
    rows, int8 and int4; a speculative verify chunk of 5 and of 8 tokens), the
@@ -27,7 +30,10 @@ Phases, each printing one JSON line:
    each: bf16 weights; weights quantized to int4, every linear through the
    quantized-matmul kernels; int8 weights with the non-fused decode route. On
    ``mixtral-8x7b``, all 32 layers: int4 weights, ``moe_impl="dispatch"``,
-   the experts through K5 (prefill, a weight per tile) and K8 (decode). Each
+   the experts through K5 (prefill, a weight per tile) and K8 (decode). Two
+   more over an fp8 ring on ``mistral-7b-v0.1`` with int4 weights:
+   ``int4-fp8`` at all 32 layers (the north-star configuration: K1, K4-fp8,
+   K5, K3, K2-fp8) and ``fp8-nonfused-decode`` at 8 layers (K6-fp8). Each
    checks that greedy tokens repeat, the decode == prefill invariant, that
    top-p sampling is fixed by its seed, and that every kernel of the path was
    launched.
@@ -40,7 +46,8 @@ Phases, each printing one JSON line:
    lookup at 8 layers with 8-token verify chunks, all three on a ring that
    never wraps and so through the fused verify kernel; and the 2-layer draft
    again with a prompt longer than the window, where the ring wraps, the
-   verify forward writes nothing and ``scatter_chunk`` commits. Each checks the
+   verify forward writes nothing and ``scatter_chunk`` commits; and
+   ``lookup-fp8``, the lookup path over an fp8 ring (K7-fp8). Each checks the
    fused verify kernel's launches (layers x verify forwards, or 0), that greedy
    tokens repeat and equal plain greedy decoding's (on the wrapping path: may
    differ only at a near-tie of the target's two best logits), the logprob
@@ -73,16 +80,30 @@ Phases, each printing one JSON line:
    prints TTFT, the encoder's time for the four images beside it, decode
    tokens/s and peak memory.
 
+8. serving: the continuous-batching ``Engine`` (batch 8, max_seq_len 4608,
+   admit_chunk 512) on ``mistral-7b-v0.1`` with int4 weights and an fp8
+   ring, all 32 layers, serving 24 requests from seed 0: prompts of the
+   lengths above, 8 sharing a 1024-token prefix, max_tokens 32-128, 16
+   submitted at the start and 8 after the fourth step, 20 greedy and 4 at
+   T = 0.7, p = 0.9, one cancelled mid-run, one ended by a stop id, one with
+   logprobs. Checks every greedy request against ``generate()`` of its
+   prompt alone (leaving it only at a near-tie of the two best logits), the
+   prefix hits, that no row writes past prompt + max_tokens and K2-fp8's
+   launches (layers x decode forwards); prints requests/s, output tokens/s,
+   TTFT p50 / p99, admission's share of the wall time and peak memory.
+
 Then a ``total`` line (the seconds since the start), a ``kernels`` line, the
 nvidia-smi line, and last the device line.
 Any failure raises and the script exits non-zero. Without a CUDA device,
 or without the package beside it, it exits non-zero and prints no result.
 nvcc's build logs (``-Xptxas -v``: registers, shared memory) go to stderr.
-``--profile`` adds to the lines of the two int4 paths, the two Mamba
+``--profile`` adds to the lines of the fused int4 paths (8 layers, the
+32-layer fp8 path, Mixtral), the two Mamba
 main paths and the Pixtral path a torch.profiler breakdown of the prefill
 (on Pixtral: the encoder's linears, K10, the decoder's linears, K1 + K4,
 other) and of one decode step, with the decode step's aten calls and the
-host's time to enqueue it. ``--kernels=k2,k7`` runs phases 1 and
+host's time to enqueue it, and to the serving line the same for one
+engine decode block (a serial engine, 8 rows). ``--kernels=k2,k7_fp8`` runs phases 1 and
 2 and only the named kernels' checks, and prints no result line.
 """
 
@@ -123,6 +144,8 @@ K3, K5, K6 = "matmul_quant", "moe_matmul_quant_ragged", "decode_attention"
 K8 = "moe_matmul_quant"
 K7 = "fused_verify_chunk_attention"
 K9 = "fused_ssd_step_stacked"
+# The float8_e4m3fn ring instantiations of the ring kernels, counted apart.
+K2F, K4F, K6F, K7F = (k + "_fp8" for k in (K2, K4, K6, K7))
 # decode == prefill: the greedy decode logprobs and the teacher-forced
 # prefill logprobs of the same tokens go through the same int8 ring bytes
 # (the fused decode kernel's write is bit-identical to the prefill's), but
@@ -157,6 +180,7 @@ class MainPath(NamedTuple):
     fused: bool  # decode route: K2, or update_stacked + K6
     expected: Tuple[str, ...]  # kernels the path must launch
     bound: Tuple[float, float] = (INVARIANT_MAX_NATS, INVARIANT_MEAN_NATS)
+    ring: str = "int8"  # the KV ring's type: "int8" | "fp8"
 
 
 # The Mixtral path is the full model; the dense paths are cut in depth, never
@@ -165,6 +189,10 @@ PATHS = (
     MainPath("bf16", MODEL, 8, None, True, (K1, K4, K2)),
     MainPath("int4", MODEL, 8, "int4", True, (K1, K4, K2, K3, K5)),
     MainPath("int8-nonfused-decode", MODEL, 8, "int8", False, (K1, K4, K6, K3, K5)),
+    # The north-star configuration: int4 weights over an fp8 ring, all 32
+    # layers; and the non-fused decode route over an fp8 ring (K6).
+    MainPath("int4-fp8", MODEL, 32, "int4", True, (K1, K4F, K2F, K3, K5), ring="fp8"),
+    MainPath("fp8-nonfused-decode", MODEL, 8, "int4", False, (K1, K4F, K6F, K3, K5), ring="fp8"),
     MainPath("mixtral-int4", MOE_MODEL, 32, "int4", True, (K1, K4, K2, K3, K5, K8),
              (MOE_INVARIANT_MAX_NATS, MOE_INVARIANT_MEAN_NATS)),
 )
@@ -248,6 +276,36 @@ def randn(gen, *shape, dtype=None):
     return x.to(dtype) if dtype is not None else x
 
 
+# The scaled ring types; a "bf16" ring has no scales.
+RINGS = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+def make_ring(gen, ring: str, *lead):
+    """A random stored ring (*lead, HKV, D) of type ``ring`` with its scales
+    (*lead[:-1], HKV, S), quantized by the port's ring rule; or bf16 and None."""
+    from mistral_inference_tpu_torch.cache import _quantize_ring
+
+    x = randn(gen, *lead, HKV, D)
+    if ring == "bf16":
+        return x.to(torch.bfloat16), None
+    q, scale = _quantize_ring(x, RINGS[ring])
+    return q, scale.transpose(-1, -2).contiguous()
+
+
+def bits(t):
+    """The tensor's elements as integers of its width: equal bits compare
+    equal (a float8 tensor has no comparison kernels of its own)."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def same_bits(a, b) -> bool:
+    return torch.equal(bits(a), bits(b))
+
+
+def differ(a, b) -> int:
+    return int((bits(a) != bits(b)).sum())
+
+
 def check_k1(gen):
     from mistral_inference_tpu_torch.ops.attention import sliding_window_mask
     from mistral_inference_tpu_torch.ops.cuda.attention import attend_stats_plain, flash_attention
@@ -302,19 +360,14 @@ def check_k1(gen):
     }
 
 
-def ring_case(gen, B, T, S, window, int8: bool, kv_len):
+def ring_case(gen, B, T, S, window, ring: str, kv_len):
     """A stored ring of one layer (wrapped when kv_len > window) and a chunk
     of T queries after it."""
-    from mistral_inference_tpu_torch.cache import _quantize_ring, slot_positions
+    from mistral_inference_tpu_torch.cache import slot_positions
 
     bf = torch.bfloat16
-    kf, vf = randn(gen, B, S, HKV, D), randn(gen, B, S, HKV, D)
-    if int8:
-        kq, ks = _quantize_ring(kf)
-        vq, vs = _quantize_ring(vf)
-        ks, vs = ks.permute(0, 2, 1).contiguous(), vs.permute(0, 2, 1).contiguous()
-    else:
-        kq, vq, ks, vs = kf.to(bf), vf.to(bf), None, None
+    kq, ks = make_ring(gen, ring, B, S)
+    vq, vs = make_ring(gen, ring, B, S)
     kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
     slot_pos, slot_valid = slot_positions(kv_len, window, S)
     q_pos = kv_len[:, None] + torch.arange(T, dtype=torch.int32, device="cuda")[None]
@@ -325,7 +378,9 @@ def ring_case(gen, B, T, S, window, int8: bool, kv_len):
             q_pos, slot_pos, q_valid, slot_valid, window)
 
 
-def check_k4(gen):
+def check_k4(gen, scaled: str = "int8"):
+    """K4 over a ``scaled`` ring ("int8", which also checks the bf16 ring, or
+    "fp8"): one row of the kernels line."""
     from mistral_inference_tpu_torch.cache import kv_roundtrip
     from mistral_inference_tpu_torch.ops.attention import attend_scaled, sliding_window_mask
     from mistral_inference_tpu_torch.ops.cuda.attention import (
@@ -335,8 +390,8 @@ def check_k4(gen):
     B, T, S, window = 4, 512, 4096, 4096
     kv_len = [4300 - 512, 4096 + 700, 1537, 2000]  # rows 0 and 1 have wrapped
     worst = 0.0
-    for int8 in (True, False):
-        case = ring_case(gen, B, T, S, window, int8, kv_len)
+    for ring in (scaled, "bf16") if scaled == "int8" else (scaled,):
+        case = ring_case(gen, B, T, S, window, ring, kv_len)
         q, kq, vq, ks, vs, q_pos, slot_pos, q_valid, slot_valid, _ = case
         o, m, l = ring_attention_stats(*case)
         ref, m_ref, l_ref = attend_stats_plain(
@@ -349,15 +404,15 @@ def check_k4(gen):
             "m": close(m, m_ref, 1e-4, 1e-4),
             "l": close(l, l_ref, 1e-4, 1e-4),
         }.items():
-            require(ok, f"K4 {name} disagrees with its plain version (int8={int8}): {err}")
+            require(ok, f"K4 {name} disagrees with its plain version ({ring} ring): {err}")
             if name == "out":
                 worst = max(worst, err)
-        if int8:
+        if ring == scaled:
             main = case
     # Merge with K1 over the chunk against attend_scaled over ring ++ chunk.
     q, kq, vq, ks, vs, q_pos, slot_pos, q_valid, slot_valid, _ = main
-    ck, cv = kv_roundtrip(randn(gen, B, T, HKV, D, dtype=torch.bfloat16)), kv_roundtrip(
-        randn(gen, B, T, HKV, D, dtype=torch.bfloat16))
+    ck, cv = (kv_roundtrip(randn(gen, B, T, HKV, D, dtype=torch.bfloat16), RINGS[scaled])
+              for _ in range(2))
     o_r, m_r, l_r = ring_attention_stats(*main)
     o_c, m_c, l_c = flash_attention(q, ck, cv, q_pos, q_pos, q_valid, q_valid, window,
                                     return_stats=True)
@@ -384,7 +439,8 @@ def check_k4(gen):
     deq_k = (kq.view(B, S, HKV, D).float() * ks.permute(0, 2, 1)[..., None]).to(torch.bfloat16)
     deq_v = (vq.view(B, S, HKV, D).float() * vs.permute(0, 2, 1)[..., None]).to(torch.bfloat16)
     return {
-        "name": "ring_attention_stats", "kernel": "K4", "route": "cuda",
+        "name": K4 + ("_fp8" if scaled == "fp8" else ""), "kernel": "K4", "route": "cuda",
+        "ring": scaled,
         "source": "mistral_inference_tpu_torch/ops/cuda/csrc/ring_attention.cu",
         "replaces": "mistral_inference_tpu/ops/pallas/attention.py:501",
         "max_abs_err": worst, "merge_max_abs_err": merge_err,
@@ -393,20 +449,24 @@ def check_k4(gen):
             q, kq.view(B, S, HKV, D), vq.view(B, S, HKV, D), ks, vs, *main[5:])),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": sdpa_ms(q, deq_k, deq_v, ring_mask),
-        "shape": "B=4 T=512 over an int8 ring of S=4096 (two rows wrapped) H=32 Hkv=8 D=128",
+        "shape": f"B=4 T=512 over an {scaled} ring of S=4096 (two rows wrapped) H=32 Hkv=8 "
+                 "D=128" + ("; also checked: a bf16 ring" if scaled == "int8" else ""),
         "tolerance": "kernel vs plain: abs 1e-2 + rel 1e-2 on bf16 outputs, 1e-4 on "
                      "stats; merge vs fp32 oracle: 2e-2, since the oracle keeps the "
                      "probabilities in fp32 where the kernels round them to bf16",
     }
 
 
-def check_k2(gen):
-    from mistral_inference_tpu_torch.cache import _quantize_ring, slot_positions
+def check_k2(gen, scaled: str = "int8"):
+    """K2 over a ``scaled`` ring ("int8", which also checks the bf16 ring, or
+    "fp8"): one row of the kernels line."""
+    import torch.nn.functional as F
+
+    from mistral_inference_tpu_torch.cache import dequant_layer, slot_positions
+    from mistral_inference_tpu_torch.ops.attention import sliding_window_mask
     from mistral_inference_tpu_torch.ops.cuda.attention import (
         fused_update_decode_attention, fused_update_decode_attention_plain,
     )
-
-    from mistral_inference_tpu_torch.ops.attention import sliding_window_mask
 
     bf = torch.bfloat16
     L, B, S, window = 32, 4, 4096, 4096
@@ -423,14 +483,9 @@ def check_k2(gen):
         should = (live > 0) & (pos >= new_total - window)
         write_slot = torch.where(should, pos % window, -1).to(torch.int32)
         slot_pos, slot_valid = slot_positions(new_total, window, S)
-        for int8 in (True, False):
-            if int8:
-                CK, KS = _quantize_ring(randn(gen, L, B, S, HKV, D))
-                CV, VS = _quantize_ring(randn(gen, L, B, S, HKV, D))
-                KS, VS = KS.permute(0, 1, 3, 2).contiguous(), VS.permute(0, 1, 3, 2).contiguous()
-            else:
-                CK, CV, KS, VS = randn(gen, L, B, S, HKV, D, dtype=bf), randn(
-                    gen, L, B, S, HKV, D, dtype=bf), None, None
+        for ring in (scaled, "bf16") if scaled == "int8" else (scaled,):
+            CK, KS = make_ring(gen, ring, L, B, S)
+            CV, VS = make_ring(gen, ring, L, B, S)
             CK, CV = CK.reshape(L, B, S, HKV * D), CV.reshape(L, B, S, HKV * D)
             xq = randn(gen, B, 1, H, D, dtype=bf)
             xk, xv = randn(gen, B, 1, HKV, D, dtype=bf) * 3, randn(gen, B, 1, HKV, D, dtype=bf)
@@ -439,27 +494,30 @@ def check_k2(gen):
             plain_stacks = [None if t is None else t.clone() for t in stacks]
             out = fused_update_decode_attention(xq, xk, xv, *stacks, li, window, write_slot,
                                                 pos, slot_pos, slot_valid)
+            # The plain version writes with cache._quantize_ring, so equal
+            # bytes here are the ring rule's bytes.
             ref = fused_update_decode_attention_plain(xq, xk, xv, *plain_stacks, li, window,
                                                       write_slot, pos, slot_pos, slot_valid)
             torch.cuda.synchronize()
-            case = f"int8={int8}, kv_len={kv_len.tolist()}"
+            case = f"{ring} ring, kv_len={kv_len.tolist()}"
             for name, a, b in zip(("CK", "CV", "KS", "VS"), stacks, plain_stacks):
                 if a is not None:
-                    require(torch.equal(a, b), f"K2 ring {name} after the write is not "
-                                               f"bit-identical to the plain write ({case}): "
-                                               f"{int((a != b).sum())} elements differ")
+                    require(same_bits(a, b), f"K2 ring {name} after the write is not "
+                                             f"bit-identical to _quantize_ring's ({case}): "
+                                             f"{differ(a, b)} elements differ")
             ok, err = close(out, ref, 1e-2, 1e-2)
             require(ok, f"K2 output disagrees with its plain version ({case}): {err}")
             worst = max(worst, err)
-            if int8 and main is None:
+            if ring == scaled and main is None:
                 main = (xq, xk, xv, *stacks, li, window, write_slot, pos, slot_pos, slot_valid)
             del CK, CV, KS, VS, stacks, plain_stacks
 
-    xq, xk, xv, _, _, _, _, li, window, write_slot, pos, slot_pos, slot_valid = main
+    xq, xk, xv, CK, CV, KS, VS, li, window, write_slot, pos, slot_pos, slot_valid = main
     ones = torch.ones((B, 1), dtype=torch.bool, device="cuda")
     # (row, slot) pairs this step's data makes visible: each is read once,
-    # int8 K and V for every KV head plus their fp32 scales.
-    visible = float(sliding_window_mask(pos[:, None], slot_pos, ones, slot_valid, window).sum())
+    # one-byte K and V for every KV head plus their fp32 scales.
+    mask = sliding_window_mask(pos[:, None], slot_pos, ones, slot_valid, window)
+    visible = float(mask.sum())
     ring_bytes = visible * HKV * (2 * D + 2 * 4)
     small = nbytes(xq, xk, xv, write_slot, pos, slot_pos, slot_valid) + 2 * B * H * D
     b_ms, b_by = bound(4.0 * D * H * visible, ring_bytes + small + 2 * B * HKV * (D + 4))
@@ -474,20 +532,29 @@ def check_k2(gen):
         return fused_update_decode_attention(*args)
 
     plain_stacks = [t.clone() for t in main[3:7]]
+    kh = dequant_layer(CK[li], KS[li], bf, HKV).transpose(1, 2).contiguous()
+    vh = dequant_layer(CV[li], VS[li], bf, HKV).transpose(1, 2).contiguous()
+    qh, m = xq.transpose(1, 2).contiguous(), mask[:, None].contiguous()
     return {
-        "name": "fused_update_decode_attention", "kernel": "K2", "route": "cuda",
+        "name": K2 + ("_fp8" if scaled == "fp8" else ""), "kernel": "K2", "route": "cuda",
+        "ring": scaled,
         "source": "mistral_inference_tpu_torch/ops/cuda/csrc/fused_decode.cu",
         "replaces": "mistral_inference_tpu/ops/pallas/attention.py:1089",
-        "max_abs_err": worst,
+        "max_abs_err": worst, "ring_bytes_equal_quantize_ring": True,
         "ms": timed_ms(cycle_layers),
         "plain_ms": timed_ms(lambda: fused_update_decode_attention_plain(
             *main[:3], *plain_stacks, *main[7:])),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
-        "shape": "B=4 over a 32-layer int8 ring stack of S=4096 (one row wrapped, one dead) "
-                 "H=32 Hkv=8 D=128; also checked: no row wrapped, fill 3000, a write at slot 256",
-        "tolerance": "ring bytes and scales bit-identical; output abs 1e-2 + rel 1e-2 "
-                     "(bf16 output, fp32 sums in another order)",
+        "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=m, enable_gqa=True)),
+        "library": "SDPA with a mask on one layer's ring dequantized to bf16 before the call, "
+                   "after the write: no one PyTorch call writes the ring and attends",
+        "shape": f"B=4 over a 32-layer {scaled} ring stack of S=4096 (one row wrapped, one "
+                 "dead) H=32 Hkv=8 D=128; also checked: no row wrapped, fill 3000, a write at "
+                 "slot 256" + (", a bf16 ring" if scaled == "int8" else ""),
+        "tolerance": "ring bytes and scales bit-identical to cache._quantize_ring's (the plain "
+                     "write); output abs 1e-2 + rel 1e-2 (bf16 output, fp32 sums in another "
+                     "order)",
     }
 
 
@@ -791,10 +858,12 @@ def check_k8(gen):
     }
 
 
-def check_k6(gen):
+def check_k6(gen, scaled: str = "int8"):
+    """K6 over a ``scaled`` ring ("int8", which also checks the bf16 ring, or
+    "fp8"): one row of the kernels line."""
     import torch.nn.functional as F
 
-    from mistral_inference_tpu_torch.cache import _quantize_ring, dequant_layer, slot_positions
+    from mistral_inference_tpu_torch.cache import dequant_layer, slot_positions
     from mistral_inference_tpu_torch.ops.attention import sliding_window_mask
     from mistral_inference_tpu_torch.ops.cuda.attention import (
         decode_attention, decode_attention_plain,
@@ -809,14 +878,9 @@ def check_k6(gen):
         kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
         slot_pos, slot_valid = slot_positions(kv_len, window, S)
         q_pos = (kv_len - 1)[:, None].contiguous()
-        for int8 in (True, False):
-            if int8:
-                CK, KS = _quantize_ring(randn(gen, L, B, S, HKV, D))
-                CV, VS = _quantize_ring(randn(gen, L, B, S, HKV, D))
-                KS, VS = KS.permute(0, 1, 3, 2).contiguous(), VS.permute(0, 1, 3, 2).contiguous()
-            else:
-                CK, CV, KS, VS = randn(gen, L, B, S, HKV, D, dtype=bf), randn(
-                    gen, L, B, S, HKV, D, dtype=bf), None, None
+        for ring in (scaled, "bf16") if scaled == "int8" else (scaled,):
+            CK, KS = make_ring(gen, ring, L, B, S)
+            CV, VS = make_ring(gen, ring, L, B, S)
             CK, CV = CK.reshape(L, B, S, HKV * D), CV.reshape(L, B, S, HKV * D)
             q = randn(gen, B, 1, H, D, dtype=bf)
             li = 5
@@ -824,13 +888,13 @@ def check_k6(gen):
             out = decode_attention(q, CK, CV, KS, VS, li, q_pos, slot_pos, slot_valid, window)
             ref = decode_attention_plain(q, CK, CV, KS, VS, li, q_pos, slot_pos, slot_valid, window)
             torch.cuda.synchronize()
-            case = f"int8={int8}, kv_len={kv_len.tolist()}"
+            case = f"{ring} ring, kv_len={kv_len.tolist()}"
             for t, b in zip((CK, CV, KS, VS), before):
-                require(t is None or torch.equal(t[li], b), f"K6 wrote the ring ({case})")
+                require(t is None or same_bits(t[li], b), f"K6 wrote the ring ({case})")
             ok, err = close(out, ref, 1e-2, 1e-2)
             require(ok, f"K6 disagrees with its plain version ({case}): {err}")
             worst = max(worst, err)
-            if int8 and main is None:
+            if ring == scaled and main is None:
                 main = (q, CK, CV, KS, VS, li, q_pos, slot_pos, slot_valid, window)
             del CK, CV, KS, VS
 
@@ -852,7 +916,8 @@ def check_k6(gen):
     vh = dequant_layer(CV[li], VS[li], bf, HKV).transpose(1, 2).contiguous()
     qh, m = q.transpose(1, 2).contiguous(), mask[:, None].contiguous()
     return {
-        "name": K6, "kernel": "K6", "route": "cuda",
+        "name": K6 + ("_fp8" if scaled == "fp8" else ""), "kernel": "K6", "route": "cuda",
+        "ring": scaled,
         "source": "mistral_inference_tpu_torch/ops/cuda/csrc/fused_decode.cu",
         "replaces": "mistral_inference_tpu/ops/pallas/attention.py:619",
         "max_abs_err": worst,
@@ -861,18 +926,21 @@ def check_k6(gen):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=m, enable_gqa=True)),
-        "shape": "B=4 over a 32-layer int8 ring stack of S=4096 (one row wrapped, fills 1001, "
-                 "38 and 3000) H=32 Hkv=8 D=128; also checked: bf16 rings, short fills",
+        "shape": f"B=4 over a 32-layer {scaled} ring stack of S=4096 (one row wrapped, fills "
+                 "1001, 38 and 3000) H=32 Hkv=8 D=128; also checked: short fills"
+                 + (", bf16 rings" if scaled == "int8" else ""),
         "library": "SDPA with a mask on one layer's ring dequantized to bf16 before the call",
         "tolerance": "abs 1e-2 + rel 1e-2 (bf16 output, fp32 sums in another order); the ring "
                      "is unchanged",
     }
 
 
-def check_k7(gen):
+def check_k7(gen, scaled: str = "int8"):
+    """K7 over a ``scaled`` ring ("int8", which also checks the bf16 ring, or
+    "fp8"): one row of the kernels line."""
     import torch.nn.functional as F
 
-    from mistral_inference_tpu_torch.cache import _quantize_ring, dequant_layer, slot_positions
+    from mistral_inference_tpu_torch.cache import dequant_layer, slot_positions
     from mistral_inference_tpu_torch.ops.attention import sliding_window_mask
     from mistral_inference_tpu_torch.ops.cuda.attention import (
         fused_update_decode_attention, fused_verify_chunk_attention,
@@ -883,37 +951,34 @@ def check_k7(gen):
     L, B, S, window, li = 32, 4, 4096, 4096, 5
     worst, main, checked = 0.0, None, []
 
-    def ring(int8):
-        if int8:
-            CK, KS = _quantize_ring(randn(gen, L, B, S, HKV, D))
-            CV, VS = _quantize_ring(randn(gen, L, B, S, HKV, D))
-            KS, VS = KS.permute(0, 1, 3, 2).contiguous(), VS.permute(0, 1, 3, 2).contiguous()
-        else:
-            CK, CV, KS, VS = randn(gen, L, B, S, HKV, D, dtype=bf), randn(
-                gen, L, B, S, HKV, D, dtype=bf), None, None
+    def make(ring_type):
+        CK, KS = make_ring(gen, ring_type, L, B, S)
+        CV, VS = make_ring(gen, ring_type, L, B, S)
         return [CK.reshape(L, B, S, HKV * D), CV.reshape(L, B, S, HKV * D), KS, VS]
 
     def clones(stacks):
         return [None if t is None else t.clone() for t in stacks]
 
-    # (T, fills, live rows, int8): T = 5 with slots 126..130 across a span's
+    # (T, fills, live rows, ring): T = 5 with slots 126..130 across a span's
     # edge and a dead row (the timed case); T = 8, the most, with slots
     # 124..131 across an edge and a chunk that ends in the ring's last slot;
-    # a bf16 ring.
-    for T, kv_len, live, int8 in ((5, [126, 1000, 2999, 4000], [1, 1, 1, 0], True),
-                                  (8, [3000, 124, 4088, 37], [1, 1, 1, 1], True),
-                                  (5, [126, 1000, 2999, 4000], [1, 1, 1, 0], False)):
+    # with the int8 ring, a bf16 ring.
+    cases = [(5, [126, 1000, 2999, 4000], [1, 1, 1, 0], scaled),
+             (8, [3000, 124, 4088, 37], [1, 1, 1, 1], scaled)]
+    if scaled == "int8":
+        cases.append((5, [126, 1000, 2999, 4000], [1, 1, 1, 0], "bf16"))
+    for T, kv_len, live, ring in cases:
         kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
         live = torch.tensor(live, dtype=torch.int32, device="cuda")
         steps = torch.arange(T, dtype=torch.int32, device="cuda")
         q_pos = kv_len[:, None] + steps[None]
         write_slot0 = torch.where(live > 0, kv_len % window, -1).to(torch.int32)
         slot_pos, slot_valid = slot_positions(kv_len + live * T, window, S)
-        stacks = ring(int8)
+        stacks = make(ring)
         start = clones(stacks)
         xq = randn(gen, B, T, H, D, dtype=bf)
         xk, xv = randn(gen, B, T, HKV, D, dtype=bf) * 3, randn(gen, B, T, HKV, D, dtype=bf)
-        case = f"T={T}, int8={int8}, kv_len={kv_len.tolist()}, live={live.tolist()}"
+        case = f"T={T}, {ring} ring, kv_len={kv_len.tolist()}, live={live.tolist()}"
         tail = (li, window, write_slot0, q_pos, slot_pos, slot_valid)
         out = fused_verify_chunk_attention(xq, xk, xv, *stacks, *tail)
         plain_stacks = clones(start)
@@ -921,9 +986,9 @@ def check_k7(gen):
         torch.cuda.synchronize()
         for name, a, b in zip(("CK", "CV", "KS", "VS"), stacks, plain_stacks):
             if a is not None:
-                require(torch.equal(a, b), f"K7 ring {name} after the write is not bit-identical "
-                                           f"to the plain write ({case}): "
-                                           f"{int((a != b).sum())} elements differ")
+                require(same_bits(a, b), f"K7 ring {name} after the write is not bit-identical "
+                                         f"to _quantize_ring's, the plain write ({case}): "
+                                         f"{differ(a, b)} elements differ")
         ok, err = close(out, ref, 1e-2, 1e-2)
         require(ok, f"K7 output disagrees with its plain version ({case}): {err}")
         worst = max(worst, err)
@@ -945,7 +1010,7 @@ def check_k7(gen):
                     f"K7 query {t} differs in bits from a K2 step at its position ({case})")
         torch.cuda.synchronize()
         for a, b in zip(stacks, seq):
-            require(a is None or torch.equal(a, b), f"K7's ring differs from T K2 steps' ({case})")
+            require(a is None or same_bits(a, b), f"K7's ring differs from T K2 steps' ({case})")
         # T = 1 is K2: the same output bits and ring.
         one, two = clones(start), clones(start)
         sp, sv = slot_positions(kv_len + live, window, S)
@@ -958,7 +1023,7 @@ def check_k7(gen):
         torch.cuda.synchronize()
         require(torch.equal(o7, o2), f"K7 at T = 1 differs in bits from K2 ({case})")
         for a, b in zip(one, two):
-            require(a is None or torch.equal(a, b), f"K7 at T = 1 wrote another ring than K2 ({case})")
+            require(a is None or same_bits(a, b), f"K7 at T = 1 wrote another ring than K2 ({case})")
         checked.append(case)
         if main is None:
             main = (xq, xk, xv, *stacks, *tail)
@@ -969,8 +1034,8 @@ def check_k7(gen):
     T = xq.shape[1]
     ones = torch.ones((B, T), dtype=torch.bool, device="cuda")
     mask = sliding_window_mask(q_pos, slot_pos, ones, slot_valid, window)
-    # Bytes: each (row, slot) pair that any query of the row sees, once (int8
-    # K and V for every KV head plus their fp32 scales); the T slots a live
+    # Bytes: each (row, slot) pair that any query of the row sees, once
+    # (one-byte K and V for every KV head plus their fp32 scales); the T slots a live
     # row writes; the small operands in and the output out.
     seen = float(mask.any(dim=1).sum())
     ring_bytes = seen * HKV * (2 * D + 2 * 4)
@@ -1002,7 +1067,8 @@ def check_k7(gen):
                                           qps[t], slot_pos, slot_valid)
 
     return {
-        "name": K7, "kernel": "K7", "route": "cuda",
+        "name": K7 + ("_fp8" if scaled == "fp8" else ""), "kernel": "K7", "route": "cuda",
+        "ring": scaled, "ring_bytes_equal_quantize_ring": True,
         "source": "mistral_inference_tpu_torch/ops/cuda/csrc/fused_decode.cu",
         "replaces": "mistral_inference_tpu/ops/pallas/attention.py:1552",
         "max_abs_err": worst,
@@ -1010,14 +1076,15 @@ def check_k7(gen):
         "plain_ms": timed_ms(lambda: fused_verify_chunk_attention_plain(
             xq, xk, xv, *plain_stacks, *main[7:])),
         "bound_ms": b_ms, "bound_by": b_by,
-        "bound": "each (row, slot) pair that any query of the row sees, once (int8 K and V of "
-                 "every KV head and their fp32 scales), plus the T slots a live row writes, "
+        "bound": "each (row, slot) pair that any query of the row sees, once (one-byte K and V "
+                 "of every KV head and their fp32 scales), plus the T slots a live row writes, "
                  "the small operands in and the output out, over the card's memory rate",
         "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=m, enable_gqa=True)),
         "k2_loop_ms": timed_ms(k2_loop),
-        "shape": "B=4 T=5 over a 32-layer int8 ring stack of S=4096 (fills 126, 1000, 2999 and a "
-                 "dead row at 4000; row 0's slots 126..130 cross a span's edge) H=32 Hkv=8 D=128",
+        "shape": f"B=4 T=5 over a 32-layer {scaled} ring stack of S=4096 (fills 126, 1000, 2999 "
+                 "and a dead row at 4000; row 0's slots 126..130 cross a span's edge) H=32 Hkv=8 "
+                 "D=128",
         "checked": checked,
         "library": "SDPA with a mask on one layer's ring dequantized to bf16 before the call, "
                    "after the write: no one PyTorch call writes the ring and attends",
@@ -1026,6 +1093,22 @@ def check_k7(gen):
                      "rel 1e-2 (bf16 output, fp32 sums in another order); a second launch, T "
                      "sequential K2 steps (outputs and ring) and K2 at T = 1 equal bits",
     }
+
+
+def check_k4_fp8(gen):
+    return check_k4(gen, "fp8")
+
+
+def check_k2_fp8(gen):
+    return check_k2(gen, "fp8")
+
+
+def check_k6_fp8(gen):
+    return check_k6(gen, "fp8")
+
+
+def check_k7_fp8(gen):
+    return check_k7(gen, "fp8")
 
 
 # Codestral-Mamba-7B's SSD widths: 128 heads of 64, d_state 128, 8 groups, 64 layers.
@@ -1298,7 +1381,7 @@ def main_path(card: str, profile: bool, path: MainPath):
 
     label, quant, repeats = path.label, path.quant, REPEATS
     args = get_args(path.model)
-    args.kv_quant = "int8"
+    args.kv_quant = path.ring
     args.n_layers = path.layers
     args.sliding_window = WINDOW  # the 7B preset's own; given to Mixtral so that its ring wraps too
     if args.moe:
@@ -1357,7 +1440,18 @@ def main_path(card: str, profile: bool, path: MainPath):
         require(launches[name] > 0, f"{name} was not launched on the {label} path")
     require(path.fused or launches[K2] == 0,
             "the non-fused decode route launched the fused kernel")
+    if path.ring == "fp8":
+        for name in (K4, K2, K6, K7):
+            require(launches[name + "_fp8"] == launches[name],
+                    f"{name} launched another instantiation than fp8 on the {label} path")
     breakdown = profile_generate(model, prompts, generate) if profile else None
+    if breakdown is not None and path.ring == "fp8":
+        # The same step over an int8 ring, then the fp8 one again, in turns
+        # in this call: what the ring's type does to a host-bound step.
+        model.args.kv_quant = "int8"
+        breakdown["decode_step_int8_ring"] = decode_step_probe(model, len(prompts))
+        model.args.kv_quant = "fp8"
+        breakdown["decode_step_fp8_again"] = decode_step_probe(model, len(prompts))
     tf.FUSED_DECODE = True
 
     decode_s = total_s - ttft_s
@@ -1368,7 +1462,7 @@ def main_path(card: str, profile: bool, path: MainPath):
         "moe": f"{args.moe.num_experts} experts, top-{args.moe.num_experts_per_tok}, "
                f"moe_impl={args.moe_impl}" if args.moe else None,
         "decode_route": "fused (K2)" if path.fused else "update_stacked + decode_attention (K6)",
-        "kv_ring": "int8", "prompt_lens": PROMPT_LENS,
+        "kv_ring": path.ring, "prompt_lens": PROMPT_LENS,
         "chunk_size": CHUNK, "window": args.sliding_window, "init_s": init_s,
         "init_peak_mem_gb": init_peak_gb, "weights_gb": weights_gb,
         "ttft_s": ttft_s,
@@ -1400,6 +1494,7 @@ class SpecPath(NamedTuple):
     K: int  # spec_tokens: a verify chunk is K + 1 tokens
     prompt_lens: Tuple[int, ...]
     fused: bool  # the gate opens: verify through K7; else K4 + K1, scatter_chunk
+    ring: str = "int8"  # the KV ring's type: "int8" | "fp8"
 
 
 # Two bf16 ulps of a logit between 4 and 8: how close the target's two best
@@ -1412,6 +1507,7 @@ SPEC_PATHS = (
     SpecPath("spec-small-draft", 8, "small", 4, SPEC_PROMPT_LENS, True),
     SpecPath("lookup", 8, "lookup", 7, SPEC_PROMPT_LENS, True),
     SpecPath("spec-small-draft-wrapping", 8, "small", 4, PROMPT_LENS, False),
+    SpecPath("lookup-fp8", 8, "lookup", 7, SPEC_PROMPT_LENS, True, ring="fp8"),
 )
 
 
@@ -1480,7 +1576,7 @@ def spec_path(card: str, path: SpecPath):
 
     def preset(layers, window):
         args = get_args(MODEL)
-        args.kv_quant, args.n_layers, args.sliding_window = "int8", layers, window
+        args.kv_quant, args.n_layers, args.sliding_window = path.ring, layers, window
         return args
 
     args = preset(path.layers, WINDOW)
@@ -1533,6 +1629,10 @@ def spec_path(card: str, path: SpecPath):
         [] if path.draft == "lookup" else [K2])
     for name in expected:
         require(per_greedy[name] > 0, f"{name} was not launched on the {path.label} path")
+    if path.ring == "fp8":
+        for name in (K4, K2, K6, K7):
+            require(per_greedy[name + "_fp8"] == per_greedy[name],
+                    f"{name} launched another instantiation than fp8 on the {path.label} path")
 
     # Plain greedy generate() on the same model, in the same call.
     (plain, plain_lps), plain_s = plain_run(prompts, max_tokens=GREEDY_TOKENS, temperature=0.0)
@@ -1577,7 +1677,7 @@ def spec_path(card: str, path: SpecPath):
         "draft": {"self": "the target itself", "lookup": "prompt lookup (n-gram 2)",
                   "small": "2 layers of the same widths (seed 1, int4)"}[path.draft],
         "spec_tokens": path.K, "verify_route": "fused (K7)" if path.fused
-        else "no-write verify (K4 + K1) + scatter_chunk", "kv_ring": "int8",
+        else "no-write verify (K4 + K1) + scatter_chunk", "kv_ring": path.ring,
         "prompt_lens": lens, "chunk_size": CHUNK, "window": WINDOW, "weights_gb": weights_gb,
         "verify_forwards": forwards,
         "mean_accepted_drafts": float(accepts.mean()),
@@ -1999,6 +2099,258 @@ def pixtral_profile(model, prompts, images, encode_all):
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: serving
+# ---------------------------------------------------------------------------
+
+SERVING_B, SERVING_MAX_SEQ, SERVING_CHUNK = 8, 4608, 512
+SERVING_REQUESTS, SERVING_FIRST = 24, 16  # 16 submitted at the start, 8 after step 4
+SERVING_LATE_STEP = 4
+SERVING_CANCEL_STEP = 12
+SHARED_PREFIX = 1024
+
+
+def serving_requests(vocab_size: int):
+    """The 24 requests, from seed 0: prompt lengths drawn from PROMPT_LENS;
+    8 share a 1024-token prefix (those draw from 4300 and 1537, the lengths
+    that hold it, and the first request is one of them at 1537, so a source
+    that never wraps is resident from the first sweep); max_tokens 32-128; 4
+    sample at T = 0.7, p = 0.9, the rest are greedy; one greedy request is
+    cancelled mid-run, one carries a stop id and one asks for logprobs."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    n = SERVING_REQUESTS
+    lens = rng.choice(PROMPT_LENS, n).tolist()
+    shared = [0] + sorted(rng.choice(np.arange(1, n), 7, replace=False).tolist())
+    for i in shared:
+        lens[i] = int(rng.choice(PROMPT_LENS[:2]))
+    lens[0] = PROMPT_LENS[1]
+    prefix = rng.integers(1, vocab_size, SHARED_PREFIX).tolist()
+    prompts = [rng.integers(1, vocab_size, m).tolist() for m in lens]
+    for i in shared:
+        prompts[i][:SHARED_PREFIX] = prefix
+    max_tokens = rng.integers(32, 129, n).tolist()
+    others = [i for i in range(1, n) if i not in shared]
+    sampled = sorted(rng.choice(others, 4, replace=False).tolist())
+    greedy_others = [i for i in others if i not in sampled]
+    # The cancelled request is in the first sweep (the first 8 submitted) and
+    # long enough to be live when it is cancelled; the first request, the
+    # prefix source, lives as long as any.
+    cancel = min(greedy_others)
+    stop, logprobs = greedy_others[1], greedy_others[2]
+    max_tokens[cancel] = max_tokens[0] = 128
+    return prompts, max_tokens, set(shared), set(sampled), cancel, stop, logprobs
+
+
+def serving_phase(card: str, profile: bool):
+    """The continuous-batching ``Engine`` on the north-star model
+    (``mistral-7b-v0.1``, int4 weights, an fp8 ring, all 32 layers):
+    Engine(batch_size=8, max_seq_len=4608, admit_chunk=512) serving the 24
+    requests of ``serving_requests``, driven step by step. Checks each greedy
+    request against ``generate([prompt])`` alone on the same model (a
+    request may leave it only at a near-tie of the two best logits, for the
+    other of the two), the prefix hits, that no row writes past prompt +
+    max_tokens, and K2-fp8's launches against the decode forwards; reports
+    requests/s, output tokens/s, TTFT p50 / p99, admission's share of the
+    wall time and peak memory. Returns its summary line."""
+    from mistral_inference_tpu_torch.generate import generate
+    from mistral_inference_tpu_torch.model import Transformer
+    from mistral_inference_tpu_torch.models.registry import get_args
+    from mistral_inference_tpu_torch.ops import cuda as kern
+    from mistral_inference_tpu_torch.server.engine import Engine
+    from mistral_inference_tpu_torch.utils.profiling import METRICS
+
+    args = get_args(MODEL)
+    args.kv_quant, args.sliding_window = "fp8", WINDOW
+    model = Transformer.random(args, dtype=torch.bfloat16, seed=0, quant="int4")
+    prompts, max_tokens, shared, sampled, cancel, stop, want_lp = serving_requests(args.vocab_size)
+    n = len(prompts)
+    greedy = [i for i in range(n) if i not in sampled]
+
+    # The references first: each greedy request alone. The stop id is the
+    # first token of the stop request's reference, after its first 8, that
+    # has not come before.
+    t_ref = time.perf_counter()
+    ref, ref_lps = {}, {}
+    for i in greedy:
+        g, lp = generate([prompts[i]], model, max_tokens=max_tokens[i], temperature=0.0,
+                         chunk_size=SERVING_CHUNK)
+        ref[i], ref_lps[i] = g[0], lp[0]
+    ref_s = time.perf_counter() - t_ref
+    stop_at = next(t for t in range(8, len(ref[stop])) if ref[stop][t] not in ref[stop][:t])
+    stop_id = ref[stop][stop_at]
+
+    # Count the decode forwards (T = 1) the engine runs.
+    forward, decode_forwards = model.forward, [0]
+
+    def counting_forward(tokens, *a, **kw):
+        if tokens.shape[1] == 1:
+            decode_forwards[0] += 1
+        return forward(tokens, *a, **kw)
+
+    model.forward = counting_forward
+    METRICS.__init__()
+    kern.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(model, batch_size=SERVING_B, max_seq_len=SERVING_MAX_SEQ,
+                 admit_chunk=SERVING_CHUNK)
+    # No row writes past prompt + max_tokens: a row's fill is read when its
+    # slot goes to a new request (admission has waited for the card by then)
+    # and for the rows resident at the end.
+    occupant, overshoot = [None] * SERVING_B, []
+    plan = eng._plan_prefix_reuse
+
+    def checked_plan(new):
+        kv = eng.cache.kv_len.cpu().tolist()
+        for slot, _ in new:
+            r = occupant[slot]
+            if r is not None and kv[slot] > len(r.prompt) + r.max_tokens:
+                overshoot.append((r.request_id, kv[slot], len(r.prompt) + r.max_tokens))
+        return plan(new)
+
+    eng._plan_prefix_reuse = checked_plan
+    reqs, rid = {}, {}
+
+    def submit(i):
+        rid[i] = eng.submit(prompts[i], max_tokens=max_tokens[i],
+                            temperature=0.7 if i in sampled else 0.0,
+                            top_p=0.9 if i in sampled else None,
+                            stop_ids=[stop_id] if i == stop else (),
+                            want_logprobs=i == want_lp)
+        reqs[i] = eng.queue[-1]  # the engine's own record, updated as it runs
+
+    t0 = time.perf_counter()
+    for i in range(SERVING_FIRST):
+        submit(i)
+    steps, eligible = 0, 0
+    while eng.has_work or steps < SERVING_LATE_STEP:
+        live_before = {r.request_id for r in eng.slots if r is not None and not r.done}
+        eng.step()
+        steps += 1
+        live_after = {r.request_id for r in eng.slots if r is not None and not r.done}
+        for slot, r in enumerate(eng.slots):
+            if r is not None and r is not occupant[slot]:
+                # Admitted in this step: a shared-prefix request that wants no
+                # logprobs, with a shared-prefix source live across the step,
+                # must have copied its prefix.
+                i = next(k for k in reqs if reqs[k] is r)
+                # A source's ring must never wrap: prompt + max_tokens within the window.
+                sources = {rid[j] for j in shared if j in rid and j != i
+                           and len(prompts[j]) + max_tokens[j] <= WINDOW}
+                if i in shared and not r.want_logprobs and sources & live_before & live_after:
+                    eligible += 1
+            occupant[slot] = r
+        if steps == SERVING_LATE_STEP:
+            for i in range(SERVING_FIRST, n):
+                submit(i)
+        if steps == SERVING_CANCEL_STEP:
+            require(any(r is reqs[cancel] and not r.done for r in eng.slots),
+                    "the request to cancel is not live")
+            eng.cancel(rid[cancel])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model.forward = forward
+    launches = launch_counts()
+    kv = eng.cache.kv_len.cpu().tolist()
+    for slot, r in enumerate(eng.slots):
+        if r is not None and kv[slot] > len(r.prompt) + r.max_tokens:
+            overshoot.append((r.request_id, kv[slot], len(r.prompt) + r.max_tokens))
+    require(not overshoot, f"rows wrote past prompt + max_tokens: {overshoot}")
+
+    # Each greedy request against its reference; the cancelled one as far as
+    # it went; the stop request up to and with its stop token, which ended it
+    # and was not appended.
+    out = {i: reqs[i].generated for i in range(n)}
+    got = dict(out)
+    if len(out[stop]) < max_tokens[stop]:
+        got[stop] = out[stop] + [stop_id]
+    want = {i: ref[i][:len(out[i])] if i == cancel else ref[i] for i in greedy}
+    want[stop] = ref[stop][:stop_at + 1]
+    diverged = divergences(model, [prompts[i] for i in greedy], [got[i] for i in greedy],
+                           [want[i] for i in greedy])
+    for d in diverged:
+        d["request"] = greedy[d.pop("row")]
+        emit({"phase": "divergence", "path": "serving", **d})
+        require(d["top2_gap"] <= NEAR_TIE_GAP and d["spec_token"] in d["top2_tokens"]
+                and d["plain_token"] in d["top2_tokens"],
+                f"serving: a request left generate() alone away from a near-tie: {d}")
+    differ_at = {d["request"] for d in diverged}
+    for i in greedy:
+        if i not in differ_at:
+            require(got[i] == want[i], f"serving: request {i} has {len(got[i])} tokens, "
+                                       f"generate() alone {len(want[i])}")
+    require(reqs[cancel].done and 0 < len(out[cancel]) < max_tokens[cancel],
+            "the cancelled request did not stop early")
+    for i in sampled:
+        require(len(out[i]) == max_tokens[i] and all(0 <= t < args.vocab_size for t in out[i]),
+                f"sampled request {i}: wrong tokens")
+    r = reqs[want_lp]
+    require(len(r.prompt_logprobs) == len(prompts[want_lp]) - 1
+            and len(r.gen_logprobs) == len(out[want_lp])
+            and all(math.isfinite(x) for x in r.prompt_logprobs + r.gen_logprobs),
+            "the logprob request's logprobs are wrong in number or not finite")
+    lp_gap = max(abs(a - b) for a, b in zip(r.prompt_logprobs, ref_lps[want_lp]))
+    require(lp_gap <= INVARIANT_MAX_NATS,
+            f"the logprob request's prompt logprobs are {lp_gap} nats from generate()'s")
+    require(all(r.error is None for r in reqs.values()), "a request failed")
+    hits = METRICS.counters.get("prefix_hits", 0)
+    require(hits >= eligible, f"{hits} prefix hits for {eligible} eligible admissions")
+    layers = args.n_layers
+    require(launches[K2F] == launches[K2] == layers * decode_forwards[0],
+            f"K2-fp8 launched {launches[K2F]} times for {decode_forwards[0]} decode forwards "
+            f"of {layers} layers")
+    for name in (K1, K4F, K3, K5):
+        require(launches[name] > 0, f"{name} was not launched on the serving path")
+
+    tokens_out = sum(len(o) for o in out.values())
+    admission_s = sum(METRICS.samples["admission_prefill_s"])
+    summary = {
+        "phase": "serving", "model": MODEL, "layers": layers, "card": card,
+        "weights": "bf16 random (seed 0), quantized to int4 (group 128)", "kv_ring": "fp8",
+        "engine": f"Engine(batch_size={SERVING_B}, max_seq_len={SERVING_MAX_SEQ}, "
+                  f"admit_chunk={SERVING_CHUNK}), pipelined, decode_block 8",
+        "requests": n, "prompt_lens": [len(p) for p in prompts], "max_tokens": max_tokens,
+        "shared_prefix": {"tokens": SHARED_PREFIX, "requests": sorted(shared)},
+        "sampled": sorted(sampled), "cancelled": cancel, "stop_request": stop,
+        "logprob_request": want_lp, "steps": steps, "wall_s": wall,
+        "requests_per_s": n / wall, "output_tokens": tokens_out,
+        "output_tokens_per_s": tokens_out / wall,
+        "ttft_p50_s": METRICS.percentile("ttft_s", 0.5),
+        "ttft_p99_s": METRICS.percentile("ttft_s", 0.99),
+        "ttft_note": "submit to the first token on the host, METRICS ttft_s; 8 requests are "
+                     f"submitted after step {SERVING_LATE_STEP}",
+        "admission_s": admission_s, "admission_share": admission_s / wall,
+        "admission_sweeps": len(METRICS.samples["admission_prefill_s"]),
+        "staged_admissions": METRICS.counters.get("staged_admissions", 0),
+        "prefix_hits": hits, "prefix_hits_eligible": eligible,
+        "prefix_tokens_reused": METRICS.counters.get("prefix_tokens_reused", 0),
+        "decode_forwards": decode_forwards[0], "peak_mem_gb": peak_gb,
+        "greedy_requests": len(greedy), "divergences_at_near_ties": len(diverged),
+        "near_tie_gap": NEAR_TIE_GAP, "logprob_request_prompt_gap_nats": lp_gap,
+        "reference_s": ref_s, "launches": launches, "metrics": json.loads(METRICS.dump()),
+    }
+    if profile:
+        summary["engine_block"] = engine_block_probe(model)
+    return summary
+
+
+def engine_block_probe(model, B: int = SERVING_B, steps: int = 10):
+    """One engine decode block under step_probe: a serial engine with B
+    live greedy requests of 45-token prompts, each step() one block of 8
+    decode forwards and its read-back."""
+    from mistral_inference_tpu_torch.server.engine import Engine
+
+    eng = Engine(model, batch_size=B, max_seq_len=512, pipeline=False)
+    for i in range(B):
+        eng.submit(list(range(1 + i, 46 + i)), max_tokens=400)
+    eng.step()  # the admission and the first block
+    return {"prompt_len": 45, "decode_block": eng.decode_block,
+            **step_probe(eng.step, lambda: None, B, steps)}
+
+
 def row_count_probe(gen):
     """Does an operation of the verify forward give a row the same bits among
     20 rows (B = 4 x T = 5) or 32 as among 4 (a decode step)? Greedy
@@ -2193,7 +2545,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     checks = (check_k1, check_k4, check_k2, check_k3, check_k5, check_k8, check_k6, check_k7,
-              check_k9, check_k10)
+              check_k9, check_k10, check_k4_fp8, check_k2_fp8, check_k6_fp8, check_k7_fp8)
     only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:] if a.startswith("--kernels=")]
     for check in checks:
         if only and check.__name__.removeprefix("check_") not in only[0]:
@@ -2210,7 +2562,7 @@ def main() -> int:
     launches, depth = {}, {}
     for path in PATHS:
         summary, counted = main_path(
-            card, "--profile" in sys.argv[1:] and path.quant == "int4", path)
+            card, "--profile" in sys.argv[1:] and path.quant == "int4" and path.fused, path)
         emit(summary)
         for name in path.expected:
             if path.layers > depth.get(name, 0):
@@ -2220,8 +2572,9 @@ def main() -> int:
     for spath in SPEC_PATHS:
         summary, counted = spec_path(card, spath)
         emit(summary)
-        if spath.fused and spath.layers > depth.get(K7, 0):
-            launches[K7], depth[K7] = counted[K7], spath.layers
+        k7 = K7F if spath.ring == "fp8" else K7
+        if spath.fused and spath.layers > depth.get(k7, 0):
+            launches[k7], depth[k7] = counted[k7], spath.layers
         torch.cuda.empty_cache()
     # K9's launches per greedy generate_mamba on the full 64-layer model.
     for mpath in MAMBA_PATHS:
@@ -2238,6 +2591,9 @@ def main() -> int:
     for name in (K10, K1, K4, K2):
         if summary["layers"] > depth.get(name, 0):
             launches[name], depth[name] = counted[name], summary["layers"]
+    torch.cuda.empty_cache()
+    # The serving engine over the north-star model.
+    emit(serving_phase(card, "--profile" in sys.argv[1:]))
     torch.cuda.empty_cache()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "note": "from the start of main(): the build, every check and path; not the "

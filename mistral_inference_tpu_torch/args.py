@@ -70,8 +70,8 @@ class TransformerArgs:
     moe: Optional[MoeArgs] = None
     # Scalar, per-layer list (tiled to n_layers), or None = full context.
     sliding_window: Optional[Union[int, List[Optional[int]]]] = None
-    # KV ring element type: "bf16" (the model dtype) or "int8" with one fp32
-    # scale per (token, kv-head).
+    # KV ring element type: "bf16" (the model dtype), or "fp8"
+    # (float8_e4m3fn) or "int8" with one fp32 scale per (token, kv-head).
     kv_quant: str = "bf16"
     # Weight quantization state: "bf16" (the model dtype), "int8" or "int4"
     # weight-only. Set by ``Transformer.quantize``.
@@ -89,8 +89,8 @@ class TransformerArgs:
     def __post_init__(self) -> None:
         if self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must be a multiple of n_kv_heads")
-        if self.kv_quant not in ("bf16", "int8"):
-            raise ValueError(f"kv_quant must be 'bf16' or 'int8', got {self.kv_quant!r}")
+        if self.kv_quant not in ("bf16", "fp8", "int8"):
+            raise ValueError(f"kv_quant must be 'bf16', 'fp8' or 'int8', got {self.kv_quant!r}")
         if self.quant not in ("bf16", "int8", "int4"):
             raise ValueError(f"quant must be 'bf16', 'int8' or 'int4', got {self.quant!r}")
         if self.moe_impl not in ("dense", "dispatch"):

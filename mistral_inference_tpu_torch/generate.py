@@ -28,21 +28,36 @@ DEFAULT_TOP_P = 0.8  # the reference's decode loop uses top_p = 0.8
 # ---------------------------------------------------------------------------
 
 
+TopP = Union[float, torch.Tensor]  # one nucleus size, or one per row (B,)
+
+
 def sample(
     prelogits: torch.Tensor,  # (B, V)
-    temperature: float,
-    top_p: float,
+    temperature: Union[float, torch.Tensor],  # one, or one per row (B,)
+    top_p: TopP,
     generator: Optional[torch.Generator],
 ) -> torch.Tensor:
     """Greedy when temperature <= 0, else temperature-scaled top-p sampling
-    drawn from ``generator``. Returns (B,) int64."""
-    if temperature <= 0:
-        return prelogits.argmax(dim=-1)
-    probs = torch.softmax(prelogits.float() / temperature, dim=-1)
-    return sample_top_p(probs, top_p, generator)
+    drawn from ``generator``. Returns (B,) int64.
 
-
-TopP = Union[float, torch.Tensor]  # one nucleus size, or one per row (B,)
+    A (B,) ``temperature`` mixes the two in one batch, as the serving engine
+    does: rows at <= 0 take the argmax, the others sample with their own
+    temperature and nucleus (``top_p`` a float or (B,)). The caller that
+    knows every row is greedy passes the float 0 instead, and no sampler
+    runs (the JAX package makes that choice on the device with lax.cond)."""
+    if not isinstance(temperature, torch.Tensor):
+        if temperature <= 0:
+            return prelogits.argmax(dim=-1)
+        probs = torch.softmax(prelogits.float() / temperature, dim=-1)
+        return sample_top_p(probs, top_p, generator)
+    greedy = prelogits.argmax(dim=-1)
+    # A row with a non-finite logit (which the engine fails on from its
+    # logprob) samples from a uniform row instead of stopping the sampler.
+    x = prelogits.float()
+    x = torch.where(torch.isfinite(x).all(-1, keepdim=True), x, 0.0)
+    temp = temperature.float().clamp_min(1e-6)[:, None]
+    sampled = sample_top_p(torch.softmax(x / temp, dim=-1), top_p, generator)
+    return torch.where(temperature > 0, sampled, greedy)
 
 
 def _p_col(p: TopP, probs: torch.Tensor) -> TopP:
@@ -79,11 +94,12 @@ def top_p_probs(probs: torch.Tensor, p: TopP) -> torch.Tensor:
 
 
 def sample_top_p(
-    probs: torch.Tensor, p: float, generator: Optional[torch.Generator]
+    probs: torch.Tensor, p: TopP, generator: Optional[torch.Generator]
 ) -> torch.Tensor:
-    """Nucleus sampling from ``generator``. Returns (B,) int64."""
+    """Nucleus sampling from ``generator``, ``p`` a float or (B,) one per
+    row. Returns (B,) int64."""
     probs = probs.float()
-    filtered = torch.where(probs > _nucleus_threshold(probs, p), probs, 0.0)
+    filtered = torch.where(probs > _nucleus_threshold(probs, _p_col(p, probs)), probs, 0.0)
     return torch.multinomial(filtered, 1, generator=generator)[:, 0]
 
 
@@ -206,33 +222,49 @@ def _sliced_teacher_logprobs(hidden, tokens, carry, head_fp32, TS: int = 64):
     return torch.cat(out, dim=1)
 
 
+Step = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
 def _decode_block(
-    step: Callable[[torch.Tensor], torch.Tensor],
+    step: Step,
     prelogits: torch.Tensor,  # (B, V)
     n_steps: int,
     temperature: float,
     top_p: float,
     generator: Optional[torch.Generator],
-) -> Tuple[np.ndarray, np.ndarray, torch.Tensor]:
-    """n_steps of [sample -> logprob -> ``step``], where ``step(tokens (B,))``
-    is one T = 1 forward returning the next prelogits (B, V); tokens and
-    logprobs stay on the device until the one host sync at the end of the
-    block. Returns (tokens (n, B), logprobs (n, B), the last prelogits)."""
+    temps: Optional[torch.Tensor] = None,
+    live: Optional[torch.Tensor] = None,
+    top_ps: Optional[torch.Tensor] = None,
+    budget: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """n_steps of [sample -> logprob -> ``step``], where ``step(tokens (B,),
+    seqlens (B,))`` is one T = 1 forward returning the next prelogits (B,
+    V). Returns (tokens (n, B), logprobs (n, B), the last prelogits), all on
+    the device: nothing here waits for the card.
+
+    The serving engine's per-row controls, each (B,) on the device:
+    ``temps`` and ``top_ps`` replace ``temperature`` and ``top_p`` row by
+    row; a row with ``live`` 0 runs with seqlens 0, so it never writes the
+    ring and its ``kv_len`` stays (its bytes stay intact for prefix reuse);
+    ``budget`` is each row's remaining tokens, and a row freezes in the
+    block (seqlens 0 from then on) once the step count reaches it, so a row
+    never writes past prompt + max_tokens even when the host's view of it is
+    a block stale. ``generate()`` passes none of them: every row is live."""
+    B = prelogits.shape[0]
+    base = live if live is not None else torch.ones((B,), dtype=torch.int32, device=prelogits.device)
     toks, lps = [], []
-    for _ in range(n_steps):
-        tok = sample(prelogits, temperature, top_p, generator)
+    for i in range(n_steps):
+        tok = sample(prelogits, temps if temps is not None else temperature,
+                     top_ps if top_ps is not None else top_p, generator)
         lps.append(F.log_softmax(prelogits, dim=-1).gather(-1, tok[:, None])[:, 0])
         toks.append(tok)
-        prelogits = step(tok)
-    return (
-        torch.stack(toks).cpu().numpy(),
-        torch.stack(lps).cpu().numpy(),
-        prelogits,
-    )
+        seqlens = base if budget is None else base * (budget > i)
+        prelogits = step(tok, seqlens)
+    return torch.stack(toks), torch.stack(lps), prelogits
 
 
 def _decode_loop(
-    step: Callable[[torch.Tensor], torch.Tensor],
+    step: Step,
     carry: torch.Tensor,
     logprobs: List[List[float]],
     *,
@@ -254,7 +286,8 @@ def _decode_loop(
     done = 0
     while done < max_tokens:
         n = max_tokens - done if eos_id is None else min(decode_block, max_tokens - done)
-        toks, lps, carry = _decode_block(step, carry, n, temperature, top_p, generator)
+        toks_d, lps_d, carry = _decode_block(step, carry, n, temperature, top_p, generator)
+        toks, lps = toks_d.cpu().numpy(), lps_d.cpu().numpy()
         for t in range(n):
             if eos_id is not None:
                 is_finished |= toks[t] == eos_id
@@ -321,7 +354,6 @@ def generate(
     check_prompts(encoded_prompts, model.args.vocab_size)
     B = len(encoded_prompts)
     max_prompt_len = max(len(p) for p in encoded_prompts)
-    device = model.device
 
     input_embeds = None
     if has_images:
@@ -331,9 +363,8 @@ def generate(
     cache = model.alloc_cache(B, max_prompt_len + max_tokens)
     logprobs, carry = prefill_prompts(model, encoded_prompts, cache, chunk_size,
                                       input_embeds=input_embeds)
-    ones = torch.ones((B,), dtype=torch.int32, device=device)
     return _decode_loop(
-        lambda tok: model.forward(tok[:, None], ones, cache, attend_cache=True)[:, 0],
+        lambda tok, seqlens: model.forward(tok[:, None], seqlens, cache, attend_cache=True)[:, 0],
         carry, logprobs, max_tokens=max_tokens, eos_id=eos_id, decode_block=decode_block,
         temperature=temperature, top_p=top_p, seed=seed,
     )
@@ -423,9 +454,8 @@ def generate_mamba(
     check_prompts(encoded_prompts, model.args.vocab_size)
     logprobs, carry, state = prefill_mamba(model, encoded_prompts, chunk_size)
     # Each decode step is one T = 1 forward, whose SSD goes through K9.
-    ones = torch.ones((len(encoded_prompts),), dtype=torch.int32, device=model.device)
     return _decode_loop(
-        lambda tok: model.forward(tok[:, None], ones, state, chunk=1)[:, 0],
+        lambda tok, seqlens: model.forward(tok[:, None], seqlens, state, chunk=1)[:, 0],
         carry, logprobs, max_tokens=max_tokens, eos_id=eos_id, decode_block=decode_block,
         temperature=temperature, top_p=top_p, seed=seed,
     )

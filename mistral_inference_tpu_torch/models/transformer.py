@@ -474,10 +474,11 @@ def _attention_block(
         )
         return linear(out, w["wo"]), xk, xv
 
-    # Under an int8 ring the chunk attends to quantize-rounded copies of its
-    # own K/V, so prefill logits see what decode later reads from the ring.
-    xk_att = kv_roundtrip(xk) if scaled else xk
-    xv_att = kv_roundtrip(xv) if scaled else xv
+    # Under a scaled ring the chunk attends to copies of its own K/V rounded
+    # through the ring's dtype, so prefill logits see what decode later reads
+    # from the ring.
+    xk_att = kv_roundtrip(xk, CK.dtype) if scaled else xk
+    xv_att = kv_roundtrip(xv, CV.dtype) if scaled else xv
     if ring.slot_pos is not None:
         o_r, m_r, l_r = ring_attention_stats(
             xq, CK[li], CV[li], KS[li] if scaled else None, VS[li] if scaled else None,

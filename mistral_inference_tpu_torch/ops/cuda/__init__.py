@@ -1,8 +1,9 @@
 """The port's hand-written CUDA kernels: wrappers, plain versions, sources.
 
-``all_kernels()`` lists every wrapper that launches a kernel; each counts its
-launches in its ``launches`` attribute, so a run can show which kernels its
-path went through.
+``all_kernels()`` lists every launch counter: each wrapper that launches a
+kernel, counting its launches in its ``launches`` attribute, and the fp8 ring
+instantiation of each ring kernel (``attention.FP8_LAUNCHES``), counted
+apart, so a run can show which kernels its path went through.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ under ``build/`` (listed in ``.gitignore``) with a plain C interface:
          -Xcompiler -fPIC -o build/<name>.so csrc/<name>.cu
 
 All sources compile in parallel, one ``nvcc`` process each. No fast-math:
-the fused decode kernel's int8 ring write must round exactly as
+the fused decode kernel's int8 and fp8 ring writes must round exactly as
 ``cache._quantize_ring`` does. A library is rebuilt when a source in
 ``csrc/`` is newer than it.
 """

@@ -20,11 +20,17 @@ Six hand-written CUDA kernels for Hopper (sources in ``csrc/``, built by
   instantiation of K1's tile loop in ``csrc/flash_attention.cu``): the vision
   encoder's non-causal attention, where a patch sees only its own segment.
 
+The four kernels that read or write the KV ring (K4, K2, K6, K7) are each
+built for three ring types, picked by the ring's dtype: int8 and
+float8_e4m3fn, both with fp32 scales per (slot, kv head), and bf16. A ring of
+any other dtype raises.
+
 Each wrapper launches its kernel for CUDA tensors, and for nothing else: on
 CPU tensors it runs the plain version in this module, which computes the
 same function with the same rounding points. There is no fallback from a
 CUDA tensor to the plain version. Each wrapper counts its kernel launches in
-its ``launches`` attribute.
+its ``launches`` attribute, and the float8 instantiation of each ring kernel
+its own launches in ``FP8_LAUNCHES[wrapper]`` as well.
 
 The mask is position arithmetic (``0 <= q_pos - kv_pos < window`` with
 validity flags), or for K10 segment equality. A query row that sees no key returns 0 with m = -1e30 and
@@ -38,20 +44,24 @@ from typing import Optional, Tuple
 
 import torch
 
-from mistral_inference_tpu_torch.cache import _quantize_ring
+from mistral_inference_tpu_torch.cache import _bytes, _quantize_ring
 from mistral_inference_tpu_torch.ops.attention import NEG_INF, sliding_window_mask
 from mistral_inference_tpu_torch.ops.cuda import _call
 
 _P, _I, _F = _call.P, _call.I, _call.F
 _SIGS = {
     ("flash_attention", "flash_attention_bf16"): [_P] * 7 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _P],
-    ("ring_attention", "ring_attention_stats_int8"): [_P] * 9 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _P],
+    **{("ring_attention", f"ring_attention_stats_{kind}"):
+       [_P] * 9 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _P] for kind in ("int8", "fp8")},
     ("ring_attention", "ring_attention_stats_bf16"): [_P] * 7 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _P],
-    ("fused_decode", "fused_decode_int8"): [_P] * 7 + [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _P],
+    **{("fused_decode", f"fused_decode_{kind}"):
+       [_P] * 7 + [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _P] for kind in ("int8", "fp8")},
     ("fused_decode", "fused_decode_bf16"): [_P] * 5 + [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _P],
-    ("fused_decode", "decode_attention_int8"): [_P] * 5 + [_I, _I] + [_P] * 6 + [_I] * 4 + [_F, _P],
+    **{("fused_decode", f"decode_attention_{kind}"):
+       [_P] * 5 + [_I, _I] + [_P] * 6 + [_I] * 4 + [_F, _P] for kind in ("int8", "fp8")},
     ("fused_decode", "decode_attention_bf16"): [_P] * 3 + [_I, _I] + [_P] * 6 + [_I] * 4 + [_F, _P],
-    ("fused_decode", "fused_verify_int8"): [_P] * 7 + [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _P],
+    **{("fused_decode", f"fused_verify_{kind}"):
+       [_P] * 7 + [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _P] for kind in ("int8", "fp8")},
     ("fused_decode", "fused_verify_bf16"): [_P] * 5 + [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _P],
     ("fused_decode", "fused_decode_span"): [],
     ("flash_attention", "flash_attention_seg_bf16"): [_P] * 5 + [_I] * 3 + [_F, _P],
@@ -59,6 +69,29 @@ _SIGS = {
 _kernel = functools.partial(_call.kernel, _SIGS)
 _launch = functools.partial(_call.launch, _SIGS)
 _need = _call.need
+
+
+# The ring dtypes the ring kernels are built for, by the suffix of their symbols.
+_RING_KINDS = {torch.int8: "int8", torch.float8_e4m3fn: "fp8", torch.bfloat16: "bf16"}
+
+
+def _ring_kind(ring: torch.Tensor, scale: Optional[torch.Tensor]) -> str:
+    """The instantiation that takes ``ring``: "int8" or "fp8" (scaled rings,
+    which come with fp32 scales) or "bf16" (none). Raises on any other ring
+    dtype, and on scales that do not match the ring."""
+    kind = _RING_KINDS.get(ring.dtype)
+    if kind is None:
+        raise TypeError(f"the ring must be int8, float8_e4m3fn or bf16, got {ring.dtype}")
+    if (scale is None) != (kind == "bf16"):
+        raise ValueError(f"a {kind} ring takes {'no' if kind == 'bf16' else 'fp32'} scales")
+    return kind
+
+
+def _counted(wrapper, kind: str) -> None:
+    """Count one launch of ``wrapper``'s ``kind`` instantiation."""
+    wrapper.launches += 1
+    if kind == "fp8":
+        FP8_LAUNCHES[wrapper].launches += 1
 
 
 def _meta(x: torch.Tensor, name: str, dtype, shape, device) -> torch.Tensor:
@@ -142,14 +175,18 @@ def segment_attention_plain(
 def merge_attention_parts(o1, m1, l1, o2, m2, l2) -> torch.Tensor:
     """Exactly combine two partial attentions over disjoint key sets, each
     normalized within its part with stats (m, l): softmax over the union is
-    the merge weighted by exp(m_i - max(m)) * l_i. Rows empty in both parts
-    return 0. o: (B, T, H, D); m, l: (B, T, H). Plain PyTorch on every device."""
+    the merge weighted by exp(m_i - max(m)) * l_i. A row that sees no key in
+    one part returns the other part's bits as they are (not o * w / w, which
+    may round to a neighbour): a row whose ring is still empty gets exactly
+    its chunk-only attention. Rows empty in both parts return 0. o: (B, T,
+    H, D); m, l: (B, T, H). Plain PyTorch on every device."""
     m = torch.maximum(m1, m2)
     w1 = torch.where(l1 > 0, torch.exp(m1 - m), 0.0) * l1
     w2 = torch.where(l2 > 0, torch.exp(m2 - m), 0.0) * l2
     denom = (w1 + w2).clamp_min(1e-30)[..., None]
-    merged = (o1.float() * w1[..., None] + o2.float() * w2[..., None]) / denom
-    return merged.to(o1.dtype)
+    merged = ((o1.float() * w1[..., None] + o2.float() * w2[..., None]) / denom).to(o1.dtype)
+    merged = torch.where((l2 > 0)[..., None], merged, o1)
+    return torch.where((l1 > 0)[..., None], merged, o2)
 
 
 def _ring_write_plain(xk, xv, CK, CV, KS, VS, li: int, write_slot) -> None:
@@ -162,12 +199,13 @@ def _ring_write_plain(xk, xv, CK, CV, KS, VS, li: int, write_slot) -> None:
     k_new, v_new = xk[rows], xv[rows]  # (N, T, Hkv, D)
     n = rows.shape[0]
     if KS is not None:
-        k_new, k_s = _quantize_ring(k_new)
-        v_new, v_s = _quantize_ring(v_new)
+        k_new, k_s = _quantize_ring(k_new, CK.dtype)
+        v_new, v_s = _quantize_ring(v_new, CV.dtype)
         KS[li, rows[:, None], :, slots] = k_s
         VS[li, rows[:, None], :, slots] = v_s
-    CK[li, rows[:, None], slots] = k_new.reshape(n, T, -1).to(CK.dtype)
-    CV[li, rows[:, None], slots] = v_new.reshape(n, T, -1).to(CV.dtype)
+    HD = CK.shape[-1]  # not -1: no row may write (n = 0)
+    _bytes(CK)[li, rows[:, None], slots] = _bytes(k_new.reshape(n, T, HD).to(CK.dtype))
+    _bytes(CV)[li, rows[:, None], slots] = _bytes(v_new.reshape(n, T, HD).to(CV.dtype))
 
 
 def fused_update_decode_attention_plain(
@@ -282,9 +320,9 @@ flash_attention.launches = 0
 
 def ring_attention_stats(
     q: torch.Tensor,  # (B, T, H, D)
-    kq: torch.Tensor,  # (B, S, Hkv * D) stored ring layout, int8 or bf16
+    kq: torch.Tensor,  # (B, S, Hkv * D) stored ring layout, int8, fp8 or bf16
     vq: torch.Tensor,
-    k_scale: Optional[torch.Tensor],  # (B, Hkv, S) fp32 for int8 rings, else None
+    k_scale: Optional[torch.Tensor],  # (B, Hkv, S) fp32 for scaled rings, else None
     v_scale: Optional[torch.Tensor],
     q_pos: torch.Tensor,
     kv_pos: torch.Tensor,
@@ -306,10 +344,9 @@ def ring_attention_stats(
     _need(q, "q", torch.bfloat16, (B, T, H, D), dev)
     if D != 128:
         raise ValueError("the CUDA kernels take head_dim 128")
-    scaled = k_scale is not None
-    rdt = torch.int8 if scaled else torch.bfloat16
-    _need(kq, "kq", rdt, (B, S, Hkv * D), dev)
-    _need(vq, "vq", rdt, (B, S, Hkv * D), dev)
+    kind = _ring_kind(kq, k_scale)
+    _need(kq, "kq", kq.dtype, (B, S, Hkv * D), dev)
+    _need(vq, "vq", kq.dtype, (B, S, Hkv * D), dev)
     qp = _meta(q_pos, "q_pos", torch.int32, (B, T), dev)
     kp = _meta(kv_pos, "kv_pos", torch.int32, (B, S), dev)
     qv = _meta(q_valid, "q_valid", torch.bool, (B, T), dev)
@@ -321,11 +358,11 @@ def ring_attention_stats(
         qp.data_ptr(), kp.data_ptr(), qv.data_ptr(), kv.data_ptr(), int(window),
         out.data_ptr(), m.data_ptr(), l.data_ptr(), B, T, S, H, Hkv, D**-0.5,
     )
-    if scaled:
+    if kind != "bf16":
         _need(k_scale, "k_scale", torch.float32, (B, Hkv, S), dev)
         _need(v_scale, "v_scale", torch.float32, (B, Hkv, S), dev)
         _launch(
-            "ring_attention", "ring_attention_stats_int8", dev, q.data_ptr(),
+            "ring_attention", f"ring_attention_stats_{kind}", dev, q.data_ptr(),
             kq.data_ptr(), vq.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), *tail,
         )
     else:
@@ -333,7 +370,7 @@ def ring_attention_stats(
             "ring_attention", "ring_attention_stats_bf16", dev, q.data_ptr(),
             kq.data_ptr(), vq.data_ptr(), *tail,
         )
-    ring_attention_stats.launches += 1
+    _counted(ring_attention_stats, kind)
     return out, m, l
 
 
@@ -383,10 +420,9 @@ def fused_update_decode_attention(
     _need(xq, "xq", bf, (B, 1, H, D), dev)
     _need(xk, "xk", bf, (B, 1, Hkv, D), dev)
     _need(xv, "xv", bf, (B, 1, Hkv, D), dev)
-    scaled = KS is not None
-    rdt = torch.int8 if scaled else bf
-    _need(CK, "CK", rdt, (L, B, S, Hkv * D), dev)
-    _need(CV, "CV", rdt, (L, B, S, Hkv * D), dev)
+    kind = _ring_kind(CK, KS)
+    _need(CK, "CK", CK.dtype, (L, B, S, Hkv * D), dev)
+    _need(CV, "CV", CK.dtype, (L, B, S, Hkv * D), dev)
     if not 0 <= int(li) < L:
         raise ValueError(f"layer index {li} out of range for {L} layers")
     ws = _meta(write_slot, "write_slot", torch.int32, (B,), dev)
@@ -400,11 +436,11 @@ def fused_update_decode_attention(
         kv.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
         B, S, H, Hkv, D**-0.5,
     )
-    if scaled:
+    if kind != "bf16":
         _need(KS, "KS", torch.float32, (L, B, Hkv, S), dev)
         _need(VS, "VS", torch.float32, (L, B, Hkv, S), dev)
         _launch(
-            "fused_decode", "fused_decode_int8", dev, xq.data_ptr(), xk.data_ptr(),
+            "fused_decode", f"fused_decode_{kind}", dev, xq.data_ptr(), xk.data_ptr(),
             xv.data_ptr(), CK.data_ptr(), CV.data_ptr(), KS.data_ptr(), VS.data_ptr(),
             *tail,
         )
@@ -413,7 +449,7 @@ def fused_update_decode_attention(
             "fused_decode", "fused_decode_bf16", dev, xq.data_ptr(), xk.data_ptr(),
             xv.data_ptr(), CK.data_ptr(), CV.data_ptr(), *tail,
         )
-    fused_update_decode_attention.launches += 1
+    _counted(fused_update_decode_attention, kind)
     return out
 
 
@@ -451,10 +487,9 @@ def decode_attention(
     if D != 128:
         raise ValueError("the CUDA kernels take head_dim 128")
     _need(q, "q", bf, (B, 1, H, D), dev)
-    scaled = KS is not None
-    rdt = torch.int8 if scaled else bf
-    _need(CK, "CK", rdt, (L, B, S, Hkv * D), dev)
-    _need(CV, "CV", rdt, (L, B, S, Hkv * D), dev)
+    kind = _ring_kind(CK, KS)
+    _need(CK, "CK", CK.dtype, (L, B, S, Hkv * D), dev)
+    _need(CV, "CV", CK.dtype, (L, B, S, Hkv * D), dev)
     if not 0 <= int(li) < L:
         raise ValueError(f"layer index {li} out of range for {L} layers")
     qp = _meta(q_pos, "q_pos", torch.int32, tuple(q_pos.shape), dev)
@@ -466,11 +501,11 @@ def decode_attention(
         int(li), int(window), qp.data_ptr(), kp.data_ptr(), kv.data_ptr(),
         out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, S, H, Hkv, D**-0.5,
     )
-    if scaled:
+    if kind != "bf16":
         _need(KS, "KS", torch.float32, (L, B, Hkv, S), dev)
         _need(VS, "VS", torch.float32, (L, B, Hkv, S), dev)
         _launch(
-            "fused_decode", "decode_attention_int8", dev, q.data_ptr(), CK.data_ptr(),
+            "fused_decode", f"decode_attention_{kind}", dev, q.data_ptr(), CK.data_ptr(),
             CV.data_ptr(), KS.data_ptr(), VS.data_ptr(), *tail,
         )
     else:
@@ -478,7 +513,7 @@ def decode_attention(
             "fused_decode", "decode_attention_bf16", dev, q.data_ptr(), CK.data_ptr(),
             CV.data_ptr(), *tail,
         )
-    decode_attention.launches += 1
+    _counted(decode_attention, kind)
     return out
 
 
@@ -536,10 +571,9 @@ def fused_verify_chunk_attention(
     _need(xq, "xq", bf, (B, T, H, D), dev)
     _need(xk, "xk", bf, (B, T, Hkv, D), dev)
     _need(xv, "xv", bf, (B, T, Hkv, D), dev)
-    scaled = KS is not None
-    rdt = torch.int8 if scaled else bf
-    _need(CK, "CK", rdt, (L, B, S, Hkv * D), dev)
-    _need(CV, "CV", rdt, (L, B, S, Hkv * D), dev)
+    kind = _ring_kind(CK, KS)
+    _need(CK, "CK", CK.dtype, (L, B, S, Hkv * D), dev)
+    _need(CV, "CV", CK.dtype, (L, B, S, Hkv * D), dev)
     if not 0 <= int(li) < L:
         raise ValueError(f"layer index {li} out of range for {L} layers")
     ws = _meta(write_slot0, "write_slot0", torch.int32, (B,), dev)
@@ -553,11 +587,11 @@ def fused_verify_chunk_attention(
         kv.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
         B, T, S, H, Hkv, D**-0.5,
     )
-    if scaled:
+    if kind != "bf16":
         _need(KS, "KS", torch.float32, (L, B, Hkv, S), dev)
         _need(VS, "VS", torch.float32, (L, B, Hkv, S), dev)
         _launch(
-            "fused_decode", "fused_verify_int8", dev, xq.data_ptr(), xk.data_ptr(),
+            "fused_decode", f"fused_verify_{kind}", dev, xq.data_ptr(), xk.data_ptr(),
             xv.data_ptr(), CK.data_ptr(), CV.data_ptr(), KS.data_ptr(), VS.data_ptr(),
             *tail,
         )
@@ -566,7 +600,7 @@ def fused_verify_chunk_attention(
             "fused_decode", "fused_verify_bf16", dev, xq.data_ptr(), xk.data_ptr(),
             xv.data_ptr(), CK.data_ptr(), CV.data_ptr(), *tail,
         )
-    fused_verify_chunk_attention.launches += 1
+    _counted(fused_verify_chunk_attention, kind)
     return out
 
 
@@ -608,7 +642,25 @@ def segment_flash_attention(
 
 segment_flash_attention.launches = 0
 
+
+
+class LaunchCount:
+    """The launch counter of one instantiation of a wrapper's kernel: a name
+    and a ``launches`` count, beside the wrapper's own."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+# The float8 ring instantiations of the four ring kernels, counted apart.
+FP8_LAUNCHES = {
+    fn: LaunchCount(f"{fn.__name__}_fp8")
+    for fn in (ring_attention_stats, fused_update_decode_attention, decode_attention,
+               fused_verify_chunk_attention)
+}
+
 KERNELS = (
     flash_attention, ring_attention_stats, fused_update_decode_attention, decode_attention,
-    fused_verify_chunk_attention, segment_flash_attention,
+    fused_verify_chunk_attention, segment_flash_attention, *FP8_LAUNCHES.values(),
 )

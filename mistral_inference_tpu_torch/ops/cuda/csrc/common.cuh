@@ -1,5 +1,5 @@
-// Helpers shared by the kernels: element loads, exact integer-to-float
-// conversion, bf16 rounding, warp reductions, the tensor-core fragment helpers
+// Helpers shared by the kernels: element loads, exact integer-to-float and
+// e4m3-to-float conversion, bf16 rounding, warp reductions, the tensor-core fragment helpers
 // (mma.sync m16n8k16, ldmatrix, staging into bf16 shared memory) and
 // asynchronous copies into shared memory. Device code only; no PyTorch
 // headers, so each kernel source builds with nvcc alone into a library with a
@@ -7,6 +7,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -21,8 +23,26 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// Two e4m3 values, packed low byte first -> fp32, through Hopper's paired
+// convert to f16 (cvt.rn.f16x2.e4m3x2). Every e4m3 value is exact in f16 and
+// in fp32, so the conversion is exact.
+__device__ __forceinline__ float2 e4m3x2_to_float2(uint32_t two) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(two & 0xFFFFu), __NV_E4M3);
+  return __half22float2(__half2(h));
+}
+
+// Eight e4m3 values in the two words of raw -> fp32.
+__device__ __forceinline__ void e4m3x8_to_float(uint2 raw, float* out) {
+  const float2 a = e4m3x2_to_float2(raw.x), b = e4m3x2_to_float2(raw.x >> 16);
+  const float2 c = e4m3x2_to_float2(raw.y), d = e4m3x2_to_float2(raw.y >> 16);
+  out[0] = a.x, out[1] = a.y, out[2] = b.x, out[3] = b.y;
+  out[4] = c.x, out[5] = c.y, out[6] = d.x, out[7] = d.y;
+}
+
 // Eight consecutive elements -> fp32. The pointer is 16-byte aligned for
-// bf16 and 8-byte aligned for int8 (rows are whole 128-element heads).
+// bf16 and 8-byte aligned for int8 and e4m3 (rows are whole 128-element
+// heads).
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -41,8 +61,9 @@ __device__ __forceinline__ void load8(const int8_t* p, float* out) {
   for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(c[i]);
 }
 
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ void load8(const __nv_fp8_e4m3* p, float* out) {
+  e4m3x8_to_float(*reinterpret_cast<const uint2*>(p), out);
+}
 
 // Reductions over `width` consecutive lanes (a power of two <= 32).
 __device__ __forceinline__ float group_max(float x, int width) {
@@ -116,6 +137,15 @@ __device__ __forceinline__ void stage8(const int8_t* src, __nv_bfloat16* dst) {
   float f[8];
   biased_bytes_to_float(raw.x ^ 0x80808080u, 128.f, f);
   biased_bytes_to_float(raw.y ^ 0x80808080u, 128.f, f + 4);
+  *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                                              pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+}
+
+// e4m3 -> bf16 is exact too: e4m3's 3 mantissa bits and exponents 2^-9..2^8
+// fit bf16's 7 bits and 8-bit exponent.
+__device__ __forceinline__ void stage8(const __nv_fp8_e4m3* src, __nv_bfloat16* dst) {
+  float f[8];
+  e4m3x8_to_float(*reinterpret_cast<const uint2*>(src), f);
   *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
                                               pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
 }

@@ -1,7 +1,7 @@
 // Tiled online-softmax attention over one KV head's keys, shared by the
 // flash_attention kernel (K1: bf16 chunk keys), the ring_attention_stats
-// kernel (K4: a bf16 or int8 ring with per-(slot, head) scales) and the
-// segment-masked vision encoder attention (K10).
+// kernel (K4: a bf16 ring, or an int8 or e4m3 ring with per-(slot, head)
+// scales) and the segment-masked vision encoder attention (K10).
 //
 // Function: for every query row (token t, head h), softmax over the visible
 // keys s of (q . k_s) * k_scale[s] * D^-1/2, times v_s * v_scale[s]. A key is
@@ -24,7 +24,7 @@
 // are 64/G query tokens times the G heads that share the KV head, so each
 // K/V tile read from device memory serves the whole group; warp w owns rows
 // 16w..16w+15. The block walks S in 64-key tiles staged in shared memory as
-// bf16 (an int8 value is exact in bf16). Both products run on the tensor
+// bf16 (an int8 or e4m3 value is exact in bf16). Both products run on the tensor
 // cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate): S = Q K^T with
 // Q held in registers as A fragments for the whole walk, then O += P V with
 // the probabilities repacked from the S accumulators into A fragments and V

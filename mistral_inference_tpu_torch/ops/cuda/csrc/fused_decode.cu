@@ -12,7 +12,9 @@
 // it cannot know a row's fill: where K2 stops at min(q_pos + 1, window), K6
 // asks each span's 128 slots whether the query sees any of them and skips the
 // span if not. K7 replaces ::fused_verify_chunk_attention (kernel
-// _fused_verify_kernel): K2 is its T = 1 case. The TPU kernel's 16-slot
+// _fused_verify_kernel): K2 is its T = 1 case. Each is instantiated for an
+// int8 ring, an e4m3 (float8_e4m3fn) ring, both with fp32 scales per (slot,
+// kv head), and a bf16 ring; the TPU kernels take the same three. The TPU kernel's 16-slot
 // read-modify-write groups, lane-aligned scale windows and DMA semaphores
 // exist because a TPU DMA moves aligned tiles; a CUDA thread stores a byte
 // where it wants, so none of that is here.
@@ -35,10 +37,13 @@
 // threads runs per (span, kv head, batch row), so a B = 4 step over a 4096-slot
 // ring fills the card with 1024 blocks; thread d owns head-dim element d. The
 // write comes first. The T slots can straddle two spans (slot0 = 126, T = 5):
-// each block writes those of the T slots that lie in its own span. The int8
-// rule is that of cache._quantize_ring bit for bit (fp32 absmax / 127 with a
-// floor of 1e-8, IEEE division, rintf = round half to even, clip to +-127;
-// this file must not be built with fast-math). A (token, head) scale depends
+// each block writes those of the T slots that lie in its own span. The
+// quantized rings follow cache._quantize_ring bit for bit (RingRule below):
+// scale = fp32 absmax / qmax with a floor of 1e-8 and IEEE division (this
+// file must not be built with fast-math), then for int8 (qmax 127) rintf =
+// round half to even and a clip to +-127, and for e4m3 (qmax 448) x / scale
+// converted with round to nearest even, saturating at +-448 as PyTorch's cast
+// does; |x / scale| exceeds 448 by a rounding at most. A (token, head) scale depends
 // only on this block's head, so the block that writes a slot's bytes for head
 // j is the only block that ever reads them, and __syncthreads() orders the
 // write before the reads: no other block touches this row's head-j columns in
@@ -61,7 +66,7 @@
 // smallest instantiated value that holds G * T.
 //
 // What bounds it on the H100: bytes. Each call reads each row's visible
-// slots of K and V once (int8 or bf16) plus scales, and does 4 * D flops per
+// slots of K and V once (int8, e4m3 or bf16) plus scales, and does 4 * D flops per
 // (query row, slot): about 4 * T flops per byte, at most 32, far below the
 // 295 flop/byte ridge. Reading each KV head's slots once for all G * T query
 // rows (a loop of T single-token launches would read them T times), and
@@ -77,6 +82,29 @@ constexpr int kSlots = 32;        // ring slots per tile, one per lane
 constexpr int kSpan = 128;        // ring slots per block
 constexpr int kMaxRows = 32;      // query rows (heads per KV head x tokens) per block
 constexpr int kMaxTokens = 8;     // tokens of a verify chunk
+
+// The write rule of a quantized ring element type: its qmax, and x / scale
+// to the stored value.
+template <typename KT>
+struct RingRule;
+
+template <>
+struct RingRule<int8_t> {
+  static constexpr float kQmax = 127.f;
+  static __device__ __forceinline__ int8_t quantize(float y) {
+    return static_cast<int8_t>(fminf(fmaxf(rintf(y), -127.f), 127.f));
+  }
+};
+
+template <>
+struct RingRule<__nv_fp8_e4m3> {
+  static constexpr float kQmax = 448.f;
+  static __device__ __forceinline__ __nv_fp8_e4m3 quantize(float y) {
+    __nv_fp8_e4m3 q;
+    q.__x = __nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3);
+    return q;
+  }
+};
 
 __device__ __forceinline__ float block_max(float x, float* red) {
   x = group_max(x, 32);
@@ -147,10 +175,11 @@ __global__ void __launch_bounds__(kDecThreads) fused_decode_kernel(
       if constexpr (kScaled) {
         const float xkf = __bfloat162float(xk[src]);
         const float xvf = __bfloat162float(xv[src]);
-        const float sk = fmaxf(block_max(fabsf(xkf), sm.red) / 127.f, 1e-8f);
-        const float sv = fmaxf(block_max(fabsf(xvf), sm.red) / 127.f, 1e-8f);
-        ck_row[dst] = static_cast<int8_t>(fminf(fmaxf(rintf(xkf / sk), -127.f), 127.f));
-        cv_row[dst] = static_cast<int8_t>(fminf(fmaxf(rintf(xvf / sv), -127.f), 127.f));
+        using Rule = RingRule<KT>;
+        const float sk = fmaxf(block_max(fabsf(xkf), sm.red) / Rule::kQmax, 1e-8f);
+        const float sv = fmaxf(block_max(fabsf(xvf), sm.red) / Rule::kQmax, 1e-8f);
+        ck_row[dst] = Rule::quantize(xkf / sk);
+        cv_row[dst] = Rule::quantize(xvf / sv);
         if (tid == 0) {
           ks_row[slot] = sk;
           vs_row[slot] = sv;
@@ -412,6 +441,18 @@ extern "C" int fused_decode_int8(const void* xq, const void* xk, const void* xv,
                                                 stream);
 }
 
+// The e4m3 ring: the int8 entry points' arguments, KT = __nv_fp8_e4m3.
+extern "C" int fused_decode_fp8(const void* xq, const void* xk, const void* xv, void* ck,
+                                void* cv, void* ks, void* vs, int li, int window,
+                                const void* write_slot, const void* q_pos, const void* kv_pos,
+                                const void* kv_valid, void* out, void* part_acc,
+                                void* part_ml, int B, int S, int H, int Hkv, float scale,
+                                void* stream) {
+  return mit::launch_fused_decode<__nv_fp8_e4m3, true, true>(
+      xq, xk, xv, ck, cv, ks, vs, li, window, write_slot, q_pos, kv_pos, kv_valid, out,
+      part_acc, part_ml, B, 1, S, H, Hkv, scale, stream);
+}
+
 extern "C" int fused_decode_bf16(const void* xq, const void* xk, const void* xv, void* ck,
                                  void* cv, int li, int window, const void* write_slot,
                                  const void* q_pos, const void* kv_pos,
@@ -437,6 +478,17 @@ extern "C" int fused_verify_int8(const void* xq, const void* xk, const void* xv,
                                                 stream);
 }
 
+extern "C" int fused_verify_fp8(const void* xq, const void* xk, const void* xv, void* ck,
+                                void* cv, void* ks, void* vs, int li, int window,
+                                const void* write_slot0, const void* q_pos, const void* kv_pos,
+                                const void* kv_valid, void* out, void* part_acc,
+                                void* part_ml, int B, int T, int S, int H, int Hkv,
+                                float scale, void* stream) {
+  return mit::launch_fused_decode<__nv_fp8_e4m3, true, true>(
+      xq, xk, xv, ck, cv, ks, vs, li, window, write_slot0, q_pos, kv_pos, kv_valid, out,
+      part_acc, part_ml, B, T, S, H, Hkv, scale, stream);
+}
+
 extern "C" int fused_verify_bf16(const void* xq, const void* xk, const void* xv, void* ck,
                                  void* cv, int li, int window, const void* write_slot0,
                                  const void* q_pos, const void* kv_pos,
@@ -456,6 +508,16 @@ extern "C" int decode_attention_int8(const void* xq, void* ck, void* cv, void* k
                                      void* part_ml, int B, int S, int H, int Hkv, float scale,
                                      void* stream) {
   return mit::launch_fused_decode<int8_t, true, false>(
+      xq, nullptr, nullptr, ck, cv, ks, vs, li, window, nullptr, q_pos, kv_pos, kv_valid, out,
+      part_acc, part_ml, B, 1, S, H, Hkv, scale, stream);
+}
+
+extern "C" int decode_attention_fp8(const void* xq, void* ck, void* cv, void* ks, void* vs,
+                                    int li, int window, const void* q_pos, const void* kv_pos,
+                                    const void* kv_valid, void* out, void* part_acc,
+                                    void* part_ml, int B, int S, int H, int Hkv, float scale,
+                                    void* stream) {
+  return mit::launch_fused_decode<__nv_fp8_e4m3, true, false>(
       xq, nullptr, nullptr, ck, cv, ks, vs, li, window, nullptr, q_pos, kv_pos, kv_valid, out,
       part_acc, part_ml, B, 1, S, H, Hkv, scale, stream);
 }

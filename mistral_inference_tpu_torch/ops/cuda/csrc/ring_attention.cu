@@ -2,8 +2,9 @@
 //
 // Replaces mistral_inference_tpu/ops/pallas/attention.py::ring_attention_stats
 // (kernel _ring_chunk_kernel). The ring is read in its stored flat-head
-// layout (B, S, Hkv * D), int8 with fp32 scales (B, Hkv, S) applied after
-// the dots, or bf16 without scales. The returned (out, m, l) merge exactly
+// layout (B, S, Hkv * D), int8 or e4m3 (float8_e4m3fn) with fp32 scales
+// (B, Hkv, S) applied after the dots, or bf16 without scales. An int8 or e4m3
+// tile is staged to bf16 in shared memory exactly (common.cuh: stage8). The returned (out, m, l) merge exactly
 // with K1's stats over the chunk itself (merge_attention_parts). The tile
 // loop, its numerics and what bounds it are described in flash_tile.cuh: at
 // T = 512 queries over a 4096-slot ring it is compute-bound.
@@ -19,6 +20,18 @@ extern "C" int ring_attention_stats_int8(const void* q, const void* k, const voi
   return mit::launch_flash_tile<int8_t, true>(q, k, v, k_scale, v_scale, q_pos, kv_pos,
                                               q_valid, kv_valid, window, out, m_out, l_out,
                                               B, T, S, H, Hkv, scale, stream);
+}
+
+extern "C" int ring_attention_stats_fp8(const void* q, const void* k, const void* v,
+                                        const void* k_scale, const void* v_scale,
+                                        const void* q_pos, const void* kv_pos,
+                                        const void* q_valid, const void* kv_valid, int window,
+                                        void* out, void* m_out, void* l_out, int B, int T,
+                                        int S, int H, int Hkv, float scale, void* stream) {
+  return mit::launch_flash_tile<__nv_fp8_e4m3, true>(q, k, v, k_scale, v_scale, q_pos,
+                                                     kv_pos, q_valid, kv_valid, window, out,
+                                                     m_out, l_out, B, T, S, H, Hkv, scale,
+                                                     stream);
 }
 
 extern "C" int ring_attention_stats_bf16(const void* q, const void* k, const void* v,

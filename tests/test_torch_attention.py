@@ -1,7 +1,8 @@
 """The plain versions of the port's four attention kernels against the JAX
 package's Pallas kernels (run in interpret mode on the CPU, as
 tests/test_pallas.py and tests/test_fused_decode.py run them) and against
-the XLA oracle, at those files' shapes, in fp32.
+the XLA oracle, at those files' shapes, in fp32, over int8 and model-dtype
+rings (tests/test_torch_fp8.py runs the same tests over a float8_e4m3fn ring).
 
 Tolerances: 2e-5 for flash attention and 3e-4 for the ring + chunk merge
 (those files' own tolerances against the same oracle); for the fused decode
@@ -26,8 +27,24 @@ from mistral_inference_tpu_torch.ops import cuda as cuda_ops
 from mistral_inference_tpu_torch.ops.cuda import attention as tk
 
 
+RING = {"int8": jnp.int8, "fp8": jnp.float8_e4m3fn}
+
+
 def _t(x):
-    return torch.from_numpy(np.array(x))
+    a = np.array(x)
+    if a.dtype == jnp.float8_e4m3fn:  # numpy holds it as ml_dtypes' type: move the bytes
+        return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
+    return torch.from_numpy(a)
+
+
+def _bytes_equal(ours, theirs):
+    """A port tensor and a JAX array hold the same elements: the same bytes
+    for one-byte rings (a float8 tensor has no numpy form), else equal."""
+    theirs = np.asarray(theirs)
+    if ours.element_size() == 1:
+        np.testing.assert_array_equal(ours.view(torch.uint8).numpy(), theirs.view(np.uint8))
+    else:
+        np.testing.assert_array_equal(ours.numpy(), theirs)
 
 
 def _attention_case(B, T, S, H, Hkv, D, seed=0):
@@ -87,8 +104,8 @@ def _scaled_ring(rng, B, S, Hkv, D, kv_quant):
     if kv_quant == "bf16":
         ones = np.ones((B, Hkv, S), np.float32)
         return kf.reshape(B, S, -1), vf.reshape(B, S, -1), ones, ones, None, None
-    kq, ks = jcache._quantize_ring(jnp.asarray(kf), jnp.int8)
-    vq, vs = jcache._quantize_ring(jnp.asarray(vf), jnp.int8)
+    kq, ks = jcache._quantize_ring(jnp.asarray(kf), RING[kv_quant])
+    vq, vs = jcache._quantize_ring(jnp.asarray(vf), RING[kv_quant])
     ks = np.moveaxis(np.asarray(ks), 1, 2).copy()  # stored (B, Hkv, S)
     vs = np.moveaxis(np.asarray(vs), 1, 2).copy()
     kq = np.asarray(kq).reshape(B, S, -1)
@@ -147,8 +164,8 @@ def _decode_setup(kv_quant, rng, L=3, B=4, S=256, Hkv=2, H=4, D=128):
     if kv_quant == "bf16":  # the model dtype (fp32 here) ring, no scales
         CK, CV, KS, VS = kf.reshape(L, B, S, -1), vf.reshape(L, B, S, -1), None, None
     else:
-        CKq, KSs = jcache._quantize_ring(jnp.asarray(kf), jnp.int8)
-        CVq, VSs = jcache._quantize_ring(jnp.asarray(vf), jnp.int8)
+        CKq, KSs = jcache._quantize_ring(jnp.asarray(kf), RING[kv_quant])
+        CVq, VSs = jcache._quantize_ring(jnp.asarray(vf), RING[kv_quant])
         CK, CV = np.array(CKq).reshape(L, B, S, -1), np.array(CVq).reshape(L, B, S, -1)
         KS, VS = np.moveaxis(np.asarray(KSs), 2, 3).copy(), np.moveaxis(np.asarray(VSs), 2, 3).copy()
     xq = rng.standard_normal((B, 1, H, D)).astype(np.float32)
@@ -207,7 +224,7 @@ def test_fused_decode_plain_matches_pallas(kv_quant, S, window, kv_len, live):
     ).numpy()
     for ours, theirs in zip(stacks, J):
         if ours is not None:
-            np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+            _bytes_equal(ours, theirs)
     rows = live > 0
     np.testing.assert_allclose(out[rows], np.asarray(ref)[rows], atol=3e-5, rtol=3e-5)
     np.testing.assert_allclose(out[rows], np.asarray(jout)[rows], atol=3e-5, rtol=3e-5)
@@ -266,5 +283,5 @@ def test_wrappers_count_only_kernel_launches():
     cuda_ops.reset_launch_counts()
     q, k, v, q_pos, kv_pos, q_valid, kv_valid = _attention_case(1, 4, 4, 2, 1, 128)
     tk.flash_attention(*(_t(a) for a in (q, k, v, q_pos, kv_pos, q_valid, kv_valid)), 8)
-    assert len(tk.KERNELS) == 6 and len(cuda_ops.all_kernels()) == 10
-    assert [fn.launches for fn in cuda_ops.all_kernels()] == [0] * 10
+    assert len(tk.KERNELS) == 10 and len(cuda_ops.all_kernels()) == 14
+    assert [fn.launches for fn in cuda_ops.all_kernels()] == [0] * 14

@@ -16,8 +16,28 @@ from mistral_inference_tpu import cache as jcache
 from mistral_inference_tpu_torch import cache as tcache
 
 
+RING = {"int8": jnp.int8, "fp8": jnp.float8_e4m3fn}
+
+
 def _np(x):
     return np.array(x.float() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32))
+
+
+def _t(a):
+    """numpy -> torch; a float8 array (ml_dtypes' type) moves as its bytes."""
+    a = np.array(a)
+    if a.dtype == jnp.float8_e4m3fn:
+        return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
+    return torch.from_numpy(a)
+
+
+def _equal(ours, theirs):
+    """Element for element; one-byte rings compare as their bytes."""
+    theirs = np.asarray(theirs)
+    if ours.element_size() == 1:
+        np.testing.assert_array_equal(ours.view(torch.uint8).numpy(), theirs.view(np.uint8))
+    else:
+        np.testing.assert_array_equal(ours.numpy(), theirs)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -29,12 +49,12 @@ def test_quantize_ring_int8_bit_exact(dtype):
     jx = jnp.asarray(x).astype(getattr(jnp, dtype))
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
     jq, js = jcache._quantize_ring(jx, jnp.int8)
-    tq, ts = tcache._quantize_ring(tx)
+    tq, ts = tcache._quantize_ring(tx, torch.int8)
     assert tq.dtype == torch.int8
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(
-        tcache.kv_roundtrip(tx).float().numpy(), _np(jcache.kv_roundtrip(jx, jnp.int8))
+        tcache.kv_roundtrip(tx, torch.int8).float().numpy(), _np(jcache.kv_roundtrip(jx, jnp.int8))
     )
 
 
@@ -49,7 +69,7 @@ def test_slot_positions_match(window):
 
 
 @pytest.mark.parametrize("sliding_window", [None, 6, [3, None]])
-@pytest.mark.parametrize("kv_quant", ["bf16", "int8"])
+@pytest.mark.parametrize("kv_quant", ["bf16", "int8", "fp8"])
 def test_alloc_matches(sliding_window, kv_quant):
     kw = dict(n_layers=4, batch=3, max_seq_len=20, n_kv_heads=2, head_dim=8,
               sliding_window=sliding_window, kv_quant=kv_quant)
@@ -58,7 +78,7 @@ def test_alloc_matches(sliding_window, kv_quant):
     assert tuple(tc.k.shape) == jc.k.shape and tc.size == jc.size == 128
     assert tc.windows == np.asarray(jc.windows).tolist()
     assert str(tc.k.dtype).split(".")[-1] == str(jc.k.dtype)
-    if kv_quant == "int8":
+    if kv_quant != "bf16":
         assert tuple(tc.k_scale.shape) == jc.k_scale.shape
     else:
         assert tc.k_scale is None and jc.k_scale.size == 0
@@ -70,13 +90,13 @@ def _ring(kv_quant, rng, L=3, B=3, W=128, Hkv=2, Dh=8):
     vf = rng.standard_normal((L, B, W, Hkv, Dh)).astype(np.float32)
     if kv_quant == "bf16":
         return kf.reshape(L, B, W, -1), vf.reshape(L, B, W, -1), None, None
-    kq, ks = jcache._quantize_ring(jnp.asarray(kf), jnp.int8)
-    vq, vs = jcache._quantize_ring(jnp.asarray(vf), jnp.int8)
+    kq, ks = jcache._quantize_ring(jnp.asarray(kf), RING[kv_quant])
+    vq, vs = jcache._quantize_ring(jnp.asarray(vf), RING[kv_quant])
     return (np.array(kq).reshape(L, B, W, -1), np.array(vq).reshape(L, B, W, -1),
             np.moveaxis(np.asarray(ks), 2, 3).copy(), np.moveaxis(np.asarray(vs), 2, 3).copy())
 
 
-@pytest.mark.parametrize("kv_quant", ["bf16", "int8"])
+@pytest.mark.parametrize("kv_quant", ["bf16", "int8", "fp8"])
 def test_update_stacked_matches(kv_quant):
     """A chunk longer than the window (same-chunk overwrites are dropped), a
     ring that wraps, a short row and an idle row, into layer 1 of 3."""
@@ -98,7 +118,7 @@ def test_update_stacked_matches(kv_quant):
         jnp.asarray(xv), jnp.asarray(positions), jnp.asarray(valid),
         jnp.asarray(new_total), jnp.int32(window),
     )
-    t = [None if a is None else torch.from_numpy(a.copy()) for a in (CK, CV, KS, VS)]
+    t = [None if a is None else _t(a) for a in (CK, CV, KS, VS)]
     writes = tcache.ring_writes(
         torch.from_numpy(positions), torch.from_numpy(valid),
         torch.from_numpy(new_total), window,
@@ -106,18 +126,19 @@ def test_update_stacked_matches(kv_quant):
     tcache.update_stacked(*t, 1, torch.from_numpy(xk), torch.from_numpy(xv), writes)
     for ours, theirs in zip(t, jout):
         if ours is not None:
-            np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+            _equal(ours, theirs)
     # Row 0 wrote positions 3..11 into a 5-slot ring: only 7..11 landed.
     b_idx, t_idx, slot = writes
     assert positions[0, t_idx[b_idx == 0].numpy()].tolist() == [7, 8, 9, 10, 11]
     assert sorted(slot[b_idx == 0].tolist()) == [0, 1, 2, 3, 4]
 
 
-def test_dequant_layer_matches():
+@pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
+def test_dequant_layer_matches(kv_quant):
     rng = np.random.default_rng(2)
-    CK, _, KS, _ = _ring("int8", rng)
+    CK, _, KS, _ = _ring(kv_quant, rng)
     ref = jcache.dequant_layer(jnp.asarray(CK[1]), jnp.asarray(KS[1]), jnp.float32, 2)
-    out = tcache.dequant_layer(torch.from_numpy(CK[1]), torch.from_numpy(KS[1]), torch.float32, 2)
+    out = tcache.dequant_layer(_t(CK[1]), _t(KS[1]), torch.float32, 2)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
@@ -136,22 +157,22 @@ def _caches(kv_quant, rng, kv_len, L=3, B=3, W=128, Hkv=2, Dh=8, windows=(5, 5, 
         k_scale=empty if KS is None else jnp.asarray(KS),
         v_scale=empty if VS is None else jnp.asarray(VS),
     )
-    t = [None if a is None else torch.from_numpy(a.copy()) for a in (CK, CV, KS, VS)]
+    t = [None if a is None else _t(a) for a in (CK, CV, KS, VS)]
     tc = tcache.KVCache(k=t[0], v=t[1], kv_len=torch.from_numpy(kv_len.copy()),
                         windows=list(windows), k_scale=t[2], v_scale=t[3])
     return jc, tc
 
 
 def _same_cache(tc, jc):
-    np.testing.assert_array_equal(tc.k.numpy(), np.asarray(jc.k))
-    np.testing.assert_array_equal(tc.v.numpy(), np.asarray(jc.v))
+    _equal(tc.k, jc.k)
+    _equal(tc.v, jc.v)
     np.testing.assert_array_equal(tc.kv_len.numpy(), np.asarray(jc.kv_len))
     if tc.k_scale is not None:
         np.testing.assert_array_equal(tc.k_scale.numpy(), np.asarray(jc.k_scale))
         np.testing.assert_array_equal(tc.v_scale.numpy(), np.asarray(jc.v_scale))
 
 
-@pytest.mark.parametrize("kv_quant", ["bf16", "int8"])
+@pytest.mark.parametrize("kv_quant", ["bf16", "int8", "fp8"])
 @pytest.mark.parametrize("T,windows", [
     (4, (5, 5, 5)),   # a wrapping ring, the chunk shorter than the window: the fixed-shape write
     (4, (5, 7, 128)),  # per-layer windows
@@ -191,3 +212,40 @@ def test_rewind_matches():
     tp, tv = tcache.slot_positions(tc.kv_len, 128, 128)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     assert tv[0].sum() == 6 and not tv[0, 6:].any()
+
+
+@pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
+def test_copy_prefix_rows_matches(kv_quant):
+    """Prefix-cache copies in array order, a same-wave chain among them (row 1
+    is written by the first copy, then read by the second) and a q = 0 no-op:
+    ring bytes, scales and kv_len equal the JAX package's."""
+    rng = np.random.default_rng(6)
+    kv_len = np.array([40, 9, 17, 3], np.int32)
+    jc, tc = _caches(kv_quant, rng, kv_len, L=2, B=4, windows=(128, 128))
+    srcs, dsts, qs = [0, 1, 2], [1, 3, 0], [30, 12, 0]
+    jout = jcache.copy_prefix_rows(jc, *(jnp.asarray(a, jnp.int32) for a in (srcs, dsts, qs)))
+    assert tcache.copy_prefix_rows(tc, srcs, dsts, qs) is tc
+    _same_cache(tc, jout)
+    assert tc.kv_len.tolist() == [40, 30, 17, 12]
+
+
+@pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
+def test_adopt_rows_matches(kv_quant):
+    """Whole-row adoption from a staging cache: ring bytes, scales, kv_len
+    and carry rows move; a destination >= B is dropped."""
+    rng = np.random.default_rng(8)
+    jc, tc = _caches(kv_quant, rng, np.array([5, 6, 7, 8], np.int32), L=2, B=4,
+                     windows=(128, 128))
+    js, ts = _caches(kv_quant, rng, np.array([21, 33], np.int32), L=2, B=2, windows=(128, 128))
+    carry = rng.standard_normal((4, 16)).astype(np.float32)
+    src_carry = rng.standard_normal((2, 16)).astype(np.float32)
+    src_rows, dst_rows = [0, 1], [2, 4]  # row 1 goes nowhere: 4 >= B
+    jout, jcarry = jcache.adopt_rows(jc, jnp.asarray(carry), js, jnp.asarray(src_carry),
+                                     jnp.asarray(src_rows), jnp.asarray(dst_rows))
+    tcarry = torch.from_numpy(carry.copy())
+    out, out_carry = tcache.adopt_rows(tc, tcarry, ts, torch.from_numpy(src_carry),
+                                       src_rows, dst_rows)
+    assert out is tc and out_carry is tcarry
+    _same_cache(tc, jout)
+    np.testing.assert_array_equal(tcarry.numpy(), np.asarray(jcarry))
+    assert tc.kv_len.tolist() == [5, 6, 21, 8]

@@ -5,8 +5,8 @@ They import no JAX, so they run where the port runs:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances: the int8 ring bytes and scales that the fused decode and fused
-verify kernels write are equal to the plain write, and a verify chunk's query
+Tolerances: the int8 and float8_e4m3fn ring bytes and scales that the fused
+decode and fused verify kernels write are equal to the plain write, and a verify chunk's query
 t has the bits of a decode step at its position; outputs agree within 1e-2 (bf16
 outputs, fp32 sums in another order) and the fp32 stats within 1e-4. The
 quantized matmuls are held to the same 1e-2 + 1e-2 |ref|, and the stacked and
@@ -48,8 +48,9 @@ def test_kernels_match_plain_on_card():
     torch.testing.assert_close(m, rm, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
 
-    CK, KS = tcache._quantize_ring(torch.randn((L, B, S, Hkv, D), generator=g, device=dev))
-    CV, VS = tcache._quantize_ring(torch.randn((L, B, S, Hkv, D), generator=g, device=dev))
+    i8 = torch.int8
+    CK, KS = tcache._quantize_ring(torch.randn((L, B, S, Hkv, D), generator=g, device=dev), i8)
+    CV, VS = tcache._quantize_ring(torch.randn((L, B, S, Hkv, D), generator=g, device=dev), i8)
     CK, CV = CK.reshape(L, B, S, -1), CV.reshape(L, B, S, -1)
     KS, VS = KS.transpose(2, 3).contiguous(), VS.transpose(2, 3).contiguous()
     kv_len = torch.tensor([230, 17], dtype=torch.int32, device=dev)
@@ -74,7 +75,7 @@ def test_kernels_match_plain_on_card():
         assert torch.equal(a, b)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
     # Each wrapper counted its own launches, and the plain versions none.
-    assert [fn.launches for fn in tk.KERNELS] == [1, 1, 1, 0, 0, 0]
+    assert [fn.launches for fn in tk.KERNELS] == [1, 1, 1, 0, 0, 0, 0, 0, 0, 0]
 
 
 @pytest.mark.cuda
@@ -111,7 +112,7 @@ def test_wrappers_reject_bad_operands_on_card():
         tk.segment_flash_attention(vq, vq, vq, seg[:, :60])
     with pytest.raises(ValueError, match="contiguous"):
         tk.segment_flash_attention(vq, vq.transpose(1, 2).contiguous().transpose(1, 2), vq, seg)
-    assert len(cuda_ops.all_kernels()) == 10
+    assert len(cuda_ops.all_kernels()) == 14
     assert all(fn.launches == 0 for fn in cuda_ops.all_kernels())
 
 
@@ -267,8 +268,8 @@ def test_decode_attention_matches_plain_on_card(int8):
     kf = torch.randn((L, B, S, Hkv, D), generator=g, device=dev)
     vf = torch.randn((L, B, S, Hkv, D), generator=g, device=dev)
     if int8:
-        CK, KS = tcache._quantize_ring(kf)
-        CV, VS = tcache._quantize_ring(vf)
+        CK, KS = tcache._quantize_ring(kf, torch.int8)
+        CV, VS = tcache._quantize_ring(vf, torch.int8)
         KS, VS = KS.transpose(2, 3).contiguous(), VS.transpose(2, 3).contiguous()
     else:
         CK, CV, KS, VS = kf.to(bf), vf.to(bf), None, None
@@ -310,8 +311,8 @@ def _verify_case(int8, T, kv_len, live, L=3, B=4, S=384, H=32, Hkv=8, D=128, see
     kf = torch.randn((L, B, S, Hkv, D), generator=g, device=dev)
     vf = torch.randn((L, B, S, Hkv, D), generator=g, device=dev)
     if int8:
-        CK, KS = tcache._quantize_ring(kf)
-        CV, VS = tcache._quantize_ring(vf)
+        CK, KS = tcache._quantize_ring(kf, torch.int8)
+        CV, VS = tcache._quantize_ring(vf, torch.int8)
         KS, VS = KS.transpose(2, 3).contiguous(), VS.transpose(2, 3).contiguous()
     else:
         CK, CV, KS, VS = kf.to(bf), vf.to(bf), None, None
@@ -425,6 +426,77 @@ def test_greedy_speculation_equals_greedy_on_card():
     assert all(len(g) == 16 for g in out[0])
     agree = sum(a == b for x, y in zip(out[0], ref[0]) for a, b in zip(x, y))
     assert agree >= 24, "the wrap-safe route may leave plain greedy only at a near-tie"
+
+
+def _bits(t):
+    return t.view(torch.uint8) if t.element_size() == 1 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,kv_len,live", [
+    (1, [127, 128, 0, 383], [1, 1, 0, 1]),  # K2 (and K6 after its write)
+    (5, [126, 0, 379, 40], [1, 1, 1, 0]),   # K7 across a span's edge, empty, the ring's end
+    (8, [124, 250, 376, 7], [1, 1, 1, 1]),  # K7, the most tokens
+])
+def test_fp8_ring_kernels_match_plain_on_card(T, kv_len, live):
+    """The float8_e4m3fn instantiations of K2 (T = 1) or K7, then K6 and K4
+    over the ring they wrote, against their plain versions: the written ring
+    bytes and scales equal cache._quantize_ring's (the plain write), the
+    outputs agree within bf16 rounding, and each launch is counted as fp8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    dev, bf, fp8 = "cuda", torch.bfloat16, torch.float8_e4m3fn
+    L, B, S, H, Hkv, D, li = 3, 4, 384, 32, 8, 128, 1
+    window = S
+    g = torch.Generator(device=dev).manual_seed(3)
+    CK, KS = tcache._quantize_ring(torch.randn((L, B, S, Hkv, D), generator=g, device=dev), fp8)
+    CV, VS = tcache._quantize_ring(torch.randn((L, B, S, Hkv, D), generator=g, device=dev), fp8)
+    stacks = [CK.reshape(L, B, S, -1), CV.reshape(L, B, S, -1),
+              KS.transpose(2, 3).contiguous(), VS.transpose(2, 3).contiguous()]
+    plain = [t.clone() for t in stacks]
+    xq = torch.randn((B, T, H, D), generator=g, device=dev).to(bf)
+    xk = torch.randn((B, T, Hkv, D), generator=g, device=dev).to(bf) * 3
+    xv = torch.randn((B, T, Hkv, D), generator=g, device=dev).to(bf)
+    kv_len = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    live = torch.tensor(live, dtype=torch.int32, device=dev)
+    q_pos = kv_len[:, None] + torch.arange(T, dtype=torch.int32, device=dev)[None]
+    ws = torch.where(live > 0, kv_len % window, -1).to(torch.int32)
+    slot_pos, slot_valid = tcache.slot_positions(kv_len + live * T, window, S)
+    cuda_ops.reset_launch_counts()
+    if T == 1:
+        args = (li, window, ws, kv_len, slot_pos, slot_valid)
+        out = tk.fused_update_decode_attention(xq, xk, xv, *stacks, *args)
+        ref = tk.fused_update_decode_attention_plain(xq, xk, xv, *plain, *args)
+        wrote = tk.fused_update_decode_attention
+    else:
+        args = (li, window, ws, q_pos, slot_pos, slot_valid)
+        out = tk.fused_verify_chunk_attention(xq, xk, xv, *stacks, *args)
+        ref = tk.fused_verify_chunk_attention_plain(xq, xk, xv, *plain, *args)
+        wrote = tk.fused_verify_chunk_attention
+    torch.cuda.synchronize()
+    for a, b in zip(stacks, plain):
+        assert torch.equal(_bits(a), _bits(b)), "the fp8 write is not the ring rule's bytes"
+    rows = live > 0
+    torch.testing.assert_close(out[rows].float(), ref[rows].float(), **BF16_TOL)
+    assert wrote.launches == tk.FP8_LAUNCHES[wrote].launches == 1
+
+    # K6 at the last token of each row, and K4 for the whole chunk, over that ring.
+    last = (q_pos[:, -1:]).contiguous()
+    o6 = tk.decode_attention(xq[:, -1:].contiguous(), *stacks, li, last, slot_pos, slot_valid,
+                             window)
+    r6 = tk.decode_attention_plain(xq[:, -1:].contiguous(), *stacks, li, last, slot_pos,
+                                   slot_valid, window)
+    q_valid = torch.ones((B, T), dtype=torch.bool, device=dev)
+    ring = (stacks[0][li], stacks[1][li], stacks[2][li], stacks[3][li])
+    o4 = tk.ring_attention_stats(xq, *ring, q_pos, slot_pos, q_valid, slot_valid, window)
+    r4 = tk.attend_stats_plain(xq, ring[0].view(B, S, Hkv, D), ring[1].view(B, S, Hkv, D),
+                               ring[2], ring[3], q_pos, slot_pos, q_valid, slot_valid, window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o6[rows].float(), r6[rows].float(), **BF16_TOL)
+    torch.testing.assert_close(o4[0][rows].float(), r4[0][rows].float(), **BF16_TOL)
+    torch.testing.assert_close(o4[1][rows], r4[1][rows], atol=1e-4, rtol=1e-4)
+    for fn in (tk.decode_attention, tk.ring_attention_stats):
+        assert fn.launches == tk.FP8_LAUNCHES[fn].launches == 1
 
 
 def _ssd_case(L, B, NH, HD, DS, NG, dtype, seed=11, dead=None):

@@ -2,7 +2,7 @@
 against the JAX package's Pallas kernel in interpret mode and against the
 two-op oracle (``update_stacked`` over the whole T-token chunk, then ring-only
 attention under the sliding-window mask), on the cases of
-tests/test_fused_verify.py: int8 and model-dtype rings; fills empty, mid and
+tests/test_fused_verify.py: int8, float8_e4m3fn and model-dtype rings; fills empty, mid and
 near the ring's end; a dead row; slot runs that straddle a 128-slot span on a
 non-zero layer; T = 8 over several spans; T = 1.
 
@@ -35,8 +35,19 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+RING = {"int8": jnp.int8, "fp8": jnp.float8_e4m3fn}
+
+
 def _t(x):
-    return torch.from_numpy(np.array(x))
+    a = np.array(x)
+    if a.dtype == jnp.float8_e4m3fn:  # numpy holds it as ml_dtypes' type: move the bytes
+        return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
+    return torch.from_numpy(a)
+
+
+def _np(t):
+    """A port tensor as numpy; a one-byte ring as its bytes."""
+    return t.view(torch.uint8).numpy() if t.element_size() == 1 else t.numpy()
 
 
 def _setup(kv_quant, rng, L, B, T, S, Hkv, H, D):
@@ -45,8 +56,8 @@ def _setup(kv_quant, rng, L, B, T, S, Hkv, H, D):
     if kv_quant == "bf16":  # the model dtype (fp32 here) ring, no scales
         CK, CV, KS, VS = kf.reshape(L, B, S, -1), vf.reshape(L, B, S, -1), None, None
     else:
-        CKq, KSs = jcache._quantize_ring(jnp.asarray(kf), jnp.int8)
-        CVq, VSs = jcache._quantize_ring(jnp.asarray(vf), jnp.int8)
+        CKq, KSs = jcache._quantize_ring(jnp.asarray(kf), RING[kv_quant])
+        CVq, VSs = jcache._quantize_ring(jnp.asarray(vf), RING[kv_quant])
         CK, CV = np.array(CKq).reshape(L, B, S, -1), np.array(CVq).reshape(L, B, S, -1)
         KS, VS = np.moveaxis(np.asarray(KSs), 2, 3).copy(), np.moveaxis(np.asarray(VSs), 2, 3).copy()
     xq = rng.standard_normal((B, T, H, D)).astype(np.float32)
@@ -109,26 +120,29 @@ def _check(stacks, out, O, ref, P, jout, rows, _inputs):
             continue
         for theirs in (O[i], P[i]):
             if i < 2:
-                np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+                theirs = np.asarray(theirs)
+                if theirs.itemsize == 1:
+                    theirs = theirs.view(np.uint8)
+                np.testing.assert_array_equal(_np(ours), theirs)
             else:
                 np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=2e-7)
     np.testing.assert_allclose(out[rows], ref.reshape(B, T, -1)[rows], atol=3e-5, rtol=3e-5)
     np.testing.assert_allclose(out[rows], jout[rows], atol=3e-5, rtol=3e-5)
 
 
-@pytest.mark.parametrize("kv_quant", ["int8", "bf16"])
+@pytest.mark.parametrize("kv_quant", ["int8", "bf16", "fp8"])
 def test_fused_verify_plain_matches_oracle_and_pallas(kv_quant):
     # fills: empty, mid, near the end, and a dead row
     _check(*_case(kv_quant, kv_len=[0, 100, 251, 40], live=[1, 1, 1, 0]))
 
 
-@pytest.mark.parametrize("kv_quant", ["int8", "bf16"])
+@pytest.mark.parametrize("kv_quant", ["int8", "bf16", "fp8"])
 def test_fused_verify_plain_span_straddle_and_layer(kv_quant):
     # slots that straddle a 128-slot span, on a non-zero layer of the stack
     stacks, out, O, *rest = _case(kv_quant, kv_len=[6, 126, 127, 250], live=[1, 1, 1, 1], li=1)
     _check(stacks, out, O, *rest)
     (CK, _, _, _), _, _ = rest[-1]
-    assert np.array_equal(stacks[0][0].numpy(), CK[0]), "layer 0 must not be written"
+    assert np.array_equal(_np(stacks[0][0]), _np(_t(CK[0]))), "layer 0 must not be written"
 
 
 def test_fused_verify_plain_t8_multi_span():
@@ -142,7 +156,7 @@ def test_fused_verify_plain_t8_multi_span():
     _check(*case)
 
 
-@pytest.mark.parametrize("kv_quant", ["int8", "bf16"])
+@pytest.mark.parametrize("kv_quant", ["int8", "bf16", "fp8"])
 def test_fused_verify_plain_t1_equals_fused_decode(kv_quant):
     stacks, out, *rest = _case(kv_quant, kv_len=[0, 17, 255, 128], live=[1, 1, 1, 0], T=1)
     _check(stacks, out, *rest)
