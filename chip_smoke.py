@@ -18,11 +18,15 @@ Phases, each printing one JSON line:
    rows, int8 and int4; a speculative verify chunk of 5 and of 8 tokens), the
    Codestral-Mamba SSD step (B=4, a 64-layer fp32 and bf16 state) and the
    Pixtral encoder's segment-masked attention (16 heads of 64 at N = 4096,
-   a padded 512 bucket, a 256 bucket, two images in one 3584 row), with its
-   time (CUDA-event median), the plain
+   a padded 512 bucket, a 256 bucket, two images in one 3584 row, and a
+   1600 + 1984 pair whose boundary falls inside a 128-row tile). K4 is also
+   checked where its tiles are mixed (a 1000-token window, invalid slots
+   inside tiles, T = 200), and K4 and K10 for batch invariance (a row's bits
+   alone equal its bits among 8 rows; an image alone equals itself beside
+   another). Each kernel row carries its time (CUDA-event median), the plain
    version's time, the time of one PyTorch library call for the same function
    where one exists, and the card's least time for the work (bytes or flops,
-   from this run's inputs).
+   from this run's inputs), and K4's and K10's ``ms_over_library``.
 4. main paths: ``generate()`` at full width with random bf16 weights from a
    seed and an int8 KV ring, over 4 prompts of ragged length, one longer than
    the 4096 window so the ring wraps. Four paths, each with the launch counts
@@ -360,9 +364,10 @@ def check_k1(gen):
     }
 
 
-def ring_case(gen, B, T, S, window, ring: str, kv_len):
+def ring_case(gen, B, T, S, window, ring: str, kv_len, holes: bool = False):
     """A stored ring of one layer (wrapped when kv_len > window) and a chunk
-    of T queries after it."""
+    of T queries after it; with ``holes``, invalid slots inside tiles that
+    are otherwise full."""
     from mistral_inference_tpu_torch.cache import slot_positions
 
     bf = torch.bfloat16
@@ -370,6 +375,10 @@ def ring_case(gen, B, T, S, window, ring: str, kv_len):
     vq, vs = make_ring(gen, ring, B, S)
     kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
     slot_pos, slot_valid = slot_positions(kv_len, window, S)
+    if holes:
+        slot_valid = slot_valid.clone()
+        slot_valid[:, 100:140] = False  # across a tile boundary
+        slot_valid[:, 7::509] = False  # single slots in many tiles
     q_pos = kv_len[:, None] + torch.arange(T, dtype=torch.int32, device="cuda")[None]
     q_valid = torch.ones((B, T), dtype=torch.bool, device="cuda")
     q_valid[-1, T // 2:] = False  # a short row in the chunk
@@ -389,26 +398,45 @@ def check_k4(gen, scaled: str = "int8"):
 
     B, T, S, window = 4, 512, 4096, 4096
     kv_len = [4300 - 512, 4096 + 700, 1537, 2000]  # rows 0 and 1 have wrapped
-    worst = 0.0
+    # (label, B, T, window, kv_len, holes): the main shape first (full tiles,
+    # the wrap's mixed tiles, skipped invalid slots), then mixed tiles at the
+    # edge of a 1000-token window, invalid slots inside tiles, and T = 200
+    # (a ragged last query tile).
+    cases = (("main", B, T, window, kv_len, False),
+             ("window 1000", 2, T, 1000, [3000, 4096 + 1500], False),
+             ("invalid slots", 2, T, window, [4096 + 300, 3500], True),
+             ("T=200", 2, 200, window, [4096 + 900, 2500], False))
+    worst, bf16_main = 0.0, None
     for ring in (scaled, "bf16") if scaled == "int8" else (scaled,):
-        case = ring_case(gen, B, T, S, window, ring, kv_len)
-        q, kq, vq, ks, vs, q_pos, slot_pos, q_valid, slot_valid, _ = case
-        o, m, l = ring_attention_stats(*case)
-        ref, m_ref, l_ref = attend_stats_plain(
-            q, kq.view(B, S, HKV, D), vq.view(B, S, HKV, D), ks, vs, *case[5:]
-        )
-        torch.cuda.synchronize()
-        vis = q_valid[..., None, None]
-        for name, (ok, err) in {
-            "out": close(o * vis, ref * vis, 1e-2, 1e-2),
-            "m": close(m, m_ref, 1e-4, 1e-4),
-            "l": close(l, l_ref, 1e-4, 1e-4),
-        }.items():
-            require(ok, f"K4 {name} disagrees with its plain version ({ring} ring): {err}")
-            if name == "out":
-                worst = max(worst, err)
-        if ring == scaled:
-            main = case
+        for label, b_, t_, w_, lens, holes in cases:
+            case = ring_case(gen, b_, t_, S, w_, ring, lens, holes)
+            q, kq, vq, ks, vs, q_pos, slot_pos, q_valid, slot_valid, _ = case
+            o, m, l = ring_attention_stats(*case)
+            ref, m_ref, l_ref = attend_stats_plain(
+                q, kq.view(b_, S, HKV, D), vq.view(b_, S, HKV, D), ks, vs, *case[5:]
+            )
+            torch.cuda.synchronize()
+            vis = q_valid[..., None, None]
+            for name, (ok, err) in {
+                "out": close(o * vis, ref * vis, 1e-2, 1e-2),
+                "m": close(m, m_ref, 1e-4, 1e-4),
+                "l": close(l, l_ref, 1e-4, 1e-4),
+            }.items():
+                require(ok, f"K4 {name} disagrees with its plain version ({ring} ring, "
+                            f"{label}): {err}")
+                if name == "out":
+                    worst = max(worst, err)
+            if label == "main" and ring == scaled:
+                main = case
+            elif label == "main":
+                bf16_main = case
+    # Batch invariance: a row's (out, m, l) bits alone equal its bits among 8.
+    wide = ring_case(gen, 8, T, S, window, scaled, kv_len * 2)
+    one = tuple(x[3:4].contiguous() if torch.is_tensor(x) else x for x in wide)
+    got_wide, got_one = ring_attention_stats(*wide), ring_attention_stats(*one)
+    torch.cuda.synchronize()
+    require(all(same_bits(a[3:4], b) for a, b in zip(got_wide, got_one)),
+            "K4: a row's (out, m, l) bits at B=1 differ from its bits at B=8")
     # Merge with K1 over the chunk against attend_scaled over ring ++ chunk.
     q, kq, vq, ks, vs, q_pos, slot_pos, q_valid, slot_valid, _ = main
     ck, cv = (kv_roundtrip(randn(gen, B, T, HKV, D, dtype=torch.bfloat16), RINGS[scaled])
@@ -438,19 +466,28 @@ def check_k4(gen, scaled: str = "int8"):
     b_ms, b_by = bound(flops, nbytes(*[x for x in main[:9]]) + out_bytes)
     deq_k = (kq.view(B, S, HKV, D).float() * ks.permute(0, 2, 1)[..., None]).to(torch.bfloat16)
     deq_v = (vq.view(B, S, HKV, D).float() * vs.permute(0, 2, 1)[..., None]).to(torch.bfloat16)
+    ms = timed_ms(lambda: ring_attention_stats(*main))
+    library_ms = sdpa_ms(q, deq_k, deq_v, ring_mask)
+    extra = {}
+    if bf16_main is not None:  # the bf16 ring at the same shape and positions
+        extra["bf16_ms"] = timed_ms(lambda: ring_attention_stats(*bf16_main))
+        extra["bf16_ms_over_library"] = extra["bf16_ms"] / library_ms
     return {
         "name": K4 + ("_fp8" if scaled == "fp8" else ""), "kernel": "K4", "route": "cuda",
         "ring": scaled,
         "source": "mistral_inference_tpu_torch/ops/cuda/csrc/ring_attention.cu",
         "replaces": "mistral_inference_tpu/ops/pallas/attention.py:501",
         "max_abs_err": worst, "merge_max_abs_err": merge_err,
-        "ms": timed_ms(lambda: ring_attention_stats(*main)),
+        "ms": ms,
         "plain_ms": timed_ms(lambda: attend_stats_plain(
             q, kq.view(B, S, HKV, D), vq.view(B, S, HKV, D), ks, vs, *main[5:])),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": sdpa_ms(q, deq_k, deq_v, ring_mask),
+        "library_ms": library_ms, "ms_over_library": ms / library_ms, **extra,
         "shape": f"B=4 T=512 over an {scaled} ring of S=4096 (two rows wrapped) H=32 Hkv=8 "
                  "D=128" + ("; also checked: a bf16 ring" if scaled == "int8" else ""),
+        "cases": "main; window 1000 (mixed tiles at the window's edge); invalid slots "
+                 "inside tiles; T=200 (a ragged query tile); a row's bits at B=1 equal "
+                 "its bits at B=8",
         "tolerance": "kernel vs plain: abs 1e-2 + rel 1e-2 on bf16 outputs, 1e-4 on "
                      "stats; merge vs fp32 oracle: 2e-2, since the oracle keeps the "
                      "probabilities in fp32 where the kernels round them to bf16",
@@ -1193,16 +1230,20 @@ VIS_H, VIS_D = 16, 64
 def check_k10(gen):
     """K10 at Pixtral's encoder shapes: a full 1024 x 1024 image (N = 4096,
     no padding, the timed case), a 504-patch image in its 512 bucket (8
-    padding rows of id -1), a 256-patch bucket, and two images of 1536 and
-    2048 patches in one N = 3584 row with ids 0 and 1 (the concatenated
-    block-diagonal form)."""
+    padding rows of id -1), a 256-patch bucket, two images of 1536 and 2048
+    patches in one N = 3584 row with ids 0 and 1 (the concatenated
+    block-diagonal form), and images of 1600 and 1984 patches (a boundary
+    inside a tile), whose first alone must give its bits in the pair."""
     from mistral_inference_tpu_torch.ops.cuda.attention import (
         segment_attention_plain, segment_flash_attention,
     )
 
     bf = torch.bfloat16
+    # The last case puts an image boundary inside a 128-row tile (1536 is a
+    # whole number of tiles; 1600 is not): the straddling tiles are masked.
     cases = (("image 4096", [(0, 4096)]), ("bucket 512, 8 padding", [(0, 504), (-1, 8)]),
-             ("bucket 256", [(0, 256)]), ("two images 1536 + 2048", [(0, 1536), (1, 2048)]))
+             ("bucket 256", [(0, 256)]), ("two images 1536 + 2048", [(0, 1536), (1, 2048)]),
+             ("two images 1600 + 1984", [(0, 1600), (1, 1984)]))
     worst, rows = 0.0, []
     for label, parts in cases:
         N = sum(n for _, n in parts)
@@ -1215,28 +1256,41 @@ def check_k10(gen):
         ok, err = close(out, ref, 1e-2, 1e-2)
         require(ok, f"K10 disagrees with its plain version ({label}, N={N}): {err}")
         worst = max(worst, err)
+        if len(parts) == 2 and parts[0][1] % 128:
+            # Batch invariance: the first image alone has the bits it has
+            # beside the second (encode_images with group_max > 1).
+            n0 = parts[0][1]
+            alone = segment_flash_attention(*(x[:, :n0].contiguous() for x in (q, k, v, seg)))
+            torch.cuda.synchronize()
+            require(same_bits(alone, out[:, :n0]),
+                    f"K10: an image alone differs in its bits from the same image in a "
+                    f"group ({label})")
         mask = seg[:, :, None] == seg[:, None, :]
         b_ms, b_by = bound(4.0 * VIS_D * VIS_H * float(mask.sum()),
                            nbytes(q, k, v, seg) + nbytes(q))
+        ms = timed_ms(lambda: segment_flash_attention(q, k, v, seg))
+        library_ms = sdpa_ms(q, k, v, mask)
         rows.append({
-            "case": label, "N": N, "max_abs_err": err,
-            "ms": timed_ms(lambda: segment_flash_attention(q, k, v, seg)),
+            "case": label, "N": N, "max_abs_err": err, "ms": ms,
             "plain_ms": timed_ms(lambda: segment_attention_plain(q, k, v, seg), reps=3),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_ms(q, k, v, mask),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "ms_over_library": ms / library_ms,
         })
         del q, k, v, out, ref, mask
     main = rows[0]
     return {
         "name": "segment_flash_attention", "kernel": "K10", "route": "cuda",
-        "source": "mistral_inference_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+        "source": "mistral_inference_tpu_torch/ops/cuda/csrc/segment_attention.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:140 (stock "
                     "flash_attention with SegmentIds, called at "
                     "mistral_inference_tpu/models/vision.py:161-197)",
         "max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"], "cases": rows,
+        "library_ms": main["library_ms"], "ms_over_library": main["ms_over_library"],
+        "cases": rows,
         "shape": f"B=1 N=4096 H={VIS_H} D={VIS_D} bf16, one segment (a 1024 x 1024 image); "
-                 "cases: each of the four shapes",
+                 "cases: each of the five shapes; the 1600-patch image alone has the bits "
+                 "it has beside the 1984-patch one",
         "bound": "4 D H flops per visible (query, key) pair over the bf16 tensor-core peak; "
                  "q, k, v, seg in and out once over the memory rate",
         "library": "F.scaled_dot_product_attention with the (N, N) boolean segment mask",
@@ -2082,13 +2136,14 @@ def pixtral_profile(model, prompts, images, encode_all):
         prompts, model, images=images, chunk_size=CHUNK, temperature=0.0, max_tokens=0))
     enc_wall, (enc_busy, enc_cats, _) = prof(encode_all)
     k10 = cats.get("K10 segment flash", 0.0)
+    k1_k4 = cats.get("K1 flash_tile", 0.0) + cats.get("K4 flash_hopper", 0.0)
     return {
         "prefill_all_prompts": {
             "wall_ms": wall, "kernel_ms": busy, "device_idle_share": 1.0 - busy / wall,
             "encoder_linears_ms": enc_cats.get("matmul", 0.0), "K10_ms": k10,
             "decoder_linears_ms": cats.get("matmul", 0.0) - enc_cats.get("matmul", 0.0),
-            "K1_K4_ms": cats.get("K1/K4 flash_tile", 0.0),
-            "other_ms": busy - cats.get("matmul", 0.0) - k10 - cats.get("K1/K4 flash_tile", 0.0),
+            "K1_K4_ms": k1_k4, "K4_ms": cats.get("K4 flash_hopper", 0.0),
+            "other_ms": busy - cats.get("matmul", 0.0) - k10 - k1_k4,
             "kernel_ms_by_category": cats,
             "top_kernels_ms": [[round(ms, 3), k] for ms, k in top[:12]],
         },
@@ -2403,13 +2458,14 @@ def kernel_ms(prof, calls: int = 1):
             continue
         ms = getattr(ev, "self_device_time_total", 0.0) / 1e3 / calls
         name = ev.key.lower()
-        # K10 is the flash_tile instantiation whose last template argument
-        # (kSegment) is true.
-        if "flash_tile" in name and ", true>" in name:
+        # K4 and K10 are instantiations of flash_hopper_kernel; K10's last
+        # template argument (kSegment) is true.
+        if "flash_hopper" in name and ", true>" in name:
             cats["K10 segment flash"] = cats.get("K10 segment flash", 0.0) + ms
             top.append((ms, ev.key[:80]))
             continue
-        cat = next((c for k, c in (("flash_tile", "K1/K4 flash_tile"),
+        cat = next((c for k, c in (("flash_tile", "K1 flash_tile"),
+                                   ("flash_hopper", "K4 flash_hopper"),
                                    ("fused_decode", "K2/K6 fused_decode"),
                                    ("decode_merge", "K2/K6 fused_decode"),
                                    ("matmul_quant", "K3 matmul_quant"),

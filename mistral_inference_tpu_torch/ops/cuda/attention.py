@@ -7,7 +7,9 @@ Six hand-written CUDA kernels for Hopper (sources in ``csrc/``, built by
 * ``flash_attention`` (K1, ``csrc/flash_attention.cu``): a chunk's attention
   to its own keys, optionally with online-softmax stats.
 * ``ring_attention_stats`` (K4, ``csrc/ring_attention.cu``): a chunk's
-  queries over one layer's stored ring, with stats.
+  queries over one layer's stored ring, with stats, on the Hopper tile loop
+  of ``csrc/flash_hopper.cuh`` (wgmma, an asynchronous K/V pipeline,
+  visibility decided per tile).
 * ``fused_update_decode_attention`` (K2, ``csrc/fused_decode.cu``): one
   decode step's ring write plus ring-only attention.
 * ``decode_attention`` (K6, the write-free instantiation of
@@ -16,9 +18,10 @@ Six hand-written CUDA kernels for Hopper (sources in ``csrc/``, built by
 * ``fused_verify_chunk_attention`` (K7, the T <= 8 instantiation of
   ``csrc/fused_decode.cu``): a speculative verify chunk's T candidate K/V
   written to consecutive ring slots, then all T queries attending ring-only.
-* ``segment_flash_attention`` (K10, the head-dim-64 segment-mask
-  instantiation of K1's tile loop in ``csrc/flash_attention.cu``): the vision
-  encoder's non-causal attention, where a patch sees only its own segment.
+* ``segment_flash_attention`` (K10, ``csrc/segment_attention.cu``, the
+  head-dim-64 segment-mask instantiation of K4's Hopper tile loop): the
+  vision encoder's non-causal attention, where a patch sees only its own
+  segment.
 
 The four kernels that read or write the KV ring (K4, K2, K6, K7) are each
 built for three ring types, picked by the ring's dtype: int8 and
@@ -64,7 +67,7 @@ _SIGS = {
        [_P] * 7 + [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _P] for kind in ("int8", "fp8")},
     ("fused_decode", "fused_verify_bf16"): [_P] * 5 + [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _P],
     ("fused_decode", "fused_decode_span"): [],
-    ("flash_attention", "flash_attention_seg_bf16"): [_P] * 5 + [_I] * 3 + [_F, _P],
+    ("segment_attention", "flash_attention_seg_bf16"): [_P] * 5 + [_I] * 3 + [_F, _P],
 }
 _kernel = functools.partial(_call.kernel, _SIGS)
 _launch = functools.partial(_call.launch, _SIGS)
@@ -619,7 +622,7 @@ def segment_flash_attention(
 
     Every N goes through the kernel: the JAX package's gate on the stock TPU
     kernel, N >= 512 and N % 512 == 0, follows that kernel's block sizes, and
-    the 64-row tiles here take any N."""
+    the 128-row tiles here take any N."""
     B, N, H, D = q.shape
     if not q.is_cuda:
         return segment_attention_plain(q, k, v, seg)
@@ -633,7 +636,7 @@ def segment_flash_attention(
     sg = _meta(seg, "seg", torch.int32, (B, N), dev)
     out = torch.empty((B, N, H * D), dtype=bf, device=dev)
     _launch(
-        "flash_attention", "flash_attention_seg_bf16", dev, q.data_ptr(), k.data_ptr(),
+        "segment_attention", "flash_attention_seg_bf16", dev, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), sg.data_ptr(), out.data_ptr(), B, N, H, D**-0.5,
     )
     segment_flash_attention.launches += 1

@@ -127,27 +127,9 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const __nv_bfloat
                : "r"(addr));
 }
 
-// Eight consecutive elements -> eight bf16 in shared memory (16 bytes).
+// Eight consecutive bf16 -> shared memory (16 bytes).
 __device__ __forceinline__ void stage8(const __nv_bfloat16* src, __nv_bfloat16* dst) {
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-}
-
-__device__ __forceinline__ void stage8(const int8_t* src, __nv_bfloat16* dst) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(src);
-  float f[8];
-  biased_bytes_to_float(raw.x ^ 0x80808080u, 128.f, f);
-  biased_bytes_to_float(raw.y ^ 0x80808080u, 128.f, f + 4);
-  *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
-                                              pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
-}
-
-// e4m3 -> bf16 is exact too: e4m3's 3 mantissa bits and exponents 2^-9..2^8
-// fit bf16's 7 bits and 8-bit exponent.
-__device__ __forceinline__ void stage8(const __nv_fp8_e4m3* src, __nv_bfloat16* dst) {
-  float f[8];
-  e4m3x8_to_float(*reinterpret_cast<const uint2*>(src), f);
-  *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
-                                              pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
 }
 
 // ---- asynchronous copies, global -> shared, 16 bytes (both 16-byte aligned) ----

@@ -1,0 +1,809 @@
+// Tiled online-softmax attention for Hopper, shared by the ring kernel (K4:
+// a chunk's queries over one layer's stored ring, int8 or e4m3 with
+// per-(slot, head) scales, or bf16) and the vision encoder's segment-masked
+// attention (K10). K1 still runs the older mma.sync loop in flash_tile.cuh.
+//
+// Function: for every query row (token t, head h), softmax over the visible
+// keys s of (q . k_s) * k_scale[s] * D^-1/2, times v_s * v_scale[s]. A key is
+// visible when q_valid[t] and kv_valid[s] hold and 0 <= q_pos[t] - kv_pos[s]
+// < window (K4); or, with kSegment (K10), when the segment ids held in q_pos
+// and kv_pos are equal (no validity flags: every row is a token of some
+// segment, the bucket padding a segment of its own). GQA: head h reads KV
+// head h / G. Returns the normalized output and, where m_out is given, the
+// stats m (row max of the scaled logits, natural-log units) and l (sum of
+// exp(x - m)) for an exact merge of two key sets. A row that sees no key
+// returns 0, m = -1e30, l = 0.
+//
+// Layouts: q and out (B, T, H, D); keys and values (B, S, Hkv * D); scales
+// (B, Hkv, S); m and l (B, T, H). Numerics: fp32 dots of bf16 operands (an
+// int8 or e4m3 value widens to bf16 exactly), scales after the dot,
+// probabilities times the value scale rounded to bf16 before the PV product.
+//
+// What bounds it on the H100: at the main path's shapes (T = 512 queries, G
+// = 4, over a 4096-slot ring at D = 128; a 4096-patch image with 16 heads of
+// 64) it does 4 * D flops per visible (query head, key) pair, 68.7 GFLOP for
+// the image and about 85 GFLOP for the ring chunk, against 33.5 MB and 44 MB
+// of operands: compute-bound, far above the card's 295 flop/byte ridge. The
+// design puts both products on the bf16 tensor cores and hides the loads
+// behind them; on an H100 SXM at 700 W it reaches about a third (K10) and a
+// fifth to a quarter (K4) of the tensor cores' peak, the softmax bounding it:
+//
+// - One block of three warpgroups per (query tile, KV head, batch row). The
+//   query tile is 128 rows: 128 / G tokens times the G heads that share the
+//   KV head (K4: 32 tokens x 4 heads; K10: 128 patches of one head), so a
+//   K/V tile read from device memory serves 128 rows. Warpgroups 0 and 1
+//   each own 64 rows and run both products on wgmma (m64nNk16, bf16 in,
+//   fp32 accumulate): S = Q K^T with Q in shared memory for the whole walk
+//   and the key tile as the K-major B operand, then O += P V with P repacked
+//   from the S accumulators into register A fragments and the value tile as
+//   the MN-major B operand. Every operand tile sits in shared memory in the
+//   128-byte swizzle the descriptors name. Each step issues S for this tile
+//   and, behind it, the previous tile's PV product, so the tensor cores run
+//   PV while the warpgroup computes this tile's softmax (S and O fit the
+//   168 registers a thread the launch bounds leave).
+// - The softmax is the consumers' main cost (at D = 64 the exponentials
+//   alone take as long as the products): it runs in log2 units on the
+//   special-function unit's ex2, with the key scale, D^-1/2 and log2 e
+//   folded into one per-key factor by the producer, four partial maxima and
+//   sums per row for short dependent chains, and O's rescale skipped where
+//   no row's maximum moved (alpha = 1).
+// - Warpgroup 2 is the producer. Its warp w owns stage w of a ring of
+//   kStages = 4 shared-memory stages and fills it with tiles w, w + 4, ...,
+//   signalled by mbarriers (full: tile landed; empty: both consumers are
+//   done with it), so four tiles are in flight and the consumers compute on
+//   tile j while the next land. A bf16 tile goes by cp.async straight into
+//   its swizzled stage (the mbarrier tracks the copies). An int8 or e4m3
+//   tile's raw bytes land by cp.async in the stage's V space and are widened
+//   to bf16 exactly (e4m3 through the paired cvt.rn.f16x2.e4m3x2; the bf16
+//   pair taken as the high halves of exact fp32 values, no rounding
+//   convert); the key metadata and scales, loaded a tile ahead, travel in
+//   the stage beside the tile. cp.async rather than TMA: no tensor map to
+//   encode and cache per ring pointer from a library built without the
+//   driver API, and the scaled rings need the producer's widening anyway.
+// - Visibility decided per tile. The producer classifies each (query tile,
+//   key tile) pair from the range of its valid query positions (or segment
+//   ids) and the key tile's min, max and validity (warp reductions; a ring's
+//   positions are not monotonic after a wrap): skipped (no pair can be
+//   visible: nothing loaded, the consumers free the stage at once), full
+//   (every pair of a valid query row is visible) or mixed. Only mixed tiles
+//   pay the per-element mask, as -inf logits; a mixed tile whose pairs are
+//   all visible computes the same bits as a full one. Invalid query rows are
+//   zeroed when written, so they do not make a tile mixed.
+// - Tiles: 64 keys at D = 128 (S 32 and O 64 fp32 registers a thread) and
+//   128 keys at D = 64, so every barrier buys the same MMA at both widths;
+//   four stages (165 KB and 153 KB of shared memory), one block an SM. The
+//   role and tile class are broadcast from lane 0 (__shfl_sync), so the
+//   compiler sees no divergent path around a wgmma and does not serialize
+//   them.
+//
+// Determinism and batch invariance: no atomics and no split over S. Each
+// output row is computed by one block walking its key tiles in order, and a
+// tile's class depends only on its own rows and keys, so a row's bits do not
+// depend on B or on the other rows.
+#pragma once
+
+#include <climits>
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace mit {
+namespace hopper {
+
+constexpr int kRows = 128;       // query rows per block: two consumer warpgroups of 64
+constexpr int kConsumers = 256;  // threads of the two consumer warpgroups
+constexpr int kProducers = 128;  // the producer warpgroup
+constexpr int kThreads = kConsumers + kProducers;
+constexpr int kStages = 4;
+constexpr int kFull = 0, kMixed = 1, kSkip = 2;  // a stage's tile class
+
+template <int D>
+constexpr int kKeysOf = D == 64 ? 128 : 64;
+
+// ---- shared memory: 128-byte swizzled operand tiles, stage metadata, barriers ----
+
+// Byte offset of 16-byte chunk c (elements 8c..8c+7) of row r in a tile of R
+// rows of bf16: 64-element column blocks of R rows x 128 bytes, the chunk
+// index XORed with r % 8 (the 128-byte swizzle; blocks are 1024-byte aligned).
+__device__ __forceinline__ uint32_t sw128(int r, int c, int R) {
+  return (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+template <int kKeys>
+struct StageMeta {
+  int kpos[kKeys];  // position (K4) or segment id (K10) of each key; 0 when invalid
+  int kok[kKeys];   // key valid
+  float kf[kKeys];  // k_scale * D^-1/2 * log2 e (scaled rings; 0 when invalid)
+  float vs[kKeys];  // value scale (scaled rings; 0 when invalid)
+};
+
+template <int D>
+struct Smem {
+  static constexpr int kKeys = kKeysOf<D>;
+  static constexpr int kQ = 0;                               // kRows x D bf16
+  static constexpr int kTile = kRows * D * 2;                // K, then V, per stage
+  static constexpr int kTileBytes = kKeys * D * 2;
+  static constexpr int kMeta = kTile + kStages * 2 * kTileBytes;
+  static constexpr int kCls = kMeta + kStages * sizeof(StageMeta<kKeys>);
+  static constexpr int kBars = kCls + 16 * kStages;          // full[kStages], empty[kStages]
+  static constexpr int kBytes = kBars + 16 * kStages;
+  static_assert(kTile % 1024 == 0 && kTileBytes % 1024 == 0, "swizzle atoms 1024-aligned");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`. The
+// loop lives inside the asm, so the compiler sees no divergent branch around
+// the wgmma that follow. A wait of 2^22 tries (far above any real wait) traps, so a
+// fault in the pipeline's protocol ends the kernel with an error instead of
+// holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.eq.u32 p, n, 4194304;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// The barrier's current phase completes only once this thread's cp.async
+// copies issued so far have landed (a pending count of one, added now and
+// arrived on when they land).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16_to(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_shared16(uint32_t src) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(src)
+               : "memory");
+  return v;
+}
+
+// Writes of the generic proxy (st.shared, cp.async) made visible to the
+// async proxy that wgmma reads shared memory through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- wgmma ----
+
+// Matrix descriptor of a 128-byte swizzled operand: start address, leading
+// and stride byte offsets (16-byte units), layout type 1 (128B swizzle).
+// K-major: rows 8 apart at the stride offset (1024), the leading offset
+// unused; a 16-wide k-step inside a 64-element column block starts 32 bytes
+// further. MN-major: 8-row groups along K at the stride offset (1024), the
+// next 64-element block along MN at the leading offset. The low word holds
+// the address (>> 4, below 2^14 in shared memory) and the leading offset, so
+// a step through a tile adds a constant to it.
+constexpr uint32_t kDescHi = (1024 >> 4) | (1u << 30);  // stride offset; 128B swizzle
+
+__device__ __forceinline__ uint32_t desc_lo(uint32_t addr, uint32_t lbo_bytes) {
+  return (addr >> 4) | ((lbo_bytes >> 4) << 16);
+}
+
+__device__ __forceinline__ uint64_t desc(uint32_t lo) {
+  return static_cast<uint64_t>(kDescHi) << 32 | lo;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most kPending committed groups of this warpgroup still run.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Accumulator layout of m64nNk16 (fp32), per thread of the warpgroup: warp w
+// holds rows 16w..16w+15; d[4i + 2h + e] is row 16w + lane / 4 + 8h, column
+// 8i + 2 (lane % 4) + e. A register A fragment (bf16) follows mma.sync's
+// m16n8k16 A layout for the warp's 16 rows.
+
+// d (64 x 64) = A (64 x 16, shared, K-major) . B (64 x 16, shared, K-major)^T,
+// plus d where accumulate != 0.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128) = A (64 x 16, shared, K-major) . B (128 x 16, shared, K-major)^T,
+// plus d where accumulate != 0.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64) += A (64 x 16, registers) . B (16 x 64, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// ---- the producer's loads: one K and one V tile of kKeys rows ----
+
+// Two fp32 values that are exact in bf16 (an int8 or e4m3 value has at most
+// 8 significant bits, so its low 16 bits are 0) -> a bf16 pair, by taking
+// their high halves: one byte permute, no rounding convert.
+__device__ __forceinline__ uint32_t high_halves(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// 16 int8 or e4m3 values -> 16 bf16 (exact), as two 16-byte chunks.
+template <typename KT>
+__device__ __forceinline__ void widen16(uint4 raw, uint4& lo, uint4& hi) {
+  float f[16];
+  if constexpr (std::is_same<KT, int8_t>::value) {
+    biased_bytes_to_float(raw.x ^ 0x80808080u, 128.f, f);
+    biased_bytes_to_float(raw.y ^ 0x80808080u, 128.f, f + 4);
+    biased_bytes_to_float(raw.z ^ 0x80808080u, 128.f, f + 8);
+    biased_bytes_to_float(raw.w ^ 0x80808080u, 128.f, f + 12);
+  } else {
+    e4m3x8_to_float(make_uint2(raw.x, raw.y), f);
+    e4m3x8_to_float(make_uint2(raw.z, raw.w), f + 8);
+  }
+  lo = make_uint4(high_halves(f[0], f[1]), high_halves(f[2], f[3]), high_halves(f[4], f[5]),
+                  high_halves(f[6], f[7]));
+  hi = make_uint4(high_halves(f[8], f[9]), high_halves(f[10], f[11]),
+                  high_halves(f[12], f[13]), high_halves(f[14], f[15]));
+}
+
+// 2^x on the special-function unit (flushes results below 2^-126 to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One tile's online-softmax step for this thread's two rows (r0 and r0 + 8,
+// row half h) over its kKeys / 4 columns 8i + 2 quad + e, in log2 units:
+// the logit of a scaled ring's key is its dot times kf = k_scale * D^-1/2 *
+// log2 e (the producer's product); an unscaled key's is the dot times c2 =
+// D^-1/2 log2 e, folded into the exponent's fma (its maximum is the raw
+// dots' maximum times c2). Folds the tile's maximum into m2, leaves p (times
+// the value scale) in sc and returns the factor alpha that rescales the
+// earlier output. A masked pair's logit becomes -inf, which the maximum
+// ignores and whose p is 0; a full tile tests nothing. The maxima and sums
+// run over four partial accumulators each, so a thread's dependent chains
+// are short.
+template <bool kMasked, bool kScaled, bool kSegment, int kKeys>
+__device__ __forceinline__ void softmax_step(float (&sc)[kKeys / 2],
+                                             const StageMeta<kKeys>& mt, int quad,
+                                             const int (&qpos)[2], const bool (&qok)[2],
+                                             int window, float c2, float (&m2)[2],
+                                             float (&l)[2], float (&alpha)[2]) {
+  constexpr int kGroups = kKeys / 8;
+  float mx[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int a = 0; a < 4; ++a) mx[h][a] = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kGroups; ++i) {
+    const int c0 = i * 8 + 2 * quad;
+    float2 kf = make_float2(1.f, 1.f);
+    if (kScaled) kf = *reinterpret_cast<const float2*>(&mt.kf[c0]);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float& x = sc[4 * i + 2 * h + e];
+        if (kScaled) x *= e ? kf.y : kf.x;
+        if (kMasked) {
+          const int delta = qpos[h] - mt.kpos[c0 + e];
+          const bool see = qok[h] && mt.kok[c0 + e] &&
+                           (kSegment ? delta == 0 : delta >= 0 && delta < window);
+          x = see ? x : -INFINITY;
+        }
+        mx[h][i % 4] = fmaxf(mx[h][i % 4], x);
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float t = group_max(fmaxf(fmaxf(mx[h][0], mx[h][1]), fmaxf(mx[h][2], mx[h][3])), 4);
+    if (!kScaled) t *= c2;
+    const float m_new = fmaxf(m2[h], t);
+    alpha[h] = m2[h] > 0.5f * kNegInf ? ex2(m2[h] - m_new) : 0.f;
+    m2[h] = m_new;
+  }
+  float ps[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int i = 0; i < kGroups; ++i) {
+    float2 vs = make_float2(1.f, 1.f);
+    if (kScaled) vs = *reinterpret_cast<const float2*>(&mt.vs[i * 8 + 2 * quad]);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float& x = sc[4 * i + 2 * h + e];
+        const float p = kScaled ? ex2(x - m2[h]) : ex2(fmaf(x, c2, -m2[h]));
+        ps[h][i % 4] += p;
+        if (kScaled) x = p * (e ? vs.y : vs.x);  // rounded to bf16 when packed for PV
+        else x = p;
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    l[h] = alpha[h] * l[h] + group_sum((ps[h][0] + ps[h][1]) + (ps[h][2] + ps[h][3]), 4);
+}
+
+template <typename KT, bool kScaled, int D, bool kSegment>
+__global__ void __launch_bounds__(kThreads, 1) flash_hopper_kernel(
+    const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k,
+    const KT* __restrict__ v, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ q_pos,
+    const int* __restrict__ kv_pos, const uint8_t* __restrict__ q_valid,
+    const uint8_t* __restrict__ kv_valid, int window,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
+    float* __restrict__ l_out, int T, int S, int H, int Hkv, float scale) {
+  using L = Smem<D>;
+  constexpr int kKeys = L::kKeys;
+  constexpr int kPerLane = kKeys / 32;  // keys of a tile per producer lane
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  const int G = H / Hkv;
+  const int TQ = kRows / G;
+  const int b = blockIdx.z, j = blockIdx.y, t0 = blockIdx.x * TQ;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int n_tiles = (S + kKeys - 1) / kKeys;
+  const size_t HD = static_cast<size_t>(Hkv) * D;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t sbase = smem_u32(sm);
+  auto k_tile = [&](int st) { return sbase + L::kTile + st * 2 * L::kTileBytes; };
+  auto v_tile = [&](int st) { return k_tile(st) + L::kTileBytes; };
+  StageMeta<kKeys>* meta = reinterpret_cast<StageMeta<kKeys>*>(sm + L::kMeta);
+  volatile int* cls_of = reinterpret_cast<volatile int*>(sm + L::kCls);
+  auto full_bar = [&](int st) { return sbase + L::kBars + 8 * st; };
+  auto empty_bar = [&](int st) { return sbase + L::kBars + 8 * (kStages + st); };
+
+  // Query tile, swizzled: row r is token t0 + r / G, head j * G + r % G.
+  for (int e = tid; e < kRows * D / 8; e += kThreads) {
+    const int r = e / (D / 8), c = e % (D / 8);
+    const int t = t0 + r / G;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (t < T)
+      val = *reinterpret_cast<const uint4*>(
+          q + ((static_cast<size_t>(b) * T + t) * H + j * G + r % G) * D + c * 8);
+    st_shared16(sbase + L::kQ + sw128(r, c, kRows), val);
+  }
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_bar(st), 32);  // the producer warp that owns the stage
+      mbar_init(empty_bar(st), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  // The warpgroup's role, broadcast from lane 0 so that the compiler knows
+  // it is the same in every lane: wgmma must not sit on a divergent path.
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == kConsumers / 128) {
+    // ===== producer warpgroup: warp pw fills stage pw with tiles pw, pw + 4, ... =====
+    const int pw = __shfl_sync(0xffffffffu, (tid - kConsumers) / 32, 0);
+    // The query tile's range of positions (segment ids) over its valid rows.
+    int qmin = INT_MAX, qmax = INT_MIN;
+    for (int r = lane; r < kRows; r += 32) {
+      const int t = t0 + r / G;
+      if (t < T && (kSegment || q_valid[static_cast<size_t>(b) * T + t])) {
+        const int p = q_pos[static_cast<size_t>(b) * T + t];
+        qmin = min(qmin, p);
+        qmax = max(qmax, p);
+      }
+    }
+    qmin = __reduce_min_sync(0xffffffffu, qmin);
+    qmax = __reduce_max_sync(0xffffffffu, qmax);
+
+    uint32_t phase = 0;
+    // A tile's key metadata, lane holding keys lane + 32 i: every load is
+    // issued at once (none waits on another's value), one tile ahead.
+    struct KeyMeta {
+      int pos[kPerLane];
+      uint8_t ok[kPerLane];
+      float kf[kPerLane], vs[kPerLane];
+    };
+    auto load_meta = [&](int tile, KeyMeta& km) {
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        const int s = tile * kKeys + lane + 32 * i;
+        km.ok[i] = s < S;
+        km.pos[i] = km.kf[i] = km.vs[i] = 0;
+        if (s < S) {
+          if (!kSegment) km.ok[i] = kv_valid[static_cast<size_t>(b) * S + s];
+          km.pos[i] = kv_pos[static_cast<size_t>(b) * S + s];
+          if (kScaled) {
+            const size_t si = (static_cast<size_t>(b) * Hkv + j) * S + s;
+            km.kf[i] = k_scale[si];
+            km.vs[i] = v_scale[si];
+          }
+        }
+      }
+    };
+    KeyMeta cur, nxt;
+    if (pw < n_tiles) load_meta(pw, cur);
+    for (int tile = pw; tile < n_tiles; tile += kStages, phase ^= 1) {
+      const int s0 = tile * kKeys;
+      if (tile + kStages < n_tiles) load_meta(tile + kStages, nxt);
+      int kp[kPerLane];
+      bool ok[kPerLane];
+      float ksv[kPerLane], vsv[kPerLane];
+      int kmin = INT_MAX, kmax = INT_MIN;
+      bool all_ok = true;
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        ok[i] = cur.ok[i];
+        kp[i] = ok[i] ? cur.pos[i] : 0;
+        ksv[i] = ok[i] ? cur.kf[i] * scale * kLog2e : 0.f;
+        vsv[i] = ok[i] ? cur.vs[i] : 0.f;
+        all_ok = all_ok && ok[i];
+        if (ok[i]) kmin = min(kmin, kp[i]), kmax = max(kmax, kp[i]);
+      }
+      cur = nxt;
+      kmin = __reduce_min_sync(0xffffffffu, kmin);
+      kmax = __reduce_max_sync(0xffffffffu, kmax);
+      all_ok = __all_sync(0xffffffffu, all_ok);
+      // Skipped: no valid query or key, or no pair can be visible. Full:
+      // every pair of a valid query row is visible. Else mixed.
+      int cls = kSkip;
+      if (qmin <= qmax && kmin <= kmax) {
+        if (kSegment) {
+          if (qmax >= kmin && qmin <= kmax)
+            cls = all_ok && qmin == qmax && kmin == kmax && qmin == kmin ? kFull : kMixed;
+        } else if (qmax - kmin >= 0 && qmin - kmax < window) {
+          // q_pos - kv_pos lies in [qmin - kmax, qmax - kmin].
+          cls = all_ok && qmin - kmax >= 0 && qmax - kmin < window ? kFull : kMixed;
+        }
+      }
+
+      mbar_wait(empty_bar(pw), phase ^ 1);
+      if (cls != kSkip) {
+        if constexpr (sizeof(KT) == 2) {
+          // bf16: cp.async each 16-byte chunk into its swizzled place; the
+          // stage's barrier waits for the copies.
+          constexpr int kChunks = kKeys * D / 8;
+#pragma unroll 8
+          for (int e = lane; e < kChunks; e += 32) {
+            const int r = e / (D / 8), c = e % (D / 8);
+            const uint32_t off = sw128(r, c, kKeys);
+            if (s0 + r < S) {
+              const size_t g = (static_cast<size_t>(b) * S + s0 + r) * HD + j * D + c * 8;
+              cp_async16_to(k_tile(pw) + off, k + g);
+              cp_async16_to(v_tile(pw) + off, v + g);
+            } else {
+              st_shared16(k_tile(pw) + off, make_uint4(0u, 0u, 0u, 0u));
+              st_shared16(v_tile(pw) + off, make_uint4(0u, 0u, 0u, 0u));
+            }
+          }
+          cp_async_mbar_arrive(full_bar(pw));
+        } else {
+          // int8 / e4m3: the raw K and V bytes (kKeys * D each) land by
+          // cp.async in the stage's V space, K in its first half and V in
+          // its second; K is widened from there into the K space, then V
+          // through registers over its own space.
+          constexpr int kRaw = kKeys * D;
+          constexpr int kLoads = kRaw / 16 / 32;  // 16-byte chunks a lane, per K or V
+          const uint32_t raw_k = v_tile(pw), raw_v = v_tile(pw) + kRaw;
+#pragma unroll
+          for (int i = 0; i < kLoads; ++i) {
+            const int e = lane + 32 * i;
+            const int r = e / (D / 16), c = e % (D / 16);
+            if (s0 + r < S) {
+              const size_t g = (static_cast<size_t>(b) * S + s0 + r) * HD + j * D + c * 16;
+              cp_async16_to(raw_k + 16 * e, k + g);
+              cp_async16_to(raw_v + 16 * e, v + g);
+            } else {
+              st_shared16(raw_k + 16 * e, make_uint4(0u, 0u, 0u, 0u));
+              st_shared16(raw_v + 16 * e, make_uint4(0u, 0u, 0u, 0u));
+            }
+          }
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncwarp();
+#pragma unroll
+          for (int i = 0; i < kLoads; ++i) {
+            const int e = lane + 32 * i;
+            const int r = e / (D / 16), c = 2 * (e % (D / 16));
+            uint4 lo, hi;
+            widen16<KT>(ld_shared16(raw_k + 16 * e), lo, hi);
+            st_shared16(k_tile(pw) + sw128(r, c, kKeys), lo);
+            st_shared16(k_tile(pw) + sw128(r, c + 1, kKeys), hi);
+          }
+          uint4 raw[kLoads];
+#pragma unroll
+          for (int i = 0; i < kLoads; ++i) raw[i] = ld_shared16(raw_v + 16 * (lane + 32 * i));
+          __syncwarp();  // every lane has read the raw bytes it overwrites next
+#pragma unroll
+          for (int i = 0; i < kLoads; ++i) {
+            const int e = lane + 32 * i;
+            const int r = e / (D / 16), c = 2 * (e % (D / 16));
+            uint4 lo, hi;
+            widen16<KT>(raw[i], lo, hi);
+            st_shared16(v_tile(pw) + sw128(r, c, kKeys), lo);
+            st_shared16(v_tile(pw) + sw128(r, c + 1, kKeys), hi);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i) {
+          const int c = lane + 32 * i;
+          meta[pw].kpos[c] = kp[i];
+          meta[pw].kok[c] = ok[i];
+          if (kScaled) {
+            meta[pw].kf[c] = ksv[i];
+            meta[pw].vs[c] = vsv[i];
+          }
+        }
+      }
+      if (lane == 0) cls_of[pw] = cls;
+      fence_proxy_async();
+      mbar_arrive(full_bar(pw));
+    }
+  } else {
+    // ===== consumer warpgroups 0 and 1: 64 query rows each =====
+    const int quad = lane & 3;
+    const int r0 = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);  // rows r0, r0 + 8
+    int qpos[2];
+    bool qok[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = t0 + (r0 + 8 * h) / G;
+      qok[h] = t < T && (kSegment || q_valid[static_cast<size_t>(b) * T + t]);
+      qpos[h] = qok[h] ? q_pos[static_cast<size_t>(b) * T + t] : 0;
+    }
+    const uint32_t q_lo = desc_lo(sbase + L::kQ + wg * 64 * 128, 16);
+    const float c2 = scale * kLog2e;
+
+    float m2[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // m2: row max, log2 units
+    float o[D / 64][32];  // output: column block n of 64 dims
+#pragma unroll
+    for (int n = 0; n < D / 64; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[n][i] = 0.f;
+    float sc[kKeys / 2];
+#pragma unroll
+    for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.f;
+
+    // O += P V for the tile in stage pst: key step kk covers keys
+    // 16kk..16kk+15, whose probabilities are the A fragment pa[kk]. V is the
+    // MN-major B operand: rows of keys, 64-dim blocks kKeys rows apart.
+    uint32_t pa[kKeys / 16][4];
+    auto issue_pv = [&](int pst) {
+      const uint32_t v_lo = desc_lo(v_tile(pst), kKeys * 128);
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+        for (int n = 0; n < D / 64; ++n)
+          wgmma_rs(o[n], pa[kk],
+                   desc(v_lo + (n * kKeys * 128 + kk * 16 * 128) / 16));
+      wgmma_commit();
+    };
+    // O *= alpha, the factor of the softmax step since O's last PV product.
+    // Most steps leave a row's maximum where it was (alpha = 1): skipped.
+    float alpha[2] = {1.f, 1.f};
+    auto rescale = [&]() {
+      if (alpha[0] != 1.f || alpha[1] != 1.f) {
+#pragma unroll
+        for (int n = 0; n < D / 64; ++n)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            o[n][4 * i] *= alpha[0];
+            o[n][4 * i + 1] *= alpha[0];
+            o[n][4 * i + 2] *= alpha[1];
+            o[n][4 * i + 3] *= alpha[1];
+          }
+      }
+    };
+    // Run the held tile's PV product to its end and free its stage.
+    auto flush = [&](int pst) {
+      rescale();
+      alpha[0] = alpha[1] = 1.f;
+      wgmma_fence();
+      issue_pv(pst);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int n = 0; n < D / 64; ++n) fence_regs(o[n]);
+      mbar_arrive(empty_bar(pst));
+    };
+
+    // Each step issues S = Q K^T for this tile and, behind it, O += P V for
+    // the previous one, so the tensor cores run the PV product while this
+    // warpgroup computes the softmax of S. Tile t sits in stage t % kStages.
+    int pst = -1;  // the stage whose PV product is still to run (-1: none)
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int st = tile % kStages;
+      if (st == pst) {  // kStages - 1 skipped tiles since: the stage is needed again
+        flush(pst);
+        pst = -1;
+      }
+      mbar_wait(full_bar(st), (tile / kStages) & 1);
+      const int cls = __shfl_sync(0xffffffffu, cls_of[st], 0);
+      if (cls == kSkip) {
+        mbar_arrive(empty_bar(st));
+        continue;
+      }
+      const StageMeta<kKeys>& mt = meta[st];
+      fence_proxy_async();
+
+      // S = Q K^T: D / 16 k-steps of 16 dims; then the held tile's PV.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // inside a 64-dim column block
+        wgmma_ss(sc, desc(q_lo + ((kk / 4) * (kRows * 128) + off) / 16),
+                 desc(desc_lo(k_tile(st), 16) + ((kk / 4) * (kKeys * 128) + off) / 16), kk > 0);
+      }
+      wgmma_commit();
+      if (pst >= 0) {
+        rescale();
+        wgmma_fence();
+        issue_pv(pst);
+      }
+      if (pst >= 0)
+        wgmma_wait<1>();  // S has landed; the PV product may still run
+      else
+        wgmma_wait<0>();
+      fence_regs(sc);
+
+      if (cls == kMixed)
+        softmax_step<true, kScaled, kSegment>(sc, mt, quad, qpos, qok, window, c2, m2, l,
+                                              alpha);
+      else
+        softmax_step<false, kScaled, kSegment>(sc, mt, quad, qpos, qok, window, c2, m2, l,
+                                               alpha);
+
+      // The held tile's PV product done: its stage is free, the A fragments
+      // may be written.
+      wgmma_wait<0>();
+#pragma unroll
+      for (int n = 0; n < D / 64; ++n) fence_regs(o[n]);
+      if (pst >= 0) mbar_arrive(empty_bar(pst));
+      // The S accumulators of 8-column groups 2kk and 2kk + 1 are exactly
+      // the A fragment of key step kk.
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      pst = st;
+    }
+    if (pst >= 0) flush(pst);
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      const int t = t0 + r / G;
+      if (t >= T) continue;
+      const size_t row = (static_cast<size_t>(b) * T + t) * H + j * G + r % G;
+      const bool seen = qok[h] && l[h] > 0.f;
+      const float inv = seen ? 1.f / l[h] : 0.f;
+#pragma unroll
+      for (int n = 0; n < D / 64; ++n)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          *reinterpret_cast<__nv_bfloat162*>(out + row * D + n * 64 + i * 8 + 2 * quad) =
+              seen ? __floats2bfloat162_rn(o[n][4 * i + 2 * h] * inv,
+                                           o[n][4 * i + 2 * h + 1] * inv)
+                   : __floats2bfloat162_rn(0.f, 0.f);
+      if (quad == 0 && m_out != nullptr) {
+        m_out[row] = seen ? m2[h] * 0.6931471805599453f : kNegInf;  // natural-log units
+        l_out[row] = qok[h] ? l[h] : 0.f;
+      }
+    }
+  }
+}
+
+// Launch on `stream`; returns the CUDA error code (0 = launched).
+template <typename KT, bool kScaled, int D, bool kSegment>
+int launch_flash_hopper(const void* q, const void* k, const void* v, const void* k_scale,
+                        const void* v_scale, const void* q_pos, const void* kv_pos,
+                        const void* q_valid, const void* kv_valid, int window, void* out,
+                        void* m_out, void* l_out, int B, int T, int S, int H, int Hkv,
+                        float scale, void* stream) {
+  if (Hkv < 1 || H % Hkv != 0 || kRows % (H / Hkv) != 0) return cudaErrorInvalidValue;
+  const int TQ = kRows / (H / Hkv);
+  const int smem = Smem<D>::kBytes + 1024;  // + room to align the tiles to 1024 bytes
+  auto kern = flash_hopper_kernel<KT, kScaled, D, kSegment>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + TQ - 1) / TQ, Hkv, B);
+  kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KT*>(k),
+      static_cast<const KT*>(v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(q_pos),
+      static_cast<const int*>(kv_pos), static_cast<const uint8_t*>(q_valid),
+      static_cast<const uint8_t*>(kv_valid), window, static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(m_out), static_cast<float*>(l_out), T, S, H, Hkv, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+}  // namespace mit

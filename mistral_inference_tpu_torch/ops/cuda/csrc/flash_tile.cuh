@@ -1,51 +1,42 @@
-// Tiled online-softmax attention over one KV head's keys, shared by the
-// flash_attention kernel (K1: bf16 chunk keys), the ring_attention_stats
-// kernel (K4: a bf16 ring, or an int8 or e4m3 ring with per-(slot, head)
-// scales) and the segment-masked vision encoder attention (K10).
+// Tiled online-softmax attention over one KV head's bf16 keys, with
+// mma.sync: the flash_attention kernel (K1). The ring kernel (K4) and the
+// vision encoder's segment-masked attention (K10) run the Hopper loop of
+// flash_hopper.cuh (wgmma, an asynchronous K/V pipeline, visibility decided
+// per tile); K1 is to move onto it, after which this header goes.
 //
 // Function: for every query row (token t, head h), softmax over the visible
-// keys s of (q . k_s) * k_scale[s] * D^-1/2, times v_s * v_scale[s]. A key is
-// visible when q_valid[t] and kv_valid[s] hold and, by position (K1, K4),
-// 0 <= q_pos[t] - kv_pos[s] < window; or, with kSegment (K10), when the two
-// segment ids held in q_pos and kv_pos are equal: no position term, no
-// causality, no validity flags (every row is a token of some segment). GQA:
-// head h reads KV head h / G. Returns the normalized output and, where m_out
-// is given, the online-softmax stats m (row max) and l (sum of exp) for an
+// keys s of (q . k_s) * D^-1/2, times v_s. A key is visible when q_valid[t]
+// and kv_valid[s] hold and 0 <= q_pos[t] - kv_pos[s] < window. GQA: head h
+// reads KV head h / G. Returns the normalized output and, where m_out is
+// given, the online-softmax stats m (row max) and l (sum of exp) for an
 // exact merge of two key sets. A row that sees no key returns 0, m = -1e30,
 // l = 0.
 //
-// Layouts (those of the JAX package's kernels): q and out (B, T, H, D);
-// keys and values (B, S, Hkv * D), which is also the (B, S, Hkv, D) layout of
-// a chunk's own K/V; scales (B, Hkv, S); m and l (B, T, H). The head dim D
-// is a template parameter: 128 for the decoder (K1, K4), 64 for the Pixtral
-// encoder (K10).
+// Layouts (those of the JAX package's kernel): q and out (B, T, H, D); keys
+// and values (B, S, Hkv, D); m and l (B, T, H).
 //
 // Design: one block of 4 warps per (T-tile, kv head, batch row). Its 64 rows
 // are 64/G query tokens times the G heads that share the KV head, so each
 // K/V tile read from device memory serves the whole group; warp w owns rows
-// 16w..16w+15. The block walks S in 64-key tiles staged in shared memory as
-// bf16 (an int8 or e4m3 value is exact in bf16). Both products run on the tensor
-// cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate): S = Q K^T with
-// Q held in registers as A fragments for the whole walk, then O += P V with
-// the probabilities repacked from the S accumulators into A fragments and V
-// read with ldmatrix.trans. The running max and sum stay in registers, one
-// pair per row half of the thread's fragment. A tile in which no (query,
-// key) pair is visible is skipped, which halves the work of causal
-// self-attention and, under segments, skips the tiles of an image's queries
-// against another image's (or the bucket padding's) keys. Numerics follow
-// the TPU kernels: fp32 dots of bf16 (or int8) values, scales applied after
-// the dot, probabilities (times the value scale) rounded to bf16 before the
+// 16w..16w+15. The block walks S in 64-key tiles staged in shared memory.
+// Both products run on the tensor cores with mma.sync m16n8k16 (bf16 in,
+// fp32 accumulate): S = Q K^T with Q held in registers as A fragments for
+// the whole walk, then O += P V with the probabilities repacked from the S
+// accumulators into A fragments and V read with ldmatrix.trans. The running
+// max and sum stay in registers, one pair per row half of the thread's
+// fragment. A tile in which no (query, key) pair is visible is skipped,
+// which halves the work of causal self-attention. Numerics follow the TPU
+// kernel: fp32 dots of bf16 values, probabilities rounded to bf16 before the
 // PV product.
 //
-// What bounds it on the H100: at the main path's shapes (T = 512 queries
-// over S = 512 chunk keys or S = 4096 ring slots, G = 4; or a 4096-patch
-// image, N = 4096, 16 heads of 64) the work is about 4 * D flops per visible
+// What bounds it on the H100: at the main path's shape (T = 512 queries over
+// S = 512 chunk keys, G = 4) the work is about 4 * D flops per visible
 // (query head, key) pair against a few MB of operands, far above the 295
 // flop/byte ridge: it is compute-bound, and the design puts the flops on the
 // bf16 tensor cores. The launch bounds hold the kernel to 170 registers so
 // that three blocks (12 warps) share an SM and hide each other's barriers
-// and loads. It does not yet overlap the next tile's loads with this tile's
-// math (cp.async or TMA) nor use wgmma; those are the next steps.
+// and loads. It does not overlap the next tile's loads with this tile's math
+// nor use wgmma, as flash_hopper.cuh does.
 #pragma once
 
 #include "common.cuh"
@@ -65,7 +56,7 @@ constexpr int kStrideOf = D + 8;
 template <int D>
 inline size_t flash_tile_smem_bytes() {
   return sizeof(__nv_bfloat16) * (kRows + 2 * kKeys) * kStrideOf<D> +
-         sizeof(int) * (2 * kRows + 2 * kKeys) + sizeof(float) * 2 * kKeys;
+         sizeof(int) * (2 * kRows + 2 * kKeys);
 }
 
 // e^x as 2^(x log2 e): exp2f is a few instructions where an accurate expf
@@ -73,11 +64,10 @@ inline size_t flash_tile_smem_bytes() {
 // thread. It differs from expf by a few ulp, far inside the bf16 output.
 __device__ __forceinline__ float exp_(float x) { return exp2f(x * 1.4426950408889634f); }
 
-template <typename KT, bool kScaled, int D, bool kSegment>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 3) flash_tile_kernel(
-    const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k,
-    const KT* __restrict__ v, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ q_pos,
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_pos,
     const int* __restrict__ kv_pos, const uint8_t* __restrict__ q_valid,
     const uint8_t* __restrict__ kv_valid, int window,
     __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
@@ -100,8 +90,6 @@ __global__ void __launch_bounds__(kThreads, 3) flash_tile_kernel(
   int* qok_s = qpos_s + kRows;
   int* kpos_s = qok_s + kRows;
   int* kok_s = kpos_s + kKeys;
-  float* ks_s = reinterpret_cast<float*>(kok_s + kKeys);
-  float* vs_s = ks_s + kKeys;
 
   // Query tile: row r is token t0 + r / G, head j * G + r % G.
   for (int e = tid; e < kRows * D / 8; e += kThreads) {
@@ -115,7 +103,7 @@ __global__ void __launch_bounds__(kThreads, 3) flash_tile_kernel(
   }
   if (tid < kRows) {
     const int t = t0 + tid / G;
-    const bool ok = t < T && (kSegment || q_valid[static_cast<size_t>(b) * T + t]);
+    const bool ok = t < T && q_valid[static_cast<size_t>(b) * T + t];
     qpos_s[tid] = ok ? q_pos[static_cast<size_t>(b) * T + t] : 0;
     qok_s[tid] = ok;
   }
@@ -145,14 +133,9 @@ __global__ void __launch_bounds__(kThreads, 3) flash_tile_kernel(
     __syncthreads();  // the previous tile is done with Ks, Vs and the key metadata
     if (tid < kKeys) {
       const int s = s0 + tid;
-      const bool ok = s < S && (kSegment || kv_valid[static_cast<size_t>(b) * S + s]);
+      const bool ok = s < S && kv_valid[static_cast<size_t>(b) * S + s];
       kpos_s[tid] = ok ? kv_pos[static_cast<size_t>(b) * S + s] : 0;
       kok_s[tid] = ok;
-      if (kScaled) {
-        const size_t si = (static_cast<size_t>(b) * Hkv + j) * S + s;
-        ks_s[tid] = ok ? k_scale[si] : 0.f;
-        vs_s[tid] = ok ? v_scale[si] : 0.f;
-      }
     }
     __syncthreads();
 
@@ -167,8 +150,7 @@ __global__ void __launch_bounds__(kThreads, 3) flash_tile_kernel(
         for (int e = 0; e < 2; ++e) {
           const int c = nt * 8 + 2 * quad + e;
           const int delta = qpos[h] - kpos_s[c];
-          const bool see = kSegment ? delta == 0 : delta >= 0 && delta < window;
-          if (qok[h] && kok_s[c] && see)
+          if (qok[h] && kok_s[c] && delta >= 0 && delta < window)
             vis |= 1u << (h * 16 + nt * 2 + e);
         }
     if (!__syncthreads_or(vis != 0)) continue;  // no visible pair: skip the tile
@@ -210,9 +192,8 @@ __global__ void __launch_bounds__(kThreads, 3) flash_tile_kernel(
       for (int nt = 0; nt < kKeys / 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int c = nt * 8 + 2 * quad + e;
           float& x = sc[nt][2 * h + e];
-          x *= kScaled ? ks_s[c] * scale : scale;
+          x *= scale;
           if (vis >> (h * 16 + nt * 2 + e) & 1u) mx = fmaxf(mx, x);
         }
       mx = group_max(mx, 4);
@@ -223,11 +204,10 @@ __global__ void __launch_bounds__(kThreads, 3) flash_tile_kernel(
       for (int nt = 0; nt < kKeys / 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int c = nt * 8 + 2 * quad + e;
           float& x = sc[nt][2 * h + e];
           const float p = (vis >> (h * 16 + nt * 2 + e) & 1u) ? exp_(x - m_new) : 0.f;
           psum += p;
-          x = kScaled ? p * vs_s[c] : p;  // rounded to bf16 when packed below
+          x = p;  // rounded to bf16 when packed below
         }
       l[h] = alpha[h] * l[h] + group_sum(psum, 4);
       m[h] = m_new;
@@ -281,11 +261,10 @@ __global__ void __launch_bounds__(kThreads, 3) flash_tile_kernel(
   }
 }
 
-// Launch on `stream`; returns the CUDA error code (0 = launched). K1 and K4
-// take the defaults: head dim 128, the position mask.
-template <typename KT, bool kScaled, int D = kHeadDim, bool kSegment = false>
-int launch_flash_tile(const void* q, const void* k, const void* v, const void* k_scale,
-                      const void* v_scale, const void* q_pos, const void* kv_pos,
+// Launch on `stream`; returns the CUDA error code (0 = launched).
+template <int D = kHeadDim>
+int launch_flash_tile(const void* q, const void* k, const void* v, const void* q_pos,
+                      const void* kv_pos,
                       const void* q_valid, const void* kv_valid, int window, void* out,
                       void* m_out, void* l_out, int B, int T, int S, int H, int Hkv,
                       float scale, void* stream) {
@@ -293,15 +272,14 @@ int launch_flash_tile(const void* q, const void* k, const void* v, const void* k
   if (G < 1 || G > kRows || kRows % G != 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   const int TQ = kRows / G;
   const size_t smem = flash_tile_smem_bytes<D>();
-  auto kern = flash_tile_kernel<KT, kScaled, D, kSegment>;
+  auto kern = flash_tile_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((T + TQ - 1) / TQ, Hkv, B);
   kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(q_pos),
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_pos),
       static_cast<const int*>(kv_pos), static_cast<const uint8_t*>(q_valid),
       static_cast<const uint8_t*>(kv_valid), window, static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(m_out), static_cast<float*>(l_out), T, S, H, Hkv, scale);

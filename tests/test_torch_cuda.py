@@ -13,7 +13,10 @@ quantized matmuls are held to the same 1e-2 + 1e-2 |ref|, and the stacked and
 repeated launches of K3 and K8 to equal bits. K9's new state has the bits of
 its plain version (fp32 and bf16) and y agrees within 1e-5 (fp32 sums in
 another order). K10, the vision encoder's segment-masked attention, is held
-to 1e-2 + 1e-2 |ref| at the four shapes ``chip_smoke.py`` checks.
+to 1e-2 + 1e-2 |ref| at the five shapes ``chip_smoke.py`` checks. K4 is held
+to the same tolerances over int8, fp8 and bf16 rings where its tiles are
+full, mixed (the wrap, a window's edge, invalid slots) and ragged, and K4
+and K10 to equal bits for a row alone and the same row in a batch.
 ``python3 chip_smoke.py`` runs the same comparisons at the model's shapes.
 """
 
@@ -76,6 +79,81 @@ def test_kernels_match_plain_on_card():
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
     # Each wrapper counted its own launches, and the plain versions none.
     assert [fn.launches for fn in tk.KERNELS] == [1, 1, 1, 0, 0, 0, 0, 0, 0, 0]
+
+
+def _same_bits(a, b):
+    """Equal bits, element for element (not equal values: -0 is not 0)."""
+    width = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    a, b = a.contiguous(), b.contiguous()
+    return a.dtype == b.dtype and torch.equal(a.view(width), b.view(width))
+
+
+def _ring_case(g, ring, B, T, S, window, kv_len, holes=False, H=32, Hkv=8, D=128):
+    """One layer's stored ring (int8, fp8 or bf16) and a chunk of T queries
+    after it; the last row's second half of queries invalid; with ``holes``,
+    invalid slots inside otherwise full tiles."""
+    x = torch.randn((B, S, Hkv, D), generator=g, device="cuda")
+    y = torch.randn((B, S, Hkv, D), generator=g, device="cuda")
+    if ring == "bf16":
+        kq, vq, ks, vs = x.to(torch.bfloat16), y.to(torch.bfloat16), None, None
+    else:
+        dt = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[ring]
+        (kq, ks), (vq, vs) = tcache._quantize_ring(x, dt), tcache._quantize_ring(y, dt)
+        ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
+    kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    slot_pos, slot_valid = tcache.slot_positions(kv_len, window, S)
+    if holes:
+        slot_valid = slot_valid.clone()
+        slot_valid[:, 100:140] = False
+        slot_valid[:, 7::509] = False
+    q_pos = kv_len[:, None] + torch.arange(T, dtype=torch.int32, device="cuda")[None]
+    q_valid = torch.ones((B, T), dtype=torch.bool, device="cuda")
+    q_valid[-1, T // 2:] = False
+    q = torch.randn((B, T, H, D), generator=g, device="cuda").to(torch.bfloat16)
+    return (q, kq.reshape(B, S, Hkv * D), vq.reshape(B, S, Hkv * D), ks, vs, q_pos, slot_pos,
+            q_valid, slot_valid, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", ["int8", "fp8", "bf16"])
+@pytest.mark.parametrize("T,window,kv_len,holes", [
+    (256, 1024, [1024 + 300, 700], False),   # wrapped: mixed tiles at the wrap
+    (256, 300, [900, 1024 + 50], False),     # mixed tiles at the window's edge
+    (256, 1024, [1024 + 10, 800], True),     # invalid slots inside tiles
+    (200, 1024, [1024 + 500, 333], False),   # a ragged last query tile
+], ids=["wrapped", "window-300", "invalid-slots", "T-200"])
+def test_ring_attention_tile_classes_on_card(ring, T, window, kv_len, holes):
+    """K4 against its plain version where its tiles are full, mixed and
+    skipped, over every ring type: outputs within bf16 rounding, stats 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    B, S, Hkv, D = 2, 1024, 8, 128
+    case = _ring_case(g, ring, B, T, S, window, kv_len, holes)
+    q, kq, vq, ks, vs = case[:5]
+    o, m, l = tk.ring_attention_stats(*case)
+    ro, rm, rl = tk.attend_stats_plain(q, kq.view(B, S, Hkv, D), vq.view(B, S, Hkv, D), ks, vs,
+                                       *case[5:])
+    vis = case[7][..., None, None]
+    torch.testing.assert_close((o * vis).float(), (ro * vis).float(), **BF16_TOL)
+    torch.testing.assert_close(m, rm, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", ["int8", "fp8", "bf16"])
+def test_ring_attention_batch_invariant_on_card(ring):
+    """A row's K4 (out, m, l) bits alone equal its bits among 8 rows: one
+    block computes a row from its own tiles in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    lens = [1024 + 300, 700, 1024 + 1000, 64, 1000, 2000, 5, 1024]
+    wide = _ring_case(g, ring, 8, 256, 1024, 1024, lens)
+    for row in (0, 2, 7):
+        one = tuple(x[row:row + 1].contiguous() if torch.is_tensor(x) else x for x in wide)
+        for a, b in zip(tk.ring_attention_stats(*wide), tk.ring_attention_stats(*one)):
+            assert _same_bits(a[row:row + 1], b)
 
 
 @pytest.mark.cuda
@@ -612,7 +690,9 @@ def test_generate_mamba_on_card_matches_cpu():
     [(0, 504), (-1, 8)],       # a 384 x 336 image in its 512 bucket
     [(0, 256)],                # a small bucket
     [(0, 1536), (1, 2048)],    # two images in one block-diagonal row
-], ids=["image-4096", "bucket-512-padded", "bucket-256", "two-images-3584"])
+    [(0, 1600), (1, 1984)],    # a 128-row tile straddles the two images
+], ids=["image-4096", "bucket-512-padded", "bucket-256", "two-images-3584",
+        "two-images-straddling"])
 def test_segment_attention_matches_plain_on_card(parts):
     """K10 against its plain version at the vision encoder's shapes (16 heads
     of 64, bf16), within one bf16 ulp: both round p to bf16 before PV."""
@@ -631,3 +711,20 @@ def test_segment_attention_matches_plain_on_card(parts):
     assert out.shape == (1, N, 16 * 64)
     torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
     assert tk.segment_flash_attention.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n0,n1", [(1600, 1984), (504, 8), (1536, 2048)])
+def test_segment_attention_batch_invariant_on_card(n0, n1):
+    """K10: an image alone has the bits it has in a group beside another
+    (encode_images with group_max > 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    seg = torch.cat([torch.zeros(n0, dtype=torch.int32, device="cuda"),
+                     torch.ones(n1, dtype=torch.int32, device="cuda")])[None]
+    q, k, v = (torch.randn((1, n0 + n1, 16, 64), generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    group = tk.segment_flash_attention(q, k, v, seg)
+    alone = tk.segment_flash_attention(*(x[:, :n0].contiguous() for x in (q, k, v, seg)))
+    assert _same_bits(alone, group[:, :n0])
