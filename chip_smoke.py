@@ -21,9 +21,12 @@ Phases, each printing one JSON line:
    a padded 512 bucket, a 256 bucket, two images in one 3584 row, and a
    1600 + 1984 pair whose boundary falls inside a 128-row tile). K4 is also
    checked where its tiles are mixed (a 1000-token window, invalid slots
-   inside tiles, T = 200), and K4 and K10 for batch invariance (a row's bits
-   alone equal its bits among 8 rows; an image alone equals itself beside
-   another). Each kernel row carries its time (CUDA-event median), the plain
+   inside tiles, T = 200), K1 at T = 200 over S = 333 and T = S = 77 with
+   holes, K6 at fills that end inside a cluster slice and under a window
+   shorter than the fill, and K1, K4, K6 and K10 for batch invariance (a
+   row's bits alone equal its bits in the batch; an image alone equals
+   itself beside another). K6's row also carries its kernels' device time
+   by symbol (``split_ms``). Each kernel row carries its time (CUDA-event median), the plain
    version's time, the time of one PyTorch library call for the same function
    where one exists, and the card's least time for the work (bytes or flops,
    from this run's inputs), and K4's and K10's ``ms_over_library``.
@@ -101,8 +104,9 @@ nvidia-smi line, and last the device line.
 Any failure raises and the script exits non-zero. Without a CUDA device,
 or without the package beside it, it exits non-zero and prints no result.
 nvcc's build logs (``-Xptxas -v``: registers, shared memory) go to stderr.
-``--profile`` adds to the lines of the fused int4 paths (8 layers, the
-32-layer fp8 path, Mixtral), the two Mamba
+``--profile`` adds to the lines of the quantized paths (8 layers, the
+32-layer fp8 path, Mixtral, and the two non-fused decode paths, whose step
+runs K6), the two Mamba
 main paths and the Pixtral path a torch.profiler breakdown of the prefill
 (on Pixtral: the encoder's linears, K10, the decoder's linears, K1 + K4,
 other) and of one decode step, with the decode step's aten calls and the
@@ -258,6 +262,22 @@ def bound(flops: float, bytes_: float, peak_flops: float = PEAK_BF16_FLOPS):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
+def kernel_split_ms(fn, calls: int = 10) -> dict:
+    """Device time per call of each kernel that ``fn`` launches, by symbol
+    (torch.profiler over ``calls`` calls in a row, L2 not flushed)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key[:72]: getattr(ev, "self_device_time_total", 0.0) / 1e3 / calls
+            for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def sdpa_ms(q, k, v, mask) -> float:
     """One PyTorch call for masked GQA attention: the yardstick only."""
     import torch.nn.functional as F
@@ -316,9 +336,11 @@ def check_k1(gen):
 
     bf = torch.bfloat16
     worst = 0.0
-    # (B, T, S, window, ragged validity): the main path's chunk shape, then
-    # ragged T and S with window < S and invalid rows.
-    for B, T, S, window, ragged in ((4, 512, 512, 4096, False), (2, 200, 333, 100, True)):
+    # (B, T, S, window, ragged validity): the main path's chunk shape; ragged
+    # T and S with window < S and invalid rows (the causal diagonal and the
+    # holes fall inside tiles); a chunk of 77 tokens alone, T = S.
+    for B, T, S, window, ragged in ((4, 512, 512, 4096, False), (2, 200, 333, 100, True),
+                                    (3, 77, 77, 4096, True)):
         q = randn(gen, B, T, H, D, dtype=bf)
         k, v = randn(gen, B, S, HKV, D, dtype=bf), randn(gen, B, S, HKV, D, dtype=bf)
         kv_pos = torch.arange(S, device="cuda", dtype=torch.int32)[None].repeat(B, 1)
@@ -342,6 +364,12 @@ def check_k1(gen):
             require(ok, f"K1 {name} disagrees with its plain version (B={B} T={T} S={S}): {err}")
             if name.startswith("out"):
                 worst = max(worst, err)
+        # A row's (out, m, l) bits alone equal its bits in the batch.
+        one = tuple(x[1:2].contiguous() if torch.is_tensor(x) else x for x in args)
+        got_one = flash_attention(*one, return_stats=True)
+        torch.cuda.synchronize()
+        require(all(same_bits(a[1:2], b) for a, b in zip((o, m, l), got_one)),
+                f"K1: a row's (out, m, l) bits alone differ from its bits at B={B} (T={T})")
         if not ragged:
             main = args
     q, k, v, q_pos, kv_pos, q_valid, kv_valid, window = main
@@ -351,6 +379,7 @@ def check_k1(gen):
     return {
         "name": "flash_attention", "kernel": "K1", "route": "cuda",
         "source": "mistral_inference_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+        "loop": "mistral_inference_tpu_torch/ops/cuda/csrc/flash_hopper.cuh",
         "replaces": "mistral_inference_tpu/ops/pallas/attention.py:146",
         "max_abs_err": worst,
         "ms": timed_ms(lambda: flash_attention(*main)),
@@ -358,6 +387,8 @@ def check_k1(gen):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": sdpa_ms(q, k, v, mask),
         "shape": "B=4 T=S=512 H=32 Hkv=8 D=128 bf16, causal",
+        "cases": "main; T=200 over S=333 with window 100 and holes; T=S=77 with holes; "
+                 "in each, row 1's (out, m, l) bits alone equal its bits in the batch",
         "tolerance": "abs 1e-2 + rel 1e-2 on bf16 outputs (one bf16 ulp of |out| < 4 "
                      "is 1.6e-2 at most; both sides round p to bf16 at the same point), "
                      "1e-4 on the fp32 stats",
@@ -907,11 +938,17 @@ def check_k6(gen, scaled: str = "int8"):
     )
 
     bf = torch.bfloat16
-    L, B, S, window = 32, 4, 4096, 4096
-    worst, main = 0.0, None
-    # Rings after a decode step's write: row 0 wrapped; then short fills, so
-    # that most spans hold no visible slot.
-    for kv_len in ([4301, 1001, 38, 3000], [1001, 38, 2999, 257]):
+    B, S, window = 4, 4096, 4096
+    worst, main, checked = 0.0, None, []
+    # Rings after a decode step's write, (fills, attention window, layers):
+    # the timed case (row 0 wrapped) over a 32-layer stack; short fills, so
+    # that most cluster slices hold no visible slot; fills that end inside a
+    # cluster slice (512 slots), inside a warp's part (64) and inside a
+    # step, and a wrapped row that ends inside one; an attention window
+    # shorter than the fill.
+    cases = (([4301, 1001, 38, 3000], window, 32), ([1001, 38, 2999, 257], window, 4),
+             ([1500, 515, 4096 + 77, 130], window, 4), ([3000, 4301, 1001, 38], 1000, 4))
+    for kv_len, w_, L in cases:
         kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
         slot_pos, slot_valid = slot_positions(kv_len, window, S)
         q_pos = (kv_len - 1)[:, None].contiguous()
@@ -920,22 +957,30 @@ def check_k6(gen, scaled: str = "int8"):
             CV, VS = make_ring(gen, ring, L, B, S)
             CK, CV = CK.reshape(L, B, S, HKV * D), CV.reshape(L, B, S, HKV * D)
             q = randn(gen, B, 1, H, D, dtype=bf)
-            li = 5
+            li = L - 3
             before = [None if t is None else t[li].clone() for t in (CK, CV, KS, VS)]
-            out = decode_attention(q, CK, CV, KS, VS, li, q_pos, slot_pos, slot_valid, window)
-            ref = decode_attention_plain(q, CK, CV, KS, VS, li, q_pos, slot_pos, slot_valid, window)
+            out = decode_attention(q, CK, CV, KS, VS, li, q_pos, slot_pos, slot_valid, w_)
+            ref = decode_attention_plain(q, CK, CV, KS, VS, li, q_pos, slot_pos, slot_valid, w_)
+            # Row 2 alone: the same bits as in the batch.
+            one = [None if t is None else t[:, 2:3].contiguous() for t in (CK, CV, KS, VS)]
+            alone = decode_attention(q[2:3].contiguous(), *one, li, q_pos[2:3].contiguous(),
+                                     slot_pos[2:3].contiguous(), slot_valid[2:3].contiguous(), w_)
             torch.cuda.synchronize()
-            case = f"{ring} ring, kv_len={kv_len.tolist()}"
+            case = f"{ring} ring, kv_len={kv_len.tolist()}, window={w_}"
             for t, b in zip((CK, CV, KS, VS), before):
                 require(t is None or same_bits(t[li], b), f"K6 wrote the ring ({case})")
             ok, err = close(out, ref, 1e-2, 1e-2)
             require(ok, f"K6 disagrees with its plain version ({case}): {err}")
+            require(same_bits(out[2:3], alone),
+                    f"K6: row 2's bits alone differ from its bits at B={B} ({case})")
             worst = max(worst, err)
+            checked.append(case)
             if ring == scaled and main is None:
-                main = (q, CK, CV, KS, VS, li, q_pos, slot_pos, slot_valid, window)
-            del CK, CV, KS, VS
+                main = (q, CK, CV, KS, VS, li, q_pos, slot_pos, slot_valid, w_)
+            del CK, CV, KS, VS, one
 
     q, CK, CV, KS, VS, li, q_pos, slot_pos, slot_valid, window = main
+    L = CK.shape[0]
     ones = torch.ones((B, 1), dtype=torch.bool, device="cuda")
     mask = sliding_window_mask(q_pos, slot_pos, ones, slot_valid, window)
     visible = float(mask.sum())
@@ -955,17 +1000,23 @@ def check_k6(gen, scaled: str = "int8"):
     return {
         "name": K6 + ("_fp8" if scaled == "fp8" else ""), "kernel": "K6", "route": "cuda",
         "ring": scaled,
-        "source": "mistral_inference_tpu_torch/ops/cuda/csrc/fused_decode.cu",
+        "source": "mistral_inference_tpu_torch/ops/cuda/csrc/decode_attention.cu",
+        "loop": "mistral_inference_tpu_torch/ops/cuda/csrc/decode_hopper.cuh",
         "replaces": "mistral_inference_tpu/ops/pallas/attention.py:619",
         "max_abs_err": worst,
         "ms": timed_ms(cycle_layers),
+        "split_ms": kernel_split_ms(cycle_layers),
         "plain_ms": timed_ms(lambda: decode_attention_plain(*main)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=m, enable_gqa=True)),
         "shape": f"B=4 over a 32-layer {scaled} ring stack of S=4096 (one row wrapped, fills "
-                 "1001, 38 and 3000) H=32 Hkv=8 D=128; also checked: short fills"
-                 + (", bf16 rings" if scaled == "int8" else ""),
+                 "1001, 38 and 3000) H=32 Hkv=8 D=128",
+        "checked": checked,
+        "cases": "short fills; fills ending inside a cluster slice, a warp's part and a step; "
+                 "a window of 1000 under fills of 3000 and a wrap"
+                 + ("; bf16 rings" if scaled == "int8" else "")
+                 + "; in each, row 2's bits alone equal its bits in the batch",
         "library": "SDPA with a mask on one layer's ring dequantized to bf16 before the call",
         "tolerance": "abs 1e-2 + rel 1e-2 (bf16 output, fp32 sums in another order); the ring "
                      "is unchanged",
@@ -1604,16 +1655,22 @@ def divergences(model, prompts, spec, plain, carry_of=transformer_carry):
     """Where greedy speculation left plain greedy decoding: for each row that
     did, the step, the two tokens, and the target's top-2 logits at that step
     as a teacher-forced prefill of the row's prompt and plain tokens gives
-    them (``carry_of(model, tokens)``)."""
+    them (``carry_of(model, tokens)``). ``top2_tokens`` are the tokens whose
+    logit is one of the two best values: the best, the second, and every
+    token whose bf16 logit equals the second (``topk`` keeps one of equal
+    values, whichever it meets first)."""
     found = []
     for row, (a, b) in enumerate(zip(spec, plain)):
         if a == b:
             continue
         step = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
         carry = carry_of(model, prompts[row] + b[:step])
-        top = carry[0].topk(2)
+        logits = carry[0]
+        top = logits.topk(2)
+        best = (logits >= top.values[1]).nonzero().flatten()
+        best = best[logits[best].argsort(descending=True, stable=True)]
         found.append({"row": row, "step": step, "spec_token": a[step], "plain_token": b[step],
-                      "top2_tokens": top.indices.tolist(), "top2_logits": top.values.tolist(),
+                      "top2_tokens": best.tolist(), "top2_logits": top.values.tolist(),
                       "top2_gap": float(top.values[0] - top.values[1])})
     return found
 
@@ -2136,13 +2193,14 @@ def pixtral_profile(model, prompts, images, encode_all):
         prompts, model, images=images, chunk_size=CHUNK, temperature=0.0, max_tokens=0))
     enc_wall, (enc_busy, enc_cats, _) = prof(encode_all)
     k10 = cats.get("K10 segment flash", 0.0)
-    k1_k4 = cats.get("K1 flash_tile", 0.0) + cats.get("K4 flash_hopper", 0.0)
+    k1_k4 = cats.get("K1 flash_hopper", 0.0) + cats.get("K4 flash_hopper", 0.0)
     return {
         "prefill_all_prompts": {
             "wall_ms": wall, "kernel_ms": busy, "device_idle_share": 1.0 - busy / wall,
             "encoder_linears_ms": enc_cats.get("matmul", 0.0), "K10_ms": k10,
             "decoder_linears_ms": cats.get("matmul", 0.0) - enc_cats.get("matmul", 0.0),
             "K1_K4_ms": k1_k4, "K4_ms": cats.get("K4 flash_hopper", 0.0),
+            "K1_ms": cats.get("K1 flash_hopper", 0.0),
             "other_ms": busy - cats.get("matmul", 0.0) - k10 - k1_k4,
             "kernel_ms_by_category": cats,
             "top_kernels_ms": [[round(ms, 3), k] for ms, k in top[:12]],
@@ -2458,16 +2516,18 @@ def kernel_ms(prof, calls: int = 1):
             continue
         ms = getattr(ev, "self_device_time_total", 0.0) / 1e3 / calls
         name = ev.key.lower()
-        # K4 and K10 are instantiations of flash_hopper_kernel; K10's last
-        # template argument (kSegment) is true.
-        if "flash_hopper" in name and ", true>" in name:
-            cats["K10 segment flash"] = cats.get("K10 segment flash", 0.0) + ms
+        # K1, K4 and K10 are instantiations of flash_hopper_kernel<KT,
+        # kScaled, D, kSegment, kChunk>: K10 at D = 64 with kSegment, K1 with
+        # kChunk.
+        if "flash_hopper" in name:
+            cat = ("K10 segment flash" if ", 64, true" in name
+                   else "K1 flash_hopper" if "false, true>" in name else "K4 flash_hopper")
+            cats[cat] = cats.get(cat, 0.0) + ms
             top.append((ms, ev.key[:80]))
             continue
-        cat = next((c for k, c in (("flash_tile", "K1 flash_tile"),
-                                   ("flash_hopper", "K4 flash_hopper"),
-                                   ("fused_decode", "K2/K6 fused_decode"),
-                                   ("decode_merge", "K2/K6 fused_decode"),
+        cat = next((c for k, c in (("decode_hopper", "K6 decode_hopper"),
+                                   ("fused_decode", "K2/K7 fused_decode"),
+                                   ("decode_merge", "K2/K7 fused_decode"),
                                    ("matmul_quant", "K3 matmul_quant"),
                                    ("moe_matmul", "K5 moe_matmul"),
                                    ("moe_expert_matmul", "K8 moe_expert_matmul"),
@@ -2618,7 +2678,7 @@ def main() -> int:
     launches, depth = {}, {}
     for path in PATHS:
         summary, counted = main_path(
-            card, "--profile" in sys.argv[1:] and path.quant == "int4" and path.fused, path)
+            card, "--profile" in sys.argv[1:] and path.quant is not None, path)
         emit(summary)
         for name in path.expected:
             if path.layers > depth.get(name, 0):

@@ -5,16 +5,18 @@ Six hand-written CUDA kernels for Hopper (sources in ``csrc/``, built by
 ``_build.py``):
 
 * ``flash_attention`` (K1, ``csrc/flash_attention.cu``): a chunk's attention
-  to its own keys, optionally with online-softmax stats.
+  to its own keys, optionally with online-softmax stats, on the Hopper tile
+  loop of ``csrc/flash_hopper.cuh`` (wgmma, an asynchronous K/V pipeline,
+  visibility decided per tile), the long walks of a causal chunk first.
 * ``ring_attention_stats`` (K4, ``csrc/ring_attention.cu``): a chunk's
-  queries over one layer's stored ring, with stats, on the Hopper tile loop
-  of ``csrc/flash_hopper.cuh`` (wgmma, an asynchronous K/V pipeline,
-  visibility decided per tile).
+  queries over one layer's stored ring, with stats, on the same tile loop.
 * ``fused_update_decode_attention`` (K2, ``csrc/fused_decode.cu``): one
   decode step's ring write plus ring-only attention.
-* ``decode_attention`` (K6, the write-free instantiation of
-  ``csrc/fused_decode.cu``): T = 1 attention over one layer of the stacked
-  ring, for the decode route that writes the ring with ``update_stacked``.
+* ``decode_attention`` (K6, ``csrc/decode_attention.cu`` on
+  ``csrc/decode_hopper.cuh``): T = 1 attention over one layer of the stacked
+  ring, for the decode route that writes the ring with ``update_stacked``; a
+  thread-block cluster per (row, KV head) streams the visible slots and
+  merges its partials in distributed shared memory, in one launch.
 * ``fused_verify_chunk_attention`` (K7, the T <= 8 instantiation of
   ``csrc/fused_decode.cu``): a speculative verify chunk's T candidate K/V
   written to consecutive ring slots, then all T queries attending ring-only.
@@ -60,9 +62,9 @@ _SIGS = {
     **{("fused_decode", f"fused_decode_{kind}"):
        [_P] * 7 + [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _P] for kind in ("int8", "fp8")},
     ("fused_decode", "fused_decode_bf16"): [_P] * 5 + [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _P],
-    **{("fused_decode", f"decode_attention_{kind}"):
-       [_P] * 5 + [_I, _I] + [_P] * 6 + [_I] * 4 + [_F, _P] for kind in ("int8", "fp8")},
-    ("fused_decode", "decode_attention_bf16"): [_P] * 3 + [_I, _I] + [_P] * 6 + [_I] * 4 + [_F, _P],
+    **{("decode_attention", f"decode_attention_{kind}"):
+       [_P] * 5 + [_I, _I] + [_P] * 4 + [_I] * 4 + [_F, _P] for kind in ("int8", "fp8")},
+    ("decode_attention", "decode_attention_bf16"): [_P] * 3 + [_I, _I] + [_P] * 4 + [_I] * 4 + [_F, _P],
     **{("fused_decode", f"fused_verify_{kind}"):
        [_P] * 7 + [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _P] for kind in ("int8", "fp8")},
     ("fused_decode", "fused_verify_bf16"): [_P] * 5 + [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _P],
@@ -381,8 +383,8 @@ ring_attention_stats.launches = 0
 
 
 def _span_partials(B: int, H: int, S: int, D: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scratch for the decode kernels' per-span partials, which their second
-    pass merges: unnormalized sums and (max, sum) per (row, head, span)."""
+    """Scratch for K2's and K7's per-span partials, which their second pass
+    merges: unnormalized sums and (max, sum) per (row, head, span)."""
     nspan = -(-S // _kernel("fused_decode", "fused_decode_span")())
     return (
         torch.empty((B, H, nspan, D), dtype=torch.float32, device=dev),
@@ -459,6 +461,9 @@ def fused_update_decode_attention(
 fused_update_decode_attention.launches = 0
 
 
+DECODE_MAX_GROUP = 8  # query heads per KV head K6 takes
+
+
 def decode_attention(
     q: torch.Tensor,  # (B, 1, H, D)
     CK: torch.Tensor,  # (L, B, S, Hkv * D) ring, read only
@@ -472,8 +477,8 @@ def decode_attention(
     window: int,
 ) -> torch.Tensor:
     """K6. T = 1 attention over layer ``li`` of the stacked ring, read in
-    place through the layer index (no slice is copied) and not written.
-    Returns (B, 1, H * D)."""
+    place through the layer index (no slice is copied) and not written. Up
+    to 8 query heads per KV head. Returns (B, 1, H * D)."""
     B, T, H, D = q.shape
     if T != 1:
         raise ValueError("decode_attention takes one query token per row")
@@ -489,6 +494,11 @@ def decode_attention(
     bf = torch.bfloat16
     if D != 128:
         raise ValueError("the CUDA kernels take head_dim 128")
+    if H % Hkv or H // Hkv > DECODE_MAX_GROUP:
+        raise ValueError(
+            f"decode_attention takes at most {DECODE_MAX_GROUP} query heads per KV head, "
+            f"got {H} heads over {Hkv}"
+        )
     _need(q, "q", bf, (B, 1, H, D), dev)
     kind = _ring_kind(CK, KS)
     _need(CK, "CK", CK.dtype, (L, B, S, Hkv * D), dev)
@@ -499,21 +509,20 @@ def decode_attention(
     kp = _meta(kv_pos, "kv_pos", torch.int32, (B, S), dev)
     kv = _meta(kv_valid, "kv_valid", torch.bool, (B, S), dev)
     out = torch.empty((B, 1, H * D), dtype=bf, device=dev)
-    part_acc, part_ml = _span_partials(B, H, S, D, dev)
     tail = (
-        int(li), int(window), qp.data_ptr(), kp.data_ptr(), kv.data_ptr(),
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, S, H, Hkv, D**-0.5,
+        int(li), int(window), qp.data_ptr(), kp.data_ptr(), kv.data_ptr(), out.data_ptr(),
+        B, S, H, Hkv, D**-0.5,
     )
     if kind != "bf16":
         _need(KS, "KS", torch.float32, (L, B, Hkv, S), dev)
         _need(VS, "VS", torch.float32, (L, B, Hkv, S), dev)
         _launch(
-            "fused_decode", f"decode_attention_{kind}", dev, q.data_ptr(), CK.data_ptr(),
+            "decode_attention", f"decode_attention_{kind}", dev, q.data_ptr(), CK.data_ptr(),
             CV.data_ptr(), KS.data_ptr(), VS.data_ptr(), *tail,
         )
     else:
         _launch(
-            "fused_decode", "decode_attention_bf16", dev, q.data_ptr(), CK.data_ptr(),
+            "decode_attention", "decode_attention_bf16", dev, q.data_ptr(), CK.data_ptr(),
             CV.data_ptr(), *tail,
         )
     _counted(decode_attention, kind)

@@ -12,6 +12,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace mit {
 
 // Finite "minus infinity": a fully-masked row keeps m = kNegInf and l = 0
@@ -146,6 +148,35 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Raise a kernel's dynamic shared-memory limit to `bytes`, once per device
+// (`done`: the caller's mask of devices already set, one per kernel), not
+// by a cudaFuncSetAttribute call on each of a generate()'s many launches.
+inline cudaError_t smem_limit_once(const void* kern, int bytes, std::atomic<unsigned>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+// The number of SMs of the current device (cached per device).
+inline cudaError_t sm_count(int* n) {
+  static std::atomic<int> counts[32];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 32 && counts[dev].load() > 0) {
+    *n = counts[dev].load();
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < 32) counts[dev].store(*n);
+  return err;
 }
 
 }  // namespace mit

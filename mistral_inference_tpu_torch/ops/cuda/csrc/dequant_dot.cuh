@@ -1,7 +1,7 @@
 // The grouped-dequant product of a few x rows against a streamed integer
 // weight: the device code that K3 (matmul_quant.cu, one weight) and K8
-// (moe_expert_matmul.cu, one weight per expert) share, as flash_tile.cuh
-// serves K1 and K4. Each source wraps it in kernels under its own names.
+// (moe_expert_matmul.cu, one weight per expert) share, as flash_hopper.cuh
+// serves K1, K4 and K10. Each source wraps it in kernels under its own names.
 //
 // Function of one problem: x (M, K) bf16; q int8 (K, N), or int4 packed
 // (K / 2, N) in split-halves layout (byte row r holds element r in its low

@@ -1,17 +1,11 @@
-// K2: one decode step's ring write and ring-only attention, fused; K6, the
-// same attention with no write; and K7, the write and the attention for the
-// T <= 8 candidate tokens of a speculative verify chunk. One kernel template
-// serves the three.
+// K2: one decode step's ring write and ring-only attention, fused; and K7,
+// the write and the attention for the T <= 8 candidate tokens of a
+// speculative verify chunk. One kernel template serves the two. (K6, the
+// same attention with no write, runs decode_hopper.cuh.)
 //
 // K2 replaces mistral_inference_tpu/ops/pallas/attention.py::
 // fused_update_decode_attention (kernel _fused_decode_kernel, tile loop
-// _fused_tile_attend). K6 replaces ::decode_attention (kernel
-// _decode_attn_kernel) of the same file: it is this kernel instantiated
-// without the write (kWrite = false), for the decode route that writes the
-// ring with cache.update_stacked first. It takes any kv_pos and kv_valid, so
-// it cannot know a row's fill: where K2 stops at min(q_pos + 1, window), K6
-// asks each span's 128 slots whether the query sees any of them and skips the
-// span if not. K7 replaces ::fused_verify_chunk_attention (kernel
+// _fused_tile_attend). K7 replaces ::fused_verify_chunk_attention (kernel
 // _fused_verify_kernel): K2 is its T = 1 case. Each is instantiated for an
 // int8 ring, an e4m3 (float8_e4m3fn) ring, both with fp32 scales per (slot,
 // kv head), and a bf16 ring; the TPU kernels take the same three. The TPU kernel's 16-slot
@@ -19,7 +13,7 @@
 // exist because a TPU DMA moves aligned tiles; a CUDA thread stores a byte
 // where it wants, so none of that is here.
 //
-// Function, for T query tokens per row (T = 1 for K2 and K6): quantize the
+// Function, for T query tokens per row (T = 1 for K2): quantize the
 // chunk's K and V per (token, kv head) and write token t into slot
 // write_slot[b] + t of layer li of the stacked ring, in place (write_slot =
 // -1 writes nothing for that row); then attend each query head of each token
@@ -137,7 +131,7 @@ struct DecodeSmem {
 // Partials: part_acc (B, T, H, nspan, D) unnormalized sums, part_ml
 // (B, T, H, nspan, 2) running max and sum; a span with no visible slot leaves
 // acc = 0, m = kNegInf, l = 0.
-template <typename KT, bool kScaled, bool kWrite, int kRows>
+template <typename KT, bool kScaled, int kRows>
 __global__ void __launch_bounds__(kDecThreads) fused_decode_kernel(
     const __nv_bfloat16* __restrict__ xq, const __nv_bfloat16* __restrict__ xk,
     const __nv_bfloat16* __restrict__ xv, KT* ck, KT* cv, float* ks, float* vs, int li,
@@ -165,8 +159,8 @@ __global__ void __launch_bounds__(kDecThreads) fused_decode_kernel(
   DecodeSmem<kRows>& sm = *reinterpret_cast<DecodeSmem<kRows>*>(smem_raw);
 
   // ---- 1. write the chunk's K/V: each block the slots that lie in its span ----
-  const int slot0 = kWrite ? write_slot[b] : -1;
-  if (kWrite && slot0 >= 0) {
+  const int slot0 = write_slot[b];
+  if (slot0 >= 0) {
     for (int t = 0; t < T; ++t) {
       const int slot = slot0 + t;
       if (slot < lo || slot >= lo + kSpan || slot >= S) continue;  // uniform over the block
@@ -218,21 +212,7 @@ __global__ void __launch_bounds__(kDecThreads) fused_decode_kernel(
   // Each row's query position; the tile loop's first barrier publishes it.
   if (tid < R) sm.qpos[tid] = sm.tpos[sm.token[tid]];
   const int qp0 = sm.tpos[0];
-  int hi = min(lo + kSpan, S);
-  if constexpr (kWrite) {
-    hi = min(hi, min(qp0 + T, window));
-  } else {
-    // One query token (the launcher refuses more): one thread asks for each
-    // slot of the span.
-    static_assert(kSpan == kDecThreads, "one thread asks for each slot of the span");
-    const int s = lo + tid;
-    bool seen = false;
-    if (s < S) {
-      const int delta = qp0 - kv_pos[static_cast<size_t>(b) * S + s];
-      seen = kv_valid[static_cast<size_t>(b) * S + s] && delta >= 0 && delta < window;
-    }
-    if (!__syncthreads_or(seen)) hi = lo;  // an empty partial: acc = 0, m = kNegInf, l = 0
-  }
+  const int hi = min(min(lo + kSpan, S), min(qp0 + T, window));
 
   float m_r[kRW], l_r[kRW];
 #pragma unroll
@@ -360,13 +340,13 @@ __global__ void __launch_bounds__(kDecThreads) decode_merge_kernel(
   out[head * D + threadIdx.x] = __float2bfloat16_rn(L > 0.f ? A / L : 0.f);
 }
 
-template <typename KT, bool kScaled, bool kWrite, int kRows>
+template <typename KT, bool kScaled, int kRows>
 cudaError_t launch_rows(const void* xq, const void* xk, const void* xv, void* ck, void* cv,
                         void* ks, void* vs, int li, int window, const void* write_slot,
                         const void* q_pos, const void* kv_pos, const void* kv_valid,
                         void* part_acc, void* part_ml, int B, int T, int S, int H, int Hkv,
                         float scale, int nspan, cudaStream_t st) {
-  auto kernel = fused_decode_kernel<KT, kScaled, kWrite, kRows>;
+  auto kernel = fused_decode_kernel<KT, kScaled, kRows>;
   constexpr size_t smem = sizeof(DecodeSmem<kRows>);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -383,36 +363,32 @@ cudaError_t launch_rows(const void* xq, const void* xk, const void* xv, void* ck
   return cudaGetLastError();
 }
 
-template <typename KT, bool kScaled, bool kWrite>
+template <typename KT, bool kScaled>
 int launch_fused_decode(const void* xq, const void* xk, const void* xv, void* ck, void* cv,
                         void* ks, void* vs, int li, int window, const void* write_slot,
                         const void* q_pos, const void* kv_pos, const void* kv_valid,
                         void* out, void* part_acc, void* part_ml, int B, int T, int S, int H,
                         int Hkv, float scale, void* stream) {
-  if (H % Hkv != 0 || T < 1 || T > kMaxTokens || (!kWrite && T != 1)) return cudaErrorInvalidValue;
+  if (H % Hkv != 0 || T < 1 || T > kMaxTokens) return cudaErrorInvalidValue;
   const int R = H / Hkv * T;
   if (R > kMaxRows) return cudaErrorInvalidValue;
   const int nspan = (S + kSpan - 1) / kSpan;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
 #define MIT_DECODE_ROWS(n)                                                                   \
-  launch_rows<KT, kScaled, kWrite, n>(xq, xk, xv, ck, cv, ks, vs, li, window, write_slot,   \
+  launch_rows<KT, kScaled, n>(xq, xk, xv, ck, cv, ks, vs, li, window, write_slot,   \
                                       q_pos, kv_pos, kv_valid, part_acc, part_ml, B, T, S,  \
                                       H, Hkv, scale, nspan, st)
   if (R <= 4) {
     err = MIT_DECODE_ROWS(4);
   } else if (R <= 8) {
     err = MIT_DECODE_ROWS(8);
-  } else if constexpr (kWrite) {  // more than one token: the verify chunk only
-    if (R <= 16) {
-      err = MIT_DECODE_ROWS(16);
-    } else if (R <= 20) {
-      err = MIT_DECODE_ROWS(20);
-    } else {
-      err = MIT_DECODE_ROWS(kMaxRows);
-    }
+  } else if (R <= 16) {
+    err = MIT_DECODE_ROWS(16);
+  } else if (R <= 20) {
+    err = MIT_DECODE_ROWS(20);
   } else {
-    return cudaErrorInvalidValue;
+    err = MIT_DECODE_ROWS(kMaxRows);
   }
 #undef MIT_DECODE_ROWS
   if (err != cudaSuccess) return err;
@@ -435,7 +411,7 @@ extern "C" int fused_decode_int8(const void* xq, const void* xk, const void* xv,
                                  const void* kv_pos, const void* kv_valid, void* out,
                                  void* part_acc, void* part_ml, int B, int S, int H, int Hkv,
                                  float scale, void* stream) {
-  return mit::launch_fused_decode<int8_t, true, true>(xq, xk, xv, ck, cv, ks, vs, li, window,
+  return mit::launch_fused_decode<int8_t, true>(xq, xk, xv, ck, cv, ks, vs, li, window,
                                                 write_slot, q_pos, kv_pos, kv_valid, out,
                                                 part_acc, part_ml, B, 1, S, H, Hkv, scale,
                                                 stream);
@@ -448,7 +424,7 @@ extern "C" int fused_decode_fp8(const void* xq, const void* xk, const void* xv, 
                                 const void* kv_valid, void* out, void* part_acc,
                                 void* part_ml, int B, int S, int H, int Hkv, float scale,
                                 void* stream) {
-  return mit::launch_fused_decode<__nv_fp8_e4m3, true, true>(
+  return mit::launch_fused_decode<__nv_fp8_e4m3, true>(
       xq, xk, xv, ck, cv, ks, vs, li, window, write_slot, q_pos, kv_pos, kv_valid, out,
       part_acc, part_ml, B, 1, S, H, Hkv, scale, stream);
 }
@@ -459,7 +435,7 @@ extern "C" int fused_decode_bf16(const void* xq, const void* xk, const void* xv,
                                  const void* kv_valid, void* out, void* part_acc,
                                  void* part_ml, int B, int S, int H, int Hkv, float scale,
                                  void* stream) {
-  return mit::launch_fused_decode<__nv_bfloat16, false, true>(
+  return mit::launch_fused_decode<__nv_bfloat16, false>(
       xq, xk, xv, ck, cv, nullptr, nullptr, li, window, write_slot, q_pos, kv_pos,
       kv_valid, out, part_acc, part_ml, B, 1, S, H, Hkv, scale, stream);
 }
@@ -472,7 +448,7 @@ extern "C" int fused_verify_int8(const void* xq, const void* xk, const void* xv,
                                  const void* kv_pos, const void* kv_valid, void* out,
                                  void* part_acc, void* part_ml, int B, int T, int S, int H,
                                  int Hkv, float scale, void* stream) {
-  return mit::launch_fused_decode<int8_t, true, true>(xq, xk, xv, ck, cv, ks, vs, li, window,
+  return mit::launch_fused_decode<int8_t, true>(xq, xk, xv, ck, cv, ks, vs, li, window,
                                                 write_slot0, q_pos, kv_pos, kv_valid, out,
                                                 part_acc, part_ml, B, T, S, H, Hkv, scale,
                                                 stream);
@@ -484,7 +460,7 @@ extern "C" int fused_verify_fp8(const void* xq, const void* xk, const void* xv, 
                                 const void* kv_valid, void* out, void* part_acc,
                                 void* part_ml, int B, int T, int S, int H, int Hkv,
                                 float scale, void* stream) {
-  return mit::launch_fused_decode<__nv_fp8_e4m3, true, true>(
+  return mit::launch_fused_decode<__nv_fp8_e4m3, true>(
       xq, xk, xv, ck, cv, ks, vs, li, window, write_slot0, q_pos, kv_pos, kv_valid, out,
       part_acc, part_ml, B, T, S, H, Hkv, scale, stream);
 }
@@ -495,39 +471,7 @@ extern "C" int fused_verify_bf16(const void* xq, const void* xk, const void* xv,
                                  const void* kv_valid, void* out, void* part_acc,
                                  void* part_ml, int B, int T, int S, int H, int Hkv,
                                  float scale, void* stream) {
-  return mit::launch_fused_decode<__nv_bfloat16, false, true>(
+  return mit::launch_fused_decode<__nv_bfloat16, false>(
       xq, xk, xv, ck, cv, nullptr, nullptr, li, window, write_slot0, q_pos, kv_pos,
       kv_valid, out, part_acc, part_ml, B, T, S, H, Hkv, scale, stream);
-}
-
-// K6: the ring is only read (the pointers are not const because the kernel
-// template is shared with the writing instantiation).
-extern "C" int decode_attention_int8(const void* xq, void* ck, void* cv, void* ks, void* vs,
-                                     int li, int window, const void* q_pos, const void* kv_pos,
-                                     const void* kv_valid, void* out, void* part_acc,
-                                     void* part_ml, int B, int S, int H, int Hkv, float scale,
-                                     void* stream) {
-  return mit::launch_fused_decode<int8_t, true, false>(
-      xq, nullptr, nullptr, ck, cv, ks, vs, li, window, nullptr, q_pos, kv_pos, kv_valid, out,
-      part_acc, part_ml, B, 1, S, H, Hkv, scale, stream);
-}
-
-extern "C" int decode_attention_fp8(const void* xq, void* ck, void* cv, void* ks, void* vs,
-                                    int li, int window, const void* q_pos, const void* kv_pos,
-                                    const void* kv_valid, void* out, void* part_acc,
-                                    void* part_ml, int B, int S, int H, int Hkv, float scale,
-                                    void* stream) {
-  return mit::launch_fused_decode<__nv_fp8_e4m3, true, false>(
-      xq, nullptr, nullptr, ck, cv, ks, vs, li, window, nullptr, q_pos, kv_pos, kv_valid, out,
-      part_acc, part_ml, B, 1, S, H, Hkv, scale, stream);
-}
-
-extern "C" int decode_attention_bf16(const void* xq, void* ck, void* cv, int li, int window,
-                                     const void* q_pos, const void* kv_pos,
-                                     const void* kv_valid, void* out, void* part_acc,
-                                     void* part_ml, int B, int S, int H, int Hkv, float scale,
-                                     void* stream) {
-  return mit::launch_fused_decode<__nv_bfloat16, false, false>(
-      xq, nullptr, nullptr, ck, cv, nullptr, nullptr, li, window, nullptr, q_pos, kv_pos,
-      kv_valid, out, part_acc, part_ml, B, 1, S, H, Hkv, scale, stream);
 }

@@ -6,8 +6,9 @@
 // (B, Hkv, S) applied after the dots, or bf16 without scales. The producer
 // warpgroup widens an int8 or e4m3 tile to bf16 exactly on its way into
 // shared memory. The returned (out, m, l) merge exactly with K1's stats over
-// the chunk itself (merge_attention_parts). The tile loop (wgmma, an
-// asynchronous K/V pipeline, visibility decided per tile), its numerics and
+// the chunk itself (merge_attention_parts), which runs the same loop. The
+// tile loop (wgmma, an asynchronous K/V pipeline, visibility decided per
+// tile), its numerics and
 // what bounds it are described in flash_hopper.cuh: at T = 512 queries over
 // a 4096-slot ring it is compute-bound, about 85 GFLOP of visible pairs.
 #include "flash_hopper.cuh"

@@ -231,21 +231,26 @@ def test_fused_decode_plain_matches_pallas(kv_quant, S, window, kv_len, live):
 
 
 @pytest.mark.parametrize("kv_quant", ["int8", "bf16"])
-@pytest.mark.parametrize("S,Hkv,H", [(40, 2, 4), (1100, 2, 8)])
-def test_decode_attention_plain_matches_pallas(S, Hkv, H, kv_quant):
+@pytest.mark.parametrize("S,Hkv,H,wrap", [(40, 2, 4, 0), (1100, 2, 8, 0), (300, 2, 4, 77)],
+                         ids=["40-2-4", "1100-2-8", "wrapped-300-2-4"])
+def test_decode_attention_plain_matches_pallas(S, Hkv, H, kv_quant, wrap):
     """K6's plain version against the Pallas decode kernel (interpret mode)
     and the XLA oracle, at tests/test_pallas.py::
     test_decode_attention_matches_oracle's shapes: the real ring at layer 1 of
     a 3-layer stack, holes in kv_valid, a window shorter than the ring. The
-    ring is not written."""
+    ring is not written. With ``wrap``, the ring has wrapped: S + wrap tokens
+    were written, so its first ``wrap`` slots hold the newest positions (not
+    monotonic over the slots), and the window, 50 shorter than the ring,
+    hides the oldest slots in the middle of the ring."""
     rng = np.random.default_rng(S)
     B, D, L, li = 2, 128, 3, 1
     q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
     kq, vq, ks, vs, t_ks, t_vs = _scaled_ring(rng, B, S, Hkv, D, kv_quant)
     kv_pos = np.tile(np.arange(S, dtype=np.int32)[None], (B, 1))
-    q_pos = np.full((B, 1), S - 1, np.int32)
+    kv_pos[:, :wrap] += S
+    q_pos = np.full((B, 1), S + wrap - 1, np.int32)
     kv_valid = rng.random((B, S)) > 0.2
-    w = S - 3
+    w = S - 50 if wrap else S - 3
 
     def stack3(x):
         return None if x is None else np.stack([np.zeros_like(x), x, np.zeros_like(x) + 1])

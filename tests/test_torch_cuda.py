@@ -16,7 +16,11 @@ another order). K10, the vision encoder's segment-masked attention, is held
 to 1e-2 + 1e-2 |ref| at the five shapes ``chip_smoke.py`` checks. K4 is held
 to the same tolerances over int8, fp8 and bf16 rings where its tiles are
 full, mixed (the wrap, a window's edge, invalid slots) and ragged, and K4
-and K10 to equal bits for a row alone and the same row in a batch.
+and K10 to equal bits for a row alone and the same row in a batch. K1 is
+held to the same at causal-diagonal and ragged shapes, and K6 over int8,
+fp8 and bf16 rings with holes, wrapped rows, fills that end inside a cluster
+slice and windows shorter than the fill; both give a row alone the bits it
+has in a batch.
 ``python3 chip_smoke.py`` runs the same comparisons at the model's shapes.
 """
 
@@ -333,39 +337,141 @@ def test_moe_matmul_quant_rejects_bad_operands_on_card():
     assert mm.moe_matmul_quant.launches == before
 
 
+def _decode_case(g, ring, kv_len, window, L=3, B=None, S=1024, H=32, Hkv=8, D=128):
+    """A stacked ring (L layers, int8, fp8 or bf16) after a decode step's
+    write, the rows filled to ``kv_len`` (a fill past S wraps), holes in
+    kv_valid, and one query per row at its position."""
+    B = len(kv_len)
+    kf = torch.randn((L, B, S, Hkv, D), generator=g, device="cuda")
+    vf = torch.randn((L, B, S, Hkv, D), generator=g, device="cuda")
+    if ring == "bf16":
+        CK, CV, KS, VS = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    else:
+        dt = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[ring]
+        (CK, KS), (CV, VS) = tcache._quantize_ring(kf, dt), tcache._quantize_ring(vf, dt)
+        KS, VS = KS.transpose(2, 3).contiguous(), VS.transpose(2, 3).contiguous()
+    CK, CV = CK.reshape(L, B, S, -1), CV.reshape(L, B, S, -1)
+    kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    slot_pos, slot_valid = tcache.slot_positions(kv_len, S, S)
+    slot_valid = slot_valid & (torch.rand((B, S), generator=g, device="cuda") > 0.1)
+    q = torch.randn((B, 1, H, D), generator=g, device="cuda").to(torch.bfloat16)
+    return q, CK, CV, KS, VS, L - 2, (kv_len - 1)[:, None].contiguous(), slot_pos, slot_valid, window
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("int8", [True, False])
-def test_decode_attention_matches_plain_on_card(int8):
-    """K6 over a stored ring with holes (kv_valid) and a window shorter than
-    the ring, which the fused kernel's fill rule would not cover."""
+@pytest.mark.parametrize("ring", ["int8", "fp8", "bf16"])
+@pytest.mark.parametrize("kv_len,window", [
+    ([1100, 1030], 1021),        # wrapped rows, a window shorter than the ring
+    ([129, 1000], 1024),         # fills that end inside a cluster slice and a step
+    ([1024 + 500, 64], 300),     # a window far shorter than the fill
+    ([1, 1024], 1024),           # one visible slot; a full ring
+], ids=["wrapped", "slice-boundary", "window-300", "edges"])
+def test_decode_attention_matches_plain_on_card(ring, kv_len, window):
+    """K6 over a stored ring with holes (kv_valid), wrapped rows and windows
+    shorter than the fill, which the fused kernel's fill rule would not
+    cover, over every ring type: within bf16 rounding, the ring unchanged."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
-    dev, bf = "cuda", torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(5)
-    L, B, S, H, Hkv, D = 3, 2, 1100 // 128 * 128 + 128, 32, 8, 128
-    kf = torch.randn((L, B, S, Hkv, D), generator=g, device=dev)
-    vf = torch.randn((L, B, S, Hkv, D), generator=g, device=dev)
-    if int8:
-        CK, KS = tcache._quantize_ring(kf, torch.int8)
-        CV, VS = tcache._quantize_ring(vf, torch.int8)
-        KS, VS = KS.transpose(2, 3).contiguous(), VS.transpose(2, 3).contiguous()
-    else:
-        CK, CV, KS, VS = kf.to(bf), vf.to(bf), None, None
-    CK, CV = CK.reshape(L, B, S, -1), CV.reshape(L, B, S, -1)
-    q = torch.randn((B, 1, H, D), generator=g, device=dev).to(bf)
-    kv_pos = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(B, 1)
-    q_pos = torch.full((B, 1), S - 1, dtype=torch.int32, device=dev)
-    kv_valid = torch.rand((B, S), generator=g, device=dev) > 0.2
-    kv_valid[1, :700] = False  # whole spans without a visible slot
+    g = torch.Generator(device="cuda").manual_seed(5)
+    case = _decode_case(g, ring, kv_len, window)
     before = tk.decode_attention.launches
-    rings = [None if t is None else t.clone() for t in (CK, CV, KS, VS)]
-    out = tk.decode_attention(q, CK, CV, KS, VS, 1, q_pos, kv_pos, kv_valid, S - 3)
-    ref = tk.decode_attention_plain(q, CK, CV, KS, VS, 1, q_pos, kv_pos, kv_valid, S - 3)
+    rings = [None if t is None else t.clone() for t in case[1:5]]
+    out = tk.decode_attention(*case)
+    ref = tk.decode_attention_plain(*case)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
-    for a, b in zip((CK, CV, KS, VS), rings):
-        assert a is None or torch.equal(a, b), "decode_attention must not write the ring"
+    for a, b in zip(case[1:5], rings):
+        assert a is None or _same_bits(a, b), "decode_attention must not write the ring"
     assert tk.decode_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [48, 64])
+def test_decode_attention_wide_groups_on_card(H):
+    """K6 at 6 and 8 query heads per KV head (its second instantiation)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for ring in ("int8", "fp8", "bf16"):
+        case = _decode_case(g, ring, [1100, 129, 700], 1000, H=H)
+        out = tk.decode_attention(*case)
+        ref = tk.decode_attention_plain(*case)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", ["int8", "fp8", "bf16"])
+def test_decode_attention_batch_invariant_on_card(ring):
+    """A row's K6 bits alone equal its bits among 6 rows: its cluster sums
+    its own visible slots in an order fixed by S alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, CK, CV, KS, VS, li, qp, sp, sv, window = _decode_case(
+        g, ring, [1100, 38, 1024, 700, 129, 2000], 1000)
+    wide = tk.decode_attention(q, CK, CV, KS, VS, li, qp, sp, sv, window)
+    for row in (0, 3, 5):
+        one = [None if t is None else t[:, row:row + 1].contiguous() for t in (CK, CV, KS, VS)]
+        got = tk.decode_attention(q[row:row + 1].contiguous(), *one, li,
+                                  qp[row:row + 1].contiguous(), sp[row:row + 1].contiguous(),
+                                  sv[row:row + 1].contiguous(), window)
+        assert _same_bits(wide[row:row + 1], got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,S,window,holes", [
+    (2, 512, 512, 4096, False),  # the prefill chunk: the causal diagonal in every query tile
+    (2, 200, 333, 100, True),    # T != S, T not a multiple of 32, window and holes inside tiles
+    (3, 77, 77, 4096, True),     # a short chunk, one key tile
+    (1, 130, 1030, 64, False),   # queries at the end of a longer key set, a narrow window
+], ids=["causal-512", "ragged-200-333", "short-77", "window-64"])
+def test_flash_attention_matches_plain_on_card(B, T, S, window, holes):
+    """K1 against its plain version where its tiles are full, mixed (the
+    diagonal, a window's edge, invalid keys and queries) and skipped:
+    outputs within bf16 rounding, stats 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    case = _chunk_case(torch.Generator(device="cuda").manual_seed(7), B, T, S, window, holes)
+    o, m, l = tk.flash_attention(*case, return_stats=True)
+    flat = tk.flash_attention(*case)
+    ro, rm, rl = tk.attend_stats_plain(*case[:3], None, None, *case[3:])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), ro.float(), **BF16_TOL)
+    assert torch.equal(flat, o.reshape(B, T, -1))
+    torch.testing.assert_close(m, rm, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S", [(512, 512), (200, 333)])
+def test_flash_attention_batch_invariant_on_card(T, S):
+    """A row's K1 (out, m, l) bits alone equal its bits among 4 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    wide = _chunk_case(torch.Generator(device="cuda").manual_seed(8), 4, T, S, 4096, True)
+    got_wide = tk.flash_attention(*wide, return_stats=True)
+    for row in (0, 2):
+        one = tuple(x[row:row + 1].contiguous() if torch.is_tensor(x) else x for x in wide)
+        for a, b in zip(got_wide, tk.flash_attention(*one, return_stats=True)):
+            assert _same_bits(a[row:row + 1], b)
+
+
+def _chunk_case(g, B, T, S, window, holes, H=32, Hkv=8, D=128):
+    """K1's operands: T queries at the last T of S consecutive positions,
+    bf16 keys; with ``holes``, invalid keys and the last 7 queries invalid."""
+    bf = torch.bfloat16
+    q = torch.randn((B, T, H, D), generator=g, device="cuda").to(bf)
+    k = torch.randn((B, S, Hkv, D), generator=g, device="cuda").to(bf)
+    v = torch.randn((B, S, Hkv, D), generator=g, device="cuda").to(bf)
+    kv_pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
+    q_pos = kv_pos[:, S - T:].contiguous()
+    q_valid = torch.ones((B, T), dtype=torch.bool, device="cuda")
+    kv_valid = torch.ones((B, S), dtype=torch.bool, device="cuda")
+    if holes:
+        q_valid[:, -7:] = False
+        kv_valid = torch.rand((B, S), generator=g, device="cuda") > 0.2
+    return q, k, v, q_pos, kv_pos, q_valid, kv_valid, window
 
 
 @pytest.mark.cuda

@@ -113,11 +113,13 @@ def test_ring_kernels_plain_over_fp8_match_pallas():
     tests/test_torch_attention.py holds them over int8 (one of its shapes
     each, to keep this file short): K4 with the chunk merge; K2 with a
     wrapped, a near-full, an empty and a dead row, its ring bytes equal;
-    K6 with holes and a window under the ring. K7's fp8 cases are in
+    K6 with holes and a window under the ring, and over a wrapped ring with
+    a window shorter than its fill. K7's fp8 cases are in
     tests/test_torch_fused_verify.py."""
     _k4_case(40, 5, 2, 4, "fp8")
     _k2_case("fp8", 256, 200, [5, 199, 230, 0], [1, 1, 1, 0])
-    _k6_case(40, 2, 4, "fp8")
+    _k6_case(40, 2, 4, "fp8", 0)
+    _k6_case(300, 2, 4, "fp8", 77)
 
 
 def test_fp8_ring_args_and_alloc():

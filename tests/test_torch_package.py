@@ -45,15 +45,18 @@ def test_sources_found():
                    "ops/cuda/ssd_step.py", "models/vision.py", "images.py"):
         assert PKG / module in SOURCES
     assert sorted(p.name for p in (PKG / "ops" / "cuda" / "csrc").glob("*.cu")) == [
-        "flash_attention.cu", "fused_decode.cu", "matmul_quant.cu", "moe_expert_matmul.cu",
-        "moe_matmul.cu", "ring_attention.cu", "segment_attention.cu", "ssd_step.cu",
+        "decode_attention.cu", "flash_attention.cu", "fused_decode.cu", "matmul_quant.cu",
+        "moe_expert_matmul.cu", "moe_matmul.cu", "ring_attention.cu", "segment_attention.cu",
+        "ssd_step.cu",
     ]
-    # K3 and K8 share their device code, K4 and K10 theirs (the Hopper tile
-    # loop of flash_hopper.cuh; K10 is its head-dim-64 segment-mask
-    # instantiation), K1 keeps flash_tile.cuh; K2, K6 and K7 are
-    # instantiations of one kernel in fused_decode.cu.
+    # K3 and K8 share their device code (dequant_dot.cuh); K1, K4 and K10
+    # theirs (the Hopper tile loop of flash_hopper.cuh, each in an
+    # instantiation of its own: K1 the chunk's bf16 keys, K10 at head dim 64
+    # with a segment mask); K6 runs the cluster decode loop of
+    # decode_hopper.cuh; K2 and K7 are instantiations of one kernel in
+    # fused_decode.cu.
     assert sorted(p.name for p in (PKG / "ops" / "cuda" / "csrc").glob("*.cuh")) == [
-        "common.cuh", "dequant_dot.cuh", "flash_hopper.cuh", "flash_tile.cuh",
+        "common.cuh", "decode_hopper.cuh", "dequant_dot.cuh", "flash_hopper.cuh",
     ]
 
 
