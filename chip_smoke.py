@@ -23,10 +23,15 @@ Phases, each printing one JSON line:
    checked where its tiles are mixed (a 1000-token window, invalid slots
    inside tiles, T = 200), K1 at T = 200 over S = 333 and T = S = 77 with
    holes, K6 at fills that end inside a cluster slice and under a window
-   shorter than the fill, and K1, K4, K6 and K10 for batch invariance (a
-   row's bits alone equal its bits in the batch; an image alone equals
-   itself beside another). K6's row also carries its kernels' device time
-   by symbol (``split_ms``). Each kernel row carries its time (CUDA-event median), the plain
+   shorter than the fill, K2 and K7 at writes to the first and last slot of
+   a cluster slice and of a warp's part, a verify chunk across a slice, 32
+   query rows and 8 query heads per KV head, K2 against K6 over the ring K2
+   has written (equal bits), and K1, K2, K4, K6, K7 and K10 for batch
+   invariance (a row's bits alone equal its bits in the batch; an image
+   alone equals itself beside another; a K2 row over a smaller ring its
+   bits over the whole). The rows of K2, K6 and K7 also carry their
+   kernels' device time by symbol (``split_ms``). Each kernel row carries
+   its time (CUDA-event median), the plain
    version's time, the time of one PyTorch library call for the same function
    where one exists, and the card's least time for the work (bytes or flops,
    from this run's inputs), and K4's and K10's ``ms_over_library``.
@@ -533,17 +538,23 @@ def check_k2(gen, scaled: str = "int8"):
     from mistral_inference_tpu_torch.cache import dequant_layer, slot_positions
     from mistral_inference_tpu_torch.ops.attention import sliding_window_mask
     from mistral_inference_tpu_torch.ops.cuda.attention import (
-        fused_update_decode_attention, fused_update_decode_attention_plain,
+        decode_attention, fused_update_decode_attention, fused_update_decode_attention_plain,
     )
 
     bf = torch.bfloat16
     L, B, S, window = 32, 4, 4096, 4096
-    worst, main = 0.0, None
-    # Row 0 wrapped and row 3 dead (the timed case); then no row wrapped, a
-    # dead row with a fill of 3000 slots, not a multiple of the tile, and a
-    # write to slot 256, the first of a span, which is then its only slot.
-    for kv_len, live in (([4300, 1000, 37, 2999], [1, 1, 1, 0]),
-                         ([1000, 37, 2999, 256], [1, 1, 0, 1])):
+    worst, main, checked = 0.0, None, []
+    # (fills, live rows, query heads): row 0 wrapped and row 3 dead (the timed
+    # case); no row wrapped, a dead row with a fill of 3000 slots, not a
+    # multiple of the tile, and a write to slot 256; writes to the last and
+    # the first slot of a cluster slice (511, 512; 512 slots a slice) and of a
+    # warp's part (63 in a wrapped row, 64; 64 slots a part); and 8 query heads
+    # per KV head.
+    cases = (([4300, 1000, 37, 2999], [1, 1, 1, 0], H),
+             ([1000, 37, 2999, 256], [1, 1, 0, 1], H),
+             ([511, 512, 4096 + 63, 64], [1, 1, 1, 1], H),
+             ([1023, 4096 + 700, 64, 1], [1, 1, 0, 1], 64))
+    for kv_len, live, heads in cases:
         kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
         live = torch.tensor(live, dtype=torch.int32, device="cuda")
         new_total = kv_len + live
@@ -555,19 +566,37 @@ def check_k2(gen, scaled: str = "int8"):
             CK, KS = make_ring(gen, ring, L, B, S)
             CV, VS = make_ring(gen, ring, L, B, S)
             CK, CV = CK.reshape(L, B, S, HKV * D), CV.reshape(L, B, S, HKV * D)
-            xq = randn(gen, B, 1, H, D, dtype=bf)
+            xq = randn(gen, B, 1, heads, D, dtype=bf)
             xk, xv = randn(gen, B, 1, HKV, D, dtype=bf) * 3, randn(gen, B, 1, HKV, D, dtype=bf)
             li = 5
             stacks = [CK, CV, KS, VS]
+            start = [None if t is None else t.clone() for t in stacks]
             plain_stacks = [None if t is None else t.clone() for t in stacks]
-            out = fused_update_decode_attention(xq, xk, xv, *stacks, li, window, write_slot,
-                                                pos, slot_pos, slot_valid)
+            tail = (li, window, write_slot, pos, slot_pos, slot_valid)
+            out = fused_update_decode_attention(xq, xk, xv, *stacks, *tail)
             # The plain version writes with cache._quantize_ring, so equal
             # bytes here are the ring rule's bytes.
-            ref = fused_update_decode_attention_plain(xq, xk, xv, *plain_stacks, li, window,
-                                                      write_slot, pos, slot_pos, slot_valid)
+            ref = fused_update_decode_attention_plain(xq, xk, xv, *plain_stacks, *tail)
+            # K6 over the ring K2 has written, with the same q, positions and
+            # window: one loop, one function, the same bits.
+            o6 = decode_attention(xq, *stacks, li, pos, slot_pos, slot_valid, window)
+            # Row 2 alone, from the same start: the bits it has in the batch.
+            one = [None if t is None else t[:, 2:3].contiguous() for t in start]
+            alone = fused_update_decode_attention(
+                *(x[2:3].contiguous() for x in (xq, xk, xv)), *one, li, window,
+                *(x[2:3].contiguous() for x in (write_slot, pos, slot_pos, slot_valid)))
+            # The rows whose slots fit in 1024, over layer li's first 1024
+            # slots alone: the bits they have over 4096 (no sum depends on S).
+            fit = new_total <= 1024
+            small = [None if t is None else
+                     (t[li:li + 1, ..., :1024] if t.dtype == torch.float32
+                      else t[li:li + 1, :, :1024]).contiguous() for t in start]
+            sp_small, sv_small = slot_positions(new_total, window, 1024)
+            o_small = fused_update_decode_attention(
+                xq, xk, xv, *small, 0, window, torch.where(fit, write_slot, -1).to(torch.int32),
+                pos, sp_small, sv_small)
             torch.cuda.synchronize()
-            case = f"{ring} ring, kv_len={kv_len.tolist()}"
+            case = f"{ring} ring, kv_len={kv_len.tolist()}, live={live.tolist()}, H={heads}"
             for name, a, b in zip(("CK", "CV", "KS", "VS"), stacks, plain_stacks):
                 if a is not None:
                     require(same_bits(a, b), f"K2 ring {name} after the write is not "
@@ -575,10 +604,20 @@ def check_k2(gen, scaled: str = "int8"):
                                              f"{differ(a, b)} elements differ")
             ok, err = close(out, ref, 1e-2, 1e-2)
             require(ok, f"K2 output disagrees with its plain version ({case}): {err}")
+            require(same_bits(out, o6), f"K2 differs in bits from K6 over its ring ({case}): "
+                                        f"{differ(out, o6)} elements differ")
+            require(same_bits(out[2:3], alone), f"K2: row 2's bits alone differ from its bits "
+                                                f"at B={B} ({case})")
+            require(same_bits(out[fit], o_small[fit]),
+                    f"K2: a row's bits over 1024 slots differ from its bits over {S} ({case})")
+            for a, b in zip(stacks, one):
+                require(a is None or same_bits(a[:, 2:3], b),
+                        f"K2: row 2 alone wrote another ring ({case})")
             worst = max(worst, err)
+            checked.append(case)
             if ring == scaled and main is None:
-                main = (xq, xk, xv, *stacks, li, window, write_slot, pos, slot_pos, slot_valid)
-            del CK, CV, KS, VS, stacks, plain_stacks
+                main = (xq, xk, xv, *stacks, *tail)
+            del CK, CV, KS, VS, stacks, start, plain_stacks, one, small
 
     xq, xk, xv, CK, CV, KS, VS, li, window, write_slot, pos, slot_pos, slot_valid = main
     ones = torch.ones((B, 1), dtype=torch.bool, device="cuda")
@@ -607,9 +646,11 @@ def check_k2(gen, scaled: str = "int8"):
         "name": K2 + ("_fp8" if scaled == "fp8" else ""), "kernel": "K2", "route": "cuda",
         "ring": scaled,
         "source": "mistral_inference_tpu_torch/ops/cuda/csrc/fused_decode.cu",
+        "loop": "mistral_inference_tpu_torch/ops/cuda/csrc/decode_hopper.cuh",
         "replaces": "mistral_inference_tpu/ops/pallas/attention.py:1089",
         "max_abs_err": worst, "ring_bytes_equal_quantize_ring": True,
         "ms": timed_ms(cycle_layers),
+        "split_ms": kernel_split_ms(cycle_layers),
         "plain_ms": timed_ms(lambda: fused_update_decode_attention_plain(
             *main[:3], *plain_stacks, *main[7:])),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -618,11 +659,17 @@ def check_k2(gen, scaled: str = "int8"):
         "library": "SDPA with a mask on one layer's ring dequantized to bf16 before the call, "
                    "after the write: no one PyTorch call writes the ring and attends",
         "shape": f"B=4 over a 32-layer {scaled} ring stack of S=4096 (one row wrapped, one "
-                 "dead) H=32 Hkv=8 D=128; also checked: no row wrapped, fill 3000, a write at "
-                 "slot 256" + (", a bf16 ring" if scaled == "int8" else ""),
+                 "dead) H=32 Hkv=8 D=128",
+        "checked": checked,
+        "cases": "no row wrapped, fill 3000, a write at slot 256; writes at the last and first "
+                 "slot of a cluster slice (511, 512) and of a warp's part (63 wrapped, 64); "
+                 "H=64 (8 query heads per KV head)" + ("; bf16 rings" if scaled == "int8" else "")
+                 + "; in each, the output equals K6's over the written ring, row 2's bits "
+                   "alone equal its bits in the batch, and the rows that fit in 1024 slots "
+                   "give their bits over a 1024-slot ring",
         "tolerance": "ring bytes and scales bit-identical to cache._quantize_ring's (the plain "
                      "write); output abs 1e-2 + rel 1e-2 (bf16 output, fp32 sums in another "
-                     "order)",
+                     "order); K6 over the same ring, a row alone and a smaller ring: equal bits",
     }
 
 
@@ -1047,15 +1094,20 @@ def check_k7(gen, scaled: str = "int8"):
     def clones(stacks):
         return [None if t is None else t.clone() for t in stacks]
 
-    # (T, fills, live rows, ring): T = 5 with slots 126..130 across a span's
-    # edge and a dead row (the timed case); T = 8, the most, with slots
-    # 124..131 across an edge and a chunk that ends in the ring's last slot;
-    # with the int8 ring, a bf16 ring.
-    cases = [(5, [126, 1000, 2999, 4000], [1, 1, 1, 0], scaled),
-             (8, [3000, 124, 4088, 37], [1, 1, 1, 1], scaled)]
+    # (T, fills, live rows, ring, query heads): T = 5 with slots 126..130
+    # across a warp's part (64 slots) and a dead row (the timed case); T = 8,
+    # 32 query rows, with slots 124..131 across a part and a chunk that ends
+    # in the ring's last slot; T = 5 across a cluster slice (509..513; 512
+    # slots a slice) and from the first slot of a part (64); 8 query heads per
+    # KV head at T = 4 (32 rows), from the first slot of a slice and to the
+    # last of a part; with the int8 ring, a bf16 ring.
+    cases = [(5, [126, 1000, 2999, 4000], [1, 1, 1, 0], scaled, H),
+             (8, [3000, 124, 4088, 37], [1, 1, 1, 1], scaled, H),
+             (5, [509, 64, 2000, 7], [1, 1, 0, 1], scaled, H),
+             (4, [512, 60, 1021, 3000], [1, 1, 1, 1], scaled, 64)]
     if scaled == "int8":
-        cases.append((5, [126, 1000, 2999, 4000], [1, 1, 1, 0], "bf16"))
-    for T, kv_len, live, ring in cases:
+        cases.append((5, [126, 1000, 2999, 4000], [1, 1, 1, 0], "bf16", H))
+    for T, kv_len, live, ring, heads in cases:
         kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
         live = torch.tensor(live, dtype=torch.int32, device="cuda")
         steps = torch.arange(T, dtype=torch.int32, device="cuda")
@@ -1064,9 +1116,9 @@ def check_k7(gen, scaled: str = "int8"):
         slot_pos, slot_valid = slot_positions(kv_len + live * T, window, S)
         stacks = make(ring)
         start = clones(stacks)
-        xq = randn(gen, B, T, H, D, dtype=bf)
+        xq = randn(gen, B, T, heads, D, dtype=bf)
         xk, xv = randn(gen, B, T, HKV, D, dtype=bf) * 3, randn(gen, B, T, HKV, D, dtype=bf)
-        case = f"T={T}, {ring} ring, kv_len={kv_len.tolist()}, live={live.tolist()}"
+        case = f"T={T}, {ring} ring, kv_len={kv_len.tolist()}, live={live.tolist()}, H={heads}"
         tail = (li, window, write_slot0, q_pos, slot_pos, slot_valid)
         out = fused_verify_chunk_attention(xq, xk, xv, *stacks, *tail)
         plain_stacks = clones(start)
@@ -1083,6 +1135,18 @@ def check_k7(gen, scaled: str = "int8"):
         # A second launch on the ring it has written: the same bits.
         again = fused_verify_chunk_attention(xq, xk, xv, *stacks, *tail)
         require(torch.equal(again, out), f"K7 is not the same bits on a second run ({case})")
+        # Row 0 alone, from the same start: its bits and ring in the batch.
+        one = [None if t is None else t[:, :1].contiguous() for t in start]
+        alone = fused_verify_chunk_attention(
+            *(x[:1].contiguous() for x in (xq, xk, xv)), *one, li, window,
+            *(x[:1].contiguous() for x in (write_slot0, q_pos, slot_pos, slot_valid)))
+        torch.cuda.synchronize()
+        require(same_bits(out[:1], alone),
+                f"K7: row 0's bits alone differ from its bits at B={B} ({case})")
+        for a, b in zip(stacks, one):
+            require(a is None or same_bits(a[:, :1], b),
+                    f"K7: row 0 alone wrote another ring ({case})")
+        del one
         # T sequential K2 steps from the same start give query t's bits and
         # the same ring: what lets greedy speculation equal greedy decoding.
         seq = clones(start)
@@ -1158,9 +1222,11 @@ def check_k7(gen, scaled: str = "int8"):
         "name": K7 + ("_fp8" if scaled == "fp8" else ""), "kernel": "K7", "route": "cuda",
         "ring": scaled, "ring_bytes_equal_quantize_ring": True,
         "source": "mistral_inference_tpu_torch/ops/cuda/csrc/fused_decode.cu",
+        "loop": "mistral_inference_tpu_torch/ops/cuda/csrc/decode_hopper.cuh",
         "replaces": "mistral_inference_tpu/ops/pallas/attention.py:1552",
         "max_abs_err": worst,
         "ms": timed_ms(cycle_layers),
+        "split_ms": kernel_split_ms(cycle_layers),
         "plain_ms": timed_ms(lambda: fused_verify_chunk_attention_plain(
             xq, xk, xv, *plain_stacks, *main[7:])),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -1171,7 +1237,7 @@ def check_k7(gen, scaled: str = "int8"):
             qh, kh, vh, attn_mask=m, enable_gqa=True)),
         "k2_loop_ms": timed_ms(k2_loop),
         "shape": f"B=4 T=5 over a 32-layer {scaled} ring stack of S=4096 (fills 126, 1000, 2999 "
-                 "and a dead row at 4000; row 0's slots 126..130 cross a span's edge) H=32 Hkv=8 "
+                 "and a dead row at 4000; row 0's slots 126..130 cross a warp's part) H=32 Hkv=8 "
                  "D=128",
         "checked": checked,
         "library": "SDPA with a mask on one layer's ring dequantized to bf16 before the call, "
@@ -1179,7 +1245,8 @@ def check_k7(gen, scaled: str = "int8"):
         "k2_loop": "the same chunk as T launches of K2, which read the ring T times",
         "tolerance": "ring bytes and scales bit-identical to the plain write; output abs 1e-2 + "
                      "rel 1e-2 (bf16 output, fp32 sums in another order); a second launch, T "
-                     "sequential K2 steps (outputs and ring) and K2 at T = 1 equal bits",
+                     "sequential K2 steps (outputs and ring), K2 at T = 1 and row 0 alone "
+                     "(output and ring) equal bits",
     }
 
 
@@ -2525,10 +2592,15 @@ def kernel_ms(prof, calls: int = 1):
             cats[cat] = cats.get(cat, 0.0) + ms
             top.append((ms, ev.key[:80]))
             continue
-        cat = next((c for k, c in (("decode_hopper", "K6 decode_hopper"),
-                                   ("fused_decode", "K2/K7 fused_decode"),
-                                   ("decode_merge", "K2/K7 fused_decode"),
-                                   ("matmul_quant", "K3 matmul_quant"),
+        # K2, K7 and K6 are instantiations of decode_hopper_kernel<KT,
+        # kScaled, kWrite, kRG, kNT>: K2 and K7 with the ring write.
+        if "decode_hopper_kernel<" in name:
+            write = name.split("decode_hopper_kernel<", 1)[1].split(", ")[2] == "true"
+            cat = "K2/K7 fused_decode" if write else "K6 decode_hopper"
+            cats[cat] = cats.get(cat, 0.0) + ms
+            top.append((ms, ev.key[:80]))
+            continue
+        cat = next((c for k, c in (("matmul_quant", "K3 matmul_quant"),
                                    ("moe_matmul", "K5 moe_matmul"),
                                    ("moe_expert_matmul", "K8 moe_expert_matmul"),
                                    ("ssd_step", "K9 ssd_step"),

@@ -12,14 +12,18 @@ Six hand-written CUDA kernels for Hopper (sources in ``csrc/``, built by
   queries over one layer's stored ring, with stats, on the same tile loop.
 * ``fused_update_decode_attention`` (K2, ``csrc/fused_decode.cu``): one
   decode step's ring write plus ring-only attention.
-* ``decode_attention`` (K6, ``csrc/decode_attention.cu`` on
-  ``csrc/decode_hopper.cuh``): T = 1 attention over one layer of the stacked
-  ring, for the decode route that writes the ring with ``update_stacked``; a
-  thread-block cluster per (row, KV head) streams the visible slots and
-  merges its partials in distributed shared memory, in one launch.
-* ``fused_verify_chunk_attention`` (K7, the T <= 8 instantiation of
-  ``csrc/fused_decode.cu``): a speculative verify chunk's T candidate K/V
-  written to consecutive ring slots, then all T queries attending ring-only.
+* ``decode_attention`` (K6, ``csrc/decode_attention.cu``): T = 1 attention
+  over one layer of the stacked ring, for the decode route that writes the
+  ring with ``update_stacked``.
+* ``fused_verify_chunk_attention`` (K7, ``csrc/fused_decode.cu``): a
+  speculative verify chunk's T candidate K/V written to consecutive ring
+  slots, then all T queries attending ring-only.
+
+  K2, K6 and K7 run one loop, ``csrc/decode_hopper.cuh`` (K2 and K7 with the
+  ring write in front): a thread-block cluster per (row, KV head) streams the
+  visible slots and merges its partials in distributed shared memory, in one
+  launch. So K2 gives K6's bits over the ring it has written, and K7's query
+  t a K2 step's bits at its position.
 * ``segment_flash_attention`` (K10, ``csrc/segment_attention.cu``, the
   head-dim-64 segment-mask instantiation of K4's Hopper tile loop): the
   vision encoder's non-causal attention, where a patch sees only its own
@@ -60,18 +64,16 @@ _SIGS = {
        [_P] * 9 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _P] for kind in ("int8", "fp8")},
     ("ring_attention", "ring_attention_stats_bf16"): [_P] * 7 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _P],
     **{("fused_decode", f"fused_decode_{kind}"):
-       [_P] * 7 + [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _P] for kind in ("int8", "fp8")},
-    ("fused_decode", "fused_decode_bf16"): [_P] * 5 + [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _P],
+       [_P] * 7 + [_I, _I] + [_P] * 5 + [_I] * 4 + [_F, _P] for kind in ("int8", "fp8")},
+    ("fused_decode", "fused_decode_bf16"): [_P] * 5 + [_I, _I] + [_P] * 5 + [_I] * 4 + [_F, _P],
     **{("decode_attention", f"decode_attention_{kind}"):
        [_P] * 5 + [_I, _I] + [_P] * 4 + [_I] * 4 + [_F, _P] for kind in ("int8", "fp8")},
     ("decode_attention", "decode_attention_bf16"): [_P] * 3 + [_I, _I] + [_P] * 4 + [_I] * 4 + [_F, _P],
     **{("fused_decode", f"fused_verify_{kind}"):
-       [_P] * 7 + [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _P] for kind in ("int8", "fp8")},
-    ("fused_decode", "fused_verify_bf16"): [_P] * 5 + [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _P],
-    ("fused_decode", "fused_decode_span"): [],
+       [_P] * 7 + [_I, _I] + [_P] * 5 + [_I] * 5 + [_F, _P] for kind in ("int8", "fp8")},
+    ("fused_decode", "fused_verify_bf16"): [_P] * 5 + [_I, _I] + [_P] * 5 + [_I] * 5 + [_F, _P],
     ("segment_attention", "flash_attention_seg_bf16"): [_P] * 5 + [_I] * 3 + [_F, _P],
 }
-_kernel = functools.partial(_call.kernel, _SIGS)
 _launch = functools.partial(_call.launch, _SIGS)
 _need = _call.need
 
@@ -382,16 +384,6 @@ def ring_attention_stats(
 ring_attention_stats.launches = 0
 
 
-def _span_partials(B: int, H: int, S: int, D: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scratch for K2's and K7's per-span partials, which their second pass
-    merges: unnormalized sums and (max, sum) per (row, head, span)."""
-    nspan = -(-S // _kernel("fused_decode", "fused_decode_span")())
-    return (
-        torch.empty((B, H, nspan, D), dtype=torch.float32, device=dev),
-        torch.empty((B, H, nspan, 2), dtype=torch.float32, device=dev),
-    )
-
-
 def fused_update_decode_attention(
     xq: torch.Tensor,  # (B, 1, H, D)
     xk: torch.Tensor,  # (B, 1, Hkv, D) post-rope, pre-quantization
@@ -435,11 +427,9 @@ def fused_update_decode_attention(
     kp = _meta(kv_pos, "kv_pos", torch.int32, (B, S), dev)
     kv = _meta(kv_valid, "kv_valid", torch.bool, (B, S), dev)
     out = torch.empty((B, 1, H * D), dtype=bf, device=dev)
-    part_acc, part_ml = _span_partials(B, H, S, D, dev)
     tail = (
         int(li), int(window), ws.data_ptr(), qp.data_ptr(), kp.data_ptr(),
-        kv.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        B, S, H, Hkv, D**-0.5,
+        kv.data_ptr(), out.data_ptr(), B, S, H, Hkv, D**-0.5,
     )
     if kind != "bf16":
         _need(KS, "KS", torch.float32, (L, B, Hkv, S), dev)
@@ -593,11 +583,9 @@ def fused_verify_chunk_attention(
     kp = _meta(kv_pos, "kv_pos", torch.int32, (B, S), dev)
     kv = _meta(kv_valid, "kv_valid", torch.bool, (B, S), dev)
     out = torch.empty((B, T, H * D), dtype=bf, device=dev)
-    part_acc, part_ml = _span_partials(B * T, H, S, D, dev)
     tail = (
         int(li), int(window), ws.data_ptr(), qp.data_ptr(), kp.data_ptr(),
-        kv.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        B, T, S, H, Hkv, D**-0.5,
+        kv.data_ptr(), out.data_ptr(), B, T, S, H, Hkv, D**-0.5,
     )
     if kind != "bf16":
         _need(KS, "KS", torch.float32, (L, B, Hkv, S), dev)

@@ -1,5 +1,5 @@
-// Helpers shared by the kernels: element loads, exact integer-to-float and
-// e4m3-to-float conversion, bf16 rounding, warp reductions, the tensor-core fragment helpers
+// Helpers shared by the kernels: exact integer-to-float and e4m3-to-float
+// conversion, warp reductions, the tensor-core fragment helpers
 // (mma.sync m16n8k16, ldmatrix, staging into bf16 shared memory) and
 // asynchronous copies into shared memory. Device code only; no PyTorch
 // headers, so each kernel source builds with nvcc alone into a library with a
@@ -21,10 +21,6 @@ namespace mit {
 constexpr float kNegInf = -1e30f;
 constexpr int kHeadDim = 128;
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // Two e4m3 values, packed low byte first -> fp32, through Hopper's paired
 // convert to f16 (cvt.rn.f16x2.e4m3x2). Every e4m3 value is exact in f16 and
 // in fp32, so the conversion is exact.
@@ -40,31 +36,6 @@ __device__ __forceinline__ void e4m3x8_to_float(uint2 raw, float* out) {
   const float2 c = e4m3x2_to_float2(raw.y), d = e4m3x2_to_float2(raw.y >> 16);
   out[0] = a.x, out[1] = a.y, out[2] = b.x, out[3] = b.y;
   out[4] = c.x, out[5] = c.y, out[6] = d.x, out[7] = d.y;
-}
-
-// Eight consecutive elements -> fp32. The pointer is 16-byte aligned for
-// bf16 and 8-byte aligned for int8 and e4m3 (rows are whole 128-element
-// heads).
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const int8_t* p, float* out) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(c[i]);
-}
-
-__device__ __forceinline__ void load8(const __nv_fp8_e4m3* p, float* out) {
-  e4m3x8_to_float(*reinterpret_cast<const uint2*>(p), out);
 }
 
 // Reductions over `width` consecutive lanes (a power of two <= 32).

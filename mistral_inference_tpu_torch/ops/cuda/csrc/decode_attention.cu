@@ -7,10 +7,11 @@
 // (float8_e4m3fn) ring, both with fp32 scales per (slot, kv head), and for a
 // bf16 ring. q (B, 1, H, D) bf16, the ring (L, B, S, Hkv * D), scales (L, B,
 // Hkv, S), q_pos (B,), kv_pos (B, S) int32, kv_valid (B, S) bool, out (B, 1,
-// H * D) bf16. One launch: the design (a cluster per batch row and KV head,
-// only visible slots streamed through a cp.async pipeline, the partials
-// merged in distributed shared memory), its numerics and what bounds it are
-// described in decode_hopper.cuh.
+// H * D) bf16. One launch of the loop K2 and K7 run too, without their ring
+// write: the design (a cluster per batch row and KV head, only visible slots
+// streamed through a cp.async pipeline, both products on the tensor cores,
+// the partials merged in distributed shared memory), its numerics and what
+// bounds it are described in decode_hopper.cuh.
 #include "decode_hopper.cuh"
 
 extern "C" int decode_attention_int8(const void* xq, const void* ck, const void* cv,

@@ -73,7 +73,7 @@ def test_declarations_found():
     # attention kernels' declarations across several lines.
     assert {lib for lib, _ in DECLS} == {p.stem for p in CSRC.glob("*.cu")}
     assert len(DECLS["ring_attention", "ring_attention_stats_int8"]) == 20
-    assert DECLS["fused_decode", "fused_decode_span"] == []
+    assert len(DECLS["fused_decode", "fused_verify_int8"]) == 21
 
 
 def test_every_entry_has_a_declaration():

@@ -6,8 +6,11 @@ They import no JAX, so they run where the port runs:
     python -m pytest tests/test_torch_cuda.py -q
 
 Tolerances: the int8 and float8_e4m3fn ring bytes and scales that the fused
-decode and fused verify kernels write are equal to the plain write, and a verify chunk's query
-t has the bits of a decode step at its position; outputs agree within 1e-2 (bf16
+decode and fused verify kernels write are equal to the plain write, a verify chunk's query
+t has the bits of a decode step at its position, a decode step the bits of K6
+over the ring it has written, and a row alone its bits in the batch (also
+where a write falls on the edge of a warp's part or a cluster slice, at 32
+query rows and at 8 query heads per KV head); outputs agree within 1e-2 (bf16
 outputs, fp32 sums in another order) and the fp32 stats within 1e-4. The
 quantized matmuls are held to the same 1e-2 + 1e-2 |ref|, and the stacked and
 repeated launches of K3 and K8 to equal bits. K9's new state has the bits of
@@ -512,41 +515,69 @@ def _verify_case(int8, T, kv_len, live, L=3, B=4, S=384, H=32, Hkv=8, D=128, see
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [True, False])
-@pytest.mark.parametrize("T,kv_len,live", [
-    (5, [126, 0, 379, 40], [1, 1, 1, 0]),   # across a span's edge, empty, the ring's end, dead
-    (8, [124, 250, 376, 7], [1, 1, 1, 1]),  # the most tokens
-    (1, [127, 128, 0, 383], [1, 1, 0, 1]),  # K2's case
+@pytest.mark.parametrize("T,kv_len,live,H,S", [
+    (5, [126, 0, 379, 40], [1, 1, 1, 0], 32, 384),   # across a part, empty, the ring's end, dead
+    (8, [124, 250, 376, 7], [1, 1, 1, 1], 32, 384),  # the most tokens: 32 query rows
+    (1, [127, 128, 0, 383], [1, 1, 0, 1], 32, 384),  # K2's case
+    # Across a block's slice (512 slots; a warp's part is 64) and from the last
+    # slot of a part; from a part's first slot; a dead row.
+    (5, [509, 63, 64, 1000], [1, 1, 1, 0], 32, 1024),
+    # 8 query heads per KV head, 32 query rows: from a slice's first slot, to
+    # a part's last, across a part, to the ring's end.
+    (4, [512, 60, 126, 1020], [1, 1, 1, 1], 64, 1024),
+    # K2 at 8 query heads per KV head, and at 4 with a dead row: the last and
+    # first slot of a slice and of a part.
+    (1, [511, 512, 63, 64], [1, 1, 1, 1], 64, 1024),
+    (1, [511, 512, 63, 64], [1, 0, 1, 1], 32, 1024),
 ])
-def test_fused_verify_matches_plain_on_card(int8, T, kv_len, live):
-    """K7 against its plain version (ring bytes and scales equal, output
-    within bf16 rounding) and against T sequential K2 steps (equal bits:
-    query t of the chunk is a decode step at its position)."""
+def test_fused_verify_matches_plain_on_card(int8, T, kv_len, live, H, S):
+    """K7 (K2 at T = 1) against its plain version (ring bytes and scales
+    equal, output within bf16 rounding); against T sequential K2 steps (equal
+    bits: query t of the chunk is a decode step at its position), each step
+    against K6 over the ring it has just written (equal bits: one loop); a
+    row alone against the batch (equal bits, the same ring); and the rows
+    over a ring of twice the slots (equal bits: no sum depends on S)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
-    S = window = 384
-    stacks, (xq, xk, xv), kv_len, live, q_pos = _verify_case(int8, T, kv_len, live, S=S)
+    window = S
+    stacks, (xq, xk, xv), kv_len, live, q_pos = _verify_case(int8, T, kv_len, live, S=S, H=H)
     start = [None if t is None else t.clone() for t in stacks]
     plain = [None if t is None else t.clone() for t in stacks]
     ws0 = torch.where(live > 0, kv_len % window, -1).to(torch.int32)
     slot_pos, slot_valid = tcache.slot_positions(kv_len + live * T, window, S)
+    tail = (ws0, q_pos, slot_pos, slot_valid)
     before = tk.fused_verify_chunk_attention.launches
-    out = tk.fused_verify_chunk_attention(xq, xk, xv, *stacks, 1, window, ws0, q_pos,
-                                          slot_pos, slot_valid)
-    ref = tk.fused_verify_chunk_attention_plain(xq, xk, xv, *plain, 1, window, ws0, q_pos,
-                                                slot_pos, slot_valid)
+    out = tk.fused_verify_chunk_attention(xq, xk, xv, *stacks, 1, window, *tail)
+    ref = tk.fused_verify_chunk_attention_plain(xq, xk, xv, *plain, 1, window, *tail)
     torch.cuda.synchronize()
     assert tk.fused_verify_chunk_attention.launches == before + 1
     for a, b in zip(stacks, plain):
         assert a is None or torch.equal(a, b)
     torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    for row in range(len(live)):
+        one = [None if t is None else t[:, row:row + 1].contiguous() for t in start]
+        alone = tk.fused_verify_chunk_attention(
+            *(x[row:row + 1].contiguous() for x in (xq, xk, xv)), *one, 1, window,
+            *(x[row:row + 1].contiguous() for x in tail))
+        assert _same_bits(out[row:row + 1], alone), f"row {row} alone is not its batch bits"
+        for a, b in zip(stacks, one):
+            assert a is None or _same_bits(a[:, row:row + 1], b)
+    # Twice the slots, those past S invalid: every row sees the same slots.
+    big = [None if t is None else torch.cat([t, t], dim=3 if t.dtype == torch.float32 else 2)
+           for t in start]
+    bp, bv = tcache.slot_positions(kv_len + live * T, 2 * S, 2 * S)
+    out_big = tk.fused_verify_chunk_attention(xq, xk, xv, *big, 1, window, ws0, q_pos, bp, bv)
+    assert _same_bits(out, out_big), "a row's bits depend on the ring's size"
     rows = live > 0
     for t in range(T):
         sp, sv = tcache.slot_positions(kv_len + live * (t + 1), window, S)
         ws = torch.where(rows, (kv_len + t) % window, -1).to(torch.int32)
-        step = tk.fused_update_decode_attention(
-            xq[:, t:t + 1].contiguous(), xk[:, t:t + 1].contiguous(),
-            xv[:, t:t + 1].contiguous(), *start, 1, window, ws, q_pos[:, t].contiguous(), sp, sv)
+        xs = [x[:, t:t + 1].contiguous() for x in (xq, xk, xv)]
+        step = tk.fused_update_decode_attention(*xs, *start, 1, window, ws,
+                                                q_pos[:, t].contiguous(), sp, sv)
         assert torch.equal(step[rows, 0], out[rows, t]), f"query {t} is not a K2 step's bits"
+        o6 = tk.decode_attention(xs[0], *start, 1, q_pos[:, t].contiguous(), sp, sv, window)
+        assert _same_bits(step, o6), f"K2 step {t} is not K6's bits over its ring"
     for a, b in zip(stacks, start):
         assert a is None or torch.equal(a, b), "T K2 steps leave another ring"
 

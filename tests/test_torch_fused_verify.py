@@ -9,7 +9,8 @@ non-zero layer; T = 8 over several spans; T = 1.
 Tolerances: ring bytes equal; scales rtol 2e-7 (the JAX kernel's own bound:
 one fp32 ulp); outputs 3e-5 (fp32 sums in another order). At T = 1 the
 function is K2's: equal to ``fused_update_decode_attention`` on the same
-inputs, bytes and output.
+inputs, bytes and output; and K2's output equals ``decode_attention``'s (K6)
+over the ring K2 has written, to the bit.
 """
 
 import jax.numpy as jnp
@@ -20,6 +21,7 @@ import torch
 from mistral_inference_tpu import cache as jcache
 from mistral_inference_tpu.ops.attention import attend, attend_scaled, sliding_window_mask
 from mistral_inference_tpu.ops.pallas import attention as jpal
+from mistral_inference_tpu_torch import cache as tcache
 from mistral_inference_tpu_torch.ops import cuda as cuda_ops
 from mistral_inference_tpu_torch.ops.cuda import attention as tk
 
@@ -167,6 +169,24 @@ def test_fused_verify_plain_t1_equals_fused_decode(kv_quant):
     assert np.array_equal(k2.numpy(), out)
     for a, b in zip(stacks, k2_stacks):
         assert a is None or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kv_quant", ["int8", "bf16", "fp8"])
+def test_fused_decode_plain_equals_decode_over_its_ring(kv_quant):
+    """K2's plain version gives K6's plain output, to the bit, over the ring
+    it has just written, with the same q, positions and window: the contract
+    the kernels keep on the card, where the two run one loop."""
+    L, B, T, S, Hkv, H, D, li = 2, 4, 1, 256, 2, 4, 128, 1
+    CK, CV, KS, VS, xq, xk, xv = _setup(kv_quant, np.random.default_rng(5), L, B, T, S, Hkv, H, D)
+    kv_len = torch.tensor([0, 17, 255, 128], dtype=torch.int32)
+    live = torch.tensor([1, 1, 1, 0], dtype=torch.int32)
+    ws = torch.where(live > 0, kv_len, -1).to(torch.int32)
+    slot_pos, slot_valid = tcache.slot_positions(kv_len + live, S, S)
+    stacks = [None if a is None else _t(a) for a in (CK, CV, KS, VS)]
+    k2 = tk.fused_update_decode_attention(_t(xq), _t(xk), _t(xv), *stacks, li, S, ws, kv_len,
+                                          slot_pos, slot_valid)
+    k6 = tk.decode_attention(_t(xq), *stacks, li, kv_len, slot_pos, slot_valid, S)
+    assert torch.equal(k2, k6)
 
 
 def test_fused_verify_rejects_long_chunks():

@@ -52,9 +52,9 @@ def test_sources_found():
     # K3 and K8 share their device code (dequant_dot.cuh); K1, K4 and K10
     # theirs (the Hopper tile loop of flash_hopper.cuh, each in an
     # instantiation of its own: K1 the chunk's bf16 keys, K10 at head dim 64
-    # with a segment mask); K6 runs the cluster decode loop of
-    # decode_hopper.cuh; K2 and K7 are instantiations of one kernel in
-    # fused_decode.cu.
+    # with a segment mask); K2, K6 and K7 theirs (the cluster decode loop of
+    # decode_hopper.cuh, K2 and K7 with the ring write in front), whose entry
+    # points are in fused_decode.cu and decode_attention.cu.
     assert sorted(p.name for p in (PKG / "ops" / "cuda" / "csrc").glob("*.cuh")) == [
         "common.cuh", "decode_hopper.cuh", "dequant_dot.cuh", "flash_hopper.cuh",
     ]
