@@ -29,7 +29,10 @@ Phases, each printing one JSON line:
    has written (equal bits), and K1, K2, K4, K6, K7 and K10 for batch
    invariance (a row's bits alone equal its bits in the batch; an image
    alone equals itself beside another; a K2 row over a smaller ring its
-   bits over the whole). The rows of K2, K6 and K7 also carry their
+   bits over the whole). K5 also at a group of 64 and at row tiles of 128,
+   and a 256-row tile alone against the same rows among 2048 and in the
+   E = 8 launch (equal bits); K8 a row at C = 4 against C = 128 (equal bits)
+   and zeros from the experts that hold no row. The rows of K2, K6 and K7 also carry their
    kernels' device time by symbol (``split_ms``). Each kernel row carries
    its time (CUDA-event median), the plain
    version's time, the time of one PyTorch library call for the same function
@@ -829,12 +832,58 @@ def check_k5(gen):
         require(ok, f"K5 disagrees with its plain version (int{bits}, E=4, layer 1 of 2): {err}")
         worst = max(worst, err)
         del q, scale, x
+    # The smaller cases the wrapper keeps: a group of 64, and row tiles of
+    # 128 (16 tiles over four weights). These and the invariance cases below
+    # draw from a generator of their own, so that every later check sees the
+    # inputs it had before them.
+    own = torch.Generator(device="cuda").manual_seed(5)
+    K, N = 4096, 4096
+    for bits in (4, 8):
+        for group, TMc, Ec in ((64, 256, 1), (128, 128, 4)):
+            from mistral_inference_tpu_torch.ops.linear import quantize_weight
+
+            qws = [quantize_weight(randn(own, K, N) * K**-0.5, bits, group) for _ in range(Ec)]
+            q = torch.stack([qw["q4" if bits == 4 else "q"] for qw in qws])
+            scale = torch.stack([qw["scale"] for qw in qws])
+            tgc = torch.tensor([(5 * t + 2) % Ec for t in range(rows // TMc)], dtype=torch.int32,
+                               device="cuda")
+            x = randn(own, rows, K, dtype=torch.bfloat16)
+            out = moe_matmul_quant_ragged(x, q, scale, tgc)
+            ref = moe_matmul_quant_ragged_plain(x, q, scale, tgc)
+            torch.cuda.synchronize()
+            ok, err = close(out, ref, 1e-2, 1e-2)
+            require(ok, f"K5 disagrees with its plain version (int{bits}, group {group}, "
+                        f"TM {TMc}, E={Ec}): {err}")
+            worst = max(worst, err)
+            del q, scale, x, qws
     # A Mixtral layer's eight experts over one chunk's sorted assignments:
     # 4 x 512 tokens, top-2, in (16 + 8) tiles of 256. The last five tiles
     # lie past the last expert's rows and carry the clamped index E - 1.
     E, rows8 = 8, 6144
     tg8 = torch.tensor([0, 0, 0, 1, 1, 2, 2, 2, 3, 3, 4, 4, 5, 5, 5, 6, 6, 7, 7] + [7] * 5,
                        dtype=torch.int32, device="cuda")
+    # Batch invariance: a 256-row tile alone (E = 1), the same rows as tile 5
+    # of 2048 (E = 1), and as tile 9 of the mixed E = 8 launch, whose weight
+    # 3 is the same weight: equal bits, and again on a second launch.
+    name, K, N = LINEARS[0]
+    for bits in (4, 8):
+        q, scale = quant_stack(own, E, K, N, bits)
+        x8 = randn(own, rows8, K, dtype=torch.bfloat16)
+        x = randn(own, rows, K, dtype=torch.bfloat16)
+        x[5 * TM:6 * TM] = x8[9 * TM:10 * TM]
+        alone = moe_matmul_quant_ragged(x8[9 * TM:10 * TM].contiguous(), q[3:4], scale[3:4],
+                                        zeros[:1])
+        dense = moe_matmul_quant_ragged(x, q[3:4], scale[3:4], zeros)
+        mixed = moe_matmul_quant_ragged(x8, q, scale, tg8)
+        again = moe_matmul_quant_ragged(x8, q, scale, tg8)
+        torch.cuda.synchronize()
+        require(tg8[9].item() == 3, "the invariance tile must carry weight 3")
+        require(same_bits(alone, dense[5 * TM:6 * TM]),
+                f"K5: a tile's bits alone differ from its bits among 2048 rows (int{bits})")
+        require(same_bits(alone, mixed[9 * TM:10 * TM]),
+                f"K5: a tile's bits alone differ from its bits in the E=8 launch (int{bits})")
+        require(same_bits(mixed, again), f"K5 is not the same bits on a second run (int{bits})")
+        del q, scale, x8, x, alone, dense, mixed, again
     e8 = {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
           "library_predequant_ms": 0.0}
     for name, K, N in EXPERT_LINEARS:
@@ -869,6 +918,12 @@ def check_k5(gen):
         "name": K5, "kernel": "K5", "route": "cuda",
         "source": "mistral_inference_tpu_torch/ops/cuda/csrc/moe_matmul.cu",
         "replaces": "mistral_inference_tpu/ops/pallas/moe_matmul.py:129",
+        "design": "wgmma m64n128k16 from 128-byte-swizzled shared memory (x K-major, the "
+                  "dequantized weight MN-major through the transpose bit), two warpgroups of "
+                  "64 x 128 rows x columns; a six-stage cp.async ring four chunks ahead; chunk "
+                  "c + 1's weight dequantized by the same warps while chunk c's products run, "
+                  "into one of three bf16 buffers; one block barrier per 64-step chunk; 128 x "
+                  "128 tiles, row blocks fastest (hopper.cuh)",
         "max_abs_err": worst, **total,
         "bound_by": by.pop() if len(by) == 1 else "operations",
         "shape": "the sums over one layer's four int4 linears (as K3) at 2048 rows = 4 x 512 in "
@@ -876,13 +931,17 @@ def check_k5(gen):
                  "E=4 in a 2-layer stack with a mixed tile_group and layer 1; experts_e8 is the "
                  "sum over a Mixtral layer's int4 w13 and w2 at E=8, 6144 sorted rows in 24 tiles "
                  "of 256, the last five past the last expert's rows, with its plain version's "
-                 "time and, as library time, one F.linear per expert on its own rows",
+                 "time and, as library time, one F.linear per expert on its own rows; also "
+                 "checked: group 64, row tiles of 128 over four weights, and a 256-row tile "
+                 "alone, among 2048 rows and in the E=8 launch (equal bits, int4 and int8, "
+                 "and on a second launch)",
         "experts_e8": e8,
         "library": "F.linear(x, dequant(w).T): library_ms dequantizes inside the timed call "
                    "(the same inputs), library_predequant_ms takes a bf16 weight made before",
         "by_shape": shapes,
         "tolerance": "abs 1e-2 + rel 1e-2 on bf16 outputs (fp32 sums in another order, one "
-                     "rounding to bf16)",
+                     "rounding to bf16); a tile alone, among 2048 rows, in the E=8 launch and "
+                     "on a second launch equal bits",
     }
 
 
@@ -920,8 +979,14 @@ def check_k8(gen):
             # The main path's decode buffers (B = 4, top-2: C = 4, some
             # experts empty); every slot of every expert full; C = 128.
             routed, live = dispatch_buffers(gen, 4, K)
+            # The decode rows again among 124 more of every expert (all live),
+            # drawn apart so that the later cases see the inputs they had.
+            wide = randn(torch.Generator(device="cuda").manual_seed(bits * K), E, 128, K,
+                         dtype=torch.bfloat16)
+            wide[:, :4] = routed
+            outs = {}
             for case, x in (("decode", routed), ("full", randn(gen, E, 4, K, dtype=torch.bfloat16)),
-                            ("c128", randn(gen, E, 128, K, dtype=torch.bfloat16))):
+                            ("c128", randn(gen, E, 128, K, dtype=torch.bfloat16)), ("wide", wide)):
                 ref = moe_matmul_quant_plain(x, ql, sl)
                 out = moe_matmul_quant_stacked(x, q, scale, li)
                 one = moe_matmul_quant(x, ql, sl)
@@ -933,8 +998,17 @@ def check_k8(gen):
                 require(torch.equal(out, one), f"K8 stacked and unstacked forms differ ({what})")
                 require(torch.equal(out, again), f"K8 is not the same bits on a second run ({what})")
                 worst = max(worst, err)
-                rec[f"{case}_ms"] = timed_ms(lambda: moe_matmul_quant_stacked(x, q, scale, li),
-                                             reps=5 if case == "c128" else 10)
+                outs[case] = out
+                if case != "wide":
+                    rec[f"{case}_ms"] = timed_ms(
+                        lambda: moe_matmul_quant_stacked(x, q, scale, li),
+                        reps=5 if case == "c128" else 10)
+            require(same_bits(outs["wide"][:, :4], outs["decode"]),
+                    f"K8: a row's bits at C=4 differ from its bits at C=128 (int{bits} {name})")
+            empty = [e for e in range(E) if e not in live]
+            require(not bool(outs["decode"][empty].any()),
+                    f"K8: an expert with no row did not give zeros (int{bits} {name})")
+            del wide, outs
             x = routed
             # Least time: the stored bytes and scales of the experts that hold
             # a row, the buffers in and out.
@@ -959,17 +1033,24 @@ def check_k8(gen):
         "name": K8, "kernel": "K8", "route": "cuda",
         "source": "mistral_inference_tpu_torch/ops/cuda/csrc/moe_expert_matmul.cu",
         "replaces": "mistral_inference_tpu/ops/pallas/moe_matmul.py:56",
+        "design": "mma.sync m16n8k16 with the weight as A (fragments assembled from the "
+                  "stored bytes by byte permutes) and the capacity rows as n-tiles of 8; "
+                  "each live expert's weight read once through a four-stage cp.async ring; "
+                  "a fixed split of about 1024 stored rows, summed in order over a cluster",
         "max_abs_err": worst, **total, "bound_by": "bytes",
         "shape": "the sums over one Mixtral layer's two int4 expert stacks (E=8; w13 4096x28672, "
                  "w2 14336x4096; group 128) at the decode buffers of B=4, top-2 (C=4; "
                  f"{live_counts} experts hold a row), read from layer 1 of a 2-layer stack; "
-                 "by_shape has each stack, int4 and int8, also with every slot full and at C=128",
+                 "by_shape has each stack, int4 and int8, also with every slot full and at "
+                 "C=128; also checked: the decode rows among 124 more rows of every expert "
+                 "(equal bits) and zeros from the experts that hold no row",
         "library": "torch.bmm(x, dequant(w)) over all 8 experts: library_ms dequantizes inside "
                    "the timed call (the same inputs), library_predequant_ms takes a bf16 weight "
                    "made before",
         "by_shape": shapes,
         "tolerance": "abs 1e-2 + rel 1e-2 on bf16 outputs (fp32 sums in another order, one "
-                     "rounding to bf16); stacked, unstacked and repeated launches equal bits",
+                     "rounding to bf16); stacked, unstacked and repeated launches equal bits; "
+                     "a row at C=4 and at C=128 equal bits",
     }
 
 

@@ -1,7 +1,6 @@
 // The grouped-dequant product of a few x rows against a streamed integer
-// weight: the device code that K3 (matmul_quant.cu, one weight) and K8
-// (moe_expert_matmul.cu, one weight per expert) share, as flash_hopper.cuh
-// serves K1, K4 and K10. Each source wraps it in kernels under its own names.
+// weight: the device code of K3 (matmul_quant.cu), which wraps it in its
+// kernels.
 //
 // Function of one problem: x (M, K) bf16; q int8 (K, N), or int4 packed
 // (K / 2, N) in split-halves layout (byte row r holds element r in its low
@@ -66,22 +65,6 @@ __device__ __forceinline__ void nibbles_to_float(uint32_t w, float* lo, float* h
   biased_bytes_to_float(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 8.f, hi);
 }
 
-// True if any of x[m0 .. m0 + rows) over reduction steps [k0, k0 + len) is
-// not zero (either sign). k0 and len are multiples of 4, so the loads are
-// whole 8-byte words. The same answer in every thread of the block.
-__device__ __forceinline__ bool any_nonzero(const __nv_bfloat16* x, int K, int m0, int rows,
-                                            int k0, int len) {
-  bool any = false;
-  const int words = len / 4;
-  for (int i = threadIdx.x; i < rows * words; i += kMqThreads) {
-    const int m = i / words, j = i - m * words;
-    const uint2 v =
-        *reinterpret_cast<const uint2*>(x + static_cast<size_t>(m0 + m) * K + k0 + 4 * j);
-    any |= ((v.x | v.y) & 0x7FFF7FFFu) != 0;
-  }
-  return __syncthreads_or(any);
-}
-
 // One block's share of one problem. A unit of work is one scale group of
 // reduction steps: group u for int8 and kModeInt4Single, and for
 // kModeInt4Paired stored rows [u g, (u + 1) g), which hold group u in their
@@ -89,11 +72,7 @@ __device__ __forceinline__ bool any_nonzero(const __nv_bfloat16* x, int K, int m
 // columns [nb, nb + 128), rows [m0, m0 + 4) and units [split upb, (split + 1)
 // upb). With part == nullptr (one split) it writes out, else its fp32 partial
 // sums to part + split * part_stride, laid out like out.
-//
-// With kSkipZeroRows the block first looks at its x rows over its units: if
-// all are zero (an expert's empty capacity slots) it writes zeros, which is
-// what the sums would give, and reads no weight.
-template <int kMode, bool kSkipZeroRows>
+template <int kMode>
 __device__ __forceinline__ void dequant_dot_block(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
     const float* __restrict__ scale, float* __restrict__ part, __nv_bfloat16* __restrict__ out,
@@ -108,22 +87,6 @@ __device__ __forceinline__ void dequant_dot_block(
 
   const int u_begin = split * upb;
   const int u_end = min(units, (split + 1) * upb);
-
-  if (kSkipZeroRows) {
-    const int rows = min(kMqRows, M - m0), len = max(u_end - u_begin, 0) * g;
-    bool live = any_nonzero(x, K, m0, rows, u_begin * g, len);
-    if (kMode == kModeInt4Paired) live |= any_nonzero(x, K, m0, rows, half + u_begin * g, len);
-    if (!live) {
-      for (int m = 0; m < rows; ++m) {
-        const size_t o = static_cast<size_t>(m0 + m) * N + nb + tid;
-        if (part != nullptr)
-          part[static_cast<size_t>(split) * part_stride + o] = 0.f;
-        else
-          out[o] = __float2bfloat16_rn(0.f);
-      }
-      return;
-    }
-  }
 
   float acc[kMqRows][4];
 #pragma unroll
@@ -252,17 +215,17 @@ inline int mq_units(int ng, int bits) { return (bits == 4 && ng % 2 == 0) ? ng /
 inline int mq_row_blocks(int M) { return (M + kMqRows - 1) / kMqRows; }
 
 // Units per block, chosen so that a grid of `blocks` blocks before the split
-// (column blocks x row blocks x problems) grows to about kMqTargetBlocks.
+// (column blocks x row blocks) grows to about kMqTargetBlocks.
 inline int mq_units_per_block(int blocks, int units) {
   const int want = max(1, min(units, (kMqTargetBlocks + blocks - 1) / blocks));
   return (units + want - 1) / want;
 }
 
-// `problems` row-block sets share grid z: one for K3, one per expert for K8.
-inline bool mq_shapes_ok(int problems, int M, int K, int N, int ng, int bits) {
-  if (problems < 1 || M < 1 || K < 1 || N < 1 || ng < 1 || (bits != 4 && bits != 8)) return false;
+// The row blocks share grid z.
+inline bool mq_shapes_ok(int M, int K, int N, int ng, int bits) {
+  if (M < 1 || K < 1 || N < 1 || ng < 1 || (bits != 4 && bits != 8)) return false;
   if (N % kMqCols != 0 || K % ng != 0 || (K / ng) % 4 != 0 || K % 8 != 0) return false;
-  return static_cast<long long>(problems) * mq_row_blocks(M) <= 65535;
+  return mq_row_blocks(M) <= 65535;
 }
 
 }  // namespace mit

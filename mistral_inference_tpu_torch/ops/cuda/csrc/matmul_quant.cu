@@ -22,9 +22,9 @@ __global__ void __launch_bounds__(kMqThreads) matmul_quant_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
     const float* __restrict__ scale, float* __restrict__ part,
     __nv_bfloat16* __restrict__ out, int M, int K, int N, int g, int units, int upb) {
-  dequant_dot_block<kMode, false>(x, q, scale, part, out, M, K, N, g, units, upb,
-                                  blockIdx.x * kMqCols, blockIdx.y, blockIdx.z * kMqRows,
-                                  static_cast<size_t>(M) * N);
+  dequant_dot_block<kMode>(x, q, scale, part, out, M, K, N, g, units, upb,
+                           blockIdx.x * kMqCols, blockIdx.y, blockIdx.z * kMqRows,
+                           static_cast<size_t>(M) * N);
 }
 
 __global__ void __launch_bounds__(256) matmul_quant_reduce_kernel(
@@ -50,7 +50,7 @@ inline int mq_blocks(int M, int N) {
 // caller can size the workspace: part holds splits * M * N floats when
 // splits > 1 and is not touched otherwise. 0 for shapes the kernel refuses.
 extern "C" int matmul_quant_splits(int M, int K, int N, int ng, int bits) {
-  if (!mit::mq_shapes_ok(1, M, K, N, ng, bits)) return 0;
+  if (!mit::mq_shapes_ok(M, K, N, ng, bits)) return 0;
   const int units = mit::mq_units(ng, bits);
   const int upb = mit::mq_units_per_block(mit::mq_blocks(M, N), units);
   return (units + upb - 1) / upb;
@@ -60,7 +60,7 @@ extern "C" int matmul_quant_bf16(const void* x, const void* q, const void* scale
                                  void* part, int M, int K, int N, int ng, int bits,
                                  void* stream) {
   using namespace mit;
-  if (!mq_shapes_ok(1, M, K, N, ng, bits)) return cudaErrorInvalidValue;
+  if (!mq_shapes_ok(M, K, N, ng, bits)) return cudaErrorInvalidValue;
   const int units = mq_units(ng, bits);
   const int upb = mq_units_per_block(mq_blocks(M, N), units);
   const int splits = (units + upb - 1) / upb;

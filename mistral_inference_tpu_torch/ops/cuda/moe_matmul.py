@@ -18,9 +18,14 @@ K8, ``moe_matmul_quant`` and ``moe_matmul_quant_stacked``
 (``csrc/moe_expert_matmul.cu``): per expert, its capacity buffer ``x[e] (C,
 K)`` times its own weight, one launch for all experts; the MoE decode step.
 The stacked name reads layer ``li`` of an ``(L, E, ...)`` stack through a
-pointer offset, so no layer is ever copied. Row blocks that hold only zeros
-(empty capacity slots) read no weight. ``moe_matmul_quant.launches`` counts
-the kernel's launches through either name.
+pointer offset, so no layer is ever copied. Each live expert's weight is
+read once whatever C is; an expert whose rows are all zero reads none.
+``moe_matmul_quant.launches`` counts the kernel's launches through either
+name.
+
+``ragged_shape_ok`` and ``expert_shape_ok`` are the kernels' shape rules in
+pure Python: the wrappers check them before a launch, and the CPU tests hold
+every preset's shapes to them.
 
 The wrappers launch a kernel for CUDA tensors, and for nothing else: on CPU
 tensors they run the plain versions. There is no fallback from a CUDA tensor
@@ -30,26 +35,53 @@ to a plain version.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional
 
 import torch
 
 from mistral_inference_tpu_torch.ops.cuda import _call
-from mistral_inference_tpu_torch.ops.cuda.matmul_quant import (
-    _weight_bits,
-    _workspace,
-    grouped_dot_plain,
-)
+from mistral_inference_tpu_torch.ops.cuda.matmul_quant import _weight_bits, grouped_dot_plain
 
 _P, _I = _call.P, _call.I
 _SIGS = {
     ("moe_matmul", "moe_matmul_quant_ragged_bf16"): [_P] * 5 + [_I] * 8 + [_P],
-    ("moe_expert_matmul", "moe_matmul_quant_splits"): [_I] * 6,
-    ("moe_expert_matmul", "moe_matmul_quant_bf16"): [_P] * 5 + [_I] * 6 + [_P],
+    ("moe_expert_matmul", "moe_matmul_quant_bf16"): [_P] * 4 + [_I] * 6 + [_P],
 }
-_kernel = functools.partial(_call.kernel, _SIGS)
 _launch = functools.partial(_call.launch, _SIGS)
 _need = _call.need
+
+EXPERT_ROWS_MAX = 128  # K8's largest capacity
+
+
+def _group_ok(K: int, ng: int) -> bool:
+    """A group of 16k steps that divides the 64-step stage or is a multiple of it."""
+    if ng < 1 or K % ng:
+        return False
+    g = K // ng
+    return g % 16 == 0 and (g % 64 == 0 or 64 % g == 0)
+
+
+def ragged_shape_ok(Mp: int, n_tiles: int, K: int, N: int, ng: int, bits: int) -> bool:
+    """Whether K5 takes x (Mp, K) in ``n_tiles`` row tiles against a weight of
+    K x N in ``ng`` groups: row tiles a multiple of the block's 128 rows, N of
+    its 128 columns, K of the 64-step stage (int4: each half of it)."""
+    return (
+        bits in (4, 8) and Mp > 0 and n_tiles > 0 and Mp % n_tiles == 0
+        and (Mp // n_tiles) % 128 == 0 and N > 0 and N % 128 == 0 and N // 128 <= 65535
+        and K % (128 if bits == 4 else 64) == 0 and _group_ok(K, ng)
+    )
+
+
+def expert_shape_ok(C: int, K: int, N: int, ng: int, bits: int) -> bool:
+    """Whether K8 takes capacity buffers of C rows against weights of K x N in
+    ``ng`` groups: at most 128 rows, N a multiple of 128, K of the 64-step
+    stage; int4 with an even group count (a stored row serves a group of each
+    half)."""
+    return (
+        bits in (4, 8) and 0 < C <= EXPERT_ROWS_MAX and N > 0 and N % 128 == 0
+        and K % (128 if bits == 4 else 64) == 0 and _group_ok(K, ng)
+        and (bits == 8 or ng % 2 == 0)
+    )
 
 
 def moe_matmul_quant_ragged_plain(
@@ -97,15 +129,11 @@ def moe_matmul_quant_ragged(
     layer = 0 if li is None else int(li)
     if not 0 <= layer < (lead[0] if lead else 1):
         raise ValueError(f"layer index {li} out of range")
-    bk = min(g, 64)
-    if (
-        n_tiles < 1 or Mp % n_tiles or (Mp // n_tiles) % 128 or N % 64 or K % 8
-        or g % 16 or g % bk or 64 % bk or (bits == 4 and (K // 2) % bk)
-    ):
+    if not ragged_shape_ok(Mp, n_tiles, K, N, ng, bits):
         raise ValueError(
-            "the CUDA kernel takes row tiles that are multiples of 128, N % 64 == 0 and a "
-            f"group size of 16, 32 or a multiple of 64; got Mp={Mp} tiles={n_tiles} K={K} "
-            f"N={N} group={g}"
+            "the CUDA kernel takes row tiles that are multiples of 128, N % 128 == 0, "
+            "K % 64 == 0 (int4: 128) and a group size of 16, 32 or a multiple of 64; "
+            f"got Mp={Mp} tiles={n_tiles} K={K} N={N} group={g} int{bits}"
         )
     out = torch.empty((Mp, N), dtype=torch.bfloat16, device=dev)
     _launch(
@@ -119,9 +147,6 @@ def moe_matmul_quant_ragged(
 
 moe_matmul_quant_ragged.launches = 0
 
-# (E, C, K, N, ng, bits) -> reduction splits K8 uses for that shape
-_SPLITS: Dict[Tuple[int, ...], int] = {}
-
 
 def moe_matmul_quant_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Plain version of K8: one grouped-dequant product per expert, empty
@@ -130,20 +155,6 @@ def moe_matmul_quant_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
     return torch.stack(
         [grouped_dot_plain(x[e], q[e], scale[e]) for e in range(x.shape[0])]
     ).to(x.dtype)
-
-
-def _expert_splits(key: Tuple[int, ...]) -> int:
-    n = _SPLITS.get(key)
-    if n is None:
-        n = _kernel("moe_expert_matmul", "moe_matmul_quant_splits")(*key)
-        if n < 1:
-            E, C, K, N, ng, _ = key
-            raise ValueError(
-                f"the CUDA kernel takes N % 128 == 0, K % 8 == 0 and a group size that is a "
-                f"multiple of 4; got E={E} C={C} K={K} N={N} groups={ng}"
-            )
-        _SPLITS[key] = n
-    return n
 
 
 def _run_experts(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, layer: int) -> torch.Tensor:
@@ -160,13 +171,17 @@ def _run_experts(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, layer: i
     _need(scale, "scale", torch.float32, lead + (E, ng, N), dev)
     if not 0 <= layer < L:
         raise ValueError(f"layer index {layer} out of range for {L} layers")
-    splits = _expert_splits((E, C, K, N, ng, bits))
-    part = _workspace(dev, splits * E * C * N).data_ptr() if splits > 1 else None
+    if not expert_shape_ok(C, K, N, ng, bits) or E > 65535:
+        raise ValueError(
+            "the CUDA kernel takes C <= 128, N % 128 == 0, K % 64 == 0 (int4: 128, with an "
+            "even group count) and a group size of 16, 32 or a multiple of 64; got "
+            f"E={E} C={C} K={K} N={N} groups={ng} int{bits}"
+        )
     out = torch.empty((E, C, N), dtype=torch.bfloat16, device=dev)
     _launch(
         "moe_expert_matmul", "moe_matmul_quant_bf16", dev, x.data_ptr(),
         q.data_ptr() + layer * E * stored * N, scale.data_ptr() + layer * E * ng * N * 4,
-        out.data_ptr(), part, E, C, K, N, ng, bits,
+        out.data_ptr(), E, C, K, N, ng, bits,
     )
     moe_matmul_quant.launches += 1
     return out

@@ -248,11 +248,16 @@ def test_matmul_quant_matches_plain_on_card(bits, M, K, N, group):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("E,n_tiles,TM,K,N,group,stacked", [
-    (1, 2, 256, 512, 256, 128, False),   # the dense prefill case
-    (3, 4, 128, 512, 192, 64, False),    # mixed tile_group
-    (3, 3, 128, 256, 128, 32, True),     # (L, E, ...) stack with a layer index
+    (1, 2, 256, 512, 256, 128, False),    # the dense prefill case
+    (3, 4, 128, 512, 256, 64, False),     # mixed tile_group
+    (3, 3, 128, 256, 128, 32, True),      # (L, E, ...) stack with a layer index
+    (1, 8, 256, 4096, 6144, 128, False),  # 2048 rows of a real layer's wqkv
+    (2, 2, 256, 14336, 256, 128, False),  # the w2 reduction of a 7B layer
 ])
 def test_moe_matmul_ragged_matches_plain_on_card(bits, E, n_tiles, TM, K, N, group, stacked):
+    """K5 against its plain version; its first tile launched alone has the
+    bits it has inside the whole launch (no sum depends on the row count or
+    the other tiles), and a second launch the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
     from mistral_inference_tpu_torch.ops.cuda import moe_matmul as mm
@@ -266,9 +271,33 @@ def test_moe_matmul_ragged_matches_plain_on_card(bits, E, n_tiles, TM, K, N, gro
     before = mm.moe_matmul_quant_ragged.launches
     out = mm.moe_matmul_quant_ragged(x, q, scale, tg, li)
     ref = mm.moe_matmul_quant_ragged_plain(x, q, scale, tg, li)
+    alone = mm.moe_matmul_quant_ragged(x[:TM].contiguous(), q, scale, tg[:1].contiguous(), li)
+    again = mm.moe_matmul_quant_ragged(x, q, scale, tg, li)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
-    assert mm.moe_matmul_quant_ragged.launches == before + 1
+    assert torch.equal(alone, out[:TM]), "a tile's bits do not depend on the other tiles"
+    assert torch.equal(again, out), "no atomics: the same bits on every run"
+    assert mm.moe_matmul_quant_ragged.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_moe_matmul_ragged_rejects_bad_shapes_on_card():
+    """K5's wrapper refuses the shapes its kernel does not take (N not a
+    multiple of 128, row tiles not of 128, a group that is not 16, 32 or a
+    multiple of 64) and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    from mistral_inference_tpu_torch.ops.cuda import moe_matmul as mm
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tg = torch.zeros((2,), dtype=torch.int32, device="cuda")
+    before = mm.moe_matmul_quant_ragged.launches
+    for rows, K, N, group in ((256, 256, 192, 128), (128, 256, 128, 128), (256, 192, 128, 48)):
+        q, scale = _quantized(g, K, N, 8, group, lead=(1,))
+        x = torch.zeros((rows, K), dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(ValueError, match="row tiles"):
+            mm.moe_matmul_quant_ragged(x, q, scale, tg)
+    assert mm.moe_matmul_quant_ragged.launches == before
 
 
 @pytest.mark.cuda
@@ -276,14 +305,17 @@ def test_moe_matmul_ragged_matches_plain_on_card(bits, E, n_tiles, TM, K, N, gro
     (8, 4, 8, 256, 512, 128),
     (4, 4, 8, 256, 512, 128),
     (8, 2, 16, 512, 256, 64),
-    (4, 8, 4, 2048, 384, 128),   # enough groups for a split reduction
-    (4, 3, 5, 384, 128, 128),    # odd group count; rows that do not fill a row block
+    (4, 8, 4, 2048, 384, 128),   # a split reduction: a cluster of two blocks
+    (4, 3, 5, 512, 128, 128),    # rows that do not fill an n-tile
     (4, 2, 128, 512, 256, 128),  # the largest capacity the dispatch gate sends
+    (4, 8, 4, 14336, 256, 128),  # the w2 reduction of a Mixtral layer: seven splits
+    (8, 3, 40, 1024, 256, 32),   # two row groups a block, groups under a stage
 ])
 def test_moe_matmul_quant_matches_plain_on_card(bits, E, C, K, N, group):
     """K8 against its plain version: every expert on its own weight, empty
     capacity slots (zero rows, which the kernel skips) giving zeros, the
-    stacked form the same kernel on an offset, one count per launch."""
+    stacked form the same kernel on an offset, one count per launch; each
+    row has the bits it has among 128 rows of its expert."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
     from mistral_inference_tpu_torch.ops.cuda import moe_matmul as mm
@@ -294,18 +326,22 @@ def test_moe_matmul_quant_matches_plain_on_card(bits, E, C, K, N, group):
     x = torch.randn((E, C, K), generator=g, device="cuda").to(torch.bfloat16)
     x[0, C // 2:] = 0  # a half-filled expert
     x[-1] = 0  # an expert with no row at all
+    wide = torch.randn((E, 128, K), generator=g, device="cuda").to(torch.bfloat16)
+    wide[:, :C] = x
     before = mm.moe_matmul_quant.launches
     for li in (0, 1):
         ref = mm.moe_matmul_quant_plain(x, q[li], scale[li])
         out = mm.moe_matmul_quant(x, q[li].contiguous(), scale[li].contiguous())
         stacked = mm.moe_matmul_quant_stacked(x, q, scale, li)
         again = mm.moe_matmul_quant_stacked(x, q, scale, li)
+        among = mm.moe_matmul_quant_stacked(wide, q, scale, li)
         torch.cuda.synchronize()
         torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
         assert not bool(out[-1].any()) and not bool(out[0, C // 2:].any())
         assert torch.equal(out, stacked), "the stacked form is the same kernel on an offset"
         assert torch.equal(stacked, again), "no atomics: the same bits on every run"
-    assert mm.moe_matmul_quant.launches == before + 6
+        assert torch.equal(among[:, :C], out), "a row's bits do not depend on the capacity"
+    assert mm.moe_matmul_quant.launches == before + 8
 
 
 @pytest.mark.cuda

@@ -49,14 +49,16 @@ def test_sources_found():
         "moe_expert_matmul.cu", "moe_matmul.cu", "ring_attention.cu", "segment_attention.cu",
         "ssd_step.cu",
     ]
-    # K3 and K8 share their device code (dequant_dot.cuh); K1, K4 and K10
-    # theirs (the Hopper tile loop of flash_hopper.cuh, each in an
-    # instantiation of its own: K1 the chunk's bf16 keys, K10 at head dim 64
-    # with a segment mask); K2, K6 and K7 theirs (the cluster decode loop of
-    # decode_hopper.cuh, K2 and K7 with the ring write in front), whose entry
-    # points are in fused_decode.cu and decode_attention.cu.
+    # K3 runs on dequant_dot.cuh; K1, K4 and K10 share their device code (the
+    # Hopper tile loop of flash_hopper.cuh, each in an instantiation of its
+    # own: K1 the chunk's bf16 keys, K10 at head dim 64 with a segment mask);
+    # K2, K6 and K7 theirs (the cluster decode loop of decode_hopper.cuh, K2
+    # and K7 with the ring write in front), whose entry points are in
+    # fused_decode.cu and decode_attention.cu. flash_hopper.cuh and K5's
+    # moe_matmul.cu share the wgmma, descriptor and mbarrier primitives of
+    # hopper.cuh.
     assert sorted(p.name for p in (PKG / "ops" / "cuda" / "csrc").glob("*.cuh")) == [
-        "common.cuh", "decode_hopper.cuh", "dequant_dot.cuh", "flash_hopper.cuh",
+        "common.cuh", "decode_hopper.cuh", "dequant_dot.cuh", "flash_hopper.cuh", "hopper.cuh",
     ]
 
 
