@@ -12,9 +12,9 @@ Phases, each printing one JSON line:
    on the same inputs on the card (K4, K2, K6 and K7 over an int8 ring, and
    again, each a row of its own, over a float8_e4m3fn ring, where K2's and
    K7's written bytes and scales equal cache._quantize_ring's), at the
-   Mistral-7B and Mixtral-8x7B shapes
-   (H=32, Hkv=8, D=128; the four linears of a layer at 4, 256 and 2048 rows,
-   and a layer's eight experts at a capacity of 4 and 128 and at 6144 sorted
+   Mistral-7B and Mixtral-8x7B shapes (H=32, Hkv=8, D=128; the four linears
+   of a layer at 4, 8, 20, 32, 256 and 2048 rows, and a layer's eight
+   experts at a capacity of 4 and 128 and at 6144 sorted
    rows, int8 and int4; a speculative verify chunk of 5 and of 8 tokens), the
    Codestral-Mamba SSD step (B=4, a 64-layer fp32 and bf16 state) and the
    Pixtral encoder's segment-masked attention (16 heads of 64 at N = 4096,
@@ -53,7 +53,8 @@ Phases, each printing one JSON line:
    top-p sampling is fixed by its seed, and that every kernel of the path was
    launched.
 5. speculation: a probe that the verify forward's operations give a row the
-   same bits among 20 or 32 rows as among 4, then four paths of
+   same bits among 20 or 32 rows as among 4 (K3 also among 128 and 256),
+   then four paths of
    ``generate(..., draft_model=...)`` on ``mistral-7b-v0.1`` with int4 weights
    and an int8 ring, each beside plain greedy ``generate()`` on the same model
    in the same run: the target as its own draft at all 32 layers (every draft
@@ -259,6 +260,32 @@ def timed_ms(fn, reps: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time per call of the kernels ``fn`` launches (torch.profiler),
+    each call after the same 64 MB write as ``timed_ms`` (its fill kernel not
+    counted): the kernels' own run, without the event and launch floor."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and "FillFunctor" not in ev.key) / 1e3 / reps
+
+
+def floor_ms() -> float:
+    """``timed_ms`` of a one-element kernel: what that timing adds to any kernel."""
+    one = torch.zeros(1, device="cuda")
+    return timed_ms(lambda: one.add_(1), reps=20)
 
 
 def nbytes(*ts) -> int:
@@ -707,6 +734,11 @@ def linear_library_ms(x, leaf):
     return timed_ms(lambda: F.linear(x, dequant(leaf, x.dtype).t()), reps=5), pre
 
 
+# Row counts K3 is timed at: the decode step (4), the engine's batch (8), a
+# verify forward of B = 4 x (k + 1) (20) and of 32 rows, a prefill chunk (256).
+K3_ROWS = (4, 8, 20, 32, 256)
+
+
 def check_k3(gen):
     from mistral_inference_tpu_torch.ops.cuda.matmul_quant import (
         matmul_quant, matmul_quant_plain, matmul_quant_stacked,
@@ -724,14 +756,19 @@ def check_k3(gen):
 
     L, li = 2, 1
     worst, shapes = 0.0, {}
-    total = {k: 0.0 for k in ("ms", "plain_ms", "bound_ms", "library_ms", "library_predequant_ms")}
+    total = {k: 0.0 for k in ("ms", "plain_ms", "bound_ms", "library_ms", "library_predequant_ms",
+                              "device_ms", "stream_device_ms")}
+    sums = {f"int{bits}": {str(rows): 0.0 for rows in K3_ROWS} for bits in (4, 8)}
     by = set()
+    # The rows at 8, 20 and 32 come from a generator of their own, so that
+    # later checks draw what they drew before.
+    own = torch.Generator(device="cuda").manual_seed(12)
     for bits in (4, 8):
         for name, K, N in LINEARS:
             q, scale = quant_stack(gen, L, K, N, bits)
             rec = {}
-            for rows in (4, 256):
-                x = randn(gen, rows, K, dtype=torch.bfloat16)
+            for rows in K3_ROWS:
+                x = randn(gen if rows in (4, 256) else own, rows, K, dtype=torch.bfloat16)
                 ref = matmul_quant_plain(x, q[li], scale[li])
                 out = matmul_quant_stacked(x, q, scale, li)
                 one = matmul_quant(x, q[li], scale[li])
@@ -745,6 +782,7 @@ def check_k3(gen):
                 worst = max(worst, err)
                 ms = timed_ms(lambda: matmul_quant_stacked(x, q, scale, li))
                 rec[f"rows{rows}_ms"] = ms
+                sums[f"int{bits}"][str(rows)] += ms
                 if rows != 4:
                     continue
                 # The main path's decode shape: B = 4 rows.
@@ -753,7 +791,9 @@ def check_k3(gen):
                                                      "scale": scale[li]})
                 rec.update(bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                            library_predequant_ms=lib_pre,
-                           plain_ms=timed_ms(lambda: matmul_quant_plain(x, q[li], scale[li]), reps=5))
+                           plain_ms=timed_ms(lambda: matmul_quant_plain(x, q[li], scale[li]), reps=5),
+                           device_ms=device_ms(lambda: matmul_quant_stacked(x, q, scale, li)),
+                           stream_device_ms=device_ms(lambda: q[li].view(torch.int32).amax()))
                 if bits == 4:
                     by.add(b_by)
                     for k in total:
@@ -766,9 +806,20 @@ def check_k3(gen):
         "replaces": "mistral_inference_tpu/ops/pallas/matmul_quant.py:354",
         "max_abs_err": worst, **total,
         "bound_by": by.pop() if len(by) == 1 else "bytes",
+        "sums_by_rows_ms": sums, "floor_ms": floor_ms(),
+        "design": "mma.sync m16n8k16 on dequant_mma.cuh (K8's loop): the weight as A from byte "
+                  "permutes, up to 128 rows as n-tiles of 8 in one block (the weight read once; "
+                  "129-256 rows a second row block), a three-stage cp.async ring with the "
+                  "block's scales staged, a split of at most 8 from K, N, groups and bits alone "
+                  "(never the rows), summed in split order over a cluster; K8's launcher, "
+                  "row-count table and shape rule",
         "shape": "the sums over one layer's four int4 linears (wqkv 4096x6144, wo 4096x4096, "
                  "w13 4096x28672, w2 14336x4096; group 128) at B=4 rows, read from layer 1 of "
-                 "a 2-layer stack; by_shape has each linear, int4 and int8, at 4 and 256 rows",
+                 "a 2-layer stack; by_shape has each linear, int4 and int8, at 4, 8, 20, 32 and "
+                 "256 rows (sums_by_rows_ms the sums); device_ms is the kernels' own device "
+                 "time after the same L2 flush, stream_device_ms that of one PyTorch reduction "
+                 "(amax) reading the same stored weight bytes, floor_ms what the event timing "
+                 "adds to a one-element kernel",
         "library": "F.linear(x, dequant(w).T): library_ms dequantizes inside the timed call "
                    "(the same inputs), library_predequant_ms takes a bf16 weight made before",
         "by_shape": shapes,
@@ -1035,8 +1086,9 @@ def check_k8(gen):
         "replaces": "mistral_inference_tpu/ops/pallas/moe_matmul.py:56",
         "design": "mma.sync m16n8k16 with the weight as A (fragments assembled from the "
                   "stored bytes by byte permutes) and the capacity rows as n-tiles of 8; "
-                  "each live expert's weight read once through a four-stage cp.async ring; "
-                  "a fixed split of about 1024 stored rows, summed in order over a cluster",
+                  "each live expert's weight read once through a three-stage cp.async ring "
+                  "(dequant_mma.cuh, the loop, launcher and row-count table K3 shares); a "
+                  "fixed split of about 1024 stored rows, summed in order over a cluster",
         "max_abs_err": worst, **total, "bound_by": "bytes",
         "shape": "the sums over one Mixtral layer's two int4 expert stacks (E=8; w13 4096x28672, "
                  "w2 14336x4096; group 128) at the decode buffers of B=4, top-2 (C=4; "
@@ -1399,9 +1451,13 @@ def check_k9(gen):
             "ms": timed_ms(lambda: fused_ssd_step_stacked(a, dtx, Bm, Cm, ssm, li)),
             "plain_ms": timed_ms(lambda: fused_ssd_step_stacked_plain(a, dtx, Bm, Cm, ssm, li)),
             "bound_ms": b_ms, "bound_by": b_by,
+            "device_ms": device_ms(lambda: fused_ssd_step_stacked(a, dtx, Bm, Cm, ssm, li)),
         }
+        copy = torch.empty_like(ssm[li])
+        out[name]["copy_device_ms"] = device_ms(lambda: copy.copy_(ssm[li]))
+        del copy
         del ssm
-    f32 = out["fp32"]
+    f32, b16 = out["fp32"], out["bf16"]
     return {
         "name": K9, "kernel": "K9", "route": "cuda",
         "source": "mistral_inference_tpu_torch/ops/cuda/csrc/ssd_step.cu",
@@ -1409,9 +1465,19 @@ def check_k9(gen):
         "max_abs_err": max(o["max_abs_err"] for o in out.values()),
         "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": None,
-        "bf16_state": out["bf16"],
+        "bf16_ms": b16["ms"], "bf16_bound_ms": b16["bound_ms"], "bf16_state": b16,
+        "device_ms": f32["device_ms"], "copy_device_ms": f32["copy_device_ms"],
+        "floor_ms": floor_ms(),
+        "design": "one block of 128 threads per (head, row), 512 at this shape, all resident; "
+                  "the head's state as a run of 16-byte pieces (4 fp32 or 8 bf16 columns), "
+                  "thread t taking pieces t, t + 128, ... and issuing every load of its share "
+                  "(16 or 8 pieces) before its first store; h'.C reduced over the threads of a "
+                  "row by shuffles, every row's sum at once",
         "shape": f"B={B} nh={NH} hd={HD} ds={DS} ng={NG}, layer {li} of a {L}-layer fp32 "
-                 "state stack (bf16_state: the same on a bf16 stack); row 3 dead",
+                 "state stack (bf16_state: the same on a bf16 stack); row 3 dead; device_ms "
+                 "the kernel's own device time after the same L2 flush, copy_device_ms that "
+                 "of one PyTorch copy reading and writing the layer's state, floor_ms what the "
+                 "event timing adds to a one-element kernel",
         "bound": "the layer's state read once and written once, the small operands in and y "
                  "out, over the card's memory rate; 5 fp32 operations per state element over "
                  "the 67 TFLOP/s fp32 peak",
@@ -2616,8 +2682,9 @@ def row_count_probe(gen):
     """Does an operation of the verify forward give a row the same bits among
     20 rows (B = 4 x T = 5) or 32 as among 4 (a decode step)? Greedy
     speculation equals greedy decoding token for token only if every one
-    does. K3 must (its split over K is chosen for one row block up to 32
-    rows); the others are PyTorch's and are reported."""
+    does. K3 must (its split over K follows the shape alone), also among 128
+    and 256 rows (a prefill chunk); the others are PyTorch's and are
+    reported."""
     import torch.nn.functional as F
 
     from mistral_inference_tpu_torch.ops.cuda.matmul_quant import matmul_quant
@@ -2625,12 +2692,15 @@ def row_count_probe(gen):
 
     bf = torch.bfloat16
     same = {}
-    k3_ms = {4: 0.0, 20: 0.0, 32: 0.0}  # sums over one layer's four int4 linears
+    k3_ms = {n: 0.0 for n in (4, 8, 20, 32, 128, 256)}  # sums over one layer's four int4 linears
+    # The rows past 32 come from a generator of their own, so that later
+    # phases draw what they drew before.
+    own = torch.Generator(device="cuda").manual_seed(128)
     for name, K, N in LINEARS:
         q, scale = quant_stack(gen, 1, K, N, 4)
-        x = randn(gen, 32, K, dtype=bf)
+        x = torch.cat([randn(gen, 32, K, dtype=bf), randn(own, 224, K, dtype=bf)])
         few = matmul_quant(x[:4].contiguous(), q[0], scale[0])
-        for rows in (20, 32):
+        for rows in (20, 32, 128, 256):
             many = matmul_quant(x[:rows].contiguous(), q[0], scale[0])
             same[f"K3 int4 {name} rows4==rows{rows}"] = bool(torch.equal(few, many[:4]))
         for rows in k3_ms:
@@ -2651,8 +2721,8 @@ def row_count_probe(gen):
         require(ok or not key.startswith("K3"), f"{key}: K3's bits depend on the row count")
     return {"phase": "row_count_probe", "same_bits": same,
             "k3_layer_ms_by_rows": {str(k): v for k, v in k3_ms.items()},
-            "k3_note": "K3 over one layer's four int4 linears: a verify forward of B x (K + 1) "
-                       "rows reads each weight once per 4-row block"}
+            "k3_note": "K3 over one layer's four int4 linears: up to 128 rows read each "
+                       "weight once, 129-256 twice"}
 
 
 def kernel_ms(prof, calls: int = 1):
@@ -2681,9 +2751,15 @@ def kernel_ms(prof, calls: int = 1):
             cats[cat] = cats.get(cat, 0.0) + ms
             top.append((ms, ev.key[:80]))
             continue
-        cat = next((c for k, c in (("matmul_quant", "K3 matmul_quant"),
-                                   ("moe_matmul", "K5 moe_matmul"),
-                                   ("moe_expert_matmul", "K8 moe_expert_matmul"),
+        # K3 and K8 are instantiations of dequant_mma_kernel<kMode, kNTW, kRG,
+        # kStrips, kSkipEmpty>: K8 with the empty-expert skip.
+        if "dequant_mma_kernel<" in name:
+            skip = name.split("dequant_mma_kernel<", 1)[1].split(">", 1)[0].endswith("true")
+            cat = "K8 moe_expert_matmul" if skip else "K3 matmul_quant"
+            cats[cat] = cats.get(cat, 0.0) + ms
+            top.append((ms, ev.key[:80]))
+            continue
+        cat = next((c for k, c in (("moe_matmul", "K5 moe_matmul"),
                                    ("ssd_step", "K9 ssd_step"),
                                    ("gemm", "matmul"),
                                    ("gemv", "matmul"), ("xmma", "matmul"), ("cutlass", "matmul"),

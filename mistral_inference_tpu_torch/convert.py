@@ -30,11 +30,12 @@ biases are copied as they are.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
+from mistral_inference_tpu_torch.model import resolve_device
 from mistral_inference_tpu_torch.models.transformer import Params
 
 # port weight -> the JAX leaves stacked along its out dim; "ffn" stands for
@@ -58,11 +59,12 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 
 def params_from_numpy(
     tree: Dict[str, Any],
-    device: Union[str, torch.device] = "cpu",
+    device: Optional[Union[str, torch.device]] = None,
 ) -> Params:
     """Dense or MoE JAX params (numpy leaves), plain or weight-only quantized
-    -> this port's params. Raises on the trees the port does not carry yet
-    (LoRA)."""
+    -> this port's params, on the card unless ``device="cpu"``. Raises on
+    the trees the port does not carry yet (LoRA)."""
+    device = resolve_device(device)
     layers = tree["layers"]
     ffn = "moe" if "moe" in layers else "feed_forward"
     if ffn not in layers:
@@ -111,10 +113,11 @@ def _linear_t(*parts: np.ndarray, device) -> torch.Tensor:
 
 def vision_params_from_numpy(
     tree: Dict[str, Any],
-    device: Union[str, torch.device] = "cpu",
+    device: Optional[Union[str, torch.device]] = None,
 ) -> Params:
     """The JAX vision encoder's params (numpy leaves) -> this port's
-    (``models/vision.py``)."""
+    (``models/vision.py``), on the card unless ``device="cpu"``."""
+    device = resolve_device(device)
     layers = tree["layers"]
     att, ffn = layers["attention"], layers["feed_forward"]
     out: Params = {
@@ -161,10 +164,12 @@ def _mamba_linear(parts, i: int, device):
 
 def mamba_params_from_numpy(
     tree: Dict[str, Any],
-    device: Union[str, torch.device] = "cpu",
+    device: Optional[Union[str, torch.device]] = None,
 ) -> Params:
     """Mamba2 JAX params (numpy leaves), plain or weight-only quantized ->
-    this port's params (``models/mamba.py``)."""
+    this port's params (``models/mamba.py``), on the card unless
+    ``device="cpu"``."""
+    device = resolve_device(device)
     layers = tree["layers"]
     out_layers = []
     for i in range(np.asarray(layers["norm"]).shape[0]):

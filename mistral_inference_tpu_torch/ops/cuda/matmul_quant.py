@@ -13,6 +13,12 @@ Rounding points (those of the TPU kernel): the integer weight is exact in
 the fp32 partial after the dot; groups are summed in fp32; one cast to
 ``x.dtype`` at the end.
 
+``shape_ok`` is the kernel's shape rule in pure Python, K8's rule at up to
+256 rows: N a multiple of 128, a group of 16 or 32 steps or a multiple of 64,
+K a multiple of 64 (int4: 128, with an even group count). The wrappers check
+it before a launch and raise ``ValueError`` for a shape it refuses, and the
+CPU tests hold every preset's linears to it.
+
 The wrappers launch the kernel for CUDA tensors, and for nothing else: on CPU
 tensors they run ``matmul_quant_plain``. There is no fallback from a CUDA
 tensor to the plain version. ``matmul_quant.launches`` counts the kernel's
@@ -22,27 +28,44 @@ launches through either entry name.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from mistral_inference_tpu_torch.ops.cuda import _call
 
 _P, _I = _call.P, _call.I
-_SIGS = {
-    ("matmul_quant", "matmul_quant_splits"): [_I] * 5,
-    ("matmul_quant", "matmul_quant_bf16"): [_P] * 5 + [_I] * 5 + [_P],
-}
-_kernel = functools.partial(_call.kernel, _SIGS)
+_SIGS = {("matmul_quant", "matmul_quant_bf16"): [_P] * 4 + [_I] * 5 + [_P]}
 _launch = functools.partial(_call.launch, _SIGS)
 _need = _call.need
 
-# (M, K, N, ng, bits) -> reduction splits the kernel uses for that shape
-_SPLITS: Dict[Tuple[int, ...], int] = {}
-# device -> fp32 scratch for the splits' partial sums. One buffer per device
-# is enough: launches on a stream run in order, and each launch's reduce pass
-# has read the buffer before the next launch writes it.
-_WORKSPACE: Dict[torch.device, torch.Tensor] = {}
+ROWS_MAX = 256  # two row blocks of 128
+
+
+def group_ok(K: int, ng: int) -> bool:
+    """A group of 16k steps that divides the 64-step stage or is a multiple of it."""
+    if ng < 1 or K % ng:
+        return False
+    g = K // ng
+    return g % 16 == 0 and (g % 64 == 0 or 64 % g == 0)
+
+
+def weight_ok(K: int, N: int, ng: int, bits: int) -> bool:
+    """Whether the loop K3 and K8 share (``csrc/dequant_mma.cuh``) takes a
+    weight of K x N in ``ng`` groups: N a multiple of 128, ``group_ok``, K a
+    multiple of the 64-row stage (int4: 128) and, for int4, an even group
+    count (a stored row serves a group of each half)."""
+    return (
+        bits in (4, 8) and N > 0 and N % 128 == 0 and K > 0
+        and K % (128 if bits == 4 else 64) == 0 and group_ok(K, ng)
+        and (bits == 8 or ng % 2 == 0)
+    )
+
+
+def shape_ok(M: int, K: int, N: int, ng: int, bits: int) -> bool:
+    """Whether K3 takes x (M, K) against a weight of K x N in ``ng`` groups:
+    1-256 rows and a weight ``weight_ok`` takes."""
+    return 0 < M <= ROWS_MAX and weight_ok(K, N, ng, bits)
 
 
 def nibbles(q4: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -88,28 +111,6 @@ def matmul_quant_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) ->
     return grouped_dot_plain(x, q, scale).to(x.dtype)
 
 
-def _splits(M: int, K: int, N: int, ng: int, bits: int) -> int:
-    key = (M, K, N, ng, bits)
-    n = _SPLITS.get(key)
-    if n is None:
-        n = _kernel("matmul_quant", "matmul_quant_splits")(*key)
-        if n < 1:
-            raise ValueError(
-                f"the CUDA kernel takes N % 128 == 0, K % 8 == 0 and a group size that is a "
-                f"multiple of 4; got M={M} K={K} N={N} groups={ng}"
-            )
-        _SPLITS[key] = n
-    return n
-
-
-def _workspace(dev: torch.device, floats: int) -> torch.Tensor:
-    ws = _WORKSPACE.get(dev)
-    if ws is None or ws.numel() < floats:
-        ws = torch.empty((floats,), dtype=torch.float32, device=dev)
-        _WORKSPACE[dev] = ws
-    return ws
-
-
 def _run(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, layer: int) -> torch.Tensor:
     """Launch K3 on q (K', N) and scale (ng, N), or on layer ``layer`` of
     q (L, K', N) and scale (L, ng, N)."""
@@ -124,13 +125,17 @@ def _run(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, layer: int) -> t
     _need(scale, "scale", torch.float32, lead + (ng, N), dev)
     if not 0 <= layer < L:
         raise ValueError(f"layer index {layer} out of range for {L} layers")
-    splits = _splits(M, K, N, ng, bits)
-    part = _workspace(dev, splits * M * N).data_ptr() if splits > 1 else None
+    if not shape_ok(M, K, N, ng, bits):
+        raise ValueError(
+            "the CUDA kernel takes 1-256 rows, N % 128 == 0, a group of 16 or 32 steps or a "
+            "multiple of 64, and K % 64 == 0 (int4: K % 128 == 0 and an even group count); "
+            f"got M={M} K={K} N={N} groups={ng} int{bits}"
+        )
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     _launch(
         "matmul_quant", "matmul_quant_bf16", dev, x.data_ptr(),
         q.data_ptr() + layer * stored * N, scale.data_ptr() + layer * ng * N * 4,
-        out.data_ptr(), part, M, K, N, ng, bits,
+        out.data_ptr(), M, K, N, ng, bits,
     )
     matmul_quant.launches += 1
     return out

@@ -40,7 +40,12 @@ from typing import Optional
 import torch
 
 from mistral_inference_tpu_torch.ops.cuda import _call
-from mistral_inference_tpu_torch.ops.cuda.matmul_quant import _weight_bits, grouped_dot_plain
+from mistral_inference_tpu_torch.ops.cuda.matmul_quant import (
+    _weight_bits,
+    group_ok,
+    grouped_dot_plain,
+    weight_ok,
+)
 
 _P, _I = _call.P, _call.I
 _SIGS = {
@@ -53,14 +58,6 @@ _need = _call.need
 EXPERT_ROWS_MAX = 128  # K8's largest capacity
 
 
-def _group_ok(K: int, ng: int) -> bool:
-    """A group of 16k steps that divides the 64-step stage or is a multiple of it."""
-    if ng < 1 or K % ng:
-        return False
-    g = K // ng
-    return g % 16 == 0 and (g % 64 == 0 or 64 % g == 0)
-
-
 def ragged_shape_ok(Mp: int, n_tiles: int, K: int, N: int, ng: int, bits: int) -> bool:
     """Whether K5 takes x (Mp, K) in ``n_tiles`` row tiles against a weight of
     K x N in ``ng`` groups: row tiles a multiple of the block's 128 rows, N of
@@ -68,20 +65,15 @@ def ragged_shape_ok(Mp: int, n_tiles: int, K: int, N: int, ng: int, bits: int) -
     return (
         bits in (4, 8) and Mp > 0 and n_tiles > 0 and Mp % n_tiles == 0
         and (Mp // n_tiles) % 128 == 0 and N > 0 and N % 128 == 0 and N // 128 <= 65535
-        and K % (128 if bits == 4 else 64) == 0 and _group_ok(K, ng)
+        and K % (128 if bits == 4 else 64) == 0 and group_ok(K, ng)
     )
 
 
 def expert_shape_ok(C: int, K: int, N: int, ng: int, bits: int) -> bool:
     """Whether K8 takes capacity buffers of C rows against weights of K x N in
-    ``ng`` groups: at most 128 rows, N a multiple of 128, K of the 64-step
-    stage; int4 with an even group count (a stored row serves a group of each
-    half)."""
-    return (
-        bits in (4, 8) and 0 < C <= EXPERT_ROWS_MAX and N > 0 and N % 128 == 0
-        and K % (128 if bits == 4 else 64) == 0 and _group_ok(K, ng)
-        and (bits == 8 or ng % 2 == 0)
-    )
+    ``ng`` groups: at most 128 rows and a weight the loop it shares with K3
+    takes (``matmul_quant.weight_ok``)."""
+    return 0 < C <= EXPERT_ROWS_MAX and weight_ok(K, N, ng, bits)
 
 
 def moe_matmul_quant_ragged_plain(

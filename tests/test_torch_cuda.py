@@ -219,9 +219,15 @@ BF16_TOL = dict(atol=1e-2, rtol=1e-2)
     (4, 4, 512, 256, 128),
     (8, 1, 512, 256, 64),
     (4, 2, 128, 256, 32),     # K / 2 = 64 stored rows, group < 128
-    (4, 3, 384, 128, 128),    # odd group count: a group straddles the halves
     (8, 256, 1024, 384, 128),  # the most rows the decode band sends
-    (4, 37, 2048, 512, 128),  # rows that do not fill the last row block
+    (4, 37, 2048, 512, 128),  # rows that do not fill the last n-tile
+    (4, 201, 1024, 256, 128),  # a second row block whose last n-tile is not full
+    (8, 131, 512, 128, 64),   # the same in int8
+    (4, 4, 4096, 18432, 128),  # codestral-mamba-7b's in_proj (a 128-column panel)
+    (4, 4, 8192, 4096, 128),  # and its out_proj
+    (8, 4, 14336, 256, 16),   # 112 groups a block: scales read as each unit starts, not staged
+    (4, 4, 14336, 256, 16),   # the same in int4 (56 pairs of groups a block)
+    (8, 20, 1024, 256, 256),  # three n-tiles a warp; a group of four stages
 ])
 def test_matmul_quant_matches_plain_on_card(bits, M, K, N, group):
     if not torch.cuda.is_available():
@@ -243,6 +249,76 @@ def test_matmul_quant_matches_plain_on_card(bits, M, K, N, group):
         assert torch.equal(out, stacked), "the stacked form is the same kernel on an offset"
         assert torch.equal(stacked, again), "no atomics: the same bits on every run"
     assert mq.matmul_quant.launches == before + 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,K,N,group", [
+    (4, 4096, 4096, 128),   # wo of a 7B layer: 64-column panels, eight splits
+    (4, 4096, 28672, 128),  # w13: 128-column panels
+    (8, 14336, 4096, 128),  # w2 in int8
+    (8, 14336, 256, 16),    # scales not staged
+])
+def test_matmul_quant_row_bits_do_not_follow_the_row_count_on_card(bits, K, N, group):
+    """K3's split follows the shape alone, so the first four rows have the
+    bits of a 4-row launch among 8, 20, 32, 128 and 256 rows (the decode
+    step, the engine's batch, a verify forward, a prefill chunk)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    from mistral_inference_tpu_torch.ops.cuda import matmul_quant as mq
+
+    g = torch.Generator(device="cuda").manual_seed(bits + K + N)
+    q, scale = _quantized(g, K, N, bits, group)
+    x = torch.randn((256, K), generator=g, device="cuda").to(torch.bfloat16)
+    four = mq.matmul_quant(x[:4].contiguous(), q, scale)
+    for rows in (8, 20, 32, 128, 256):
+        many = mq.matmul_quant(x[:rows].contiguous(), q, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(many[:4], four), f"rows 0-3 differ among {rows} rows"
+        if rows == 256:
+            ref = mq.matmul_quant_plain(x, q, scale)
+            torch.testing.assert_close(many.float(), ref.float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_matmul_quant_rejects_bad_shapes_on_card():
+    """K3's wrapper refuses the shapes its kernel does not take (N not a
+    multiple of 128, a group of 8 or 48, more than 256 rows, K not a
+    multiple of 128 in int4, an odd int4 group count) and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    from mistral_inference_tpu_torch.ops.cuda import matmul_quant as mq
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    before = mq.matmul_quant.launches
+    for bits, rows, K, N, group in ((8, 4, 256, 192, 128), (8, 4, 256, 128, 8),
+                                    (8, 257, 256, 128, 128), (4, 4, 192, 128, 64),
+                                    (4, 3, 384, 128, 128), (8, 4, 192, 128, 48)):
+        q, scale = _quantized(g, K, N, bits, group)
+        x = torch.zeros((rows, K), dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(ValueError, match="1-256 rows"):
+            mq.matmul_quant(x, q, scale)
+        assert not mq.shape_ok(rows, K, N, K // group, bits)
+    assert mq.matmul_quant.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+def test_linear_raises_on_a_group_k3_refuses_on_card(bits):
+    """``linear`` sends up to 256 rows to K3 by rows, N and K, as the JAX
+    package does; on the card a group K3 does not take raises, and no plain
+    product stands in for the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    from mistral_inference_tpu_torch.ops.cuda import matmul_quant as mq
+    from mistral_inference_tpu_torch.ops.linear import quantize_weight
+
+    g = torch.Generator(device="cuda").manual_seed(bits)
+    leaf = quantize_weight(torch.randn((256, 128), generator=g, device="cuda"), bits, 8)
+    x = torch.randn((4, 256), generator=g, device="cuda").to(torch.bfloat16)
+    before = mq.matmul_quant.launches
+    with pytest.raises(ValueError, match="1-256 rows"):
+        linear(x, leaf)
+    assert mq.matmul_quant.launches == before
 
 
 @pytest.mark.cuda
@@ -310,6 +386,8 @@ def test_moe_matmul_ragged_rejects_bad_shapes_on_card():
     (4, 2, 128, 512, 256, 128),  # the largest capacity the dispatch gate sends
     (4, 8, 4, 14336, 256, 128),  # the w2 reduction of a Mixtral layer: seven splits
     (8, 3, 40, 1024, 256, 32),   # two row groups a block, groups under a stage
+    (8, 3, 20, 512, 256, 64),    # three n-tiles a warp
+    (4, 2, 4, 14336, 256, 16),   # scales read as each unit starts, not staged
 ])
 def test_moe_matmul_quant_matches_plain_on_card(bits, E, C, K, N, group):
     """K8 against its plain version: every expert on its own weight, empty
@@ -766,7 +844,10 @@ def _ssd_case(L, B, NH, HD, DS, NG, dtype, seed=11, dead=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L,B,NH,HD,DS,NG,li", [(3, 2, 8, 16, 32, 4, 1), (2, 4, 128, 64, 128, 8, 1),
-                                                (1, 3, 6, 10, 12, 2, 0)])
+                                                (1, 3, 6, 10, 12, 2, 0),
+                                                # codestral-mamba-7b's whole stack, its decode batch
+                                                (64, 4, 128, 64, 128, 8, 37),
+                                                (2, 3, 4, 24, 4, 1, 1)])
 def test_ssd_step_matches_plain_on_card(dtype, L, B, NH, HD, DS, NG, li):
     """K9: the state's new bits equal the plain version's (fp32 and bf16),
     a dead row and the other layers keep theirs, y within 1e-5 (fp32 sums in

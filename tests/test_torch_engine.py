@@ -149,7 +149,7 @@ def _jax_pair(seed, **overrides):
     jargs = JaxArgs(**{**dataclasses.asdict(tiny_args()), **overrides})
     jmodel = JaxTransformer.random(jargs, dtype=jnp.float32, seed=seed).quantize("int8", group=32)
     args = TransformerArgs.from_dict(dataclasses.asdict(jmodel.args))
-    params = params_from_numpy(jax.tree.map(np.asarray, jmodel.params))
+    params = params_from_numpy(jax.tree.map(np.asarray, jmodel.params), device="cpu")
     return jmodel, Transformer(args, params, torch.float32, device="cpu")
 
 

@@ -45,7 +45,7 @@ def pair(seed=0, **overrides):
     jargs = tiny_jax_args(**overrides)
     jmodel = JaxTransformer.random(jargs, dtype=jnp.float32, seed=seed)
     args = TransformerArgs.from_dict(dataclasses.asdict(jargs))
-    params = params_from_numpy(jax.tree.map(np.asarray, jmodel.params))
+    params = params_from_numpy(jax.tree.map(np.asarray, jmodel.params), device="cpu")
     return jmodel, Transformer(args, params, torch.float32, device="cpu")
 
 

@@ -48,7 +48,7 @@ def jax_args(**over) -> JaxMambaArgs:
 
 def port_of(jargs: JaxMambaArgs, jparams) -> Mamba:
     args = MambaArgs.from_dict(dataclasses.asdict(jargs))
-    return Mamba(args, mamba_params_from_numpy(jax.tree.map(np.asarray, jparams)),
+    return Mamba(args, mamba_params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu"),
                  torch.float32, device="cpu")
 
 

@@ -53,7 +53,7 @@ def models():
     init = jax.jit(lambda key: jmm.init_mamba_params(key, jargs, jnp.float32))
     jparams = init(jax.random.PRNGKey(42))
     jmodel = JaxMamba(jargs, jparams, jnp.float32, pallas=False)
-    port = Mamba(MambaArgs(**TINY), mamba_params_from_numpy(jax.tree.map(np.asarray, jparams)),
+    port = Mamba(MambaArgs(**TINY), mamba_params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu"),
                  torch.float32, device="cpu")
     return jmodel, port
 
@@ -119,7 +119,7 @@ def test_int4_weights_match_jax(models):
     jq = quantize(jmodel.params)
     jq_model = JaxMamba(jmodel.args, jq, jnp.float32, pallas=False)
     port = Mamba(MambaArgs(**TINY, quant="int4"),
-                 mamba_params_from_numpy(jax.tree.map(np.asarray, jq)), torch.float32,
+                 mamba_params_from_numpy(jax.tree.map(np.asarray, jq), device="cpu"), torch.float32,
                  device="cpu")
     g, lp = generate_mamba(PROMPTS, port, max_tokens=6, temperature=0.0)
     jg, jlp = jax_generate_mamba(PROMPTS, jq_model, max_tokens=6, temperature=0.0)

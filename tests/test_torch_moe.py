@@ -328,7 +328,7 @@ def jax_moe_args(**overrides) -> JaxArgs:
 
 def port_of(jmodel) -> Transformer:
     args = TransformerArgs.from_dict(dataclasses.asdict(jmodel.args))
-    params = params_from_numpy(jax.tree.map(np.asarray, jmodel.params))
+    params = params_from_numpy(jax.tree.map(np.asarray, jmodel.params), device="cpu")
     return Transformer(args, params, torch.float32, device="cpu")
 
 
@@ -435,7 +435,7 @@ def test_convert_refuses_lora_on_experts():
     tree["layers"]["moe"]["w1_lora"] = {"a": np.zeros((1, 4, 256, 2), np.float32),
                                         "b": np.zeros((1, 4, 2, 512), np.float32)}
     with pytest.raises(ValueError, match="LoRA"):
-        params_from_numpy(tree)
+        params_from_numpy(tree, device="cpu")
     del tree["layers"]["moe"]
     with pytest.raises(ValueError, match="neither"):
-        params_from_numpy(tree)
+        params_from_numpy(tree, device="cpu")

@@ -58,7 +58,7 @@ def jax_args(**overrides) -> JaxArgs:
 
 def port_of(jmodel) -> Transformer:
     args = TransformerArgs.from_dict(dataclasses.asdict(jmodel.args))
-    params = params_from_numpy(jax.tree.map(np.asarray, jmodel.params))
+    params = params_from_numpy(jax.tree.map(np.asarray, jmodel.params), device="cpu")
     return Transformer(args, params, torch.float32, device="cpu")
 
 

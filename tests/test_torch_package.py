@@ -49,7 +49,8 @@ def test_sources_found():
         "moe_expert_matmul.cu", "moe_matmul.cu", "ring_attention.cu", "segment_attention.cu",
         "ssd_step.cu",
     ]
-    # K3 runs on dequant_dot.cuh; K1, K4 and K10 share their device code (the
+    # K3 and K8 share their device loop (dequant_mma.cuh: mma.sync with the
+    # weight as A, x's rows as n-tiles); K1, K4 and K10 share theirs (the
     # Hopper tile loop of flash_hopper.cuh, each in an instantiation of its
     # own: K1 the chunk's bf16 keys, K10 at head dim 64 with a segment mask);
     # K2, K6 and K7 theirs (the cluster decode loop of decode_hopper.cuh, K2
@@ -58,7 +59,7 @@ def test_sources_found():
     # moe_matmul.cu share the wgmma, descriptor and mbarrier primitives of
     # hopper.cuh.
     assert sorted(p.name for p in (PKG / "ops" / "cuda" / "csrc").glob("*.cuh")) == [
-        "common.cuh", "decode_hopper.cuh", "dequant_dot.cuh", "flash_hopper.cuh", "hopper.cuh",
+        "common.cuh", "decode_hopper.cuh", "dequant_mma.cuh", "flash_hopper.cuh", "hopper.cuh",
     ]
 
 
@@ -137,6 +138,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 def test_mamba_entry_point_raises_without_cuda(monkeypatch):
     _raises_without_cuda(monkeypatch, "Mamba", "codestral-mamba-7b")
+
+
+@pytest.mark.parametrize("name", ["params_from_numpy", "vision_params_from_numpy",
+                                  "mamba_params_from_numpy"])
+def test_converters_raise_without_cuda(monkeypatch, name):
+    """The converters that carry JAX weights across default to the card, as
+    the models do: without one they raise and name ``device="cpu"``."""
+    from mistral_inference_tpu_torch import convert
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(convert, name)({"layers": {}})
 
 
 def _cpu_only_on_request(family, args):

@@ -65,7 +65,7 @@ def draft_args(**kw) -> JaxArgs:
 
 def port_of(jmodel) -> Transformer:
     args = TransformerArgs.from_dict(dataclasses.asdict(jmodel.args))
-    params = params_from_numpy(jax.tree.map(np.asarray, jmodel.params))
+    params = params_from_numpy(jax.tree.map(np.asarray, jmodel.params), device="cpu")
     return Transformer(args, params, torch.float32, device="cpu")
 
 

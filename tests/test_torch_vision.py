@@ -45,7 +45,7 @@ def _port_args(jargs: JaxVisionArgs) -> VisionEncoderArgs:
 def _jax_vision(jargs: JaxVisionArgs, lm_dim: int, seed: int = 0):
     """JAX vision params and the same weights in the port's layout."""
     jp = JV.init_vision_params(jax.random.PRNGKey(seed), jargs, lm_dim, jnp.float32)
-    return jp, vision_params_from_numpy(jax.tree.map(np.asarray, jp))
+    return jp, vision_params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
 
 
 @pytest.mark.parametrize("dim,height,width,theta", [(64, 64, 64, 1e4), (16, 8, 5, 1e4),
@@ -227,7 +227,7 @@ def test_convert_carries_vision_subtree():
                                                     jnp.float32)
     tree = jax.tree.map(np.asarray, jmodel.params)
     jv = tree["vision"]
-    pv = params_from_numpy(tree)["vision"]
+    pv = params_from_numpy(tree, device="cpu")["vision"]
     np.testing.assert_array_equal(pv["patch_conv"].numpy(), jv["patch_conv"])
     np.testing.assert_array_equal(pv["ln_pre"].numpy(), jv["ln_pre"])
     np.testing.assert_array_equal(pv["pre_mm_projector_norm"].numpy(),

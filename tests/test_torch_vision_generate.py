@@ -50,7 +50,7 @@ def pair(seed=42, **vision_over):
     jmodel.params["vision"] = init_vision_params(
         jax.random.PRNGKey(seed + 1), vargs, jargs.dim, jnp.float32)
     args = TransformerArgs.from_dict(dataclasses.asdict(jargs))
-    params = params_from_numpy(jax.tree.map(np.asarray, jmodel.params))
+    params = params_from_numpy(jax.tree.map(np.asarray, jmodel.params), device="cpu")
     return jmodel, Transformer(args, params, torch.float32, device="cpu")
 
 
