@@ -129,6 +129,7 @@ from __future__ import annotations
 import json
 import math
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -2251,7 +2252,7 @@ PIXTRAL_PROMPT_LENS = (4212, 2132, 302, 45)
 
 class ImageTokens:
     """The token ids ``images.image_token_layout`` needs: a tokenizer's
-    ``special``, until the port has its tokenizers."""
+    ``special`` for Pixtral's three image ids, without a vocabulary."""
 
     @staticmethod
     def special(name: str) -> int:
@@ -2285,7 +2286,8 @@ def pixtral_path(card: str, profile: bool):
     """``generate(images=...)`` on ``pixtral-12b`` at full width and depth
     (40 decoder layers, 24 encoder layers), random bf16 weights from seed 0,
     an int8 ring (no window: it holds the whole context) and chunk 512, over
-    PIXTRAL_ROWS. Returns (its summary line, its launch counts)."""
+    PIXTRAL_ROWS. Returns (its summary line, its launch counts, the model,
+    which the front door's image request reuses)."""
     import numpy as np
 
     from mistral_inference_tpu_torch.generate import generate
@@ -2381,7 +2383,7 @@ def pixtral_path(card: str, profile: bool):
         "invariant_max_nats": float(diffs.max()), "invariant_mean_nats": float(diffs.mean()),
         "invariant_bound": bound_, "speculation_with_images_refused": refused,
         "topp_s": topp_s, "topp_identical": True, "card": card, "profile": breakdown,
-    }, launches
+    }, launches, model
 
 
 def pixtral_profile(model, prompts, images, encode_all):
@@ -2470,7 +2472,7 @@ def serving_requests(vocab_size: int):
     return prompts, max_tokens, set(shared), set(sampled), cancel, stop, logprobs
 
 
-def serving_phase(card: str, profile: bool):
+def serving_phase(card: str, profile: bool, resident: int = 0):
     """The continuous-batching ``Engine`` on the north-star model
     (``mistral-7b-v0.1``, int4 weights, an fp8 ring, all 32 layers):
     Engine(batch_size=8, max_seq_len=4608, admit_chunk=512) serving the 24
@@ -2480,7 +2482,8 @@ def serving_phase(card: str, profile: bool):
     other of the two), the prefix hits, that no row writes past prompt +
     max_tokens, and K2-fp8's launches against the decode forwards; reports
     requests/s, output tokens/s, TTFT p50 / p99, admission's share of the
-    wall time and peak memory. Returns its summary line."""
+    wall time and peak memory, less ``resident`` bytes that other phases
+    hold. Returns its summary line."""
     from mistral_inference_tpu_torch.generate import generate
     from mistral_inference_tpu_torch.model import Transformer
     from mistral_inference_tpu_torch.models.registry import get_args
@@ -2578,7 +2581,7 @@ def serving_phase(card: str, profile: bool):
             eng.cancel(rid[cancel])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9
     model.forward = forward
     launches = launch_counts()
     kv = eng.cache.kv_len.cpu().tolist()
@@ -2655,6 +2658,8 @@ def serving_phase(card: str, profile: bool):
         "prefix_hits": hits, "prefix_hits_eligible": eligible,
         "prefix_tokens_reused": METRICS.counters.get("prefix_tokens_reused", 0),
         "decode_forwards": decode_forwards[0], "peak_mem_gb": peak_gb,
+        "peak_mem_note": "less the other phases' resident bytes",
+        "resident_gb": resident / 1e9,
         "greedy_requests": len(greedy), "divergences_at_near_ties": len(diverged),
         "near_tie_gap": NEAR_TIE_GAP, "logprob_request_prompt_gap_nats": lp_gap,
         "reference_s": ref_s, "launches": launches, "metrics": json.loads(METRICS.dump()),
@@ -2676,6 +2681,552 @@ def engine_block_probe(model, B: int = SERVING_B, steps: int = 10):
     eng.step()  # the admission and the first block
     return {"prompt_len": 45, "decode_block": eng.decode_block,
             **step_probe(eng.step, lambda: None, B, steps)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the front door
+# ---------------------------------------------------------------------------
+
+FRONT_LAYERS = 8
+# The v3 SentencePiece layout: the controls at ids 0..13, then byte fallback.
+V3_SPECIALS = ("<unk>", "<s>", "</s>", "[INST]", "[/INST]", "[AVAILABLE_TOOLS]",
+               "[/AVAILABLE_TOOLS]", "[TOOL_RESULTS]", "[/TOOL_RESULTS]", "[TOOL_CALLS]",
+               "[IMG]", "[PREFIX]", "[MIDDLE]", "[SUFFIX]")
+TEKKEN_PATTERN = (r"[^\r\n\p{L}\p{N}]?[\p{Lu}\p{Lt}\p{Lm}\p{Lo}\p{M}]*[\p{Ll}\p{Lm}\p{Lo}\p{M}]+|"
+                  r"[^\r\n\p{L}\p{N}]?[\p{Lu}\p{Lt}\p{Lm}\p{Lo}\p{M}]+[\p{Ll}\p{Lm}\p{Lo}\p{M}]*|"
+                  r"\p{N}| ?[^\s\p{L}\p{N}]+[\r\n/]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+TEKKEN_SPECIALS = 1000
+FRONT_MAX_TOKENS = 24
+FRONT_IMAGE = (512, 768)
+
+
+def _varint(v: int) -> bytes:
+    out = b""
+    while True:
+        b, v = v & 0x7F, v >> 7
+        if not v:
+            return out + bytes([b])
+        out += bytes([b | 0x80])
+
+
+def _spm_piece(piece: str, score: float, ptype: int) -> bytes:
+    """One ModelProto piece: {piece = 1, score = 2, type = 3}, as field 1."""
+    p = piece.encode()
+    body = b"\x0a" + _varint(len(p)) + p + b"\x15" + struct.pack("<f", score)
+    body += b"\x18" + _varint(ptype)
+    return b"\x0a" + _varint(len(body)) + body
+
+
+def _merged_strings(rng, base, n: int, max_len: int):
+    """``n`` distinct strings beyond ``base``, each the concatenation of an
+    earlier one and a short one, so that a BPE merge loop reaches each."""
+    out, seen = list(base), set(base)
+    short = list(base)
+    while len(out) < len(base) + n:
+        s = rng.choice(out) + rng.choice(short)
+        if len(s) <= max_len and s not in seen:
+            seen.add(s)
+            out.append(s)
+            if len(s) <= 3:
+                short.append(s)
+    return out[len(base):]
+
+
+def synthetic_spm(vocab_size: int, seed: int) -> bytes:
+    """A SentencePiece BPE ``tokenizer.model`` of ``vocab_size`` pieces: the
+    v3 controls at their ids, 256 byte-fallback pieces, then characters and
+    merged pieces from seeded random strings, earlier merges scoring higher."""
+    import random
+
+    chars = ["▁"] + list("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789.,!?'-")
+    n_merged = vocab_size - len(V3_SPECIALS) - 256 - len(chars)
+    merged = _merged_strings(random.Random(seed), chars, n_merged, 12)
+    blob = _spm_piece(V3_SPECIALS[0], 0.0, 2)  # UNKNOWN
+    blob += b"".join(_spm_piece(p, 0.0, 3) for p in V3_SPECIALS[1:])  # CONTROL
+    blob += b"".join(_spm_piece(f"<0x{b:02X}>", 0.0, 6) for b in range(256))  # BYTE
+    blob += b"".join(_spm_piece(c, -1e6, 1) for c in chars)
+    blob += b"".join(_spm_piece(p, -float(i), 1) for i, p in enumerate(merged))
+    return blob
+
+
+def synthetic_tekken(vocab_size: int, seed: int) -> dict:
+    """A tekken.json covering ``vocab_size`` ids: the pre-v7 specials at
+    their ids in a prefix of TEKKEN_SPECIALS, then 256 byte ranks and merged
+    byte strings from seeded random text."""
+    import base64
+    import random
+
+    singles = [bytes([i]) for i in range(256)]
+    merged = _merged_strings(random.Random(seed), singles, vocab_size - TEKKEN_SPECIALS - 256, 10)
+    vocab = [{"rank": r, "token_bytes": base64.b64encode(b).decode()}
+             for r, b in enumerate(singles + merged)]
+    return {"config": {"pattern": TEKKEN_PATTERN, "default_vocab_size": vocab_size,
+                       "default_num_special_tokens": TEKKEN_SPECIALS, "version": "v3"},
+            "vocab": vocab}
+
+
+def reference_state_dict(args, gen):
+    """Random bf16 weights under the reference's key names, (out, in)
+    layouts, at the port's init scale: linears N(0, 1) / sqrt(fan_in), the
+    embedding N(0, 1), norms 1."""
+    D, F, V = args.dim, args.hidden_dim, args.vocab_size
+    q, kv = args.n_heads * args.head_dim, args.n_kv_heads * args.head_dim
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.bfloat16, device=gen.device)
+
+    def lin(out_f, in_f):
+        return draw(out_f, in_f).mul_(in_f ** -0.5)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16, device=gen.device)
+
+    sd = {"tok_embeddings.weight": draw(V, D), "norm.weight": ones(D),
+          "output.weight": lin(V, D)}
+    for i in range(args.n_layers):
+        p = f"layers.{i}"
+        sd.update({
+            f"{p}.attention.wq.weight": lin(q, D), f"{p}.attention.wk.weight": lin(kv, D),
+            f"{p}.attention.wv.weight": lin(kv, D), f"{p}.attention.wo.weight": lin(D, q),
+            f"{p}.feed_forward.w1.weight": lin(F, D), f"{p}.feed_forward.w2.weight": lin(D, F),
+            f"{p}.feed_forward.w3.weight": lin(F, D),
+            f"{p}.attention_norm.weight": ones(D), f"{p}.ffn_norm.weight": ones(D),
+        })
+    return sd
+
+
+def same_tree(a, b, path: str = "params") -> None:
+    """Two trees of tensors equal in structure, dtype and bits."""
+    if isinstance(a, dict):
+        require(isinstance(b, dict) and a.keys() == b.keys(), f"{path}: keys differ")
+        for k in a:
+            same_tree(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, list):
+        require(isinstance(b, list) and len(a) == len(b), f"{path}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_tree(x, y, f"{path}[{i}]")
+    else:
+        require(a.dtype == b.dtype and a.shape == b.shape and same_bits(a, b.to(a.device)),
+                f"{path}: differs")
+
+
+def _http(url: str, path: str, body=None, stream: bool = False):
+    """(response, seconds to the first byte of the body, seconds in all)."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    req = urllib.request.Request(url + path, data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if not stream:
+            return json.loads(r.read()), None, time.perf_counter() - t0
+        events, first = [], None
+        for line in r:
+            if line.startswith(b"data: "):
+                first = first or time.perf_counter() - t0
+                events.append(line[6:].strip().decode())
+    return events, first, time.perf_counter() - t0
+
+
+class HttpServing:
+    """``Server(engine, tok)`` on a ThreadingHTTPServer at 127.0.0.1:0."""
+
+    def __init__(self, engine, tok):
+        import threading
+        from http.server import ThreadingHTTPServer
+
+        from mistral_inference_tpu_torch.server.api import Server, _make_handler
+
+        self.srv = Server(engine, tok)
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), _make_handler(self.srv))
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+
+    def __enter__(self):
+        self.srv.start()
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.srv.stop()
+        self.thread.join(timeout=10)
+        require(self.srv.healthy, "the serving device loop failed")
+
+
+def concurrent(calls):
+    """Run the zero-argument ``calls`` in threads at once; their results in
+    order (an exception in one is raised here)."""
+    import threading
+
+    results, errors = [None] * len(calls), []
+
+    def run(i):
+        try:
+            results[i] = calls[i]()
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(calls))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors:
+        raise errors[0]
+    return results
+
+
+def held_to_alone(label, model, prompts, got, want, eos_id, carry_of=transformer_carry):
+    """Each greedy request's tokens ``got`` against ``generate()`` alone,
+    ``want`` (run without EOS, to max_tokens): a request that ended early
+    ended on EOS, so its tokens and EOS equal generate()'s, or leave them only at a near-tie of the two best logits, for the other of
+    the two. Returns the divergences."""
+    ext = [g + [eos_id] if len(g) < len(w) else g for g, w in zip(got, want)]
+    cut = [w[:len(e)] for e, w in zip(ext, want)]
+    diverged = divergences(model, prompts, ext, cut, carry_of)
+    for d in diverged:
+        emit({"phase": "divergence", "path": label, **d})
+        require(d["top2_gap"] <= NEAR_TIE_GAP and d["spec_token"] in d["top2_tokens"]
+                and d["plain_token"] in d["top2_tokens"],
+                f"{label}: a request left generate() alone away from a near-tie: {d}")
+    rows = {d["row"] for d in diverged}
+    for r, (e, c) in enumerate(zip(ext, cut)):
+        if r not in rows:
+            require(e == c, f"{label}: request {r} has {len(e)} tokens, generate() alone {len(c)}")
+    return diverged
+
+
+def front_door_phase(card: str, pix_model) -> dict:
+    """A reference checkpoint folder at mistral-7b-v0.1 widths (8 layers,
+    random bf16 weights from a seed, a synthetic 32000-piece SentencePiece
+    tokenizer) on disk, through the steps a user takes: ``from_folder``,
+    ``main quantize`` then ``main demo``, and ``Server(Engine(...))``
+    answering eight concurrent HTTP requests; then one Pixtral image chat
+    request over HTTP on ``pix_model``, the Pixtral phase's model. Returns
+    its summary line."""
+    import contextlib
+    import io
+    import tempfile
+
+    from mistral_inference_tpu_torch import native
+    from mistral_inference_tpu_torch.generate import generate
+    from mistral_inference_tpu_torch.io.safetensors import save_file
+    from mistral_inference_tpu_torch.main import DEMO_PROMPTS
+    from mistral_inference_tpu_torch.main import main as cli
+    from mistral_inference_tpu_torch.model import from_folder
+    from mistral_inference_tpu_torch.models.registry import get_args
+    from mistral_inference_tpu_torch.quant import weights as qw
+    from mistral_inference_tpu_torch.tokenizers import load_tokenizer
+
+    t_phase = time.perf_counter()
+    out: dict = {"phase": "front_door", "model": MODEL, "layers": FRONT_LAYERS, "card": card}
+    args = get_args(MODEL)
+    args.n_layers = FRONT_LAYERS
+    with tempfile.TemporaryDirectory(prefix="front_door_") as tmp:
+        ref, exp = Path(tmp) / "reference", Path(tmp) / "int4"
+        ref.mkdir()
+        # 1. The reference folder, written by the port's own safetensors writer.
+        t = time.perf_counter()
+        sd = reference_state_dict(args, torch.Generator(device="cuda").manual_seed(13))
+        (ref / "params.json").write_text(json.dumps({
+            "dim": args.dim, "n_layers": args.n_layers, "head_dim": args.head_dim,
+            "hidden_dim": args.hidden_dim, "n_heads": args.n_heads,
+            "n_kv_heads": args.n_kv_heads, "norm_eps": args.norm_eps,
+            "vocab_size": args.vocab_size, "rope_theta": args.rope_theta,
+            "sliding_window": args.sliding_window}))
+        (ref / "tokenizer.model").write_bytes(synthetic_spm(args.vocab_size, seed=0))
+        save_file(sd, ref / "consolidated.safetensors")
+        out["write_s"] = time.perf_counter() - t
+        out["checkpoint_gb"] = (ref / "consolidated.safetensors").stat().st_size / 1e9
+
+        # 2. from_folder: every leaf equal in bits to the drawn tensors after relayout.
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model = from_folder(ref)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t
+        require(model.args.n_layers == FRONT_LAYERS and model.dtype == torch.bfloat16,
+                "from_folder: wrong args or dtype")
+        w = {"tok_embeddings": sd["tok_embeddings.weight"], "norm": sd["norm.weight"],
+             "output": sd["output.weight"], "layers": []}
+        for i in range(FRONT_LAYERS):
+            p = f"layers.{i}"
+            w["layers"].append({
+                "attention_norm": sd[f"{p}.attention_norm.weight"],
+                "ffn_norm": sd[f"{p}.ffn_norm.weight"],
+                "wqkv": torch.cat([sd[f"{p}.attention.{k}.weight"] for k in ("wq", "wk", "wv")]),
+                "wo": sd[f"{p}.attention.wo.weight"],
+                "w13": torch.cat([sd[f"{p}.feed_forward.{k}.weight"] for k in ("w1", "w3")]),
+                "w2": sd[f"{p}.feed_forward.w2.weight"],
+            })
+        same_tree(w, model.params)
+        del model, w, sd
+        torch.cuda.empty_cache()
+
+        # 3. main quantize: the export's leaves are from_folder(quant="int4")'s
+        # bytes, and loading it quantizes nothing.
+        t = time.perf_counter()
+        cli(["quantize", str(ref), str(exp), "--quant", "int4", "--kv_quant", "fp8"])
+        out["quantize_s"] = time.perf_counter() - t
+        out["export_gb"] = (exp / "consolidated.safetensors").stat().st_size / 1e9
+        want = from_folder(ref, quant="int4")
+        calls = [0]
+        quantize = qw.quantize_params
+
+        def counted(*a, **kw):
+            calls[0] += 1
+            return quantize(*a, **kw)
+
+        qw.quantize_params = counted
+        try:
+            t = time.perf_counter()
+            got = from_folder(exp, quant="int4")
+            torch.cuda.synchronize()
+            out["export_load_s"] = time.perf_counter() - t
+        finally:
+            qw.quantize_params = quantize
+        require(calls[0] == 0 and got.args.quant == "int4" and got.args.kv_quant == "fp8",
+                "from_folder re-quantized the export or lost its modes")
+        same_tree(want.params, got.params)
+        del want, got
+        torch.cuda.empty_cache()
+
+        # 4. main demo on the export, through the native BPE.
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli(["demo", str(exp), "--max_tokens", "8"])
+        out["demo_s"] = time.perf_counter() - t
+        tok = load_tokenizer(exp)
+        require(native._LIB is not None and tok.merge == "native",
+                "the demo did not run the native BPE")
+        model = from_folder(exp, max_batch_size=8)
+        encoded = [tok.encode(p, bos=True, eos=False) for p in DEMO_PROMPTS]
+        gen, _ = generate(encoded, model, max_tokens=8, temperature=0.0)
+        want_text = "".join(p + tok.decode(g) + "\n" + "=" * 40 + "\n"
+                            for p, g in zip(DEMO_PROMPTS, gen))
+        require(buf.getvalue() == want_text, "demo: the printed text is not generate()'s")
+        out["demo"] = buf.getvalue().split("\n" + "=" * 40 + "\n")[:3]
+
+        # 5. Serving over HTTP: seven requests and /health at once.
+        out["serving"] = front_door_serving(model, tok)
+        del model
+        torch.cuda.empty_cache()
+    out["image"] = front_door_image(pix_model)
+    out["native_bpe"] = str(native.build().name)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _text_of(tok, rng, n_tokens: int) -> str:
+    """Text of random vocabulary words whose encoding is about ``n_tokens``."""
+    words = [p.replace("▁", "") for p, _, t in tok.pieces[400:] if t == 1]
+    words = [w for w in words if w.isalnum()]
+    text = ""
+    while len(tok.encode(text, bos=False)) < n_tokens:
+        text += " " + " ".join(rng.choice(words, 16).tolist())
+    return text.strip()
+
+
+def front_door_serving(model, tok) -> dict:
+    """Seven requests over HTTP to Engine(batch 8, max_seq_len 4608,
+    admit_chunk 512, eos_id = the tokenizer's) on the export, and /health:
+    completions by text and by token ids with logprobs, two chat
+    completions, a streamed completion, one with a multi-token stop string
+    and a top-p request. Every greedy request's tokens (the engine's record,
+    which the HTTP replies must carry) are held to generate() alone."""
+    import numpy as np
+
+    from mistral_inference_tpu_torch.generate import generate
+    from mistral_inference_tpu_torch.ops import cuda as kern
+    from mistral_inference_tpu_torch.server.engine import Engine
+    from mistral_inference_tpu_torch.tokenizers import ChatRequest, Message, encode_chat
+    from mistral_inference_tpu_torch.utils.profiling import METRICS
+
+    rng = np.random.default_rng(5)
+    V = model.args.vocab_size
+
+    def ids(n):
+        return [tok.bos_id] + rng.integers(len(V3_SPECIALS) + 256, V, n - 1).tolist()
+
+    system = _text_of(tok, rng, 300)
+    chat_a = [{"role": "user", "content": _text_of(tok, rng, 30)}]
+    chat_b = [{"role": "system", "content": system},
+              {"role": "user", "content": _text_of(tok, rng, 60)}]
+    M = FRONT_MAX_TOKENS
+    bodies = {
+        "text_logprobs": ("/v1/completions", {"prompt": _text_of(tok, rng, 300), "max_tokens": M,
+                                              "logprobs": True}),
+        "ids_logprobs": ("/v1/completions", {"prompt": ids(1500), "max_tokens": M,
+                                             "logprobs": True}),
+        "chat": ("/v1/chat/completions", {"messages": chat_a, "max_tokens": M}),
+        "chat_system": ("/v1/chat/completions", {"messages": chat_b, "max_tokens": M}),
+        "stream": ("/v1/completions", {"prompt": ids(700), "max_tokens": M, "stream": True}),
+        "stop": ("/v1/completions", {"prompt": _text_of(tok, rng, 120), "max_tokens": M}),
+        "top_p": ("/v1/completions", {"prompt": ids(1000), "max_tokens": M,
+                                      "temperature": 0.7, "top_p": 0.9}),
+    }
+
+    def prompt_of(body):
+        if "messages" in body:
+            return encode_chat(tok, ChatRequest([Message(m["role"], m["content"])
+                                                 for m in body["messages"]]))
+        p = body["prompt"]
+        return p if isinstance(p, list) else tok.encode(p, bos=True, eos=False)
+
+    prompts = {k: prompt_of(b) for k, (_, b) in bodies.items()}
+    greedy = [k for k in bodies if k != "top_p"]
+    ref, ref_lps = {}, {}
+    for k in greedy:
+        g, lp = generate([prompts[k]], model, max_tokens=M, temperature=0.0, chunk_size=CHUNK)
+        ref[k], ref_lps[k] = g[0], lp[0]
+    # A multi-token stop string from the middle of the reference's text.
+    stop = tok.decode(ref["stop"][6:10])
+    require(stop and len(tok.encode(stop, bos=False)) > 1, "no multi-token stop string")
+    bodies["stop"][1]["stop"] = stop
+
+    engine = Engine(model, batch_size=SERVING_B, max_seq_len=SERVING_MAX_SEQ,
+                    admit_chunk=SERVING_CHUNK, eos_id=tok.eos_id)
+    METRICS.__init__()
+    kern.reset_launch_counts()
+    torch.cuda.synchronize()
+    with HttpServing(engine, tok) as http:
+        calls = [lambda: _http(http.url, "/health")]
+        calls += [lambda p=p, b=b: _http(http.url, p, b, stream=bool(b.get("stream")))
+                  for p, b in bodies.values()]
+        t0 = time.perf_counter()
+        results = concurrent(calls)
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    require(results[0][0]["status"] == "ok", "/health is not ok")
+    resp = dict(zip(bodies, results[1:]))
+    # The engine's record of each request; the HTTP replies must carry it.
+    record = {k: next(r for r in engine.slots if r is not None and r.prompt == prompts[k])
+              for k in bodies}
+    got = {k: record[k].generated for k in bodies}
+    for k in bodies:
+        reply = resp[k][0]
+        if k == "stream":
+            require(reply[-1] == "[DONE]", "the stream did not end with [DONE]")
+            streamed = [json.loads(e)["token"] for e in reply[:-1]]
+            ended = got[k] + [tok.eos_id] if len(got[k]) < M else got[k]
+            require(streamed == ended, "the stream's tokens are not the engine's")
+        elif "messages" in bodies[k][1]:
+            require(reply["choices"][0]["message"]["content"] == tok.decode(got[k]),
+                    f"{k}: the reply is not the decode of the engine's tokens")
+        else:
+            require(reply["choices"][0]["tokens"] == got[k], f"{k}: wrong tokens in the reply")
+    diverged = held_to_alone("front_door", model, [prompts[k] for k in greedy],
+                             [got[k] for k in greedy], [ref[k] for k in greedy], tok.eos_id)
+    text = tok.decode(got["stop"])
+    cut = text.find(stop)
+    require(resp["stop"][0]["choices"][0]["text"] == (text[:cut] if cut >= 0 else text),
+            "the stop string did not truncate the text")
+    lp_gaps = {}
+    for k in ("text_logprobs", "ids_logprobs"):
+        lp = resp[k][0]["choices"][0]["logprobs"]
+        n = len(prompts[k]) - 1
+        require(len(lp["prompt_logprobs"]) == n, f"{k}: wrong prompt logprob count")
+        gap = np.abs(np.array(lp["prompt_logprobs"]) - np.array(ref_lps[k][:n]))
+        lp_gaps[k] = {"max": float(gap.max()), "mean": float(gap.mean())}
+        require(gap.max() <= INVARIANT_MAX_NATS and gap.mean() <= INVARIANT_MEAN_NATS,
+                f"{k}: prompt logprobs {lp_gaps[k]} nats from generate()'s")
+    sampled = got["top_p"]
+    require(len(sampled) <= M and all(0 <= t < model.args.vocab_size for t in sampled),
+            "the top-p request's tokens are wrong")
+    for name in (K1, K4F, K2F, K3, K5):
+        require(launches[name] > 0, f"{name} was not launched on the front door's serving")
+    return {
+        "requests": len(bodies), "prompt_lens": {k: len(p) for k, p in prompts.items()},
+        "max_tokens": M, "wall_s": wall, "requests_per_s": len(bodies) / wall,
+        "ttft_p50_s": METRICS.percentile("ttft_s", 0.5),
+        "ttft_p99_s": METRICS.percentile("ttft_s", 0.99),
+        "stream_first_event_s": resp["stream"][1],
+        "ttft_note": "ttft: submit to first token in the engine (METRICS ttft_s); the stream's "
+                     "first event is the client's clock from sending to the first SSE line",
+        "stop_string": stop, "prompt_logprob_gaps": lp_gaps,
+        "divergences_at_near_ties": len(diverged),
+        "launches": {k: launches[k] for k in (K1, K4F, K2F, K3, K5)},
+    }
+
+
+def front_door_image(model) -> dict:
+    """One Pixtral chat request with a 512 x 768 image as a nested-list array
+    and one text request, over HTTP, on the Pixtral phase's model with a
+    synthetic tekken.json of 131072 ids; tokens held to generate(images=...)
+    alone, K10 launched once per encoder layer."""
+    import tempfile
+
+    import numpy as np
+
+    from mistral_inference_tpu_torch.generate import generate, prefill_prompts
+    from mistral_inference_tpu_torch.ops import cuda as kern
+    from mistral_inference_tpu_torch.server.engine import Engine
+    from mistral_inference_tpu_torch.models.vision import embed_multimodal
+    from mistral_inference_tpu_torch.tokenizers import ChatRequest, Message, encode_chat
+    from mistral_inference_tpu_torch.tokenizers.chat import encode_chat_multimodal
+    from mistral_inference_tpu_torch.tokenizers.tekken import Tekken
+
+    vargs = model.args.vision_encoder
+    with tempfile.TemporaryDirectory(prefix="tekken_") as tmp:
+        path = Path(tmp) / "tekken.json"
+        path.write_text(json.dumps(synthetic_tekken(model.args.vocab_size, seed=0)))
+        tok = Tekken.from_file(path)
+    require(tok.vocab_size == model.args.vocab_size and tok.special("[IMG]") == vargs.image_token_id,
+            "the synthetic tekken.json does not fit pixtral-12b")
+    image = np.random.default_rng(7).integers(0, 256, (*FRONT_IMAGE, 3), np.uint8)
+    question = "Describe the picture in three words."
+    content = [{"type": "text", "text": question}, {"type": "image", "image": image.tolist()}]
+    ids, images = encode_chat_multimodal(tok, ChatRequest([Message("user", [question, image])]),
+                                         vargs)
+    text_ids = encode_chat(tok, ChatRequest([Message("user", "And now a poem, please.")]))
+    M = FRONT_MAX_TOKENS
+    ref = generate([ids], model, images=[images], max_tokens=M, temperature=0.0,
+                   chunk_size=CHUNK)[0][0]
+    ref_text = generate([text_ids], model, max_tokens=M, temperature=0.0, chunk_size=CHUNK)[0][0]
+    engine = Engine(model, batch_size=2, max_seq_len=len(ids) + M + 64,
+                    admit_chunk=SERVING_CHUNK, eos_id=tok.eos_id)
+    kern.reset_launch_counts()
+    torch.cuda.synchronize()
+    with HttpServing(engine, tok) as http:
+        t0 = time.perf_counter()
+        (img_resp, _, img_s), (txt_resp, _, _) = concurrent([
+            lambda: _http(http.url, "/v1/chat/completions",
+                          {"messages": [{"role": "user", "content": content}], "max_tokens": M}),
+            lambda: _http(http.url, "/v1/chat/completions",
+                          {"messages": [{"role": "user", "content": "And now a poem, please."}],
+                           "max_tokens": M})])
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    require(launches[K10] == vargs.num_hidden_layers,
+            f"K10 launched {launches[K10]} times for one image, expected {vargs.num_hidden_layers}")
+    for name in (K1, K4, K2):
+        require(launches[name] > 0, f"{name} was not launched on the image request")
+
+    def image_carry(m, tokens):
+        emb = embed_multimodal(m, [tokens], [images])
+        cache = m.alloc_cache(1, len(tokens))
+        with torch.inference_mode():
+            return prefill_prompts(m, [tokens], cache, CHUNK, want_logprobs=False,
+                                   input_embeds=emb)[1]
+
+    got = {}
+    for label, resp, prompt, want, carry_of in (
+            ("image", img_resp, ids, ref, image_carry),
+            ("text", txt_resp, text_ids, ref_text, transformer_carry)):
+        rec = next(r for r in engine.slots if r is not None and r.prompt == prompt)
+        require(resp["choices"][0]["message"]["content"] == tok.decode(rec.generated),
+                f"{label}: the reply is not the decode of the engine's tokens")
+        got[label] = held_to_alone(f"front_door {label}", model, [prompt], [rec.generated],
+                                   [want], tok.eos_id, carry_of)
+    return {"model": PIXTRAL_MODEL, "image": list(FRONT_IMAGE), "prompt_len": len(ids),
+            "text_prompt_len": len(text_ids), "payload": "nested-list array",
+            "payload_mb": len(json.dumps(content)) / 1e6, "wall_s": wall, "image_request_s": img_s,
+            "divergences_at_near_ties": {k: len(v) for k, v in got.items()}, "launches": {k: launches[k] for k in (K10, K1, K4, K2)}}
 
 
 def row_count_probe(gen):
@@ -2931,14 +3482,18 @@ def main() -> int:
     emit(mamba_lookup_path(card)[0])
     torch.cuda.empty_cache()
     # The multimodal path: K10's launches, and K1, K4 and K2 at 40 layers.
-    summary, counted = pixtral_path(card, "--profile" in sys.argv[1:])
+    summary, counted, pix_model = pixtral_path(card, "--profile" in sys.argv[1:])
     emit(summary)
     for name in (K10, K1, K4, K2):
         if summary["layers"] > depth.get(name, 0):
             launches[name], depth[name] = counted[name], summary["layers"]
     torch.cuda.empty_cache()
-    # The serving engine over the north-star model.
-    emit(serving_phase(card, "--profile" in sys.argv[1:]))
+    # The serving engine over the north-star model, the Pixtral model resident.
+    emit(serving_phase(card, "--profile" in sys.argv[1:], torch.cuda.memory_allocated()))
+    torch.cuda.empty_cache()
+    # The front door: a checkpoint folder on disk through the CLI and the HTTP API.
+    emit(front_door_phase(card, pix_model))
+    del pix_model
     torch.cuda.empty_cache()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "note": "from the start of main(): the build, every check and path; not the "

@@ -3,13 +3,16 @@ family.
 
 Counterpart of ``mistral_inference_tpu/args.py::TransformerArgs``,
 ``::MoeArgs``, ``::VisionEncoderArgs`` and ``::MambaArgs``, cut to the fields
-the ported paths read. LoRA arrives with a later slice of the port.
+the ported paths read, and ``load_args``. LoRA arrives with a later slice of
+the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
 
 PATCH_MERGE = "patch_merge"
@@ -166,3 +169,19 @@ class MambaArgs:
     def from_dict(cls, d: Dict[str, Any]) -> "MambaArgs":
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})
+
+
+ModelArgs = Union[TransformerArgs, MambaArgs]
+
+
+def load_args(folder: Union[str, Path]) -> ModelArgs:
+    """Parse ``<folder>/params.json``, dispatching on ``model_type``
+    ("transformer" when absent, or "mamba")."""
+    with open(Path(folder) / "params.json") as f:
+        d = json.load(f)
+    model_type = d.get("model_type", "transformer")
+    if model_type == "transformer":
+        return TransformerArgs.from_dict(d)
+    if model_type == "mamba":
+        return MambaArgs.from_dict(d)
+    raise ValueError(f"Unknown model_type: {model_type}")

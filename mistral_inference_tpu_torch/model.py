@@ -1,15 +1,16 @@
 """Host handles around the forwards: ``Transformer`` (dense or sparse-MoE)
-and ``Mamba`` (Mamba2), with bf16 or weight-only quantized linears
-(counterpart of ``mistral_inference_tpu/model.py::Transformer`` and
-``::Mamba``)."""
+and ``Mamba`` (Mamba2), with bf16 or weight-only quantized linears, and
+``from_folder``, which loads either from a checkpoint folder (counterpart of
+``mistral_inference_tpu/model.py``)."""
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional, Union
 
 import torch
 
-from mistral_inference_tpu_torch.args import MambaArgs, TransformerArgs
+from mistral_inference_tpu_torch.args import MambaArgs, TransformerArgs, load_args
 from mistral_inference_tpu_torch.cache import KVCache
 from mistral_inference_tpu_torch.models import mamba as mm
 from mistral_inference_tpu_torch.models import transformer as tf
@@ -66,6 +67,34 @@ class Transformer:
         if quant is not None:
             args.quant = quant
         return cls(args, params, dtype, dev)
+
+    @classmethod
+    def from_folder(
+        cls,
+        folder: Union[str, Path],
+        max_batch_size: int = 1,
+        dtype: torch.dtype = torch.bfloat16,
+        quant: Optional[str] = None,
+        kv_quant: Optional[str] = None,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> "Transformer":
+        """Load ``params.json`` and the weights of a reference folder or a
+        stacked export (``loading.py``), on the card unless ``device="cpu"``.
+        ``kv_quant`` sets the ring's element type; ``quant`` quantizes the
+        weights after loading. A pre-quantized export is never re-quantized:
+        ``quant`` equal to its mode is a no-op, another mode raises."""
+        from mistral_inference_tpu_torch.loading import load_transformer_params
+
+        args = load_args(folder)
+        if not isinstance(args, TransformerArgs):
+            raise ValueError(f"{folder} holds a {type(args).__name__} checkpoint")
+        args.max_batch_size = max_batch_size
+        if kv_quant is not None:
+            args.kv_quant = kv_quant
+        dev = resolve_device(device)
+        model = cls(args, load_transformer_params(folder, args, dtype, dev), dtype, dev)
+        _requantize(model, quant)
+        return model
 
     def quantize(self, mode: str, group: int = 128) -> "Transformer":
         """Weight-only quantization in place: "int8" | "int4"
@@ -152,6 +181,30 @@ class Mamba:
             args.quant = quant
         return cls(args, params, dtype, dev, ssm_dtype)
 
+    @classmethod
+    def from_folder(
+        cls,
+        folder: Union[str, Path],
+        max_batch_size: int = 1,
+        dtype: torch.dtype = torch.bfloat16,
+        quant: Optional[str] = None,
+        ssm_dtype: torch.dtype = torch.float32,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> "Mamba":
+        """Load a mamba_ssm folder or a stacked export (``loading.py``), on
+        the card unless ``device="cpu"``; ``quant`` as in
+        ``Transformer.from_folder``."""
+        from mistral_inference_tpu_torch.loading import load_mamba_params
+
+        del max_batch_size  # the state is allocated per call
+        args = load_args(folder)
+        if not isinstance(args, MambaArgs):
+            raise ValueError(f"{folder} holds a {type(args).__name__} checkpoint")
+        dev = resolve_device(device)
+        model = cls(args, load_mamba_params(folder, args, dtype, dev), dtype, dev, ssm_dtype)
+        _requantize(model, quant)
+        return model
+
     def quantize(self, mode: str, group: int = 128) -> "Mamba":
         """Weight-only quantization of ``in_proj`` and ``out_proj`` in place:
         "int8" | "int4" (``quant/weights.py``). Returns self."""
@@ -181,3 +234,23 @@ class Mamba:
                 self.params, tokens.to(self.device), seqlens.to(self.device), state,
                 self.args, chunk, head=head, write_state=write_state,
             )
+
+
+def _requantize(model: Union[Transformer, Mamba], quant: Optional[str]) -> None:
+    """Quantize a freshly loaded model to ``quant`` unless it already is;
+    an export quantized to another mode raises."""
+    if quant is None or quant == model.args.quant:
+        return
+    if model.args.quant != "bf16":
+        raise ValueError(f"the checkpoint is already {model.args.quant}-quantized; "
+                         f"cannot re-quantize to {quant}")
+    model.quantize(quant)
+
+
+def get_model_cls(folder: Union[str, Path]):
+    """``Mamba`` or ``Transformer``, by ``params.json``'s ``model_type``."""
+    return Mamba if isinstance(load_args(folder), MambaArgs) else Transformer
+
+
+def from_folder(folder: Union[str, Path], **kw) -> Union[Transformer, Mamba]:
+    return get_model_cls(folder).from_folder(folder, **kw)

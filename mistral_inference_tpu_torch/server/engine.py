@@ -1,5 +1,6 @@
-"""Continuous-batching serving engine for a ``Transformer`` (counterpart of
-``mistral_inference_tpu/server/engine.py``, without its speculative modes).
+"""Continuous-batching serving engine for a ``Transformer``, text and image
+requests (counterpart of ``mistral_inference_tpu/server/engine.py``, without
+its speculative modes).
 
 A fixed batch of B slots; each owns one row of the ring KV cache, whose
 per-row ``kv_len`` already says how full it is.
@@ -13,7 +14,10 @@ per-row ``kv_len`` already says how full it is.
   are new); a sweep of at most ``staging_batch`` rows prefills in a narrow
   staging cache and adopts the rows (``cache.adopt_rows``); a request whose
   prompt shares a prefix with a resident row's prompt copies those ring slots
-  (``cache.copy_prefix_rows``) instead of prefilling them.
+  (``cache.copy_prefix_rows``) instead of prefilling them. A sweep that
+  holds an image request computes the multimodal embeddings of its whole
+  prompts once (``models.vision.embed_multimodal``) and each chunk slices
+  them; such a sweep takes no prefix reuse and no staging.
 * **Decode** is ``generate._decode_block`` with per-row temperatures, top-p,
   liveness and token budgets. A finished or empty slot runs with seqlens 0,
   so its ring stays intact as a prefix source. With ``pipeline`` (the
@@ -37,13 +41,14 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mistral_inference_tpu_torch.cache import KVCache, adopt_rows, copy_prefix_rows
 from mistral_inference_tpu_torch.generate import DEFAULT_TOP_P, _decode_block, _prefill_step
 from mistral_inference_tpu_torch.model import Transformer
 from mistral_inference_tpu_torch.utils.profiling import METRICS
 
-LATER = "ROADMAP.md Queue 1 item 4b"
+LATER = "ROADMAP.md Queue 1 item 2"
 
 
 @dataclass
@@ -56,6 +61,9 @@ class Request:
     # Any of these token ids finishes the request, like an extra EOS id; the
     # matched token is not appended.
     stop_ids: Tuple[int, ...] = ()
+    # Preprocessed (C, H, W) images, in the order of the prompt's image
+    # tokens (``images.encode_user_content`` lays both out).
+    images: List[np.ndarray] = field(default_factory=list)
     generated: List[int] = field(default_factory=list)
     # The generate() logprob contract: len(prompt) - 1 teacher-forced prompt
     # transitions (only for want_logprobs), then one per generated token.
@@ -176,9 +184,11 @@ class Engine:
     ) -> int:
         """Queue a request; returns its id. ``temperature`` and ``top_p`` of
         None take the engine's defaults; each request keeps its own inside
-        one batched decode. ``stop_ids`` are stop tokens beside ``eos_id``."""
-        if len(images):
-            raise NotImplementedError(f"image requests are not ported yet ({LATER})")
+        one batched decode. ``stop_ids`` are stop tokens beside ``eos_id``.
+        ``images`` are the request's preprocessed (C, H, W) arrays, one per
+        image-token grid of the prompt, for a model with a vision encoder."""
+        if len(images) and self.model.args.vision_encoder is None:
+            raise ValueError("image inputs need a model with a vision encoder")
         if not prompt:
             raise ValueError("a request needs at least one prompt token")
         if len(prompt) + max_tokens > self.max_seq_len:
@@ -190,7 +200,7 @@ class Engine:
             next(self._ids), list(prompt), max_tokens,
             temperature=self.temperature if temperature is None else float(temperature),
             top_p=DEFAULT_TOP_P if top_p is None else float(top_p),
-            stop_ids=tuple(stop_ids), want_logprobs=want_logprobs,
+            stop_ids=tuple(stop_ids), images=list(images), want_logprobs=want_logprobs,
             t_submit=time.perf_counter(),
         )
         self.queue.append(req)
@@ -328,7 +338,8 @@ class Engine:
         for i, r in new:  # after the planning: a wave cannot source itself
             self._slot_prompt[i] = list(r.prompt)
 
-        if self._staging_B and len(new) <= self._staging_B and not copies:
+        with_images = any(r.images for _, r in new)
+        if self._staging_B and len(new) <= self._staging_B and not copies and not with_images:
             self._admit_staged(new, maxT)
             self._sync()
             METRICS.observe("admission_staged_s", time.perf_counter() - t_admit)
@@ -337,20 +348,30 @@ class Engine:
             prompts: List[Sequence[int]] = [()] * self.B
             for i, r in new:
                 prompts[i] = r.prompt[offs.get(i, 0):]
+            embeds = None
+            if with_images:  # the whole prompts' embeddings, sliced per chunk
+                from mistral_inference_tpu_torch.models.vision import embed_multimodal
+
+                images = [[] for _ in range(self.B)]
+                for i, r in new:
+                    images[i] = r.images
+                embeds = embed_multimodal(self.model, prompts, images)
             # The first chunk of a sweep without prefix copies attends to
             # itself alone: every new row's ring is empty.
             self.carry = self._prefill(new, prompts, self.cache, self.carry, maxT,
-                                       attend_first=bool(offs))
+                                       attend_first=bool(offs), embeds=embeds)
             self._sync()
         METRICS.observe("admission_prefill_s", time.perf_counter() - t_admit)
         METRICS.inc("requests_admitted", len(new))
 
-    def _prefill(self, new, prompts, cache, carry, maxT: int,
-                 attend_first: bool) -> torch.Tensor:
+    def _prefill(self, new, prompts, cache, carry, maxT: int, attend_first: bool,
+                 embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Chunks of ``admit_chunk`` of each row's ``prompts`` entry (empty: a
         row that rides along) into ``cache``; returns the new carry. Prompt
         logprobs go to the requests of ``new`` that want them (their rows in
-        ``prompts`` are whole prompts: no prefix was copied).
+        ``prompts`` are whole prompts: no prefix was copied). ``embeds``
+        (rows, max prompt length, dim), the input embeddings of the whole
+        prompts, is sliced per chunk and zero-padded like the tokens.
 
         Every chunk is ``admit_chunk`` wide, however short the prompts: a
         row's prefill then runs the chunks of ``generate(chunk_size=
@@ -372,9 +393,14 @@ class Engine:
                 chunk = p[s:s + width]
                 tokens[b, :len(chunk)] = chunk
                 seqlens[b] = len(chunk)
+            chunk_embeds = None
+            if embeds is not None:
+                chunk_embeds = embeds[:, s:s + width]
+                chunk_embeds = F.pad(chunk_embeds, (0, 0, 0, width - chunk_embeds.shape[1]))
             lp_d, carry = _prefill_step(
                 self.model, self._to_device(tokens), self._to_device(seqlens), cache, carry,
                 attend_cache=s > 0 or attend_first, want_logprobs=want_lp,
+                input_embeds=chunk_embeds,
             )
             if want_lp:
                 lp = lp_d.cpu().numpy()
@@ -412,10 +438,11 @@ class Engine:
         never wrapped: its fill must not exceed the smallest window (finished
         rows are frozen, so they stay usable). Rows that want prompt
         logprobs take no prefix: those positions' logprobs were never
-        computed for them."""
+        computed for them. A wave with images takes none: its chunks slice
+        one embedding matrix of the whole prompts."""
         offs: Dict[int, int] = {}
         copies: List[Tuple[int, int, int]] = []
-        if not self.prefix_cache:
+        if not self.prefix_cache or any(r.images for _, r in new):
             return offs, copies
         kvlen = self.cache.kv_len.cpu().numpy()
         dsts = {i for i, _ in new}

@@ -414,17 +414,27 @@ def test_engine_pipeline_randomized_stress():
 
 
 def test_engine_refuses_what_is_not_ported():
-    """Speculative serving, image requests and a Mamba model wait for a
-    later slice: each raises, naming the roadmap item."""
+    """Speculative serving and a Mamba model wait for a later slice: each
+    raises, naming the roadmap item. An image request to a text-only model
+    is refused."""
     model = tiny(1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         Engine(model, batch_size=2, max_seq_len=64, draft_model="lookup")
     eng = Engine(model, batch_size=2, max_seq_len=64)
     image = np.zeros((3, 16, 16), np.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
+    with pytest.raises(ValueError, match="vision encoder"):
         eng.submit(PROMPTS[0], max_tokens=2, images=[image])
     with pytest.raises(ValueError, match="max_seq_len"):
         eng.submit(PROMPTS[0], max_tokens=100)
+    from mistral_inference_tpu_torch.args import MambaArgs
+    from mistral_inference_tpu_torch.model import Mamba
+
+    mamba = Mamba.random(MambaArgs(dim=64, n_layers=1, vocab_size=256, n_groups=2, rms_norm=True,
+                                   residual_in_fp32=True, fused_add_norm=True,
+                                   pad_vocab_size_multiple=16, tie_embeddings=False,
+                                   d_state=16, headdim=16), dtype=torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        Engine(mamba, batch_size=2, max_seq_len=64)
 
 
 def test_sample_takes_per_row_temperature_and_top_p():
