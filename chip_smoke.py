@@ -108,6 +108,40 @@ Phases, each printing one JSON line:
    launches (layers x decode forwards); prints requests/s, output tokens/s,
    TTFT p50 / p99, admission's share of the wall time and peak memory.
 
+9. front door: a reference folder of ``mistral-7b-v0.1`` at 8 layers on
+   disk through ``from_folder``, ``main quantize``, ``main demo`` and
+   ``Server(Engine(...))`` over HTTP, and a Pixtral image chat request.
+
+10. speculative serving: 16 requests (prompts of 45-1537 tokens, half of
+    them a repeated block, 4 sharing a 512-token prefix, max_tokens 32-96, 4
+    sampled, 8 arriving after the third step, one cancelled, one ended by a
+    stop id, one with logprobs) served by ``Engine(batch_size=8,
+    max_seq_len=2048)`` on ``mistral-7b-v0.1`` (int4, an fp8 ring, window
+    4096, 32 layers) with prompt lookup (K = 7), with the target as its own
+    draft, and plainly, the Pixtral model resident. Checks each greedy
+    request against ``generate()`` alone (but at a near-tie), K7-fp8's
+    launches (layers x verify forwards) and K2-fp8's (layers x T = 1
+    forwards: none for lookup), prefix hits into both rings, no row past
+    prompt + max_tokens + the block's slack, sampled requests repeating for
+    a seed, and the logprob request against a teacher-forced prefill;
+    prints requests/s, tokens/s, TTFT, admission's share and accepted tokens
+    per verify for each engine.
+
+11. Mamba serving: ``MambaEngine(batch_size=4)`` on ``codestral-mamba-7b``
+    (8 layers, int4) with an fp32 and a bf16 SSD state, 12 requests, plainly
+    and with prompt lookup (K = 7): each greedy request against
+    ``generate_mamba`` alone, K9's launches (layers x decode forwards; 0 for
+    lookup), a finished request's state rows unchanged in bits through
+    every block; one HTTP completion through ``Server(MambaEngine(...))``.
+
+12. LoRA: a rank-16 adapter on phase 9's folder: ``main quantize
+    --lora_path`` exports quantize(merge_lora(dense)) in bits, ``main demo
+    --lora_path`` prints the merged model's text, a ``lora`` block in
+    params.json gives live pairs (a zero adapter changes no bit; with the
+    adapter decode == prefill, lookup through K7-fp8 keeps plain greedy's
+    tokens, live against merged within the dense bound); ``mixtral-8x7b`` at
+    2 layers with live expert adapters (dispatch: K8 and K5 launched).
+
 Then a ``total`` line (the seconds since the start), a ``kernels`` line, the
 nvidia-smi line, and last the device line.
 Any failure raises and the script exits non-zero. Without a CUDA device,
@@ -121,7 +155,9 @@ main paths and the Pixtral path a torch.profiler breakdown of the prefill
 other) and of one decode step, with the decode step's aten calls and the
 host's time to enqueue it, and to the serving line the same for one
 engine decode block (a serial engine, 8 rows). ``--kernels=k2,k7_fp8`` runs phases 1 and
-2 and only the named kernels' checks, and prints no result line.
+2 and only the named kernels' checks, and prints no result line; so does
+``--phases=spec_serving,mamba_serving,lora`` after phases 1 and 2 for the
+named phases of 10-12.
 """
 
 from __future__ import annotations
@@ -132,6 +168,7 @@ import statistics
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
@@ -1886,8 +1923,22 @@ def divergences(model, prompts, spec, plain, carry_of=transformer_carry):
         best = best[logits[best].argsort(descending=True, stable=True)]
         found.append({"row": row, "step": step, "spec_token": a[step], "plain_token": b[step],
                       "top2_tokens": best.tolist(), "top2_logits": top.values.tolist(),
-                      "top2_gap": float(top.values[0] - top.values[1])})
+                      "top2_gap": float(top.values[0] - top.values[1]),
+                      "spec_gap": float(top.values[0] - logits[a[step]]),
+                      "plain_gap": float(top.values[0] - logits[b[step]])})
     return found
+
+
+def near_ties(label, diverged) -> None:
+    """Each divergence must fall where the reference's best logits nearly
+    tie: both tokens within NEAR_TIE_GAP of the best. Where two logits tie
+    that is the top-2 rule of the earlier phases; random weights also give
+    three-way ties a bf16 ulp apart, where the other rounding picks the
+    third."""
+    for d in diverged:
+        emit({"phase": "divergence", "path": label, **d})
+        require(d["spec_gap"] <= NEAR_TIE_GAP and d["plain_gap"] <= NEAR_TIE_GAP,
+                f"{label}: a request left its reference away from a near-tie: {d}")
 
 
 def spec_path(card: str, path: SpecPath):
@@ -2898,122 +2949,136 @@ def held_to_alone(label, model, prompts, got, want, eos_id, carry_of=transformer
     return diverged
 
 
-def front_door_phase(card: str, pix_model) -> dict:
+def front_args():
+    from mistral_inference_tpu_torch.models.registry import get_args
+
+    args = get_args(MODEL)
+    args.n_layers = FRONT_LAYERS
+    return args
+
+
+def write_front_folder(ref: Path, args, extra: Optional[dict] = None) -> dict:
+    """The reference folder of phase 9 (random bf16 weights from seed 13, a
+    synthetic SentencePiece tokenizer), written by the port's own
+    safetensors writer; ``extra`` joins params.json. Returns the state
+    dict, on the card."""
+    from mistral_inference_tpu_torch.io.safetensors import save_file
+
+    ref.mkdir(parents=True, exist_ok=True)
+    sd = reference_state_dict(args, torch.Generator(device="cuda").manual_seed(13))
+    (ref / "params.json").write_text(json.dumps({
+        "dim": args.dim, "n_layers": args.n_layers, "head_dim": args.head_dim,
+        "hidden_dim": args.hidden_dim, "n_heads": args.n_heads,
+        "n_kv_heads": args.n_kv_heads, "norm_eps": args.norm_eps,
+        "vocab_size": args.vocab_size, "rope_theta": args.rope_theta,
+        "sliding_window": args.sliding_window, **(extra or {})}))
+    (ref / "tokenizer.model").write_bytes(synthetic_spm(args.vocab_size, seed=0))
+    save_file(sd, ref / "consolidated.safetensors")
+    return sd
+
+
+def front_door_phase(card: str, pix_model, workdir: Path) -> dict:
     """A reference checkpoint folder at mistral-7b-v0.1 widths (8 layers,
     random bf16 weights from a seed, a synthetic 32000-piece SentencePiece
-    tokenizer) on disk, through the steps a user takes: ``from_folder``,
-    ``main quantize`` then ``main demo``, and ``Server(Engine(...))``
-    answering eight concurrent HTTP requests; then one Pixtral image chat
-    request over HTTP on ``pix_model``, the Pixtral phase's model. Returns
-    its summary line."""
+    tokenizer) on disk under ``workdir`` (phase 12 reads it again), through
+    the steps a user takes: ``from_folder``, ``main quantize`` then ``main
+    demo``, and ``Server(Engine(...))`` answering eight concurrent HTTP
+    requests; then one Pixtral image chat request over HTTP on
+    ``pix_model``, the Pixtral phase's model. Returns its summary line."""
     import contextlib
     import io
-    import tempfile
 
     from mistral_inference_tpu_torch import native
     from mistral_inference_tpu_torch.generate import generate
-    from mistral_inference_tpu_torch.io.safetensors import save_file
     from mistral_inference_tpu_torch.main import DEMO_PROMPTS
     from mistral_inference_tpu_torch.main import main as cli
     from mistral_inference_tpu_torch.model import from_folder
-    from mistral_inference_tpu_torch.models.registry import get_args
     from mistral_inference_tpu_torch.quant import weights as qw
     from mistral_inference_tpu_torch.tokenizers import load_tokenizer
 
     t_phase = time.perf_counter()
     out: dict = {"phase": "front_door", "model": MODEL, "layers": FRONT_LAYERS, "card": card}
-    args = get_args(MODEL)
-    args.n_layers = FRONT_LAYERS
-    with tempfile.TemporaryDirectory(prefix="front_door_") as tmp:
-        ref, exp = Path(tmp) / "reference", Path(tmp) / "int4"
-        ref.mkdir()
-        # 1. The reference folder, written by the port's own safetensors writer.
-        t = time.perf_counter()
-        sd = reference_state_dict(args, torch.Generator(device="cuda").manual_seed(13))
-        (ref / "params.json").write_text(json.dumps({
-            "dim": args.dim, "n_layers": args.n_layers, "head_dim": args.head_dim,
-            "hidden_dim": args.hidden_dim, "n_heads": args.n_heads,
-            "n_kv_heads": args.n_kv_heads, "norm_eps": args.norm_eps,
-            "vocab_size": args.vocab_size, "rope_theta": args.rope_theta,
-            "sliding_window": args.sliding_window}))
-        (ref / "tokenizer.model").write_bytes(synthetic_spm(args.vocab_size, seed=0))
-        save_file(sd, ref / "consolidated.safetensors")
-        out["write_s"] = time.perf_counter() - t
-        out["checkpoint_gb"] = (ref / "consolidated.safetensors").stat().st_size / 1e9
+    args = front_args()
+    ref, exp = workdir / "reference", workdir / "int4"
+    # 1. The reference folder, written by the port's own safetensors writer.
+    t = time.perf_counter()
+    sd = write_front_folder(ref, args)
+    out["write_s"] = time.perf_counter() - t
+    out["checkpoint_gb"] = (ref / "consolidated.safetensors").stat().st_size / 1e9
 
-        # 2. from_folder: every leaf equal in bits to the drawn tensors after relayout.
+    # 2. from_folder: every leaf equal in bits to the drawn tensors after relayout.
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model = from_folder(ref)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t
+    require(model.args.n_layers == FRONT_LAYERS and model.dtype == torch.bfloat16,
+            "from_folder: wrong args or dtype")
+    w = {"tok_embeddings": sd["tok_embeddings.weight"], "norm": sd["norm.weight"],
+         "output": sd["output.weight"], "layers": []}
+    for i in range(FRONT_LAYERS):
+        p = f"layers.{i}"
+        w["layers"].append({
+            "attention_norm": sd[f"{p}.attention_norm.weight"],
+            "ffn_norm": sd[f"{p}.ffn_norm.weight"],
+            "wqkv": torch.cat([sd[f"{p}.attention.{k}.weight"] for k in ("wq", "wk", "wv")]),
+            "wo": sd[f"{p}.attention.wo.weight"],
+            "w13": torch.cat([sd[f"{p}.feed_forward.{k}.weight"] for k in ("w1", "w3")]),
+            "w2": sd[f"{p}.feed_forward.w2.weight"],
+        })
+    same_tree(w, model.params)
+    del model, w, sd
+    torch.cuda.empty_cache()
+
+    # 3. main quantize: the export's leaves are from_folder(quant="int4")'s
+    # bytes, and loading it quantizes nothing.
+    t = time.perf_counter()
+    cli(["quantize", str(ref), str(exp), "--quant", "int4", "--kv_quant", "fp8"])
+    out["quantize_s"] = time.perf_counter() - t
+    out["export_gb"] = (exp / "consolidated.safetensors").stat().st_size / 1e9
+    want = from_folder(ref, quant="int4")
+    calls = [0]
+    quantize = qw.quantize_params
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return quantize(*a, **kw)
+
+    qw.quantize_params = counted
+    try:
+        t = time.perf_counter()
+        got = from_folder(exp, quant="int4")
         torch.cuda.synchronize()
-        t = time.perf_counter()
-        model = from_folder(ref)
-        torch.cuda.synchronize()
-        out["load_s"] = time.perf_counter() - t
-        require(model.args.n_layers == FRONT_LAYERS and model.dtype == torch.bfloat16,
-                "from_folder: wrong args or dtype")
-        w = {"tok_embeddings": sd["tok_embeddings.weight"], "norm": sd["norm.weight"],
-             "output": sd["output.weight"], "layers": []}
-        for i in range(FRONT_LAYERS):
-            p = f"layers.{i}"
-            w["layers"].append({
-                "attention_norm": sd[f"{p}.attention_norm.weight"],
-                "ffn_norm": sd[f"{p}.ffn_norm.weight"],
-                "wqkv": torch.cat([sd[f"{p}.attention.{k}.weight"] for k in ("wq", "wk", "wv")]),
-                "wo": sd[f"{p}.attention.wo.weight"],
-                "w13": torch.cat([sd[f"{p}.feed_forward.{k}.weight"] for k in ("w1", "w3")]),
-                "w2": sd[f"{p}.feed_forward.w2.weight"],
-            })
-        same_tree(w, model.params)
-        del model, w, sd
-        torch.cuda.empty_cache()
+        out["export_load_s"] = time.perf_counter() - t
+    finally:
+        qw.quantize_params = quantize
+    require(calls[0] == 0 and got.args.quant == "int4" and got.args.kv_quant == "fp8",
+            "from_folder re-quantized the export or lost its modes")
+    same_tree(want.params, got.params)
+    del want, got
+    torch.cuda.empty_cache()
 
-        # 3. main quantize: the export's leaves are from_folder(quant="int4")'s
-        # bytes, and loading it quantizes nothing.
-        t = time.perf_counter()
-        cli(["quantize", str(ref), str(exp), "--quant", "int4", "--kv_quant", "fp8"])
-        out["quantize_s"] = time.perf_counter() - t
-        out["export_gb"] = (exp / "consolidated.safetensors").stat().st_size / 1e9
-        want = from_folder(ref, quant="int4")
-        calls = [0]
-        quantize = qw.quantize_params
+    # 4. main demo on the export, through the native BPE.
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli(["demo", str(exp), "--max_tokens", "8"])
+    out["demo_s"] = time.perf_counter() - t
+    tok = load_tokenizer(exp)
+    require(native._LIB is not None and tok.merge == "native",
+            "the demo did not run the native BPE")
+    model = from_folder(exp, max_batch_size=8)
+    encoded = [tok.encode(p, bos=True, eos=False) for p in DEMO_PROMPTS]
+    gen, _ = generate(encoded, model, max_tokens=8, temperature=0.0)
+    want_text = "".join(p + tok.decode(g) + "\n" + "=" * 40 + "\n"
+                        for p, g in zip(DEMO_PROMPTS, gen))
+    require(buf.getvalue() == want_text, "demo: the printed text is not generate()'s")
+    out["demo"] = buf.getvalue().split("\n" + "=" * 40 + "\n")[:3]
 
-        def counted(*a, **kw):
-            calls[0] += 1
-            return quantize(*a, **kw)
-
-        qw.quantize_params = counted
-        try:
-            t = time.perf_counter()
-            got = from_folder(exp, quant="int4")
-            torch.cuda.synchronize()
-            out["export_load_s"] = time.perf_counter() - t
-        finally:
-            qw.quantize_params = quantize
-        require(calls[0] == 0 and got.args.quant == "int4" and got.args.kv_quant == "fp8",
-                "from_folder re-quantized the export or lost its modes")
-        same_tree(want.params, got.params)
-        del want, got
-        torch.cuda.empty_cache()
-
-        # 4. main demo on the export, through the native BPE.
-        buf = io.StringIO()
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            cli(["demo", str(exp), "--max_tokens", "8"])
-        out["demo_s"] = time.perf_counter() - t
-        tok = load_tokenizer(exp)
-        require(native._LIB is not None and tok.merge == "native",
-                "the demo did not run the native BPE")
-        model = from_folder(exp, max_batch_size=8)
-        encoded = [tok.encode(p, bos=True, eos=False) for p in DEMO_PROMPTS]
-        gen, _ = generate(encoded, model, max_tokens=8, temperature=0.0)
-        want_text = "".join(p + tok.decode(g) + "\n" + "=" * 40 + "\n"
-                            for p, g in zip(DEMO_PROMPTS, gen))
-        require(buf.getvalue() == want_text, "demo: the printed text is not generate()'s")
-        out["demo"] = buf.getvalue().split("\n" + "=" * 40 + "\n")[:3]
-
-        # 5. Serving over HTTP: seven requests and /health at once.
-        out["serving"] = front_door_serving(model, tok)
-        del model
-        torch.cuda.empty_cache()
+    # 5. Serving over HTTP: seven requests and /health at once.
+    out["serving"] = front_door_serving(model, tok)
+    del model
+    torch.cuda.empty_cache()
     out["image"] = front_door_image(pix_model)
     out["native_bpe"] = str(native.build().name)
     out["seconds"] = time.perf_counter() - t_phase
@@ -3158,8 +3223,6 @@ def front_door_image(model) -> dict:
     and one text request, over HTTP, on the Pixtral phase's model with a
     synthetic tekken.json of 131072 ids; tokens held to generate(images=...)
     alone, K10 launched once per encoder layer."""
-    import tempfile
-
     import numpy as np
 
     from mistral_inference_tpu_torch.generate import generate, prefill_prompts
@@ -3227,6 +3290,758 @@ def front_door_image(model) -> dict:
             "text_prompt_len": len(text_ids), "payload": "nested-list array",
             "payload_mb": len(json.dumps(content)) / 1e6, "wall_s": wall, "image_request_s": img_s,
             "divergences_at_near_ties": {k: len(v) for k, v in got.items()}, "launches": {k: launches[k] for k in (K10, K1, K4, K2)}}
+
+
+# ---------------------------------------------------------------------------
+# Phases 10-12: speculative serving, Mamba serving, LoRA
+# ---------------------------------------------------------------------------
+
+SPEC_SERVING_B, SPEC_SERVING_MAX_SEQ = 8, 2048  # span < 4096: the ring never wraps
+SPEC_SERVING_REQUESTS, SPEC_SERVING_FIRST = 16, 8
+SPEC_SERVING_LATE_STEP, SPEC_SERVING_CANCEL_STEP = 3, 6
+SPEC_SERVING_LENS = (1537, 700, 300, 45)
+SPEC_SHARED_PREFIX = 512
+SPEC_SERVING_K = 7  # the lookup engine's spec_tokens; the self-draft engine keeps 4
+
+
+class Workload(NamedTuple):
+    """A stream of requests for an engine: per request its prompt, budget,
+    sampling settings and stop ids; which requests share a prefix; which one
+    is cancelled (at ``cancel_step``), ended by a stop id, asks for
+    logprobs; how many are submitted at the start (the rest after
+    ``late_step`` steps)."""
+
+    prompts: list
+    max_tokens: list
+    sampled: set
+    shared: set
+    cancel: int
+    stop: int
+    logprobs: int
+    first: int
+    late_step: int
+    cancel_step: int
+    stop_ids: Tuple[int, ...] = ()  # the stop request's, from its reference
+
+
+def spec_serving_workload(vocab_size: int) -> Workload:
+    """16 requests from seed 10: prompts of 45-1537 tokens, half of them a
+    50-token block repeated (lookup finds its continuations there), 4 sharing
+    a 512-token prefix (the first request among them), max_tokens 32-96,
+    4 sampled at T = 0.7, p = 0.9, the rest greedy; 8 submitted at the
+    start, 8 after the third step."""
+    import numpy as np
+
+    rng = np.random.default_rng(10)
+    n = SPEC_SERVING_REQUESTS
+    lens = rng.choice(SPEC_SERVING_LENS, n).tolist()
+    shared = [0] + sorted(rng.choice(np.arange(1, n), 3, replace=False).tolist())
+    for i in shared:
+        lens[i] = int(rng.choice(SPEC_SERVING_LENS[:2]))
+    prompts = []
+    for i, m in enumerate(lens):
+        if i % 2:  # a repeated block: the n-gram proposer's case
+            block = rng.integers(1, vocab_size, REPEATED_BLOCK).tolist()
+            prompts.append((block * (m // REPEATED_BLOCK + 1))[:m])
+        else:
+            prompts.append(rng.integers(1, vocab_size, m).tolist())
+    prefix = rng.integers(1, vocab_size, SPEC_SHARED_PREFIX).tolist()
+    for i in shared:
+        prompts[i][:SPEC_SHARED_PREFIX] = prefix
+    max_tokens = rng.integers(32, 97, n).tolist()
+    others = [i for i in range(1, n) if i not in shared]
+    sampled = set(rng.choice(others, 4, replace=False).tolist())
+    greedy_first = [i for i in others if i not in sampled and i < SPEC_SERVING_FIRST]
+    cancel, stop, logprobs = greedy_first[0], greedy_first[1], greedy_first[2]
+    max_tokens[cancel] = max_tokens[0] = 96
+    return Workload(prompts, max_tokens, sampled, set(shared), cancel, stop, logprobs,
+                    SPEC_SERVING_FIRST, SPEC_SERVING_LATE_STEP, SPEC_SERVING_CANCEL_STEP)
+
+
+def stop_token(ref):
+    """The first token of a reference, after its first 8, not seen before it:
+    (its step, the token)."""
+    at = next(t for t in range(8, len(ref)) if ref[t] not in ref[:t])
+    return at, ref[at]
+
+
+class ForwardCount:
+    """Counts a model's forwards while entered: T = 1 steps (decode, or a
+    draft's steps), fused verify chunks (``write_cache="spec"``) and
+    no-write verify chunks."""
+
+    def __init__(self, model):
+        self.model, self.step, self.spec, self.nowrite = model, 0, 0, 0
+
+    def __enter__(self):
+        forward = self._forward = self.model.forward
+
+        def counted(tokens, *a, **kw):
+            wc = kw.get("write_cache", True)
+            if wc == "spec":
+                self.spec += 1
+            elif wc is False:
+                self.nowrite += 1
+            elif tokens.shape[1] == 1:
+                self.step += 1
+            return forward(tokens, *a, **kw)
+
+        self.model.forward = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.model.forward = self._forward
+
+
+def fills(eng):
+    """Each row's fill: the ring's kv_len, or the Mamba state's tokens seen."""
+    return (eng.cache.kv_len if hasattr(eng, "cache") else eng.state.seen).cpu().tolist()
+
+
+def serve_workload(eng, w: Workload, slack: int = 0):
+    """Drive ``eng`` through ``w`` step by step. Checks that no row's fill
+    passes prompt + max_tokens + ``slack`` (read when a slot goes to a new
+    request, after admission has waited for the card, and at the end) and,
+    for an engine with a prefix cache, counts the shared-prefix admissions
+    that had a source live across their step. Returns (each request's
+    record, steps, wall seconds, those admissions)."""
+    from mistral_inference_tpu_torch.server import mamba_engine as me
+
+    occupant, overshoot = [None] * eng.B, []
+
+    def check(rows):
+        kv = fills(eng)
+        for slot in rows:
+            r = occupant[slot]
+            if r is not None and kv[slot] > len(r.prompt) + r.max_tokens + slack:
+                overshoot.append((r.request_id, kv[slot], len(r.prompt) + r.max_tokens + slack))
+
+    if hasattr(eng, "_plan_prefix_reuse"):
+        plan = eng._plan_prefix_reuse
+
+        def checked_plan(new):
+            check([slot for slot, _ in new])
+            return plan(new)
+
+        eng._plan_prefix_reuse = checked_plan
+        restore = None
+    else:
+        reset, restore = me._reset_rows, me._reset_rows
+
+        def checked_reset(state, rows):
+            check(rows.tolist())
+            return reset(state, rows)
+
+        me._reset_rows = checked_reset
+    reqs, rid = {}, {}
+
+    def submit(i):
+        rid[i] = eng.submit(w.prompts[i], max_tokens=w.max_tokens[i],
+                            temperature=0.7 if i in w.sampled else 0.0,
+                            top_p=0.9 if i in w.sampled else None,
+                            stop_ids=w.stop_ids if i == w.stop else (),
+                            want_logprobs=i == w.logprobs)
+        reqs[i] = eng.queue[-1]  # the engine's own record, updated as it runs
+
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(w.first):
+            submit(i)
+        steps, eligible = 0, 0
+        while eng.has_work or steps < w.late_step:
+            live_before = {r.request_id for r in eng.slots if r is not None and not r.done}
+            eng.step()
+            steps += 1
+            live_after = {r.request_id for r in eng.slots if r is not None and not r.done}
+            for slot, r in enumerate(eng.slots):
+                if r is not None and r is not occupant[slot]:
+                    i = next(k for k in reqs if reqs[k] is r)
+                    sources = {rid[j] for j in w.shared if j in rid and j != i}
+                    if i in w.shared and not r.want_logprobs and sources & live_before & live_after:
+                        eligible += 1
+                occupant[slot] = r
+            if steps == w.late_step:
+                for i in range(w.first, len(w.prompts)):
+                    submit(i)
+            if steps == w.cancel_step:
+                require(any(r is reqs[w.cancel] and not r.done for r in eng.slots),
+                        "the request to cancel is not live")
+                eng.cancel(rid[w.cancel])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        if restore is not None:
+            me._reset_rows = restore
+    check(range(eng.B))
+    require(not overshoot, f"rows wrote past prompt + max_tokens + {slack}: {overshoot}")
+    if hasattr(eng, "dcache"):
+        kv = eng.dcache.kv_len.cpu().tolist()
+        require(all(kv[s] <= len(r.prompt) + r.max_tokens + slack
+                    for s, r in enumerate(eng.slots) if r is not None),
+                "a draft ring row wrote past prompt + max_tokens + slack")
+    return reqs, steps, wall, eligible
+
+
+def held_to_references(label, model, w: Workload, reqs, ref, stop_at, carry_of):
+    """Each greedy request of ``w`` against generate() alone, ``ref``: the
+    cancelled one as far as it went, the stop request up to and with its
+    stop token; a request may leave its reference only at a near-tie of the
+    two best logits, for the other of the two. The cancelled request stopped
+    early, the sampled ones hold in-range tokens, no request failed.
+    Returns the divergences."""
+    n = len(w.prompts)
+    greedy = [i for i in range(n) if i not in w.sampled]
+    out = {i: reqs[i].generated for i in range(n)}
+    got = dict(out)
+    if len(out[w.stop]) < w.max_tokens[w.stop]:
+        got[w.stop] = out[w.stop] + [w.stop_ids[0]]
+    want = {i: ref[i][:len(out[i])] if i == w.cancel else ref[i] for i in greedy}
+    want[w.stop] = ref[w.stop][:stop_at + 1]
+    diverged = divergences(model, [w.prompts[i] for i in greedy], [got[i] for i in greedy],
+                           [want[i] for i in greedy], carry_of)
+    for d in diverged:
+        d["request"] = greedy[d.pop("row")]
+    near_ties(label, diverged)
+    differ_at = {d["request"] for d in diverged}
+    for i in greedy:
+        if i not in differ_at:
+            require(got[i] == want[i], f"{label}: request {i} has {len(got[i])} tokens, "
+                                       f"generate() alone {len(want[i])}")
+    require(reqs[w.cancel].done and 0 < len(out[w.cancel]) < w.max_tokens[w.cancel],
+            f"{label}: the cancelled request did not stop early")
+    V = model.args.vocab_size
+    for i in w.sampled:
+        require(len(out[i]) == w.max_tokens[i] and all(0 <= t < V for t in out[i]),
+                f"{label}: sampled request {i}: wrong tokens")
+    require(all(r.error is None for r in reqs.values()), f"{label}: a request failed")
+    return diverged
+
+
+def logprob_gap(label, teacher, r):
+    """The logprob request's prompt and emitted logprobs against a
+    teacher-forced prefill of its prompt + tokens (``teacher(tokens)`` ->
+    its seqlen - 1 logprobs): within INVARIANT_MAX_NATS / _MEAN_NATS."""
+    import numpy as np
+
+    tf_lps = np.array(teacher(r.prompt + r.generated))
+    n = len(r.prompt) - 1
+    require(len(r.prompt_logprobs) == n and len(r.gen_logprobs) == len(r.generated),
+            f"{label}: wrong logprob counts")
+    got = np.array(r.prompt_logprobs + r.gen_logprobs)
+    gap = np.abs(got - tf_lps[:len(got)])
+    out = {"prompt_max": float(gap[:n].max()), "generated_max": float(gap[n:].max()),
+           "mean": float(gap.mean())}
+    require(gap.max() <= INVARIANT_MAX_NATS and gap.mean() <= INVARIANT_MEAN_NATS,
+            f"{label}: logprobs {out} nats from a teacher-forced prefill")
+    return out
+
+
+def serving_metrics(reqs, wall):
+    from mistral_inference_tpu_torch.utils.profiling import METRICS
+
+    tokens = sum(len(r.generated) for r in reqs.values())
+    admission = sum(METRICS.samples.get("admission_prefill_s", []))
+    per_forward = METRICS.samples.get("spec_tokens_per_forward", [])
+    return {
+        "wall_s": wall, "requests_per_s": len(reqs) / wall, "output_tokens": tokens,
+        "output_tokens_per_s": tokens / wall,
+        "ttft_p50_s": METRICS.percentile("ttft_s", 0.5),
+        "ttft_p99_s": METRICS.percentile("ttft_s", 0.99),
+        "admission_s": admission, "admission_share": admission / wall,
+        "tokens_per_row_verify": statistics.mean(per_forward) if per_forward else None,
+        "accepted_per_row_verify": statistics.mean(per_forward) - 1 if per_forward else None,
+        "prefix_hits": METRICS.counters.get("prefix_hits", 0),
+    }
+
+
+def spec_serving_phase(card: str, resident: int = 0) -> dict:
+    """Phase 10: the workload of ``spec_serving_workload`` served three
+    times by ``Engine(batch_size=8, max_seq_len=2048, admit_chunk=512)`` on
+    ``mistral-7b-v0.1`` (int4 weights, an fp8 ring, window 4096, all 32
+    layers): prompt lookup with K = 7, the target as its own draft (K = 4,
+    every draft accepted), and the plain engine. Checks every greedy request
+    against generate() of its prompt alone, the fused verify kernel's
+    launches (layers x verify forwards) and K2-fp8's (layers x T = 1
+    forwards: 0 for lookup, the draft's steps for the self-draft engine, the
+    decode steps for the plain one), the prefix hits (into the draft's ring
+    too), that no row writes past prompt + max_tokens + the block's slack,
+    that sampled requests repeat for a seed, and the logprob request against
+    a teacher-forced prefill. ``resident``: bytes other phases hold."""
+    import numpy as np
+
+    from mistral_inference_tpu_torch.generate import generate
+    from mistral_inference_tpu_torch.model import Transformer
+    from mistral_inference_tpu_torch.models.registry import get_args
+    from mistral_inference_tpu_torch.ops import cuda as kern
+    from mistral_inference_tpu_torch.server import engine as engine_mod
+    from mistral_inference_tpu_torch.server.engine import Engine
+    from mistral_inference_tpu_torch.utils.profiling import METRICS
+
+    t_phase = time.perf_counter()
+    args = get_args(MODEL)
+    args.kv_quant, args.sliding_window = "fp8", WINDOW
+    model = Transformer.random(args, dtype=torch.bfloat16, seed=0, quant="int4")
+    layers = args.n_layers
+    w = spec_serving_workload(args.vocab_size)
+    n = len(w.prompts)
+    t = time.perf_counter()
+    ref = {i: generate([w.prompts[i]], model, max_tokens=w.max_tokens[i], temperature=0.0,
+                       chunk_size=CHUNK)[0][0] for i in range(n) if i not in w.sampled}
+    ref_s = time.perf_counter() - t
+    stop_at, stop_id = stop_token(ref[w.stop])
+    w = w._replace(stop_ids=(stop_id,))
+
+    def teacher(tokens):
+        return generate([tokens], model, max_tokens=0, temperature=0.0, chunk_size=CHUNK)[1][0]
+
+    out = {"phase": "spec_serving", "model": MODEL, "layers": layers, "card": card,
+           "weights": "bf16 random (seed 0), quantized to int4 (group 128)", "kv_ring": "fp8",
+           "window": WINDOW, "requests": n, "prompt_lens": [len(p) for p in w.prompts],
+           "max_tokens": w.max_tokens, "sampled": sorted(w.sampled), "shared": sorted(w.shared),
+           "cancelled": w.cancel, "stop_request": w.stop, "logprob_request": w.logprobs,
+           "reference_s": ref_s, "engines": {}}
+    copies = []
+    copy = engine_mod.copy_prefix_rows
+
+    def counted_copy(cache, *a):
+        copies.append(id(cache))
+        return copy(cache, *a)
+
+    engine_mod.copy_prefix_rows = counted_copy
+    try:
+        for label, kw in (("lookup", dict(draft_model="lookup", spec_tokens=SPEC_SERVING_K)),
+                          ("self_draft", dict(draft_model=model)), ("plain", {})):
+            METRICS.__init__()
+            kern.reset_launch_counts()
+            copies.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            eng = Engine(model, batch_size=SPEC_SERVING_B, max_seq_len=SPEC_SERVING_MAX_SEQ,
+                         admit_chunk=CHUNK, **kw)
+            slack = eng._span - eng.max_seq_len
+            with ForwardCount(model) as fwd:
+                reqs, steps, wall, eligible = serve_workload(eng, w, slack)
+            peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9
+            launches = launch_counts()
+            diverged = held_to_references(f"spec_serving {label}", model, w, reqs, ref, stop_at,
+                                          transformer_carry)
+            hits = METRICS.counters.get("prefix_hits", 0)
+            require(hits >= eligible, f"{label}: {hits} prefix hits for {eligible} eligible "
+                                      "admissions")
+            require(fwd.nowrite == 0, f"{label}: {fwd.nowrite} verify forwards off the fused route")
+            if label == "plain":
+                require(fwd.spec == 0 and launches[K7F] == 0, "plain: a verify forward ran")
+            else:
+                require(eng._spec_fused and fwd.spec > 0
+                        and launches[K7F] == layers * fwd.spec,
+                        f"{label}: K7-fp8 launched {launches[K7F]} times for {fwd.spec} verify "
+                        f"forwards of {layers} layers")
+            require(launches[K2F] == layers * fwd.step,
+                    f"{label}: K2-fp8 launched {launches[K2F]} times for {fwd.step} T = 1 "
+                    f"forwards of {layers} layers")
+            if label == "lookup":
+                require(launches[K2F] == 0, "lookup: K2-fp8 was launched")
+            if label == "self_draft":
+                ring = [c for c in copies if c == id(eng.cache)]
+                dring = [c for c in copies if c == id(eng.dcache)]
+                require(len(dring) == len(ring) == hits,
+                        f"self_draft: {len(ring)} prefix copies into the ring, {len(dring)} "
+                        f"into the draft's, {hits} hits")
+            for name in (K1, K4F, K3, K5):
+                require(launches[name] > 0, f"{name} was not launched by the {label} engine")
+            lp = logprob_gap(label, teacher, reqs[w.logprobs])
+            out["engines"][label] = {
+                "engine": f"Engine(batch_size={SPEC_SERVING_B}, max_seq_len="
+                          f"{SPEC_SERVING_MAX_SEQ}, admit_chunk={CHUNK}"
+                          + {"lookup": f", draft_model='lookup', spec_tokens={SPEC_SERVING_K})",
+                             "self_draft": ", draft_model=<the target>, spec_tokens=4)",
+                             "plain": ")"}[label],
+                "steps": steps, **serving_metrics(reqs, wall),
+                "prefix_hits_eligible": eligible, "verify_forwards": fwd.spec,
+                "t1_forwards": fwd.step, "span": eng._span, "peak_mem_gb": peak_gb,
+                "logprob_request_gaps": lp, "divergences_at_near_ties": len(diverged),
+                "launches": {k: launches[k] for k in (K1, K4F, K2F, K7F, K3, K5)},
+            }
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        engine_mod.copy_prefix_rows = copy
+
+    # Sampled requests repeat for a seed and an order of arrival.
+    def sampled_run():
+        eng = Engine(model, batch_size=SPEC_SERVING_B, max_seq_len=SPEC_SERVING_MAX_SEQ,
+                     admit_chunk=CHUNK, draft_model="lookup", spec_tokens=SPEC_SERVING_K, seed=1)
+        ids = [eng.submit(w.prompts[i], max_tokens=w.max_tokens[i], temperature=0.7, top_p=0.9)
+               for i in sorted(w.sampled)]
+        res = eng.run_to_completion()
+        return [res[i] for i in ids]
+
+    first = sampled_run()
+    require(first == sampled_run(), "sampled speculative requests differ between two runs "
+                                    "with one seed")
+    out["sampled_repeat"] = True
+    out["resident_gb"] = resident / 1e9
+    out["peak_mem_note"] = "each engine's peak less the other phases' resident bytes"
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+MAMBA_SERVING_B, MAMBA_SERVING_MAX_SEQ = 4, 2048
+MAMBA_SERVING_REQUESTS = 12
+
+
+def mamba_serving_workload(vocab_size: int) -> Workload:
+    """12 greedy requests from seed 11, all submitted at the start to 4
+    slots: prompts of 45-1537 tokens (half a repeated block), staggered
+    max_tokens 16-64; request 1 is cancelled after the third step, request 2
+    ends on a stop id, request 3 asks for logprobs."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    n = MAMBA_SERVING_REQUESTS
+    prompts = []
+    for i, m in enumerate(rng.choice(SPEC_SERVING_LENS, n).tolist()):
+        if i % 2:
+            block = rng.integers(1, vocab_size, REPEATED_BLOCK).tolist()
+            prompts.append((block * (m // REPEATED_BLOCK + 1))[:m])
+        else:
+            prompts.append(rng.integers(1, vocab_size, m).tolist())
+    max_tokens = rng.integers(16, 65, n).tolist()
+    max_tokens[1] = 64
+    return Workload(prompts, max_tokens, set(), set(), 1, 2, 3, n, 0, 3)
+
+
+class FrozenRows:
+    """While entered, checks that a block leaves the state rows of finished
+    requests as they were: their conv taps and SSD state are copied when the
+    block is queued (the copies are ordered before it on the stream) and
+    compared once it has run, before admission may reset those rows."""
+
+    def __init__(self, eng):
+        self.eng, self.pending, self.checked, self.changed = eng, [], 0, []
+
+    def __enter__(self):
+        eng = self.eng
+        self._names = ("_dispatch_block", "_spec_dispatch", "_admit")
+        dispatch, spec, admit = (getattr(eng, n) for n in self._names)
+
+        def snap():
+            for i, s in enumerate(eng.slots):
+                if s is not None and s.done:
+                    self.pending.append((i, eng.state.conv[:, i].clone(),
+                                         eng.state.ssm[:, i].clone()))
+
+        def compare():
+            for i, conv, ssm in self.pending:
+                self.checked += 1
+                if not (same_bits(eng.state.conv[:, i], conv)
+                        and same_bits(eng.state.ssm[:, i], ssm)):
+                    self.changed.append(i)
+            self.pending.clear()
+
+        eng._dispatch_block = lambda prev: (snap(), dispatch(prev))[1]
+        eng._spec_dispatch = lambda *a: (snap(), spec(*a))[1]
+        eng._admit = lambda: (compare(), admit())[1]
+        return self
+
+    def __exit__(self, *exc):
+        for name in self._names:
+            delattr(self.eng, name)
+
+
+def mamba_serving_phase(card: str) -> dict:
+    """Phase 11: ``MambaEngine(batch_size=4, max_seq_len=2048,
+    admit_chunk=512)`` on ``codestral-mamba-7b`` at full width, 8 layers,
+    int4 weights, once with an fp32 and once with a bf16 SSD state, serving
+    ``mamba_serving_workload`` plainly and with prompt lookup (K = 7).
+    Checks every greedy request against generate_mamba of its prompt alone
+    (chunk 512), K9's launches (layers x decode forwards plainly, 0 for
+    lookup), that every block leaves a finished request's state rows in
+    bits, and no row past prompt + max_tokens (+ a lookup block's slack);
+    then one HTTP completion through ``Server(MambaEngine(...))`` with a
+    synthetic 32768-piece SentencePiece tokenizer."""
+    import numpy as np
+
+    from mistral_inference_tpu_torch.generate import generate_mamba
+    from mistral_inference_tpu_torch.ops import cuda as kern
+    from mistral_inference_tpu_torch.server.mamba_engine import MambaEngine
+    from mistral_inference_tpu_torch.tokenizers import load_tokenizer
+    from mistral_inference_tpu_torch.utils.profiling import METRICS
+
+    t_phase = time.perf_counter()
+    out = {"phase": "mamba_serving", "model": MAMBA_MODEL, "layers": MAMBA_LOOKUP_LAYERS,
+           "card": card, "weights": "bf16 random (seed 0), quantized to int4 (group 128)",
+           "states": {}}
+    for bf16_state in (False, True):
+        model = mamba_model(MAMBA_LOOKUP_LAYERS, "int4", bf16_state)
+        layers = model.args.n_layers
+        w = mamba_serving_workload(model.args.vocab_size)
+        t = time.perf_counter()
+        ref = {i: generate_mamba([p], model, max_tokens=w.max_tokens[i], temperature=0.0,
+                                 chunk_size=CHUNK)[0][0] for i, p in enumerate(w.prompts)}
+        ref_s = time.perf_counter() - t
+        stop_at, stop_id = stop_token(ref[w.stop])
+        w = w._replace(stop_ids=(stop_id,))
+        state = "bf16" if bf16_state else "fp32"
+        runs = {"reference_s": ref_s}
+        for label, kw in (("plain", {}),
+                          ("lookup", dict(draft_model="lookup", spec_tokens=MAMBA_LOOKUP_K))):
+            METRICS.__init__()
+            kern.reset_launch_counts()
+            eng = MambaEngine(model, batch_size=MAMBA_SERVING_B,
+                              max_seq_len=MAMBA_SERVING_MAX_SEQ, admit_chunk=CHUNK, **kw)
+            slack = eng._spec_iters * (eng.K + 1) + eng.K + 2 if eng._spec else 0
+            with ForwardCount(model) as fwd, FrozenRows(eng) as frozen:
+                reqs, steps, wall, _ = serve_workload(eng, w, slack)
+            launches = launch_counts()
+            name = f"mamba_serving {state} {label}"
+            diverged = held_to_references(name, model, w, reqs, ref, stop_at, mamba_carry)
+            want_k9 = layers * fwd.step if label == "plain" else 0
+            require(launches[K9] == want_k9 and (label == "lookup") == (fwd.step == 0),
+                    f"{name}: K9 launched {launches[K9]} times for {fwd.step} decode forwards "
+                    f"of {layers} layers")
+            require(frozen.checked > 0 and not frozen.changed,
+                    f"{name}: {len(frozen.changed)} of {frozen.checked} frozen rows changed "
+                    "in a block")
+            for k in (K3, K5):
+                require(launches[k] > 0, f"{name}: {k} was not launched")
+            runs[label] = {"steps": steps, **serving_metrics(reqs, wall),
+                           "decode_forwards": fwd.step, "frozen_rows_checked": frozen.checked,
+                           "divergences_at_near_ties": len(diverged),
+                           "launches": {k: launches[k] for k in (K9, K3, K5)}}
+            del eng
+        out["states"][state] = runs
+        if bf16_state:
+            del model
+            torch.cuda.empty_cache()
+            continue
+        # One HTTP completion through Server(MambaEngine(...)), fp32 state.
+        with tempfile.TemporaryDirectory(prefix="mamba_tok_") as tmp:
+            (Path(tmp) / "tokenizer.model").write_bytes(
+                synthetic_spm(model.args.vocab_size, seed=0))
+            tok = load_tokenizer(tmp)
+        text = _text_of(tok, np.random.default_rng(11), 300)
+        prompt = tok.encode(text, bos=True, eos=False)
+        want = generate_mamba([prompt], model, max_tokens=FRONT_MAX_TOKENS, temperature=0.0,
+                              chunk_size=CHUNK)[0][0]
+        engine = MambaEngine(model, batch_size=2, max_seq_len=MAMBA_SERVING_MAX_SEQ,
+                             admit_chunk=CHUNK, eos_id=tok.eos_id)
+        with HttpServing(engine, tok) as http:
+            reply, _, http_s = _http(http.url, "/v1/completions",
+                                     {"prompt": text, "max_tokens": FRONT_MAX_TOKENS})
+        rec = next(r for r in engine.slots if r is not None and r.prompt == prompt)
+        require(reply["choices"][0]["tokens"] == rec.generated,
+                "mamba http: the reply's tokens are not the engine's")
+        got = rec.generated + [tok.eos_id] if len(rec.generated) < len(want) else rec.generated
+        diverged = divergences(model, [prompt], [got], [want[:len(got)]], mamba_carry)
+        near_ties("mamba_serving http", diverged)
+        require(diverged or got == want[:len(got)], "mamba http: the tokens are not "
+                                                    "generate_mamba's")
+        out["http"] = {"prompt_len": len(prompt), "tokens": len(rec.generated), "wall_s": http_s,
+                       "divergences_at_near_ties": len(diverged)}
+        del model, engine
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+LORA_RANK, LORA_SCALING = 16, 2.0
+LORA_FAMILIES = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
+LORA_TOKENS = 24
+
+
+def lora_adapter(args, path: Path, seed: int, experts: int = 0) -> Path:
+    """A rank-16 adapter file from ``seed`` for wq, wk, wv, wo, w1, w2 and w3
+    of every layer (each expert's w1, w2, w3 with ``experts``): lora_A
+    N(0, 1) / sqrt(in), lora_B N(0, 0.025^2), so that the scaled delta is
+    about a fifth of a weight."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    D, F, q, kv = args.dim, args.hidden_dim, args.n_heads * args.head_dim, \
+        args.n_kv_heads * args.head_dim
+    shapes = {"wq": (D, q), "wk": (D, kv), "wv": (D, kv), "wo": (q, D), "w1": (D, F),
+              "w2": (F, D), "w3": (D, F)}
+    sd = {}
+    for i in range(args.n_layers):
+        for name in LORA_FAMILIES:
+            din, dout = shapes[name]
+            attention = name in ("wq", "wk", "wv", "wo")
+            bases = ([f"layers.{i}.{'attention' if attention else 'feed_forward'}.{name}"]
+                     if attention or not experts else
+                     [f"layers.{i}.feed_forward.experts.{e}.{name}" for e in range(experts)])
+            for base in bases:
+                sd[base + ".lora_A.weight"] = randn(gen, LORA_RANK, din).float() * din ** -0.5
+                sd[base + ".lora_B.weight"] = randn(gen, dout, LORA_RANK).float() * 0.025
+    from mistral_inference_tpu_torch.io.safetensors import save_file
+
+    save_file(sd, path)
+    return path
+
+
+def lora_phase(card: str, workdir: Path) -> dict:
+    """Phase 12: LoRA on phase 9's 8-layer mistral-7b-v0.1 folder with a
+    rank-16 adapter from seed 14: ``main quantize --quant int4 --lora_path``
+    exports quantize(merge_lora(dense)) in bits; ``main demo --lora_path``
+    prints generate()'s text of the merged model; a folder whose params.json
+    has ``lora`` (live pairs, int4, an fp8 ring) gives with a zero adapter the
+    bits of the model without them, and with the adapter loaded decode ==
+    prefill and prompt-lookup speculation through K7-fp8 with plain greedy's
+    tokens (but at a near-tie); live against merged on a bf16 base; then
+    ``mixtral-8x7b`` at 2 layers, int4, ``moe_impl="dispatch"``, with live
+    expert adapters: decode == prefill and K8 and K5 launched."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+
+    from mistral_inference_tpu_torch.args import LoraArgs
+    from mistral_inference_tpu_torch.generate import generate
+    from mistral_inference_tpu_torch.lora import load_lora
+    from mistral_inference_tpu_torch.main import DEMO_PROMPTS
+    from mistral_inference_tpu_torch.main import main as cli
+    from mistral_inference_tpu_torch.model import Transformer, from_folder
+    from mistral_inference_tpu_torch.models.registry import get_args
+    from mistral_inference_tpu_torch.ops import cuda as kern
+    from mistral_inference_tpu_torch.tokenizers import load_tokenizer
+
+    t_phase = time.perf_counter()
+    args = front_args()
+    ref = workdir / "reference"
+    if not (ref / "consolidated.safetensors").is_file():
+        write_front_folder(ref, args)
+    out = {"phase": "lora", "model": MODEL, "layers": FRONT_LAYERS, "card": card,
+           "adapter": f"rank {LORA_RANK}, scaling {LORA_SCALING}, {', '.join(LORA_FAMILIES)} "
+                      "of every layer, seed 14"}
+    adapter = lora_adapter(args, workdir / "adapter.safetensors", seed=14)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, args.vocab_size, n).tolist() for n in SPEC_PROMPT_LENS]
+    block = prompts[1][:REPEATED_BLOCK]
+    prompts[1] = (block * (len(prompts[1]) // REPEATED_BLOCK + 1))[:len(prompts[1])]
+
+    def run(p, model, **kw):
+        return generate(p, model, temperature=0.0, chunk_size=CHUNK, **kw)
+
+    # 1. The merged bf16 model; main demo --lora_path prints its text.
+    merged = from_folder(ref)
+    load_lora(merged, adapter, scaling=LORA_SCALING)
+    tok = load_tokenizer(ref)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli(["demo", str(ref), "--max_tokens", "8", "--lora_path", str(adapter)])
+    encoded = [tok.encode(p, bos=True, eos=False) for p in DEMO_PROMPTS]
+    gen, _ = generate(encoded, merged, max_tokens=8, temperature=0.0)
+    require(buf.getvalue() == "".join(p + tok.decode(g) + "\n" + "=" * 40 + "\n"
+                                      for p, g in zip(DEMO_PROMPTS, gen)),
+            "demo --lora_path: the printed text is not generate()'s of the merged model")
+
+    # 2. Live against merged, on a bf16 base.
+    live_dir = workdir / "live"
+    live_dir.mkdir(exist_ok=True)
+    params = json.loads((ref / "params.json").read_text())
+    params["lora"] = {"rank": LORA_RANK, "scaling": LORA_SCALING}
+    (live_dir / "params.json").write_text(json.dumps(params))
+    for name in ("consolidated.safetensors", "tokenizer.model"):
+        if not (live_dir / name).exists():
+            os.symlink(ref / name, live_dir / name)
+    live = from_folder(live_dir)
+    load_lora(live, adapter)
+    (g_merged, lp_merged) = run(prompts, merged, max_tokens=LORA_TOKENS)
+    (g_live, _) = run(prompts, live, max_tokens=LORA_TOKENS)
+    diverged = divergences(merged, prompts, g_live, g_merged)
+    near_ties("lora live-vs-merged", diverged)
+    full = [p + g for p, g in zip(prompts, g_merged)]
+    tf_m = run(full, merged, max_tokens=0)[1]
+    tf_l = run(full, live, max_tokens=0)[1]
+    gap = np.concatenate([np.abs(np.array(a) - np.array(b)) for a, b in zip(tf_m, tf_l)])
+    out["live_vs_merged"] = {"max_nats": float(gap.max()), "mean_nats": float(gap.mean()),
+                             "divergences_at_near_ties": len(diverged)}
+    require(gap.max() <= INVARIANT_MAX_NATS and gap.mean() <= INVARIANT_MEAN_NATS,
+            f"lora: live and merged teacher-forced logprobs {out['live_vs_merged']}")
+    del live
+    torch.cuda.empty_cache()
+
+    # 3. main quantize --lora_path: quantize(merge_lora(dense)) in bits.
+    exp = workdir / "lora_int4"
+    t = time.perf_counter()
+    cli(["quantize", str(ref), str(exp), "--quant", "int4", "--lora_path", str(adapter)])
+    out["quantize_s"] = time.perf_counter() - t
+    merged.quantize("int4")
+    same_tree(merged.params, from_folder(exp).params)
+    del merged
+    torch.cuda.empty_cache()
+
+    # 4. Live pairs, int4, an fp8 ring: zero pairs change no bit.
+    plain_q = from_folder(ref, quant="int4", kv_quant="fp8")
+    live_q = from_folder(live_dir, quant="int4", kv_quant="fp8")
+    require(live_q.args.lora == LoraArgs(LORA_RANK, LORA_SCALING)
+            and "lora" in live_q.params["layers"][0], "the live folder has no live pairs")
+    g0, lp0 = run(prompts, plain_q, max_tokens=LORA_TOKENS)
+    g1, lp1 = run(prompts, live_q, max_tokens=LORA_TOKENS)
+    require(g0 == g1 and lp0 == lp1, "a zero adapter changed the tokens or logprobs")
+    del plain_q
+    torch.cuda.empty_cache()
+
+    # 5. The adapter live: decode == prefill; lookup speculation through K7-fp8.
+    load_lora(live_q, adapter)
+    (g, lps) = run(prompts, live_q, max_tokens=LORA_TOKENS)
+    require(g != g1, "the live adapter did not change the tokens")
+    tf_q = run([p + x for p, x in zip(prompts, g)], live_q, max_tokens=0)[1]
+    gap = np.concatenate([np.abs(np.array(a[-len(x):]) - np.array(b[-len(x):]))
+                          for a, b, x in zip(lps, tf_q, g)])
+    out["live_int4_invariant"] = {"max_nats": float(gap.max()), "mean_nats": float(gap.mean())}
+    require(gap.max() <= INVARIANT_MAX_NATS and gap.mean() <= INVARIANT_MEAN_NATS,
+            f"lora: live int4 decode != prefill: {out['live_int4_invariant']}")
+    kern.reset_launch_counts()
+    with AcceptLog() as log:
+        (spec, _) = run(prompts, live_q, max_tokens=LORA_TOKENS, draft_model="lookup",
+                        spec_tokens=SPEC_SERVING_K)
+    launches = launch_counts()
+    require(log.verify_forwards > 0
+            and launches[K7F] == FRONT_LAYERS * log.verify_forwards,
+            f"lora lookup: K7-fp8 launched {launches[K7F]} times for {log.verify_forwards} "
+            f"verify forwards")
+    # The adapters' products are cuBLAS's, whose kernel follows the row
+    # count: a verify chunk's B x (K + 1) rows round them otherwise than a
+    # decode step's B.
+    spec_div = divergences(live_q, prompts, spec, g)
+    near_ties("lora lookup", spec_div)
+    out["live_lookup"] = {"verify_forwards": log.verify_forwards,
+                          "mean_accepted_drafts": float(np.concatenate(log.accepts).mean()),
+                          "divergences_at_near_ties": len(spec_div),
+                          "launches": {k: launches[k] for k in (K7F, K2F, K3, K5)}}
+    del live_q
+    torch.cuda.empty_cache()
+
+    # 6. Mixtral, 2 layers, int4, dispatch, live expert adapters.
+    margs = get_args(MOE_MODEL)
+    margs.n_layers, margs.moe_impl = 2, "dispatch"
+    margs.lora = LoraArgs(LORA_RANK, LORA_SCALING)
+    moe = Transformer.random(margs, dtype=torch.bfloat16, seed=0, quant="int4")
+    load_lora(moe, lora_adapter(margs, workdir / "moe_adapter.safetensors", seed=15,
+                                experts=margs.moe.num_experts))
+    require(bool(moe.params["layers"][0]["lora"]["w2"]["b"].abs().sum() > 0),
+            "the expert adapters did not load")
+    moe_prompts = [rng.integers(1, margs.vocab_size, n).tolist() for n in (700, 45)]
+    kern.reset_launch_counts()
+    (g, lps) = run(moe_prompts, moe, max_tokens=16)
+    launches = launch_counts()
+    tf_moe = run([p + x for p, x in zip(moe_prompts, g)], moe, max_tokens=0)[1]
+    gap = np.concatenate([np.abs(np.array(a[-len(x):]) - np.array(b[-len(x):]))
+                          for a, b, x in zip(lps, tf_moe, g)])
+    out["mixtral_live_experts"] = {
+        "layers": 2, "moe_impl": "dispatch", "max_nats": float(gap.max()),
+        "mean_nats": float(gap.mean()),
+        "bound": (MOE_INVARIANT_MAX_NATS, MOE_INVARIANT_MEAN_NATS),
+        "launches": {k: launches[k] for k in (K8, K5, K3)}}
+    require(gap.max() <= MOE_INVARIANT_MAX_NATS and gap.mean() <= MOE_INVARIANT_MEAN_NATS,
+            f"lora mixtral: decode != prefill: {out['mixtral_live_experts']}")
+    require(launches[K8] > 0 and launches[K5] > 0,
+            f"lora mixtral: K8 {launches[K8]}, K5 {launches[K5]} launches")
+    del moe
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 def row_count_probe(gen):
@@ -3438,6 +4253,18 @@ def main() -> int:
         print(f"== nvcc {name}\n{text}", file=sys.stderr, flush=True)
     emit({"phase": "build", "seconds": built["seconds"], "sources": sorted(built["logs"])})
 
+    phases = [a.split("=", 1)[1].split(",") for a in sys.argv[1:] if a.startswith("--phases=")]
+    if phases:  # a part of the run, for work on the serving phases: no result line
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            for name, run in (("spec_serving", lambda: spec_serving_phase(card)),
+                              ("mamba_serving", lambda: mamba_serving_phase(card)),
+                              ("lora", lambda: lora_phase(card, Path(tmp)))):
+                if name in phases[0]:
+                    emit(run())
+                    torch.cuda.empty_cache()
+        print(card, flush=True)
+        return 0
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     checks = (check_k1, check_k4, check_k2, check_k3, check_k5, check_k8, check_k6, check_k7,
@@ -3491,10 +4318,24 @@ def main() -> int:
     # The serving engine over the north-star model, the Pixtral model resident.
     emit(serving_phase(card, "--profile" in sys.argv[1:], torch.cuda.memory_allocated()))
     torch.cuda.empty_cache()
-    # The front door: a checkpoint folder on disk through the CLI and the HTTP API.
-    emit(front_door_phase(card, pix_model))
-    del pix_model
-    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # The front door: a checkpoint folder on disk through the CLI and the HTTP API.
+        emit(front_door_phase(card, pix_model, Path(tmp)))
+        torch.cuda.empty_cache()
+        # Speculative serving, the Pixtral model still resident (its lookup
+        # engine runs K7-fp8 at 32 layers); then Mamba serving, and LoRA on
+        # the front door's folder.
+        spec = spec_serving_phase(card, torch.cuda.memory_allocated())
+        emit(spec)
+        if spec["layers"] > depth.get(K7F, 0):
+            launches[K7F] = spec["engines"]["lookup"]["launches"][K7F]
+            depth[K7F] = spec["layers"]
+        del pix_model
+        torch.cuda.empty_cache()
+        emit(mamba_serving_phase(card))
+        torch.cuda.empty_cache()
+        emit(lora_phase(card, Path(tmp)))
+        torch.cuda.empty_cache()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "note": "from the start of main(): the build, every check and path; not the "
                   "interpreter's start and the import of torch"})

@@ -3,8 +3,8 @@ family.
 
 Counterpart of ``mistral_inference_tpu/args.py::TransformerArgs``,
 ``::MoeArgs``, ``::VisionEncoderArgs`` and ``::MambaArgs``, cut to the fields
-the ported paths read, and ``load_args``. LoRA arrives with a later slice of
-the port.
+the ported paths read, ``LoraArgs`` (live LoRA adapters: ``lora.py``) and
+``load_args``.
 """
 
 from __future__ import annotations
@@ -25,6 +25,25 @@ class MoeArgs:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "MoeArgs":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+
+@dataclass
+class LoraArgs:
+    """Live LoRA adapters of rank ``rank``: each adapted linear adds
+    ``(x @ a) @ b * scaling`` to its output."""
+
+    rank: int
+    scaling: float
+
+    def __post_init__(self) -> None:
+        if self.rank <= 0 or self.scaling <= 0:
+            raise ValueError(f"LoRA needs rank > 0 and scaling > 0, got {self.rank}, "
+                             f"{self.scaling}")
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "LoraArgs":
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})
 
@@ -71,6 +90,9 @@ class TransformerArgs:
     rope_theta: Optional[float] = None
     # Sparse mixture of experts in place of the dense feed-forward.
     moe: Optional[MoeArgs] = None
+    # Live LoRA adapters on the attention and feed-forward linears; None for
+    # none (an adapter file may still be merged into the weights: lora.py).
+    lora: Optional[LoraArgs] = None
     # Scalar, per-layer list (tiled to n_layers), or None = full context.
     sliding_window: Optional[Union[int, List[Optional[int]]]] = None
     # KV ring element type: "bf16" (the model dtype), or "fp8"
@@ -105,12 +127,12 @@ class TransformerArgs:
         d = dict(d)
         if d.get("sliding_window") is None and d.get("_sliding_window") is not None:
             d["sliding_window"] = d["_sliding_window"]
-        if d.get("lora") is not None:
-            raise ValueError("live LoRA adapters are not ported yet")
         names = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in d.items() if k in names}
         if isinstance(kw.get("moe"), dict):
             kw["moe"] = MoeArgs.from_dict(kw["moe"])
+        if isinstance(kw.get("lora"), dict):
+            kw["lora"] = LoraArgs.from_dict(kw["lora"])
         if isinstance(kw.get("vision_encoder"), dict):
             kw["vision_encoder"] = VisionEncoderArgs.from_dict(kw["vision_encoder"])
         return cls(**kw)

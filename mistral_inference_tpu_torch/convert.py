@@ -12,7 +12,9 @@ per output column makes exact. An MoE tree (``layers["moe"]``: ``gate (L,
 dim, E)``, ``w1`` / ``w3 (L, E, dim, hidden)``, ``w2 (L, E, hidden, dim)``,
 plain or quantized) becomes per layer a router ``gate (E, dim)`` and the expert
 stacks ``w13 (E, dim, 2 hidden)`` and ``w2 (E, hidden, dim)``, which keep the
-(in, out) layout in both forms: they are applied as ``x @ w``.
+(in, out) layout in both forms: they are applied as ``x @ w``. Live LoRA
+leaves (``<name>_lora``: ``{"a": (L, [E,] in, r), "b": (L, [E,] r, out)}``)
+keep their layout and become per layer ``lora[<name>]`` pairs.
 
 The JAX tree's leaves may be numpy arrays (for example ``jax.tree.map(
 np.asarray, params)``; bf16 as ml_dtypes' bfloat16) or CPU torch tensors
@@ -46,7 +48,7 @@ import torch
 
 from mistral_inference_tpu_torch.args import MambaArgs, TransformerArgs
 from mistral_inference_tpu_torch.model import resolve_device
-from mistral_inference_tpu_torch.models.transformer import Params
+from mistral_inference_tpu_torch.models.transformer import LORA_PARTS, Params
 
 # port weight -> the JAX leaves stacked along its out dim; "ffn" stands for
 # the tree's feed-forward family, "feed_forward" or "moe"
@@ -56,6 +58,9 @@ _LINEAR = {
     "w13": (("ffn", "w1"), ("ffn", "w3")),
     "w2": (("ffn", "w2"),),
 }
+
+
+_LORA_NAMES = [name for names in LORA_PARTS.values() for name in names]
 
 
 def _cpu(a: Any) -> torch.Tensor:
@@ -96,18 +101,19 @@ def params_from_numpy(
     device: Optional[Union[str, torch.device]] = None,
 ) -> Params:
     """Dense or MoE JAX params (numpy or CPU torch leaves), plain or
-    weight-only quantized -> this port's params, on the card unless
-    ``device="cpu"``. Raises on the trees the port does not carry yet
-    (LoRA)."""
+    weight-only quantized, with or without live LoRA leaves -> this port's
+    params, on the card unless ``device="cpu"``. Raises on a LoRA leaf of a
+    linear the model does not adapt live."""
     device = resolve_device(device)
     layers = tree["layers"]
     ffn = "moe" if "moe" in layers else "feed_forward"
     if ffn not in layers:
         raise ValueError("the tree has neither a feed_forward nor a moe family")
-    for group in ("attention", ffn):
-        for name in layers[group]:
-            if name.endswith("_lora"):
-                raise ValueError(f"{group}.{name}: LoRA leaves do not convert yet")
+    lora = [(group, name[: -len("_lora")]) for group in ("attention", ffn)
+            for name in layers[group] if name.endswith("_lora")]
+    for group, name in lora:
+        if name not in _LORA_NAMES:
+            raise ValueError(f"{group}.{name}_lora: no live LoRA on {name}")
     tree = _torch_tree(tree)
     layers = tree["layers"]
     out_layers = []
@@ -122,6 +128,11 @@ def params_from_numpy(
             lw[key] = _fused(
                 [layers[ffn if group == "ffn" else group][name] for group, name in leaves],
                 i, device)
+        if lora:
+            lw["lora"] = {
+                name: {k: _dev(v[i], device) for k, v in layers[group][name + "_lora"].items()}
+                for group, name in lora
+            }
         out_layers.append(lw)
     params = {
         "tok_embeddings": _dev(tree["tok_embeddings"], device),
@@ -246,19 +257,25 @@ def _columns(layers: List[Dict[str, Any]], split) -> Dict[str, Any]:
 def params_to_stacked(params: Params, args: TransformerArgs) -> Dict[str, Any]:
     """This port's dense or MoE params -> the JAX package's tree of CPU
     tensors in their dtypes (``(L, in, out)`` stacks, quantized leaves with
-    their bytes and scales)."""
+    their bytes and scales, live LoRA pairs as ``<name>_lora`` stacks)."""
     q, kv, F = args.n_heads * args.head_dim, args.n_kv_heads * args.head_dim, args.hidden_dim
+
+    def lora(lw, names):
+        pairs = lw.get("lora", {})
+        return {f"{n}_lora": {k: v.cpu() for k, v in pairs[n].items()}
+                for n in names if n in pairs}
 
     def attention(lw):
         wq, wk, wv = _unfused(lw["wqkv"], [q, kv, kv])
-        return {"wq": wq, "wk": wk, "wv": wv, "wo": _unfused(lw["wo"])[0]}
+        return {"wq": wq, "wk": wk, "wv": wv, "wo": _unfused(lw["wo"])[0],
+                **lora(lw, ("wq", "wk", "wv", "wo"))}
 
     def ffn(lw):
         w1, w3 = _unfused(lw["w13"], [F, F])
         out = {"w1": w1, "w2": _unfused(lw["w2"])[0], "w3": w3}
         if "gate" in lw:
             out = {"gate": lw["gate"].cpu().t(), **out}
-        return out
+        return {**out, **lora(lw, ("w1", "w2", "w3"))}
 
     L = params["layers"]
     layers: Dict[str, Any] = {

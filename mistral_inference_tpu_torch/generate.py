@@ -382,14 +382,17 @@ def _mamba_prefill_step(
     state: mm.MambaState,
     carry: torch.Tensor,  # (B, V)
     chunk: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    want_logprobs: bool = True,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """One prompt chunk into ``state`` (in place). Returns (teacher-forced
-    logprobs (B, T), each row's last valid prelogits, or ``carry`` for a row
-    with no token here)."""
+    logprobs (B, T), or None without ``want_logprobs``; each row's last valid
+    prelogits, or ``carry`` for a row with no token here)."""
     hidden = model.forward(tokens, seqlens, state, chunk, head="none")
     rows = torch.arange(hidden.shape[0], device=hidden.device)
     last = mm.apply_head(hidden[rows, (seqlens - 1).clamp_min(0).long()], model.params, model.args)
     last = torch.where((seqlens > 0)[:, None], last, carry)
+    if not want_logprobs:
+        return None, last
     logprobs = _sliced_teacher_logprobs(
         hidden, tokens, carry, lambda h: mm.apply_head(h, model.params, model.args)
     )

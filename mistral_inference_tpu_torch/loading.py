@@ -32,7 +32,7 @@ import torch
 from mistral_inference_tpu_torch import convert
 from mistral_inference_tpu_torch.args import PATCH_MERGE, MambaArgs, TransformerArgs
 from mistral_inference_tpu_torch.io.safetensors import load_file, save_file
-from mistral_inference_tpu_torch.models.transformer import Params
+from mistral_inference_tpu_torch.models.transformer import Params, lora_pairs
 
 STACKED_FORMAT = "mit-stacked-v1"
 BF16_BITS = ".bf16bits"
@@ -91,8 +91,8 @@ def _load_stacked(folder: Path) -> Dict[str, Any]:
 
 def _args_dict(args: Union[TransformerArgs, MambaArgs]) -> Dict[str, Any]:
     """``dataclasses.asdict`` of the JAX package's args for this model, key
-    for key in its order: the port's TransformerArgs lacks the JAX fields
-    ``lora`` (never set here) and ``model_type``."""
+    for key in its order: the port's TransformerArgs lacks the JAX field
+    ``model_type``."""
     import dataclasses
 
     d = dataclasses.asdict(args)
@@ -102,7 +102,7 @@ def _args_dict(args: Union[TransformerArgs, MambaArgs]) -> Dict[str, Any]:
              "vocab_size", "max_batch_size", "rope_theta", "moe", "lora", "sliding_window",
              "model_type", "vision_encoder", "quant", "kv_quant", "moe_impl",
              "moe_capacity_factor"]
-    d.update(lora=None, model_type="transformer")
+    d["model_type"] = "transformer"
     return {k: d[k] for k in order}
 
 
@@ -149,12 +149,25 @@ def load_transformer_params(
 ) -> Params:
     """This port's params for a reference folder (every leaf cast to
     ``dtype``), or for a stacked export (stored dtypes kept), on the card
-    unless ``device="cpu"``."""
+    unless ``device="cpu"``. With ``args.lora`` every layer gets zero live
+    adapter pairs on the attention and on a dense feed-forward, as the JAX
+    package loads them (an export that holds pairs keeps its own); an
+    adapter file fills them (``lora.load_lora``)."""
     from mistral_inference_tpu_torch.model import resolve_device
 
     device = resolve_device(device)
     if is_stacked(folder):
-        return convert.params_from_numpy(_load_stacked(Path(folder)), device)
+        params = convert.params_from_numpy(_load_stacked(Path(folder)), device)
+    else:
+        params = _load_reference(folder, args, dtype, device)
+    if args.lora is not None:
+        for lw in params["layers"]:
+            if "lora" not in lw:
+                lw["lora"] = lora_pairs(args, dtype, device, ffn=args.moe is None)
+    return params
+
+
+def _load_reference(folder, args: TransformerArgs, dtype: torch.dtype, device) -> Params:
     sd = load_raw_state_dict(folder)
     put = functools.partial(_put, sd, dtype, device)
     layers = []

@@ -8,10 +8,13 @@ defaults).
 
 Everything runs on the card unless ``--device cpu`` asks for the CPU (the
 kernels' plain versions; for tests). ``--quant int8|int4``, ``--kv_quant fp8|int8``,
-``--ssm_state bf16`` and ``--draft_path <folder> | lookup`` work as in the
-JAX package; ``--tensor`` takes 1 or ``auto`` (one device). Meshes
-(``--tensor`` > 1, ``--seq`` > 1) and ``--lora_path`` are not ported yet and
-raise.
+``--ssm_state bf16``, ``--draft_path <folder> | lookup`` and ``--lora_path
+<adapter.safetensors>`` work as in the JAX package: an adapter merges into
+the dense weights before any quantization (or fills the live pairs of a
+folder whose ``params.json`` has ``lora``). ``quantize`` takes
+``--lora_path`` too, and exports the merged model. ``--tensor`` takes 1 or
+``auto`` (one device); meshes (``--tensor`` > 1, ``--seq`` > 1) are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import List, Optional
 import torch
 
 from mistral_inference_tpu_torch.generate import generate, generate_mamba
-from mistral_inference_tpu_torch.model import Mamba, Transformer, get_model_cls
+from mistral_inference_tpu_torch.model import Mamba, Transformer, _requantize, get_model_cls
 from mistral_inference_tpu_torch.tokenizers import (
     ChatRequest,
     Message,
@@ -36,9 +39,20 @@ def _check_unported(args) -> None:
     if args.tensor != "auto" and int(args.tensor) > 1 or int(getattr(args, "seq", 1)) > 1:
         raise NotImplementedError("meshes (--tensor > 1, --seq > 1) are not ported yet "
                                   "(ROADMAP.md Queue 1 item 6)")
-    if args.lora_path:
-        raise NotImplementedError("LoRA adapters (--lora_path) are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 4)")
+
+
+def _with_lora(cls, args, **kw):
+    """``cls.from_folder`` with ``--quant``, and with ``--lora_path`` the
+    adapter merged into the dense weights (or loaded into live pairs)
+    before the quantization, as the JAX package does it."""
+    if not args.lora_path:
+        return cls.from_folder(args.model_path, quant=args.quant, **kw)
+    from mistral_inference_tpu_torch.lora import load_lora
+
+    model = cls.from_folder(args.model_path, **kw)
+    load_lora(model, args.lora_path)
+    _requantize(model, args.quant)
+    return model
 
 
 def _load(args):
@@ -54,7 +68,7 @@ def _load(args):
         if args.ssm_state == "bf16":
             kw["ssm_dtype"] = torch.bfloat16
     # A pre-quantized export is never re-quantized; another mode raises.
-    model = cls.from_folder(args.model_path, quant=args.quant, **kw)
+    model = _with_lora(cls, args, **kw)
     if args.draft_path:
         if args.draft_path in ("lookup", "ngram"):  # draft-free n-gram mode
             model._draft = args.draft_path
@@ -169,7 +183,8 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--max_tokens", type=int, default=35 if name == "demo" else 256)
         sp.add_argument("--temperature", type=float, default=0.0 if name == "demo" else 0.7)
         sp.add_argument("--max_batch_size", type=int, default=3)
-        sp.add_argument("--lora_path", default=None, help="not ported yet: raises")
+        sp.add_argument("--lora_path", default=None,
+                        help="LoRA adapter safetensors, merged before any --quant")
         sp.add_argument("--quant", choices=["int8", "int4"], default=None)
         sp.add_argument("--kv_quant", choices=["fp8", "int8"], default=None)
         sp.add_argument(
@@ -199,6 +214,8 @@ def build_parser() -> argparse.ArgumentParser:
     qp.add_argument("--quant", choices=["int8", "int4"], default="int4")
     qp.add_argument("--group", type=int, default=128)
     qp.add_argument("--kv_quant", choices=["fp8", "int8"], default=None)
+    qp.add_argument("--lora_path", default=None,
+                    help="LoRA adapter safetensors, merged before quantizing")
     qp.add_argument("--device", default=None, help="'cpu' to run off the card")
     qp.set_defaults(func=quantize_export)
     return p
@@ -214,6 +231,10 @@ def quantize_export(args) -> None:
             raise ValueError("--kv_quant quantizes the transformer KV cache; Mamba has none")
         kw["kv_quant"] = args.kv_quant
     model = cls.from_folder(args.model_path, **kw)
+    if args.lora_path:
+        from mistral_inference_tpu_torch.lora import load_lora
+
+        load_lora(model, args.lora_path)
     model.quantize(args.quant, group=args.group)
     save_stacked(args.out_path, model, tokenizer_from=args.model_path)
     print(f"wrote {args.quant} stacked checkpoint to {args.out_path}")

@@ -39,12 +39,21 @@ plain tensor or a quantized leaf. ``args.moe_impl`` picks the compute:
 With quantized experts no routing step waits for the card: every shape is
 fixed by the row count.
 
+With ``args.lora`` a layer also holds ``lora``, live adapter pairs per
+reference linear name (``LORA_PARTS``): ``{"a": (in, r), "b": (r, out)}``,
+with a leading expert axis for an MoE layer's w1, w2 and w3. Each adapted
+product adds ``(x @ a) @ b * scaling`` after its base linear, in the model
+dtype, as plain matrix products; the fused ``wqkv`` and ``w13`` add each
+name's delta to its column slice. The base product keeps its route (K3, K5,
+K8), so a quantized base with live adapters runs the same kernels.
+
 On CPU tensors the same names run their plain versions, so the CPU tests run
 the decomposition the card runs.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -95,6 +104,70 @@ FUSED_DECODE = True
 MOE_RAGGED_ROWS = 256  # above this, dispatch routes to the sorted ragged path
 MOE_RAGGED_TM = 256  # row tile of the sorted grouped product (K5)
 MOE_EXPERT_ROWS_MAX = 128  # K8 up to this capacity
+
+# Port weight -> the reference linears it fuses along out, in order: the
+# names of its live LoRA pairs.
+LORA_PARTS = {"wqkv": ("wq", "wk", "wv"), "wo": ("wo",), "w13": ("w1", "w3"), "w2": ("w2",)}
+
+
+def lora_pairs(
+    args: TransformerArgs, dtype: torch.dtype, device: torch.device, ffn: bool = True
+) -> Params:
+    """Zero live-LoRA pairs of rank ``args.lora.rank`` for one layer: the
+    attention's, and with ``ffn`` the feed-forward's (an MoE layer's per
+    expert). A zero pair adds exactly nothing until an adapter is loaded."""
+    r = args.lora.rank
+    D, F_, q, kv = args.dim, args.hidden_dim, args.n_heads * args.head_dim, \
+        args.n_kv_heads * args.head_dim
+
+    def pair(i: int, o: int, lead: Tuple[int, ...] = ()) -> Params:
+        return {"a": torch.zeros((*lead, i, r), dtype=dtype, device=device),
+                "b": torch.zeros((*lead, r, o), dtype=dtype, device=device)}
+
+    out = {"wq": pair(D, q), "wk": pair(D, kv), "wv": pair(D, kv), "wo": pair(q, D)}
+    if ffn:
+        lead = (args.moe.num_experts,) if args.moe else ()
+        out.update(w1=pair(D, F_, lead), w2=pair(F_, D, lead), w3=pair(D, F_, lead))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_in(scaling: float, dtype: torch.dtype) -> float:
+    """The LoRA scaling rounded to ``dtype``, as the JAX package multiplies
+    by it."""
+    return float(torch.tensor(scaling, dtype=dtype))
+
+
+def _lora_delta(x: torch.Tensor, lw: Params, key: str, args: Optional[TransformerArgs],
+                select: Union[torch.Tensor, int, None] = None) -> Optional[torch.Tensor]:
+    """The live adapters' term of the linear ``key`` on ``x``: each fused
+    name's ``(x @ a) @ b``, concatenated along out, times the scaling; None
+    without adapters (a layer loaded from a folder has none on its experts).
+    ``select`` indexes the pairs' expert axis: an expert, or one per leading
+    slice of ``x``."""
+    lora = lw.get("lora")
+    if lora is None or LORA_PARTS[key][0] not in lora:
+        return None
+    parts = []
+    for name in LORA_PARTS[key]:
+        a, b = lora[name]["a"], lora[name]["b"]
+        if select is not None:
+            a, b = a[select], b[select]
+        parts.append(torch.matmul(torch.matmul(x, a), b))
+    d = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+    return d * _scale_in(args.lora.scaling, d.dtype)
+
+
+def _plus_lora(out: torch.Tensor, x: torch.Tensor, lw: Params, key: str,
+               args: Optional[TransformerArgs], select: Union[torch.Tensor, int, None] = None,
+               ) -> torch.Tensor:
+    d = _lora_delta(x, lw, key, args, select)
+    return out if d is None else out + d
+
+
+def _lin(x: torch.Tensor, lw: Params, key: str, args: TransformerArgs) -> torch.Tensor:
+    """The linear ``key`` of layer ``lw`` on ``x``, plus its live adapters."""
+    return _plus_lora(linear(x, lw[key]), x, lw, key, args)
 
 
 def init_params(
@@ -164,6 +237,9 @@ def init_params(
         }
         for _ in range(args.n_layers)
     ]
+    if args.lora is not None:  # zero pairs, from no generator: the weights stay a plain model's
+        for lw in layers:
+            lw["lora"] = lora_pairs(args, dtype, device)
     params = {
         "tok_embeddings": torch.randn((V, D), generator=generator, dtype=dtype, device=device),
         "layers": layers,
@@ -179,10 +255,10 @@ def init_params(
     return params
 
 
-def _dense_ffn(x: torch.Tensor, w: Params) -> torch.Tensor:
+def _dense_ffn(x: torch.Tensor, w: Params, args: TransformerArgs) -> torch.Tensor:
     """SwiGLU: w2(silu(w1 x) * w3 x)."""
-    gate, up = linear(x, w["w13"]).chunk(2, dim=-1)
-    return linear(F.silu(gate) * up, w["w2"])
+    gate, up = _lin(x, w, "w13", args).chunk(2, dim=-1)
+    return _lin(F.silu(gate) * up, w, "w2", args)
 
 
 # ---------------------------------------------------------------------------
@@ -211,15 +287,18 @@ def _swiglu(h13: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
 
 
-def _moe_ffn(x: torch.Tensor, w: Params, top_k: int) -> torch.Tensor:
+def _moe_ffn(x: torch.Tensor, w: Params, top_k: int,
+             args: Optional[TransformerArgs] = None) -> torch.Tensor:
     """Top-k routed SwiGLU experts, every expert evaluated on every token and
     combined with the routing matrix: exact, and the oracle of the other two.
     x (N, D)."""
     E = w["gate"].shape[0]
     top_idx, top_w = _route(x, w["gate"], top_k)
     combine = (F.one_hot(top_idx, E).float() * top_w[..., None]).sum(dim=1).to(x.dtype)  # (N, E)
-    hidden = _swiglu(torch.matmul(x, _expert_weight(w["w13"], x.dtype)))  # (E, N, F)
-    expert_out = torch.bmm(hidden, _expert_weight(w["w2"], x.dtype))  # (E, N, D)
+    h13 = _plus_lora(torch.matmul(x, _expert_weight(w["w13"], x.dtype)), x, w, "w13", args)
+    hidden = _swiglu(h13)  # (E, N, F)
+    expert_out = _plus_lora(torch.bmm(hidden, _expert_weight(w["w2"], x.dtype)), hidden, w,
+                            "w2", args)  # (E, N, D)
     return torch.einsum("ne,end->nd", combine, expert_out)
 
 
@@ -232,7 +311,8 @@ def _ragged_kernel_gate(x: torch.Tensor, w: Params) -> bool:
     return x.shape[-1] % 256 == 0 and hidden % 256 == 0
 
 
-def _moe_ffn_ragged(x: torch.Tensor, w: Params, top_k: int) -> torch.Tensor:
+def _moe_ffn_ragged(x: torch.Tensor, w: Params, top_k: int,
+                    args: Optional[TransformerArgs] = None) -> torch.Tensor:
     """Drop-free sorted grouped-product MoE, the prefill path: the N * k
     assignments sorted by expert (stable, so ties keep token order), each
     projection one grouped product over the sorted rows, the weighted outputs
@@ -243,6 +323,8 @@ def _moe_ffn_ragged(x: torch.Tensor, w: Params, top_k: int) -> torch.Tensor:
     buffer of the worst-case size, which depends on the row count alone, and
     every tile carries its expert's index. Anything else runs one plain
     product per expert on its own rows, which reads the counts on the host.
+    Live expert adapters add their term per tile (every row of a tile is its
+    expert's), or per expert on the plain route.
     """
     N, D = x.shape
     E = w["gate"].shape[0]
@@ -275,18 +357,25 @@ def _moe_ffn_ragged(x: torch.Tensor, w: Params, top_k: int) -> torch.Tensor:
         xs_p = x[tok[sorted_idx]]  # (Mp, D) padded sorted rows
         tile_group = g_of_p[::TM].to(torch.int32).contiguous()
 
-        def mm(inp: torch.Tensor, leaf: Weight) -> torch.Tensor:
+        def mm(inp: torch.Tensor, key: str) -> torch.Tensor:
+            leaf = w[key]
             q = leaf["q4"] if "q4" in leaf else leaf["q"]
-            return moe_matmul_quant_ragged(inp, q, leaf["scale"], tile_group, leaf.get("li"))
+            out = moe_matmul_quant_ragged(inp, q, leaf["scale"], tile_group, leaf.get("li"))
+            d = _lora_delta(inp.reshape(-1, TM, inp.shape[-1]), w, key, args, tile_group.long())
+            return out if d is None else out + d.reshape(out.shape)
 
-        out_p = mm(_swiglu(mm(xs_p, w["w13"])), w["w2"])  # (Mp, D)
+        out_p = mm(_swiglu(mm(xs_p, "w13")), "w2")  # (Mp, D)
         pos_f = offsets[flat_e] + (inv - starts[flat_e])  # (N k,) token-major
         out = out_p[pos_f]
     else:
         sizes = counts.tolist()  # the host waits for the counts here
         w13, w2 = _expert_weight(w["w13"], x.dtype), _expert_weight(w["w2"], x.dtype)
         rows = torch.split(x[tok], sizes)  # rows grouped by expert
-        out = torch.cat([_swiglu(r @ w13[e]) @ w2[e] for e, r in enumerate(rows)])[inv]
+        parts = []
+        for e, r in enumerate(rows):
+            h = _swiglu(_plus_lora(r @ w13[e], r, w, "w13", args, e))
+            parts.append(_plus_lora(h @ w2[e], h, w, "w2", args, e))
+        out = torch.cat(parts)[inv]
     return (out * wts[:, None]).reshape(N, top_k, D).sum(dim=1)
 
 
@@ -312,7 +401,8 @@ def moe_capacity(n_rows: int, top_k: int, n_experts: int, capacity_factor: float
 
 
 def _moe_ffn_dispatch(
-    x: torch.Tensor, w: Params, top_k: int, capacity_factor: float
+    x: torch.Tensor, w: Params, top_k: int, capacity_factor: float,
+    args: Optional[TransformerArgs] = None,
 ) -> torch.Tensor:
     """Capacity-bounded expert dispatch: tokens go into per-expert buffers of
     ``moe_capacity`` slots in token-major order (pad tokens of ragged rows
@@ -323,7 +413,7 @@ def _moe_ffn_dispatch(
     N, D = x.shape
     E = w["gate"].shape[0]
     if N > MOE_RAGGED_ROWS:
-        return _moe_ffn_ragged(x, w, top_k)
+        return _moe_ffn_ragged(x, w, top_k, args)
     C = moe_capacity(N, top_k, E, capacity_factor)
     top_idx, top_w = _route(x, w["gate"], top_k)
 
@@ -341,7 +431,8 @@ def _moe_ffn_dispatch(
     src[flat_e, torch.where(keep, slot, C)] = torch.arange(NK, device=x.device) // top_k
     buf = torch.cat([x, x.new_zeros((1, D))])[src[:, :C]]  # (E, C, D)
 
-    out_buf = _expert_mm(_swiglu(_expert_mm(buf, w["w13"])), w["w2"])  # (E, C, D)
+    hidden = _swiglu(_plus_lora(_expert_mm(buf, w["w13"]), buf, w, "w13", args))
+    out_buf = _plus_lora(_expert_mm(hidden, w["w2"]), hidden, w, "w2", args)  # (E, C, D)
 
     gathered = out_buf[flat_e, slot.clamp_max(C - 1)]  # (N k, D)
     weights = (top_w.reshape(-1) * keep.float()).to(x.dtype)
@@ -354,9 +445,9 @@ def _moe_block(x: torch.Tensor, w: Params, args: TransformerArgs) -> torch.Tenso
     rows = x.reshape(-1, x.shape[-1])
     k = args.moe.num_experts_per_tok
     if args.moe_impl == "dispatch":
-        out = _moe_ffn_dispatch(rows, w, k, args.moe_capacity_factor)
+        out = _moe_ffn_dispatch(rows, w, k, args.moe_capacity_factor, args)
     else:
-        out = _moe_ffn(rows, w, k)
+        out = _moe_ffn(rows, w, k, args)
     return out.reshape(x.shape)
 
 
@@ -439,7 +530,7 @@ def _attention_block(
     scaled = KS is not None
 
     cos, sin = rope_cs
-    xq, xk, xv = linear(h, w["wqkv"]).split([H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
+    xq, xk, xv = _lin(h, w, "wqkv", args).split([H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
     xq = apply_rope(xq.view(B, T, H, Dh), cos, sin)
     xk = apply_rope(xk.view(B, T, Hkv, Dh), cos, sin)
     xv = xv.reshape(B, T, Hkv, Dh).contiguous()
@@ -456,7 +547,7 @@ def _attention_block(
             xq, xk, xv, CK, CV, KS, VS, li, window, ring.write_slot, positions,
             ring.slot_pos, ring.slot_valid,
         )
-        return linear(out, w["wo"]), xk, xv
+        return _lin(out, w, "wo", args), xk, xv
     if ring.write_slot is not None:
         # Decode: write the ring first, then attend ring-only. Safe for T == 1:
         # the query's own key cannot be evicted by a later token of the chunk.
@@ -464,7 +555,7 @@ def _attention_block(
             xq, xk, xv, CK, CV, KS, VS, li, window, ring.write_slot, positions[:, 0],
             ring.slot_pos, ring.slot_valid,
         )
-        return linear(out, w["wo"]), xk, xv
+        return _lin(out, w, "wo", args), xk, xv
     if T == 1 and ring.slot_pos is not None:
         # Decode, non-fused route: the same write through update_stacked,
         # then the read-only kernel over the ring as it now stands.
@@ -472,7 +563,7 @@ def _attention_block(
         out = decode_attention(
             xq, CK, CV, KS, VS, li, positions, ring.slot_pos, ring.slot_valid, window
         )
-        return linear(out, w["wo"]), xk, xv
+        return _lin(out, w, "wo", args), xk, xv
 
     # Under a scaled ring the chunk attends to copies of its own K/V rounded
     # through the ring's dtype, so prefill logits see what decode later reads
@@ -495,7 +586,7 @@ def _attention_block(
         )
     if ring.writes is not None:
         update_stacked(CK, CV, KS, VS, li, xk, xv, ring.writes)
-    return linear(out, w["wo"]), xk, xv
+    return _lin(out, w, "wo", args), xk, xv
 
 
 ChunkKV = Tuple[torch.Tensor, torch.Tensor]
@@ -578,7 +669,7 @@ def forward(
             chunk_k.append(xk)
             chunk_v.append(xv)
         x = rms_norm(h, lw["ffn_norm"], args.norm_eps)
-        h = h + (_moe_block(x, lw, args) if args.moe else _dense_ffn(x, lw))
+        h = h + (_moe_block(x, lw, args) if args.moe else _dense_ffn(x, lw, args))
     if write_cache is True:
         cache.kv_len = new_total
     h = rms_norm(h, params["norm"], args.norm_eps)

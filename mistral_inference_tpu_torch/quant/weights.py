@@ -87,12 +87,15 @@ def init_quantized_params(
         scale = torch.full((*lead, in_f // g, out_f), 0.01, dtype=torch.float32, device=device)
         return {key: q, "scale": scale}
 
+    def clone(w):  # a tensor, or a dict of them (live LoRA pairs)
+        return {k: clone(v) for k, v in w.items()} if isinstance(w, dict) else w.clone()
+
     # Everything but the big linears comes from a one-layer template.
     params = init_params(dataclasses.replace(args, n_layers=1), dtype, generator, device)
     template = params["layers"][0]
     params["layers"] = [
         {
-            leaf: rand_quant(*w.shape) if leaf in QUANT_LEAVES else w.clone()
+            leaf: rand_quant(*w.shape) if leaf in QUANT_LEAVES else clone(w)
             for leaf, w in template.items()
         }
         for _ in range(args.n_layers)

@@ -1,6 +1,7 @@
 """Continuous-batching serving engine for a ``Transformer``, text and image
-requests (counterpart of ``mistral_inference_tpu/server/engine.py``, without
-its speculative modes).
+requests, plain or speculative (counterpart of
+``mistral_inference_tpu/server/engine.py``). ``server/mamba_engine.py``
+serves a ``Mamba`` on the same base class and client contract.
 
 A fixed batch of B slots; each owns one row of the ring KV cache, whose
 per-row ``kv_len`` already says how full it is.
@@ -25,10 +26,22 @@ per-row ``kv_len`` already says how full it is.
   tokens are read back and fanned out, so the host's bookkeeping overlaps the
   card's work; per-row request ids make sure a block never emits into a slot
   that a newer request took.
+* **Speculative decode** (``draft_model`` a ``Transformer``, or "lookup" /
+  "ngram" for prompt lookup): each step is one block of
+  ``speculative._spec_block`` / ``_lookup_block`` iterations, every live row
+  emitting 1 .. K + 1 tokens per iteration. The first token of a request is
+  sampled from the prefill's carry at admission and emitted then, so TTFT is
+  an admission-time quantity. The block is queued first, admission runs
+  behind it, and the block is read back once. The target ring is allocated
+  ``span`` = max_seq_len + the slack of one block's overshoot wide, so it
+  never wraps when no window is shorter, and the fused verify kernel serves
+  it (``speculative._spec_fused_ok``). A draft model keeps a ring of its own
+  (reset, prefix-copied and prefilled with the target's); lookup keeps each
+  row's token history on the device. Speculative serving is text-only.
 
 The engine is host-side control; every O(model) operation is a forward of
-``models/transformer.py``, on the model's device, in inference mode (the
-cache and carry are inference tensors: change them only inside it).
+``models/``, on the model's device, in inference mode (the cache and carry
+are inference tensors: change them only inside it).
 """
 
 from __future__ import annotations
@@ -44,11 +57,16 @@ import torch
 import torch.nn.functional as F
 
 from mistral_inference_tpu_torch.cache import KVCache, adopt_rows, copy_prefix_rows
-from mistral_inference_tpu_torch.generate import DEFAULT_TOP_P, _decode_block, _prefill_step
+from mistral_inference_tpu_torch.generate import (
+    DEFAULT_TOP_P,
+    _decode_block,
+    _prefill_step,
+    sample,
+)
 from mistral_inference_tpu_torch.model import Transformer
 from mistral_inference_tpu_torch.utils.profiling import METRICS
 
-LATER = "ROADMAP.md Queue 1 item 2"
+LOOKUP = ("lookup", "ngram")
 
 
 @dataclass
@@ -90,41 +108,32 @@ class StepEvent:
 
 @dataclass
 class _Block:
-    """A decode block queued on the card: its tokens and logprobs, copied to
-    the host behind it (``ready`` marks the copy's end on the card), its
-    width and the request id each row was decoding for (None: a dead row)."""
+    """A block queued on the card: its outputs, copied to the host behind it
+    (``ready`` marks the copy's end on the card), its width in steps and the
+    request id each row was decoding for (None: a dead row). A decode block's
+    outputs are (tokens, logprobs), each (n, B); a speculative block's
+    (emits, logprobs, accepts), (n, B, K + 1) twice and (n, B)."""
 
-    toks: torch.Tensor  # (n, B)
-    lps: torch.Tensor  # (n, B)
+    out: Tuple[torch.Tensor, ...]
     ready: Optional[torch.cuda.Event]
     n: int
     rids: List[Optional[int]]
 
 
-class Engine:
-    def __init__(
-        self,
-        model: Transformer,
-        batch_size: int,
-        max_seq_len: int,
-        *,
-        temperature: float = 0.0,
-        eos_id: Optional[int] = None,
-        decode_block: int = 8,
-        admit_chunk: int = 512,
-        seed: int = 0,
-        draft_model=None,
-        prefix_cache: bool = True,
-        prefix_min: int = 16,
-        admit_waterline: Optional[int] = None,
-        staging_batch: Optional[int] = None,
-        pipeline: bool = True,
-    ):
-        if draft_model is not None:
-            raise NotImplementedError(f"speculative serving is not ported yet ({LATER})")
-        if not isinstance(model, Transformer):
-            raise NotImplementedError(f"the engine serves a Transformer; mamba_engine is not "
-                                      f"ported yet ({LATER})")
+class _EngineBase:
+    """The client contract and the host loop that both engines share:
+    ``submit``, ``cancel``, ``step``, ``run_to_completion``; the slots and
+    the queue, the per-row sampling settings, the pipelined decode block and
+    its fan-out, and the speculative step's ragged emission. A subclass owns
+    the model's state (a ring KV cache, a Mamba state) and provides
+    ``_admit``, ``_decode_step`` and, for speculation, ``_spec_dispatch``."""
+
+    lookup = False
+    _spec = False
+
+    def __init__(self, model, batch_size: int, max_seq_len: int, *, temperature: float,
+                 eos_id: Optional[int], decode_block: int, admit_chunk: int, seed: int,
+                 pipeline: bool):
         self.model = model
         self.device = model.device
         self.B = batch_size
@@ -134,21 +143,6 @@ class Engine:
         self.decode_block = decode_block
         self.admit_chunk = admit_chunk
         self.pipeline = pipeline
-        # Wait for min(queued, waterline) free slots before a sweep while
-        # other rows run (1 admits eagerly).
-        self.admit_waterline = (
-            max(1, batch_size // 8) if admit_waterline is None else max(1, admit_waterline)
-        )
-        # Sweeps of at most this many rows prefill in a staging cache of this
-        # width, allocated at the first such sweep; 0 turns it off.
-        self._staging_B = (
-            max(1, batch_size // 8) if staging_batch is None else max(0, staging_batch)
-        )
-        if self._staging_B >= batch_size:
-            self._staging_B = 0
-        self._stage_cache: Optional[KVCache] = None
-
-        self.cache: KVCache = model.alloc_cache(batch_size, max_seq_len)
         V = model.args.vocab_size
         self.carry = torch.zeros((batch_size, V), dtype=torch.float32, device=self.device)
         # Sampling settings per row, on the host (the all-greedy choice is
@@ -157,6 +151,8 @@ class Engine:
         self._top_ps_h = np.full((batch_size,), DEFAULT_TOP_P, np.float32)
         self._temps = self._to_device(self._temps_h)
         self._top_ps = self._to_device(self._top_ps_h)
+        # One generator per engine: sampled rows repeat for a seed and an
+        # order of arrival.
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.slots: List[Optional[Request]] = [None] * batch_size
         self.queue: Deque[Request] = deque()
@@ -165,10 +161,25 @@ class Engine:
         # Finished requests whose slot this step's admission reused: a
         # pipelined step admits before the caller reads the step's events.
         self._evicted: Dict[int, Request] = {}
-        self.prefix_cache = prefix_cache
-        self.prefix_min = prefix_min
-        self._slot_prompt: List[Optional[List[int]]] = [None] * batch_size
-        self._min_window = min(self.cache.windows)
+        # First tokens emitted at a speculative admission, returned by the step.
+        self._pending_events: List[StepEvent] = []
+
+    def _init_spec(self, spec_tokens: int) -> int:
+        """The speculative block's iterations and the slack it needs past
+        max_seq_len: a row that finishes in a block's first iteration keeps
+        verifying to the block's end. Returns the span every per-row buffer
+        covers."""
+        self.K = int(spec_tokens)
+        if self.K < 1:
+            raise ValueError(f"spec_tokens must be at least 1, got {spec_tokens}")
+        # At least one iteration per block; about decode_block tokens a row.
+        self._spec_iters = max(1, self.decode_block // (self.K + 1))
+        span = self.max_seq_len + self._spec_iters * (self.K + 1) + self.K + 2
+        self._t0 = torch.zeros((self.B,), dtype=torch.int64, device=self.device)
+        if self.lookup:
+            self._hist = torch.zeros((self.B, span), dtype=torch.int64, device=self.device)
+            self._hlen = torch.zeros((self.B,), dtype=torch.int64, device=self.device)
+        return span
 
     # -- client API ---------------------------------------------------------
 
@@ -187,8 +198,11 @@ class Engine:
         one batched decode. ``stop_ids`` are stop tokens beside ``eos_id``.
         ``images`` are the request's preprocessed (C, H, W) arrays, one per
         image-token grid of the prompt, for a model with a vision encoder."""
-        if len(images) and self.model.args.vision_encoder is None:
-            raise ValueError("image inputs need a model with a vision encoder")
+        if len(images):
+            if getattr(self.model.args, "vision_encoder", None) is None:
+                raise ValueError("image inputs need a model with a vision encoder")
+            if self._spec:
+                raise ValueError("speculative serving is text-only: no image inputs")
         if not prompt:
             raise ValueError("a request needs at least one prompt token")
         if len(prompt) + max_tokens > self.max_seq_len:
@@ -243,8 +257,10 @@ class Engine:
         the previous block decodes one extra block, frozen by its budget or
         dropped at the fan-out by its request id. No block is queued when no
         row can outlive the one in flight (max_tokens bounds every row; EOS
-        only ends rows earlier)."""
+        only ends rows earlier). A speculative engine takes ``_step_spec``."""
         self._evicted.clear()
+        if self._spec:
+            return self._step_spec()
         if not self.pipeline:
             self._admit()
             if any(self._live_rows()):
@@ -258,7 +274,7 @@ class Engine:
         self._admit()
         return events
 
-    # -- engine internals ---------------------------------------------------
+    # -- shared internals ---------------------------------------------------
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """A small host array on the model's device without waiting for the
@@ -289,12 +305,321 @@ class Engine:
     def _live_rows(self) -> List[bool]:
         return [s is not None and not s.done for s in self.slots]
 
+    def _set_sampling(self, new) -> torch.Tensor:
+        """Record the new rows' sampling settings on the host and the card;
+        returns the rows' indices on the device."""
+        for i, r in new:
+            self._temps_h[i] = r.temperature
+            self._top_ps_h[i] = r.top_p
+        self._temps = self._to_device(self._temps_h)
+        self._top_ps = self._to_device(self._top_ps_h)
+        return self._to_device(np.array([i for i, _ in new], np.int64))
+
+    def _sampling(self, live_rows: List[bool]):
+        """(temps, top_ps) for a block: None, None when every live row is
+        greedy (the float temperature 0 takes the argmax alone, and no
+        sampler runs)."""
+        if all(t <= 0 for t, on in zip(self._temps_h, live_rows) if on):
+            return None, None
+        return self._temps, self._top_ps
+
+    def _to_host(self, out: Sequence[torch.Tensor]):
+        """Queue the copy of a block's outputs to the host; (copies, the
+        event that marks their end on the card, or None on the CPU)."""
+        if self.device.type != "cuda":
+            return tuple(out), None
+        host = tuple(t.to("cpu", non_blocking=True) for t in out)
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready
+
+    @staticmethod
+    def _read(block: _Block) -> Tuple[np.ndarray, ...]:
+        if block.ready is not None:
+            block.ready.synchronize()
+        return tuple(t.numpy() for t in block.out)
+
+    def _valid(self, rids: List[Optional[int]]) -> np.ndarray:
+        """A row counts only while its slot still holds the request the block
+        was queued for: a slot freed and reused since gets none of it."""
+        return np.array([rid is not None and s is not None and s.request_id == rid
+                         for rid, s in zip(rids, self.slots)])
+
+    def _block_size(self) -> int:
+        """Adaptive block width: the smallest power of two that covers the
+        longest remaining live request, at most ``decode_block``, so a batch
+        near its end stops decoding whole blocks for nothing."""
+        max_rem = max(s.max_tokens - len(s.generated) for s in self.slots
+                      if s is not None and not s.done)
+        n = 1
+        while n < min(self.decode_block, max_rem):
+            n *= 2
+        return min(n, self.decode_block)
+
+    def _remaining(self, prev: Optional[_Block]) -> List[int]:
+        """Each row's token budget for the next block: its request's tokens
+        still to come, less those the block in flight decodes for that same
+        request (a row admitted since that block was queued has nothing in
+        flight: the block's output for it is dropped at the fan-out)."""
+        out = []
+        for i, s in enumerate(self.slots):
+            if s is None or s.done:
+                out.append(0)
+                continue
+            ahead = prev.n if prev is not None and prev.rids[i] == s.request_id else 0
+            out.append(max(0, s.max_tokens - len(s.generated) - ahead))
+        return out
+
+    def _dispatch_block(self, prev: Optional[_Block]) -> None:
+        """Queue one decode block on the card and the copy of its tokens and
+        logprobs to the host behind it; nothing waits for the card. Each row's
+        budget freezes it in the block once its request has all its tokens,
+        so a row never writes past prompt + max_tokens."""
+        n = self._block_size()
+        live_rows = self._live_rows()
+        live = self._to_device(np.array(live_rows, np.int32))
+        budget = self._to_device(np.array(self._remaining(prev), np.int32))
+        temps, top_ps = self._sampling(live_rows)
+        toks, lps, self.carry = _decode_block(
+            self._decode_step, self.carry, n, 0.0, DEFAULT_TOP_P, self.generator,
+            temps=temps, live=live, top_ps=top_ps, budget=budget,
+        )
+        out, ready = self._to_host((toks, lps))
+        rids = [s.request_id if on else None for s, on in zip(self.slots, live_rows)]
+        self._pending = _Block(out, ready, n, rids)
+
+    def _emit(self, slot: Request, tok: int, lp: float, now: float) -> StepEvent:
+        """One token of a live request: EOS and stop ids end it (the token
+        is not appended), as does reaching max_tokens."""
+        hit_stop = tok == self.eos_id or tok in slot.stop_ids
+        if not hit_stop:
+            slot.generated.append(tok)
+            slot.gen_logprobs.append(lp)
+        if hit_stop or len(slot.generated) >= slot.max_tokens:
+            slot.done = True
+            METRICS.observe("request_latency_s", now - slot.t_submit)
+            return StepEvent(slot.request_id, tok, True, lp)
+        return StepEvent(slot.request_id, tok, False, lp)
+
+    def _drain(self, block: Optional[_Block]) -> List[StepEvent]:
+        """Read back a decode block and turn it into events: tokens, EOS and
+        stop ids, max_tokens, NaN failures."""
+        if block is None:
+            return []
+        toks, lps = self._read(block)  # (n, B) each
+        now = time.perf_counter()
+        valid = self._valid(block.rids)
+        events = self._fail_nan_rows(np.isnan(lps).any(axis=0) & valid, now)
+        for t in range(block.n):
+            for i, slot in enumerate(self.slots):
+                if slot is None or slot.done or not valid[i]:
+                    continue
+                if not slot.generated and not slot.t_first_token:
+                    slot.t_first_token = now
+                    METRICS.observe("ttft_s", now - slot.t_submit)
+                events.append(self._emit(slot, int(toks[t, i]), float(lps[t, i]), now))
+        return events
+
+    def _fail_nan_rows(self, bad: np.ndarray, now: float) -> List[StepEvent]:
+        """Finish, with an error, every live request whose block produced NaN
+        logprobs; its slot's state is prefilled anew when the slot is reused."""
+        events: List[StepEvent] = []
+        for i, slot in enumerate(self.slots):
+            if slot is None or slot.done or not bad[i]:
+                continue
+            slot.done = True
+            slot.error = "numerical failure: NaN logits in decode"
+            METRICS.inc("numerical_failures")
+            METRICS.observe("request_latency_s", now - slot.t_submit)
+            events.append(StepEvent(slot.request_id, -1, True, 0.0))
+        return events
+
+    # -- speculative serving ------------------------------------------------
+
+    def _first_tokens(self, new, rows: torch.Tensor) -> None:
+        """The speculative admission's tail: sample each new row's first
+        token from the prefill's carry (the speculative loop's invariant
+        needs t0 = a correct token whose state is not yet written), load
+        each new row's history (prompt + t0) for lookup, and emit the first
+        tokens as pending events. One read-back for the sweep."""
+        carry = self.carry[rows]
+        greedy = all(r.temperature <= 0 for _, r in new)
+        t0 = sample(carry, 0.0 if greedy else self._temps[rows], self._top_ps[rows],
+                    self.generator)
+        lp = F.log_softmax(carry, dim=-1).gather(-1, t0[:, None])[:, 0]
+        self._t0[rows] = t0
+        t0_h, lp_h = t0.cpu().numpy(), lp.cpu().numpy()
+        if self.lookup:
+            hist = np.zeros((len(new), self._hist.shape[1]), np.int64)
+            for j, (_, r) in enumerate(new):
+                hist[j, :len(r.prompt)] = r.prompt
+                hist[j, len(r.prompt)] = t0_h[j]
+            self._hist[rows] = self._to_device(hist)
+            self._hlen[rows] = self._to_device(np.array([len(r.prompt) + 1 for _, r in new]))
+        now = time.perf_counter()
+        for j, (_, r) in enumerate(new):
+            r.t_first_token = now
+            METRICS.observe("ttft_s", now - r.t_submit)
+            self._pending_events.append(self._emit(r, int(t0_h[j]), float(lp_h[j]), now))
+
+    def _take_pending(self) -> List[StepEvent]:
+        events, self._pending_events = self._pending_events, []
+        return events
+
+    def _step_spec(self) -> List[StepEvent]:
+        """One block of ``_spec_iters`` [propose -> verify -> commit]
+        iterations; each live row emits its accepted drafts and the target's
+        own next token per iteration. The block is queued first; admission
+        runs behind it on the card and its first tokens join this step's
+        events; then the block is read back once. Rows dead at dispatch run
+        frozen (seqlens 0), and the request-id tags keep a slot reused since
+        from taking the block's tokens."""
+        live_rows = self._live_rows()
+        if not any(live_rows):
+            self._admit()
+            return self._take_pending()
+        rids = [s.request_id if on else None for s, on in zip(self.slots, live_rows)]
+        live = self._to_device(np.array(live_rows, np.int32))
+        temps, top_ps = self._sampling(live_rows)
+        self._t0, out = self._spec_dispatch(live, temps, top_ps)
+        host, ready = self._to_host(out)
+        block = _Block(host, ready, self._spec_iters, rids)
+        self._admit()
+        events = self._take_pending()
+        emits, lps, accepts = self._read(block)  # (n, B, K + 1) x 2, (n, B)
+        now = time.perf_counter()
+        valid = self._valid(rids)
+        events.extend(self._fail_nan_rows(np.isnan(lps).any(axis=(0, 2)) & valid, now))
+        emitted = iter_rows = 0
+        for it in range(emits.shape[0]):
+            for i, slot in enumerate(self.slots):
+                if slot is None or slot.done or not valid[i]:
+                    continue
+                iter_rows += 1
+                for j in range(int(accepts[it, i]) + 1):
+                    emitted += 1
+                    events.append(self._emit(slot, int(emits[it, i, j]), float(lps[it, i, j]),
+                                             now))
+                    if slot.done:
+                        break
+        if iter_rows:
+            METRICS.observe("spec_tokens_per_forward", emitted / iter_rows)
+        return events
+
+
+class Engine(_EngineBase):
+    def __init__(
+        self,
+        model: Transformer,
+        batch_size: int,
+        max_seq_len: int,
+        *,
+        temperature: float = 0.0,
+        eos_id: Optional[int] = None,
+        decode_block: int = 8,
+        admit_chunk: int = 512,
+        seed: int = 0,
+        draft_model=None,
+        spec_tokens: int = 4,
+        prefix_cache: bool = True,
+        prefix_min: int = 16,
+        admit_waterline: Optional[int] = None,
+        staging_batch: Optional[int] = None,
+        pipeline: bool = True,
+    ):
+        if not isinstance(model, Transformer):
+            raise TypeError(f"Engine serves a Transformer, got {type(model).__name__}; serve a "
+                            "Mamba with server.mamba_engine.MambaEngine")
+        super().__init__(model, batch_size, max_seq_len, temperature=temperature, eos_id=eos_id,
+                         decode_block=decode_block, admit_chunk=admit_chunk, seed=seed,
+                         pipeline=pipeline)
+        # Wait for min(queued, waterline) free slots before a sweep while
+        # other rows run (1 admits eagerly).
+        self.admit_waterline = (
+            max(1, batch_size // 8) if admit_waterline is None else max(1, admit_waterline)
+        )
+        # Sweeps of at most this many rows prefill in a staging cache of this
+        # width, allocated at the first such sweep; 0 turns it off.
+        self._staging_B = (
+            max(1, batch_size // 8) if staging_batch is None else max(0, staging_batch)
+        )
+        if self._staging_B >= batch_size:
+            self._staging_B = 0
+        self._stage_cache: Optional[KVCache] = None
+
+        self.lookup = isinstance(draft_model, str)
+        if self.lookup and draft_model not in LOOKUP:
+            raise ValueError(f"draft_model must be a Transformer, 'lookup' or 'ngram', "
+                             f"got {draft_model!r}")
+        self.draft: Optional[Transformer] = None if self.lookup else draft_model
+        self._spec = self.lookup or self.draft is not None
+        self._spec_fused = False
+        self._span = max_seq_len
+        if self._spec:
+            # Speculative rows finish at staggered times: batch their
+            # re-admissions harder. A lookup engine stages a sweep of up to
+            # one more than that (a block often frees waterline + 1 rows); a
+            # draft engine never stages (its draft ring would need the same).
+            if admit_waterline is None:
+                self.admit_waterline = max(2, batch_size // 4)
+            if self.lookup and staging_batch is None and self._staging_B:
+                self._staging_B = min(batch_size - 1, self.admit_waterline + 1)
+            # The span before the ring: it is allocated once, at its width.
+            self._span = self._init_spec(spec_tokens)
+
+        self.cache: KVCache = model.alloc_cache(batch_size, self._span)
+        self.prefix_cache = prefix_cache
+        self.prefix_min = prefix_min
+        self._slot_prompt: List[Optional[List[int]]] = [None] * batch_size
+        self._min_window = min(self.cache.windows)
+
+        if self._spec:
+            from mistral_inference_tpu_torch.speculative import _spec_fused_ok
+
+            self._spec_fused = _spec_fused_ok(model, self.cache, self.K, self._span)
+        if self.draft is not None:
+            self._check_draft(self.draft)
+            self.dcache: KVCache = self.draft.alloc_cache(batch_size, self._span)
+            self.dcarry = torch.zeros_like(self.carry)
+
+    def _check_draft(self, draft) -> None:
+        if not isinstance(draft, Transformer):
+            raise TypeError(f"the draft must be a Transformer, got {type(draft).__name__}")
+        if draft.args.vocab_size != self.model.args.vocab_size:
+            raise ValueError("draft and target must share a vocabulary")
+        if draft.device != self.device:
+            raise ValueError(f"draft on {draft.device}, target on {self.device}")
+        dw = draft.args.sliding_window
+        dws = [w for w in (dw if isinstance(dw, list) else [dw]) if w is not None]
+        if dws and min(dws) < self._span:
+            raise ValueError(f"draft sliding window {dws} < {self._span}: the draft ring would "
+                             "wrap, making speculative rewind unsafe; use a full-context draft")
+
+    # -- engine internals ---------------------------------------------------
+
+    def _decode_step(self, tok: torch.Tensor, seqlens: torch.Tensor) -> torch.Tensor:
+        return self.model.forward(tok[:, None], seqlens, self.cache, attend_cache=True)[:, 0]
+
+    def _spec_dispatch(self, live, temps, top_ps):
+        from mistral_inference_tpu_torch import speculative as sp
+
+        kw = dict(K=self.K, n_iters=self._spec_iters, temperature=0.0, top_p=DEFAULT_TOP_P,
+                  spec_fused=self._spec_fused)
+        if self.lookup:
+            t0, self._hist, self._hlen, out = sp._lookup_block(
+                self.model, self._t0, self.cache, self._hist, self._hlen, self.generator,
+                temps, live, top_ps, ngram=2, **kw)
+            return t0, out
+        return sp._spec_block(self.model, self.draft, self._t0, self.cache, self.dcache,
+                              self.generator, temps, live, top_ps, **kw)
+
     @torch.inference_mode()
     def _admit(self) -> None:
         """Fill free slots from the queue and prefill the new rows in chunks
         of ``admit_chunk`` tokens (the other rows ride along with seqlens 0).
         Prompt logprobs are gathered per chunk for the rows that want them:
-        the numbers generate() returns."""
+        the numbers generate() returns. A speculative engine then prefills
+        the draft's ring too and emits each new row's first token."""
         free = [i for i in range(self.B) if self.slots[i] is None or self.slots[i].done]
         # Batched admission: while rows run, wait for enough free slots to
         # share one sweep; with nothing running, waiting would stall.
@@ -326,28 +651,26 @@ class Engine:
 
         offs, copies = self._plan_prefix_reuse(new)
         maxT = max(len(r.prompt) - offs.get(i, 0) for i, r in new)
-        rows = [i for i, _ in new]
-        for i, r in new:
-            self._temps_h[i] = r.temperature
-            self._top_ps_h[i] = r.top_p
-        self._temps = self._to_device(self._temps_h)
-        self._top_ps = self._to_device(self._top_ps_h)
+        rows = self._set_sampling(new)
         # Reclaimed rows start empty: their stale ring bytes become invisible.
-        self.cache.kv_len[self._to_device(np.array(rows, np.int64))] = 0
+        self.cache.kv_len[rows] = 0
+        if self.draft is not None:
+            self.dcache.kv_len[rows] = 0
         self._apply_prefix_copies(copies)
         for i, r in new:  # after the planning: a wave cannot source itself
             self._slot_prompt[i] = list(r.prompt)
+        prompts: List[Sequence[int]] = [()] * self.B
+        for i, r in new:
+            prompts[i] = r.prompt[offs.get(i, 0):]
 
         with_images = any(r.images for _, r in new)
-        if self._staging_B and len(new) <= self._staging_B and not copies and not with_images:
+        if (self._staging_B and len(new) <= self._staging_B and not copies and not with_images
+                and self.draft is None):
             self._admit_staged(new, maxT)
             self._sync()
             METRICS.observe("admission_staged_s", time.perf_counter() - t_admit)
             METRICS.inc("staged_admissions")
         else:
-            prompts: List[Sequence[int]] = [()] * self.B
-            for i, r in new:
-                prompts[i] = r.prompt[offs.get(i, 0):]
             embeds = None
             if with_images:  # the whole prompts' embeddings, sliced per chunk
                 from mistral_inference_tpu_torch.models.vision import embed_multimodal
@@ -358,20 +681,28 @@ class Engine:
                 embeds = embed_multimodal(self.model, prompts, images)
             # The first chunk of a sweep without prefix copies attends to
             # itself alone: every new row's ring is empty.
-            self.carry = self._prefill(new, prompts, self.cache, self.carry, maxT,
+            self.carry = self._prefill(self.model, new, prompts, self.cache, self.carry, maxT,
                                        attend_first=bool(offs), embeds=embeds)
             self._sync()
+        if self._spec:
+            t_spec = time.perf_counter()
+            if self.draft is not None:  # the draft's ring from the same offsets
+                self.dcarry = self._prefill(self.draft, [], prompts, self.dcache, self.dcarry,
+                                            maxT, attend_first=bool(offs))
+            self._first_tokens(new, rows)
+            METRICS.observe("admission_spec_s", time.perf_counter() - t_spec)
         METRICS.observe("admission_prefill_s", time.perf_counter() - t_admit)
         METRICS.inc("requests_admitted", len(new))
 
-    def _prefill(self, new, prompts, cache, carry, maxT: int, attend_first: bool,
+    def _prefill(self, model, new, prompts, cache, carry, maxT: int, attend_first: bool,
                  embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Chunks of ``admit_chunk`` of each row's ``prompts`` entry (empty: a
-        row that rides along) into ``cache``; returns the new carry. Prompt
-        logprobs go to the requests of ``new`` that want them (their rows in
-        ``prompts`` are whole prompts: no prefix was copied). ``embeds``
-        (rows, max prompt length, dim), the input embeddings of the whole
-        prompts, is sliced per chunk and zero-padded like the tokens.
+        row that rides along) through ``model`` into ``cache``; returns the
+        new carry. Prompt logprobs go to the requests of ``new`` that want
+        them (their rows in ``prompts`` are whole prompts: no prefix was
+        copied). ``embeds`` (rows, max prompt length, dim), the input
+        embeddings of the whole prompts, is sliced per chunk and zero-padded
+        like the tokens.
 
         Every chunk is ``admit_chunk`` wide, however short the prompts: a
         row's prefill then runs the chunks of ``generate(chunk_size=
@@ -398,15 +729,12 @@ class Engine:
                 chunk_embeds = embeds[:, s:s + width]
                 chunk_embeds = F.pad(chunk_embeds, (0, 0, 0, width - chunk_embeds.shape[1]))
             lp_d, carry = _prefill_step(
-                self.model, self._to_device(tokens), self._to_device(seqlens), cache, carry,
+                model, self._to_device(tokens), self._to_device(seqlens), cache, carry,
                 attend_cache=s > 0 or attend_first, want_logprobs=want_lp,
                 input_embeds=chunk_embeds,
             )
             if want_lp:
-                lp = lp_d.cpu().numpy()
-                for b, r in new:
-                    if r.want_logprobs and seqlens[b]:
-                        r.prompt_logprobs.extend(lp[b, (1 if s == 0 else 0):seqlens[b]].tolist())
+                _gather_prompt_logprobs(new, lp_d, seqlens, s == 0)
         return carry
 
     def _admit_staged(self, new, maxT: int) -> None:
@@ -418,14 +746,14 @@ class Engine:
         ulp on the card."""
         Bs = self._staging_B
         if self._stage_cache is None:
-            # The main cache's max_seq_len: the same windows, the same slots.
-            self._stage_cache = self.model.alloc_cache(Bs, self.max_seq_len)
+            # The main cache's span: the same windows, the same slots.
+            self._stage_cache = self.model.alloc_cache(Bs, self._span)
         sc = self._stage_cache
         sc.kv_len.zero_()  # fresh rows: stale staging bytes are invisible
         scarry = torch.zeros((Bs, self.carry.shape[1]), dtype=torch.float32, device=self.device)
         staged = [(j, r) for j, (_, r) in enumerate(new)]
         prompts = [r.prompt for _, r in new] + [()] * (Bs - len(new))
-        scarry = self._prefill(staged, prompts, sc, scarry, maxT, attend_first=False)
+        scarry = self._prefill(self.model, staged, prompts, sc, scarry, maxT, attend_first=False)
         self.cache, self.carry = adopt_rows(
             self.cache, self.carry, sc, scarry, list(range(len(new))), [i for i, _ in new])
 
@@ -482,116 +810,25 @@ class Engine:
         return offs, ordered
 
     def _apply_prefix_copies(self, copies) -> None:
+        """Copy the planned prefixes, into the draft's ring too."""
         if not copies:
             return
         srcs, dsts, qs = zip(*copies)
         copy_prefix_rows(self.cache, srcs, dsts, qs)
+        if self.draft is not None:
+            copy_prefix_rows(self.dcache, srcs, dsts, qs)
         METRICS.inc("prefix_hits", len(copies))
         METRICS.inc("prefix_tokens_reused", sum(qs))
 
-    def _block_size(self) -> int:
-        """Adaptive block width: the smallest power of two that covers the
-        longest remaining live request, at most ``decode_block``, so a batch
-        near its end stops decoding whole blocks for nothing."""
-        max_rem = max(s.max_tokens - len(s.generated) for s in self.slots
-                      if s is not None and not s.done)
-        n = 1
-        while n < min(self.decode_block, max_rem):
-            n *= 2
-        return min(n, self.decode_block)
 
-    def _remaining(self, prev: Optional[_Block]) -> List[int]:
-        """Each row's token budget for the next block: its request's tokens
-        still to come, less those the block in flight decodes for that same
-        request (a row admitted since that block was queued has nothing in
-        flight: the block's output for it is dropped at the fan-out)."""
-        out = []
-        for i, s in enumerate(self.slots):
-            if s is None or s.done:
-                out.append(0)
-                continue
-            ahead = prev.n if prev is not None and prev.rids[i] == s.request_id else 0
-            out.append(max(0, s.max_tokens - len(s.generated) - ahead))
-        return out
-
-    def _dispatch_block(self, prev: Optional[_Block]) -> None:
-        """Queue one decode block on the card and the copy of its tokens and
-        logprobs to the host behind it; nothing waits for the card. Each row's
-        budget freezes it in the block once its request has all its tokens,
-        so a row never writes past prompt + max_tokens (its ring cannot wrap
-        past it: finished rows stay valid prefix sources)."""
-        n = self._block_size()
-        live_rows = self._live_rows()
-        live = self._to_device(np.array(live_rows, np.int32))
-        budget = self._to_device(np.array(self._remaining(prev), np.int32))
-        # Every live row greedy: the float temperature 0 takes the argmax
-        # alone, and no sampler runs.
-        greedy = all(t <= 0 for t, on in zip(self._temps_h, live_rows) if on)
-
-        def step(tok: torch.Tensor, seqlens: torch.Tensor) -> torch.Tensor:
-            return self.model.forward(tok[:, None], seqlens, self.cache, attend_cache=True)[:, 0]
-
-        toks, lps, self.carry = _decode_block(
-            step, self.carry, n, 0.0, DEFAULT_TOP_P, self.generator,
-            temps=None if greedy else self._temps, live=live,
-            top_ps=None if greedy else self._top_ps, budget=budget,
-        )
-        ready = None
-        if self.device.type == "cuda":
-            toks = toks.to("cpu", non_blocking=True)
-            lps = lps.to("cpu", non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-        rids = [s.request_id if on else None for s, on in zip(self.slots, live_rows)]
-        self._pending = _Block(toks, lps, ready, n, rids)
-
-    def _drain(self, block: Optional[_Block]) -> List[StepEvent]:
-        """Read back a block and turn it into events: tokens, EOS and stop
-        ids, max_tokens, NaN failures."""
-        if block is None:
-            return []
-        if block.ready is not None:
-            block.ready.synchronize()
-        toks, lps = block.toks.numpy(), block.lps.numpy()  # (n, B) each
-        now = time.perf_counter()
-        # A row counts only while its slot still holds the request the block
-        # was queued for: a slot freed and reused since gets none of it.
-        valid = np.array([rid is not None and s is not None and s.request_id == rid
-                          for rid, s in zip(block.rids, self.slots)])
-        events = self._fail_nan_rows(np.isnan(lps).any(axis=0) & valid, now)
-        for t in range(block.n):
-            for i, slot in enumerate(self.slots):
-                if slot is None or slot.done or not valid[i]:
-                    continue
-                tok, lp = int(toks[t, i]), float(lps[t, i])
-                if not slot.generated and not slot.t_first_token:
-                    slot.t_first_token = now
-                    METRICS.observe("ttft_s", now - slot.t_submit)
-                hit_stop = tok == self.eos_id or tok in slot.stop_ids
-                if not hit_stop:
-                    slot.generated.append(tok)
-                    slot.gen_logprobs.append(lp)
-                if hit_stop or len(slot.generated) >= slot.max_tokens:
-                    slot.done = True
-                    METRICS.observe("request_latency_s", now - slot.t_submit)
-                    events.append(StepEvent(slot.request_id, tok, True, lp))
-                else:
-                    events.append(StepEvent(slot.request_id, tok, False, lp))
-        return events
-
-    def _fail_nan_rows(self, bad: np.ndarray, now: float) -> List[StepEvent]:
-        """Finish, with an error, every live request whose block produced NaN
-        logprobs; its slot's carry is prefilled anew when the slot is reused."""
-        events: List[StepEvent] = []
-        for i, slot in enumerate(self.slots):
-            if slot is None or slot.done or not bad[i]:
-                continue
-            slot.done = True
-            slot.error = "numerical failure: NaN logits in decode"
-            METRICS.inc("numerical_failures")
-            METRICS.observe("request_latency_s", now - slot.t_submit)
-            events.append(StepEvent(slot.request_id, -1, True, 0.0))
-        return events
+def _gather_prompt_logprobs(new, lp_d: torch.Tensor, seqlens: np.ndarray, first: bool) -> None:
+    """A prefill chunk's teacher-forced logprobs (rows, T) to the requests of
+    ``new`` [(row, request)] that want them: each row's valid positions, less
+    a prompt's first token, which has none."""
+    lp = lp_d.cpu().numpy()
+    for b, r in new:
+        if r.want_logprobs and seqlens[b]:
+            r.prompt_logprobs.extend(lp[b, (1 if first else 0):seqlens[b]].tolist())
 
 
 def _common_prefix(a: Sequence[int], b: Sequence[int], limit: Optional[int] = None) -> int:

@@ -40,8 +40,8 @@ distribution), fixed per seed, on another random stream than ``generate()``'s.
 Where the JAX package runs a block of iterations as one compiled scan, the
 block here is a Python loop of ``n_iters`` iterations with fixed shapes and
 no host sync inside: accept lengths stay on the device (masks, ``cumprod``,
-``gather``, ``where``), and the host reads (emits, logprobs, accepts) once per
-block. Every draw takes an explicit ``torch.Generator``. The caches are
+``gather``, ``where``), and the caller reads (emits, logprobs, accepts) once
+per block. Every draw takes an explicit ``torch.Generator``. The caches are
 updated in place.
 """
 
@@ -68,7 +68,8 @@ from mistral_inference_tpu_torch.models.mamba import MambaState
 from mistral_inference_tpu_torch.models import transformer as tf
 from mistral_inference_tpu_torch.ops.cuda.attention import VERIFY_MAX_ROWS, VERIFY_MAX_TOKENS
 
-BlockOut = Tuple[np.ndarray, np.ndarray, np.ndarray]  # emits, logprobs (n, B, K+1); accepts (n, B)
+# A block's outputs on the device: emits, logprobs (n, B, K+1); accepts (n, B)
+BlockOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _residual_dist(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -144,13 +145,13 @@ def _commit(tcache: KVCache, chunk_kv, adv: torch.Tensor) -> None:
         scatter_chunk(tcache, chunk_kv[0], chunk_kv[1], adv)
 
 
-def _fetch(emits, lps, accepts) -> BlockOut:
+def _stacked(emits, lps, accepts) -> BlockOut:
+    return torch.stack(emits), torch.stack(lps), torch.stack(accepts)
+
+
+def _fetch(out: BlockOut) -> Tuple[np.ndarray, ...]:
     """A block's one transfer to the host."""
-    return (
-        torch.stack(emits).cpu().numpy(),
-        torch.stack(lps).cpu().numpy(),
-        torch.stack(accepts).cpu().numpy(),
-    )
+    return tuple(t.cpu().numpy() for t in out)
 
 
 def _spec_block(
@@ -172,7 +173,8 @@ def _spec_block(
 ) -> Tuple[torch.Tensor, BlockOut]:
     """``n_iters`` speculative iterations with a draft model. Returns (the
     next t0, (emitted tokens (n_iters, B, K + 1), their logprobs, accept
-    counts (n_iters, B)) on the host); both caches are updated in place.
+    counts (n_iters, B)) on the device, queued: nothing waits for the card);
+    both caches are updated in place.
 
     temperature == 0: greedy, drafts accepted while they match the target
     argmax; the tokens are those of plain greedy decoding. temperature > 0:
@@ -245,7 +247,7 @@ def _spec_block(
         emits.append(emit)
         lps.append(lp)
         accepts.append(a)
-    return t0, _fetch(emits, lps, accepts)
+    return t0, _stacked(emits, lps, accepts)
 
 
 def _lookup_propose(
@@ -351,7 +353,7 @@ def _lookup_block(
     forwards. The same verify and accepted-only commit as ``_spec_block``;
     greedy output equals plain greedy decoding. The history buffer stays on
     the device. Returns (t0, hist, hlen, (emits, logprobs, accepts) on the
-    host); the cache is updated in place.
+    device); the cache is updated in place.
 
     For temperature > 0 the proposal distribution is the one-hot at the
     proposed token (``_onehot_verify_accept``). ``temps`` / ``live`` /
@@ -377,7 +379,7 @@ def _lookup_block(
         emits.append(emit)
         lps.append(lp)
         accepts.append(a)
-    return t0, hist, hlen, _fetch(emits, lps, accepts)
+    return t0, hist, hlen, _stacked(emits, lps, accepts)
 
 
 def _spec_fused_ok(model: Transformer, tcache: KVCache, K: int, span: int) -> bool:
@@ -529,7 +531,7 @@ def generate_lookup(
             K=K, n_iters=n_iters, temperature=float(temperature), top_p=top_p, ngram=ngram,
             spec_fused=spec_fused,
         )
-        _walk_emits(*out, streams, stream_lps, eos_step, eos_id)
+        _walk_emits(*_fetch(out), streams, stream_lps, eos_step, eos_id)
     return _finalize_streams(streams, stream_lps, logprobs, eos_step, eos_id, max_tokens)
 
 
@@ -597,7 +599,7 @@ def generate_speculative(
             K=K, n_iters=n_iters, temperature=float(temperature), top_p=top_p,
             spec_fused=spec_fused,
         )
-        _walk_emits(*out, streams, stream_lps, eos_step, eos_id)
+        _walk_emits(*_fetch(out), streams, stream_lps, eos_step, eos_id)
     return _finalize_streams(streams, stream_lps, logprobs, eos_step, eos_id, max_tokens)
 
 
@@ -626,7 +628,7 @@ def _mamba_lookup_block(
     so they neither decay nor write the state: the committed state is that of
     decoding the accepted tokens one by one. Both forwards go through the
     chunked SSD, not K9. Returns (t0, hist, hlen, (emits, logprobs, accepts)
-    on the host); the state is updated in place. ``temps`` / ``live`` /
+    on the device); the state is updated in place. ``temps`` / ``live`` /
     ``top_ps``: the contracts of ``_spec_block`` (dead rows verify with
     seqlens 0 and commit nothing)."""
     B, device = t0.shape[0], t0.device
@@ -651,7 +653,7 @@ def _mamba_lookup_block(
         emits.append(emit)
         lps.append(lp)
         accepts.append(a)
-    return t0, hist, hlen, _fetch(emits, lps, accepts)
+    return t0, hist, hlen, _stacked(emits, lps, accepts)
 
 
 @torch.inference_mode()
@@ -688,5 +690,5 @@ def generate_lookup_mamba(
             _live_rows(streams, max_tokens, model.device),
             K=K, n_iters=n_iters, temperature=float(temperature), top_p=top_p, ngram=ngram,
         )
-        _walk_emits(*out, streams, stream_lps, eos_step, eos_id)
+        _walk_emits(*_fetch(out), streams, stream_lps, eos_step, eos_id)
     return _finalize_streams(streams, stream_lps, logprobs, eos_step, eos_id, max_tokens)

@@ -11,6 +11,7 @@ the JAX package's ``build_parser()``'s.
 import json
 
 import pytest
+import torch
 
 import test_tokenizers as tiny
 from mistral_inference_tpu.main import build_parser as jax_build_parser
@@ -103,11 +104,56 @@ def test_parser_defaults_match_jax(argv):
     for ns in (ours, theirs):
         ns.pop("func")
     assert ours.pop("device") is None
+    if "lora_path" not in theirs:  # the port's quantize can merge an adapter first
+        assert ours.pop("lora_path") is None
     assert ours == theirs
 
 
-@pytest.mark.parametrize("extra,item", [(["--tensor", "2"], "item 6"), (["--seq", "2"], "item 6"),
-                                        (["--lora_path", "adapter"], "item 4")])
+@pytest.mark.parametrize("extra,item", [(["--tensor", "2"], "item 6"), (["--seq", "2"], "item 6")])
 def test_unported_options_raise(folder, capsys, extra, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         demo_out(capsys, folder, *extra)
+
+
+def _adapter_file(folder, path):
+    """A rank-4 adapter on wq and w2 of every layer of ``folder``'s model."""
+    from mistral_inference_tpu_torch.args import load_args
+    from mistral_inference_tpu_torch.io.safetensors import save_file
+
+    args = load_args(folder)
+    gen = torch.Generator().manual_seed(0)
+    sd = {}
+    for i in range(args.n_layers):
+        for name, din, dout in (("attention.wq", args.dim, args.n_heads * args.head_dim),
+                                ("feed_forward.w2", args.hidden_dim, args.dim)):
+            sd[f"layers.{i}.{name}.lora_A.weight"] = torch.randn(4, din, generator=gen) * 0.1
+            sd[f"layers.{i}.{name}.lora_B.weight"] = torch.randn(dout, 4, generator=gen) * 0.1
+    save_file(sd, path)
+    return path
+
+
+def test_lora_merges_before_quantizing(folder, tmp_path, capsys):
+    """tests/test_cli.py::test_quant_with_lora: ``demo --quant int8
+    --lora_path`` prints generate()'s text of the model merged, then
+    quantized; ``quantize --lora_path`` exports that model's leaves in bits,
+    and the export's demo prints the same text."""
+    from mistral_inference_tpu_torch.lora import load_lora
+
+    adapter = str(_adapter_file(folder, tmp_path / "adapter.safetensors"))
+    want = from_folder(folder, device="cpu")
+    load_lora(want, adapter)
+    want.quantize("int8")
+    tok = load_tokenizer(folder)
+    encoded = [tok.encode(p, bos=True, eos=False) for p in DEMO_PROMPTS]
+    gen, _ = generate(encoded, want, max_tokens=5, temperature=0.0)
+    text = "".join(p + tok.decode(g) + "\n" + "=" * 40 + "\n" for p, g in zip(DEMO_PROMPTS, gen))
+    assert demo_out(capsys, folder, "--quant", "int8", "--lora_path", adapter) == text
+    assert text != expected_demo(folder, 5, quant="int8")
+    main(["quantize", str(folder), str(tmp_path / "q8"), "--quant", "int8", "--lora_path",
+          adapter, "--device", "cpu"])
+    got = from_folder(tmp_path / "q8", device="cpu")
+    for lw, lw_want in zip(got.params["layers"], want.params["layers"]):
+        for key in ("wqkv", "w2"):
+            for k in lw[key]:
+                assert torch.equal(lw[key][k], lw_want[key][k])
+    assert demo_out(capsys, tmp_path / "q8") == text

@@ -1,5 +1,6 @@
 """The port's serving engine on the CPU, mirroring the non-speculative cases
-of tests/test_engine.py: every request's output equals the port's own
+of tests/test_engine.py (tests/test_torch_engine_spec.py holds the
+speculative ones): every request's output equals the port's own
 standalone ``generate()`` of its prompt, under staggered and mid-run
 admission, EOS and stop ids, a wrapping window, per-request sampling
 settings, an fp8 ring, the prefix cache, chunked and staged admission, the
@@ -414,26 +415,36 @@ def test_engine_pipeline_randomized_stress():
 
 
 def test_engine_refuses_what_is_not_ported():
-    """Speculative serving and a Mamba model wait for a later slice: each
-    raises, naming the roadmap item. An image request to a text-only model
-    is refused."""
-    model = tiny(1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        Engine(model, batch_size=2, max_seq_len=64, draft_model="lookup")
-    eng = Engine(model, batch_size=2, max_seq_len=64)
-    image = np.zeros((3, 16, 16), np.float32)
-    with pytest.raises(ValueError, match="vision encoder"):
-        eng.submit(PROMPTS[0], max_tokens=2, images=[image])
-    with pytest.raises(ValueError, match="max_seq_len"):
-        eng.submit(PROMPTS[0], max_tokens=100)
+    """The refusals that remain now that every serving mode is ported: a
+    Transformer draft for MambaEngine (a recurrent target has no rewind for
+    it), an image request to a speculative engine or to a text-only model,
+    a prompt past max_seq_len, and a Mamba given to the Transformer engine
+    (MambaEngine serves it)."""
     from mistral_inference_tpu_torch.args import MambaArgs
     from mistral_inference_tpu_torch.model import Mamba
+    from mistral_inference_tpu_torch.server.mamba_engine import MambaEngine
 
+    model = tiny(1)
     mamba = Mamba.random(MambaArgs(dim=64, n_layers=1, vocab_size=256, n_groups=2, rms_norm=True,
                                    residual_in_fp32=True, fused_add_norm=True,
                                    pad_vocab_size_multiple=16, tie_embeddings=False,
                                    d_state=16, headdim=16), dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(ValueError, match="draft-free"):
+        MambaEngine(mamba, batch_size=2, max_seq_len=64, draft_model=model)
+    image = np.zeros((3, 16, 16), np.float32)
+    vision = Engine(model, batch_size=2, max_seq_len=64, draft_model="lookup")
+    vision.model.args = dataclasses.replace(model.args, vision_encoder=object())
+    try:
+        with pytest.raises(ValueError, match="text-only"):
+            vision.submit(PROMPTS[0], max_tokens=2, images=[image])
+    finally:
+        vision.model.args = dataclasses.replace(model.args, vision_encoder=None)
+    eng = Engine(model, batch_size=2, max_seq_len=64)
+    with pytest.raises(ValueError, match="vision encoder"):
+        eng.submit(PROMPTS[0], max_tokens=2, images=[image])
+    with pytest.raises(ValueError, match="max_seq_len"):
+        eng.submit(PROMPTS[0], max_tokens=100)
+    with pytest.raises(TypeError, match="MambaEngine"):
         Engine(mamba, batch_size=2, max_seq_len=64)
 
 

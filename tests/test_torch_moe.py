@@ -350,8 +350,11 @@ def test_args_carry_the_moe_fields():
     assert TransformerArgs.from_dict(dataclasses.asdict(jax_moe_args(moe=None))).moe is None
     with pytest.raises(ValueError, match="moe_impl"):
         TransformerArgs.from_dict({**dataclasses.asdict(jargs), "moe_impl": "ragged"})
+    lora = TransformerArgs.from_dict({**dataclasses.asdict(jargs),
+                                      "lora": {"rank": 4, "scaling": 2.0}}).lora
+    assert (lora.rank, lora.scaling) == (4, 2.0)
     with pytest.raises(ValueError, match="LoRA"):
-        TransformerArgs.from_dict({**dataclasses.asdict(jargs), "lora": {"rank": 4, "scaling": 2.0}})
+        TransformerArgs.from_dict({**dataclasses.asdict(jargs), "lora": {"rank": 0, "scaling": 2.0}})
 
 
 def test_convert_plain_moe_tree():
@@ -430,10 +433,18 @@ def test_init_quantized_params_moe(mode):
 
 
 def test_convert_refuses_lora_on_experts():
+    """Live expert adapters convert, each a per-layer (E, in, r) / (E, r, out)
+    pair; an adapter on the router, which no forward applies live, is
+    refused."""
     jmodel = JaxTransformer.random(jax_moe_args(n_layers=1), dtype=jnp.float32, seed=0)
     tree = jax.tree.map(np.asarray, jmodel.params)
-    tree["layers"]["moe"]["w1_lora"] = {"a": np.zeros((1, 4, 256, 2), np.float32),
-                                        "b": np.zeros((1, 4, 2, 512), np.float32)}
+    rng = np.random.default_rng(0)
+    tree["layers"]["moe"]["w1_lora"] = {"a": rng.standard_normal((1, 4, 256, 2), np.float32),
+                                        "b": rng.standard_normal((1, 4, 2, 512), np.float32)}
+    pair = params_from_numpy(tree, device="cpu")["layers"][0]["lora"]["w1"]
+    np.testing.assert_array_equal(pair["a"].numpy(), tree["layers"]["moe"]["w1_lora"]["a"][0])
+    np.testing.assert_array_equal(pair["b"].numpy(), tree["layers"]["moe"]["w1_lora"]["b"][0])
+    tree["layers"]["moe"]["gate_lora"] = tree["layers"]["moe"]["w1_lora"]
     with pytest.raises(ValueError, match="LoRA"):
         params_from_numpy(tree, device="cpu")
     del tree["layers"]["moe"]

@@ -45,7 +45,8 @@ def test_sources_found():
                    "quant/weights.py", "speculative.py", "models/mamba.py",
                    "ops/cuda/ssd_step.py", "models/vision.py", "images.py", "loading.py",
                    "main.py", "server/api.py", "io/safetensors.py", "native/__init__.py",
-                   "tokenizers/spm.py", "tokenizers/tekken.py", "tokenizers/chat.py"):
+                   "tokenizers/spm.py", "tokenizers/tekken.py", "tokenizers/chat.py",
+                   "server/engine.py", "server/mamba_engine.py", "lora.py"):
         assert PKG / module in SOURCES
     assert sorted(p.name for p in (PKG / "ops" / "cuda" / "csrc").glob("*.cu")) == [
         "decode_attention.cu", "flash_attention.cu", "fused_decode.cu", "matmul_quant.cu",

@@ -185,9 +185,19 @@ def test_refused_requests_answer_400(server):
 
 
 def test_completions_speculative_engine(model):
-    """Speculative serving waits for a later slice of the port."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        _serve(model, DummyTok(), draft_model="lookup")
+    """The HTTP API over a lookup-speculative engine and over one with a
+    draft model returns generate()'s completion, as over a plain engine."""
+    tok = DummyTok()
+    want = _alone(model, tok.encode("spec"), 6)[0][0]
+    draft = tiny_model(seed=7)
+    for spec in ("lookup", draft):
+        srv, httpd, url = _serve(model, tok, draft_model=spec, spec_tokens=2)
+        try:
+            out = _post(url, "/v1/completions", {"prompt": "spec", "max_tokens": 6})
+        finally:
+            httpd.shutdown()
+            srv.stop()
+        assert out["choices"][0]["tokens"] == want
 
 
 def _png(arr: np.ndarray) -> str:
