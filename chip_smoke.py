@@ -142,6 +142,32 @@ Phases, each printing one JSON line:
     tokens, live against merged within the dense bound); ``mixtral-8x7b`` at
     2 layers with live expert adapters (dispatch: K8 and K5 launched).
 
+13. many GPUs (``parallel``): an NCCL world of one (the rule of
+    ``parallel.distributed`` gives one rank with one GPU NCCL): the 8-layer
+    int4 path of phase 4 with a mesh of one, equal in bits to no mesh, and
+    NCCL's all_reduce and all_gather probed. Then two ranks spawned on the
+    one card over gloo (NCCL refuses two ranks on one device; gloo stages
+    each collective's CUDA tensors through the host, so the phase shows the
+    sharded math and the kernels at their shard shapes on the card, not
+    NCCL's speed), each path against the single-device port on the same
+    seed and prompts (computed first here, its models freed before the
+    ranks start): (a) ``mistral-7b-v0.1`` int4 over an fp8 ring, all 32
+    layers, tensor = 2, with an ``Engine`` (batch 4) serving 8 requests and
+    lookup speculation; (b) ``mixtral-8x7b`` int4, 32 layers, expert = 2;
+    (c) ``codestral-mamba-7b`` int4, 8 layers, tensor = 2; (d)
+    ``mistral-7b-v0.1`` int4, 8 layers, data = 2. Each checks that both
+    ranks return the same tokens, the tokens against one device's (but at a
+    near-tie), the logprobs against them (on (a) beside two witnesses of
+    the bound on one device: ``wo`` and ``w2`` as the two ranks' shards on
+    their halves of the input, inside it and nearer the sharded run than
+    the whole products are, and the halves swapped, a wrong shard, outside
+    it), decode == prefill on the shards,
+    each rank's launches (K2-fp8 and K9 = layers x decode forwards), the
+    collectives of one decode forward (64 all-reduces on (a)), and prints
+    each rank's weight bytes, peak memory and seconds; rank 0 replays the
+    first calls of every kernel wrapper against its plain version at the
+    shard shapes (``kernel_shard`` lines).
+
 Then a ``total`` line (the seconds since the start), a ``kernels`` line, the
 nvidia-smi line, and last the device line.
 Any failure raises and the script exits non-zero. Without a CUDA device,
@@ -156,8 +182,8 @@ other) and of one decode step, with the decode step's aten calls and the
 host's time to enqueue it, and to the serving line the same for one
 engine decode block (a serial engine, 8 rows). ``--kernels=k2,k7_fp8`` runs phases 1 and
 2 and only the named kernels' checks, and prints no result line; so does
-``--phases=spec_serving,mamba_serving,lora`` after phases 1 and 2 for the
-named phases of 10-12.
+``--phases=spec_serving,mamba_serving,lora,parallel`` after phases 1 and 2
+for the named phases of 10-13.
 """
 
 from __future__ import annotations
@@ -4230,6 +4256,684 @@ def step_probe(step, reset, B: int, steps: int):
             "device_idle_share": 1.0 - busy / wall, "kernel_ms_by_category": cats}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: many GPUs (parallel/): an NCCL world of one, then two gloo ranks
+# sharing the one card
+# ---------------------------------------------------------------------------
+
+PAR_PROMPT_LENS = (600, 300, 77, 20)  # the first two take more than one chunk: K4 runs
+PAR_CHUNK = 256
+PAR_TOKENS = 12
+# The sharded run against one device, on each row's logprobs up to its first
+# divergence (the prompt's teacher-forced ones and the generated ones): a
+# row-parallel product rounds each rank's partial sum to bf16 before the
+# all-reduce adds them, where one device rounds the whole sum once. Over 32
+# layers the fp8 ring's rounding of K and V and the bf16 rounding of the
+# logits (a step of 0.0625 between 8 and 16) carry that to 0.16 nats on
+# `mistral-7b-v0.1` at tensor = 2 (the vocab-sharded head itself is exact:
+# its halves give the full product's bits). So the bound is the one decode ==
+# prefill is held to, two roundings of one function; the paths whose
+# arithmetic is a single device's (expert and data parallelism) are held to
+# its tokens and logprobs in bits. Two witnesses on (a)'s model, on one
+# device, hold the bound to what it must tell apart (``row_halves``): the
+# same arithmetic done by halves must lie inside it, and the sharded run
+# nearer to it than to the whole products (on the H100: 0.16 / 0.031 nats
+# from the whole products, the sharded run 0.0006 mean from the halves); a
+# wrong shard (the halves swapped) must lie outside it (4.9 / 1.09 there).
+PAR_MAX_NATS = INVARIANT_MAX_NATS
+PAR_MEAN_NATS = INVARIANT_MEAN_NATS
+PAR_ENGINE_LENS = (300, 180, 120, 90, 64, 40, 24, 12)
+PAR_ENGINE_TOKENS = 10
+PAR_LOOKUP_K = 7
+PAR_TIMEOUT_S = 600
+PAR_SHAPES_PER_KERNEL = 4  # distinct shapes of one wrapper kept for replay per path
+
+
+class ParPath(NamedTuple):
+    label: str
+    model: str
+    layers: int
+    ring: Optional[str]  # the KV ring's type; None for a Mamba
+    mesh: Tuple[int, int, int]  # (data, expert, tensor)
+    expected: Tuple[str, ...]  # kernels each rank must launch
+    per_decode: Tuple[str, ...]  # kernels launched exactly layers x decode forwards
+    # The ranks do a single device's arithmetic: an expert rank's partial adds
+    # exact zeros for the other rank's experts (capacity and slots global); a
+    # data rank runs its rows, whose bits no kernel ties to the batch.
+    exact: bool = False
+
+
+PAR_PATHS = (
+    # the north-star configuration, all 32 layers, tensor = 2
+    ParPath("a", MODEL, 32, "fp8", (1, 1, 2), (K1, K4F, K5, K3, K2F), (K2F,)),
+    ParPath("b", MOE_MODEL, 32, "int8", (1, 2, 1), (K5, K8), (), exact=True),
+    ParPath("c", MAMBA_MODEL, 8, None, (1, 1, 2), (K9,), (K9,)),
+    ParPath("d", MODEL, 8, "int8", (2, 1, 1), (K1, K4, K2, K3, K5), (K2,), exact=True),
+)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def par_model(path: ParPath, mesh=None):
+    """The path's model, int4 weights drawn in bf16 from seed 0 (under a
+    mesh: this rank's shard of it)."""
+    from mistral_inference_tpu_torch.model import Mamba, Transformer
+    from mistral_inference_tpu_torch.models.registry import get_args
+
+    args = get_args(path.model)
+    args.n_layers = path.layers
+    if path.ring is None:
+        return Mamba.random(args, dtype=torch.bfloat16, seed=0, quant="int4", mesh=mesh)
+    args.kv_quant = path.ring
+    if args.moe:
+        args.moe_impl = "dispatch"
+    return Transformer.random(args, dtype=torch.bfloat16, seed=0, quant="int4", mesh=mesh)
+
+
+def par_prompts(vocab_size: int, lens=PAR_PROMPT_LENS):
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    return [rng.integers(1, vocab_size, n).tolist() for n in lens]
+
+
+def par_generate(model, prompts, max_tokens: int = PAR_TOKENS, **kw):
+    from mistral_inference_tpu_torch.generate import generate, generate_mamba
+
+    run = generate_mamba if hasattr(model, "alloc_state") else generate
+    return run(prompts, model, max_tokens=max_tokens, temperature=0.0,
+               chunk_size=kw.pop("chunk_size", PAR_CHUNK), **kw)
+
+
+def teacher_logits(model, prompts, gen, chunk: int = PAR_CHUNK) -> torch.Tensor:
+    """(B, steps, V) fp32 on the host: the logits that predict each generated
+    token in a teacher-forced prefill of prompt + generated tokens."""
+    from mistral_inference_tpu_torch.generate import _prompt_chunks
+
+    seqs = [p + g for p, g in zip(prompts, gen)]
+    steps = len(gen[0])
+    out = torch.zeros((len(seqs), steps, model.args.vocab_size))
+    mamba = hasattr(model, "alloc_state")
+    state = model.alloc_state(len(seqs)) if mamba else model.alloc_cache(
+        len(seqs), max(len(s) for s in seqs))
+    for s, tokens, lens in _prompt_chunks(seqs, chunk, model.device):
+        T = tokens.shape[1]
+        if mamba:
+            hidden = model.forward(tokens, lens, state, chunk=min(128, T), head="none")
+        else:
+            hidden = model.forward(tokens, lens, state, attend_cache=s > 0, head="none")
+        for b, p in enumerate(prompts):
+            for step in range(steps):
+                pos = len(p) - 1 + step
+                if s <= pos < s + T:
+                    out[b, step] = model.head(hidden[b, pos - s]).float().cpu()
+    return out
+
+
+def par_diverged(label: str, ref_tokens, ref_logits: torch.Tensor, got) -> list:
+    """Rows where ``got`` left the reference's greedy tokens; each must leave
+    at a near-tie of the reference's logits (both tokens within
+    NEAR_TIE_GAP of the best), as in phases 4 and 10. Returns the first
+    divergence step of every row (its length where none)."""
+    firsts = []
+    for b, (a, r) in enumerate(zip(got, ref_tokens)):
+        step = next((i for i, (x, y) in enumerate(zip(a, r)) if x != y), len(r))
+        firsts.append(step)
+        if step == len(r):
+            continue
+        logits = ref_logits[b, step]
+        best = float(logits.max())
+        d = {"phase": "divergence", "path": label, "row": b, "step": step,
+             "sharded_token": a[step], "reference_token": r[step],
+             "sharded_gap": best - float(logits[a[step]]),
+             "reference_gap": best - float(logits[r[step]])}
+        emit(d)
+        require(d["sharded_gap"] <= NEAR_TIE_GAP and d["reference_gap"] <= NEAR_TIE_GAP,
+                f"{label}: the sharded run left the single-device tokens away from a "
+                f"near-tie: {d}")
+    return firsts
+
+
+def par_logprob_gap(got_lps, ref_lps, firsts):
+    """max and mean |sharded - single-device| over each row's logprobs up to
+    its first divergence."""
+    gaps = []
+    for n_prompt, a, b, first in zip(PAR_PROMPT_LENS, got_lps, ref_lps, firsts):
+        n = n_prompt - 1 + first
+        gaps.extend(abs(x - y) for x, y in zip(a[:n], b[:n]))
+    return max(gaps), sum(gaps) / len(gaps)
+
+
+def param_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(param_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if isinstance(tree, torch.Tensor) else 0
+
+
+def nccl_world_of_one(card: str) -> dict:
+    """A world of one rank over NCCL on the card (the backend the rule of
+    ``parallel.distributed`` gives one rank with one GPU), at ``tensor=1``:
+    the 8-layer int4 path of phase 4 with and without the mesh, equal in
+    bits. An axis of one issues no collective, so the forward's count is 0;
+    the NCCL calls themselves are probed on the world group."""
+    import os
+
+    import torch.distributed as dist
+
+    from mistral_inference_tpu_torch.generate import generate
+    from mistral_inference_tpu_torch.parallel.distributed import init_distributed
+    from mistral_inference_tpu_torch.parallel.mesh import make_mesh
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        require(init_distributed(timeout_s=120), "the world of one did not start")
+        backend = dist.get_backend()
+        require(backend == "nccl", f"one rank with one GPU took {backend}, not NCCL")
+        mesh = make_mesh(1, 1, 1)
+        path = ParPath("nccl1", MODEL, 8, "int8", (1, 1, 1), (), ())
+        plain, meshed = par_model(path), par_model(path, mesh)
+        prompts = par_prompts(plain.args.vocab_size)
+        want = par_generate(plain, prompts)
+        mesh.reset_counts()
+        got = par_generate(meshed, prompts)
+        require(got == want, "the mesh of one changed the tokens or the logprobs")
+        forward_collectives = dict(mesh.counts)
+        x = torch.full((1024,), 3.0, dtype=torch.bfloat16, device=mesh.device)
+        dist.all_reduce(x)
+        parts = [torch.empty(8, device=mesh.device)]
+        dist.all_gather(parts, torch.full((8,), 2.0, device=mesh.device))
+        torch.cuda.synchronize()
+        require(bool((x == 3).all()) and bool((parts[0] == 2).all()),
+                "NCCL's all_reduce or all_gather in a world of one changed its input")
+        del plain, meshed
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    torch.cuda.empty_cache()
+    return {"phase": "parallel_nccl_world_of_one", "backend": backend, "model": MODEL,
+            "layers": 8, "weights": "int4 (seed 0)", "ring": "int8", "mesh": [1, 1, 1],
+            "equal_bits_to_no_mesh": True, "forward_collectives": forward_collectives,
+            "probe": "dist.all_reduce (bf16) and dist.all_gather (fp32) on the NCCL world "
+                     "group: unchanged values",
+            "seconds": time.perf_counter() - t0, "card": card}
+
+
+# The wrappers a sharded forward calls, by module and name, and the plain
+# version each is held to (called with the wrapper's arguments).
+def _plain_versions():
+    from mistral_inference_tpu_torch.ops.cuda import attention as att
+    from mistral_inference_tpu_torch.ops.cuda import matmul_quant as mq
+    from mistral_inference_tpu_torch.ops.cuda import moe_matmul as mm
+    from mistral_inference_tpu_torch.ops.cuda import ssd_step as ss
+
+    def flash(q, k, v, qp, kp, qv, kvv, window, return_stats=False):
+        o, m, l = att.attend_stats_plain(q, k, v, None, None, qp, kp, qv, kvv, int(window))
+        return (o, m, l) if return_stats else o.reshape(*o.shape[:2], -1)
+
+    def ring(q, kq, vq, ks, vs, qp, kp, qv, kvv, window):
+        B, S, D = q.shape[0], kq.shape[1], q.shape[-1]
+        Hkv = kq.shape[2] // D
+        return att.attend_stats_plain(q, kq.reshape(B, S, Hkv, D), vq.reshape(B, S, Hkv, D),
+                                      ks, vs, qp, kp, qv, kvv, int(window))
+
+    return {
+        "flash_attention": flash,
+        "ring_attention_stats": ring,
+        "fused_update_decode_attention": att.fused_update_decode_attention_plain,
+        "fused_verify_chunk_attention": att.fused_verify_chunk_attention_plain,
+        "matmul_quant": mq.matmul_quant_plain,
+        "matmul_quant_stacked": lambda x, q, s, li: mq.matmul_quant_plain(x, q[li], s[li]),
+        "moe_matmul_quant_ragged": mm.moe_matmul_quant_ragged_plain,
+        "moe_matmul_quant": mm.moe_matmul_quant_plain,
+        "moe_matmul_quant_stacked": lambda x, q, s, li: mm.moe_matmul_quant_plain(
+            x, q[li], s[li]),
+        "fused_ssd_step_stacked": ss.fused_ssd_step_stacked_plain,
+    }
+
+
+# (module, wrapper name) pairs a forward resolves its kernels through
+SHARD_CALL_SITES = (
+    ("models.transformer", "flash_attention"), ("models.transformer", "ring_attention_stats"),
+    ("models.transformer", "fused_update_decode_attention"),
+    ("models.transformer", "fused_verify_chunk_attention"),
+    ("models.transformer", "moe_matmul_quant"), ("models.transformer", "moe_matmul_quant_ragged"),
+    ("models.transformer", "moe_matmul_quant_stacked"),
+    ("ops.linear", "matmul_quant"), ("ops.linear", "matmul_quant_stacked"),
+    ("ops.linear", "moe_matmul_quant_ragged"), ("models.mamba", "fused_ssd_step_stacked"),
+)
+# wrapper -> the arguments it writes in place (ring stacks and scales; the SSD state)
+SHARD_WRITES = {"fused_update_decode_attention": (3, 4, 5, 6),
+                "fused_verify_chunk_attention": (3, 4, 5, 6), "fused_ssd_step_stacked": (4,)}
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(v) for v in x)
+    return x
+
+
+def _sig(args) -> str:
+    return " ".join(f"{tuple(a.shape)}:{str(a.dtype).removeprefix('torch.')}"
+                    for a in args if isinstance(a, torch.Tensor))
+
+
+class ShardRecorder:
+    """While entered, keeps a copy of the inputs of the first calls of each
+    kernel wrapper that the sharded forwards make (up to
+    PAR_SHAPES_PER_KERNEL shapes each), to hold each kernel against its
+    plain version at those shard shapes afterwards (``replay``)."""
+
+    def __init__(self):
+        self.records, self._saved = [], []
+
+    def __enter__(self):
+        import importlib
+
+        for mod_name, name in SHARD_CALL_SITES:
+            mod = importlib.import_module(f"mistral_inference_tpu_torch.{mod_name}")
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, self._recording(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        self._saved = []
+
+    def _recording(self, name, fn):
+        def call(*args, **kw):
+            sig = _sig(args)
+            seen = [r for r in self.records if r[0] == name]
+            if len(seen) < PAR_SHAPES_PER_KERNEL and all(r[1] != sig for r in seen):
+                self.records.append((name, sig, fn, _clone(args), _clone(kw)))
+            return fn(*args, **kw)
+        return call
+
+    def replay(self, path: str, card: str) -> list:
+        """One ``kernel_shard`` line per record: the kernel and its plain
+        version on copies of the recorded inputs; the in-place writes (ring
+        bytes and scales, the SSD state) must equal in bits. K6 is held to
+        its plain version over the ring each K2 record wrote."""
+        from mistral_inference_tpu_torch.ops.cuda import attention as att
+
+        plain = _plain_versions()
+        lines = []
+        for name, sig, fn, args, kw in self.records:
+            ka, pa = _clone(args), _clone(args)
+            got, want = fn(*ka, **_clone(kw)), plain[name](*pa, **_clone(kw))
+            torch.cuda.synchronize()
+            lines.append(self._line(path, name, sig, got, want, ka, pa, card))
+            lines[-1]["ms"] = timed_ms(lambda: fn(*ka, **kw))  # after the comparison
+            if name == "fused_update_decode_attention":
+                xq, _, _, CK, CV, KS, VS, li, window, _, q_pos, kv_pos, kv_valid = pa
+                k6 = (xq, CK, CV, KS, VS, li, q_pos[:, None], kv_pos, kv_valid, window)
+                lines.append(self._line(
+                    path, "decode_attention", sig, att.decode_attention(*k6),
+                    att.decode_attention_plain(*k6), (), (), card))
+                lines[-1]["ms"] = timed_ms(lambda: att.decode_attention(*k6))
+        self.records = []
+        return lines
+
+    @staticmethod
+    def _line(path, name, sig, got, want, ka, pa, card) -> dict:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        worst, ok = 0.0, True
+        for g, w in zip(got, want):
+            tol = 1e-2 if g.dtype == torch.bfloat16 else 1e-4
+            good, err = close(g, w, tol, tol)
+            ok, worst = ok and good, max(worst, err)
+        writes = SHARD_WRITES.get(name, ())
+        same_writes = all(same_bits(ka[i], pa[i]) for i in writes if ka[i] is not None)
+        require(ok, f"{name} disagrees with its plain version at the shard shape {sig}: {worst}")
+        require(same_writes, f"{name} wrote other bits than its plain version at {sig}")
+        return {"phase": "kernel_shard", "path": path, "kernel": name, "shape": sig,
+                "max_abs_err": worst, "writes_equal_bits": bool(writes) or None,
+                "tolerance": "abs 1e-2 + rel 1e-2 on bf16 outputs, 1e-4 on fp32 outputs "
+                             "(stats, K9's y); in-place writes equal bits",
+                "card": card}
+
+
+def head_halves_exact(model) -> bool:
+    """Whether the vocab head's two halves (tensor = 2's shards) give the full
+    product's bits, at the row counts the forwards use."""
+    import torch.nn.functional as F
+
+    w = model.params["output"]
+    V = w.shape[0]
+    gen = torch.Generator(device=w.device).manual_seed(3)
+    for rows in (1, 4, 12, 256, 1024):
+        h = torch.randn((rows, w.shape[1]), generator=gen, device=w.device).to(w.dtype)
+        halves = torch.cat([F.linear(h, w[:V // 2]), F.linear(h, w[V // 2:])], -1)
+        if not torch.equal(F.linear(h, w), halves):
+            return False
+    return True
+
+
+def row_halves(model, prompts, swap: bool = False):
+    """``par_generate`` on one device with tensor = 2's row-parallel
+    arithmetic: each layer's ``wo`` and ``w2`` as the two ranks' shards
+    (``sharding.shard_rows``, int4 repacked) on their halves of the input,
+    through the kernels the ranks run, each partial rounded to the
+    activation dtype and the two added in it, as the all-reduce adds them.
+    With ``swap`` each half meets the other rank's shard: a wrong shard."""
+    import torch.nn.functional as F
+
+    from mistral_inference_tpu_torch.models import transformer as tf
+    from mistral_inference_tpu_torch.ops.linear import linear
+    from mistral_inference_tpu_torch.parallel.sharding import shard_rows
+
+    shards = {}
+
+    def halves(x, lw, key):
+        if (id(lw), key) not in shards:
+            shards[id(lw), key] = [shard_rows(lw[key], t, 2) for t in (0, 1)]
+        w0, w1 = shards[id(lw), key][::-1] if swap else shards[id(lw), key]
+        K = x.shape[-1] // 2
+        return linear(x[..., :K].contiguous(), w0) + linear(x[..., K:].contiguous(), w1)
+
+    def wo(out, w, args, mesh):
+        return halves(out, w, "wo")
+
+    def dense_ffn(x, w, args, mesh=None):
+        gate, up = tf._lin(x, w, "w13", args).chunk(2, dim=-1)
+        return halves(F.silu(gate) * up, w, "w2")
+
+    saved = tf._wo, tf._dense_ffn
+    tf._wo, tf._dense_ffn = wo, dense_ffn
+    try:
+        return par_generate(model, prompts)
+    finally:
+        tf._wo, tf._dense_ffn = saved
+        del shards
+        torch.cuda.empty_cache()
+
+
+def _first_divergence(got, want) -> list:
+    return [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), len(b))
+            for a, b in zip(got, want)]
+
+
+def par_reference(path: ParPath) -> dict:
+    """The single-device run of a path, in this process: greedy tokens,
+    logprobs, the teacher-forced logits of the generated tokens, the weight
+    bytes; on (a) also each engine request alone."""
+    from mistral_inference_tpu_torch.models import transformer as tf
+
+    t0 = time.perf_counter()
+    model = par_model(path)
+    prompts = par_prompts(model.args.vocab_size)
+    gen, lps = par_generate(model, prompts)
+    ref = {"tokens": gen, "logprobs": lps, "logits": teacher_logits(model, prompts, gen),
+           "weight_bytes": param_bytes(model.params), "params": tf.param_count(model.params)}
+    if path.label == "a":
+        # One device's own floor: the same model and prompts at chunk 512.
+        gen2, lps2 = par_generate(model, prompts, chunk_size=512)
+        ref["floor_chunk512_nats"] = par_logprob_gap(lps2, lps, _first_divergence(gen2, gen))
+        ref["head_halves_equal_bits"] = head_halves_exact(model)
+        ref["row_halves"] = row_halves(model, prompts)
+        wrong, wrong_lps = row_halves(model, prompts, swap=True)
+        ref["wrong_shard_nats"] = par_logprob_gap(wrong_lps, lps, _first_divergence(wrong, gen))
+        eprompts = par_prompts(model.args.vocab_size, PAR_ENGINE_LENS)
+        alone = [par_generate(model, [p], PAR_ENGINE_TOKENS, chunk_size=512)[0][0]
+                 for p in eprompts]
+        ref["engine_tokens"] = alone
+        ref["engine_logits"] = [teacher_logits(model, [p], [g], 512)[0]
+                                for p, g in zip(eprompts, alone)]
+    ref["seconds"] = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    return ref
+
+
+def par_rank_path(path: ParPath, rank: int, card: str) -> dict:
+    """One path on this rank: the sharded model, its greedy run, decode ==
+    prefill, the launches and collectives, and on (a) an engine and lookup
+    speculation; rank 0 also replays the kernels at their shard shapes."""
+    import contextlib
+
+    from mistral_inference_tpu_torch.ops import cuda as kern
+    from mistral_inference_tpu_torch.parallel.inspect import decode_collective_inventory
+    from mistral_inference_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(*path.mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = par_model(path, mesh)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "weight_bytes": param_bytes(model.params)}
+    prompts = par_prompts(model.args.vocab_size)
+    recorder = ShardRecorder() if rank == 0 else contextlib.nullcontext()
+    kern.reset_launch_counts()
+    t = time.perf_counter()
+    with recorder:
+        gen, lps = par_generate(model, prompts)
+    torch.cuda.synchronize()
+    out.update(tokens=gen, logprobs=lps, generate_s=time.perf_counter() - t,
+               launches=launch_counts())
+    full = [p + g for p, g in zip(prompts, gen)]
+    _, tf_lps = par_generate(model, full, max_tokens=0)
+    gaps = [abs(a - b) for lp, tl, g in zip(lps, tf_lps, gen)
+            for a, b in zip(lp[-len(g):], tl[-len(g):])]
+    out["decode_prefill_max_nats"], out["decode_prefill_mean_nats"] = (
+        max(gaps), sum(gaps) / len(gaps))
+    out["decode_collectives"] = decode_collective_inventory(model)
+    if path.label == "a":
+        from mistral_inference_tpu_torch.server.engine import Engine
+
+        eprompts = par_prompts(model.args.vocab_size, PAR_ENGINE_LENS)
+        engine = Engine(model, batch_size=4,
+                        max_seq_len=max(PAR_ENGINE_LENS) + PAR_ENGINE_TOKENS + 8)
+        ids = [engine.submit(p, max_tokens=PAR_ENGINE_TOKENS) for p in eprompts]
+        t = time.perf_counter()
+        done = engine.run_to_completion()
+        out["engine_s"] = time.perf_counter() - t
+        out["engine_tokens"] = [done[i] for i in ids]
+        del engine
+        kern.reset_launch_counts()
+        with recorder:
+            out["lookup_tokens"] = par_generate(model, prompts, draft_model="lookup",
+                                                spec_tokens=PAR_LOOKUP_K)[0]
+        out["lookup_launches"] = launch_counts()
+    out["kernel_shard"] = recorder.replay(path.label, card) if rank == 0 else []
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seconds"] = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_rank(rank: int, port: int, workdir: str, card: str) -> None:
+    """One of two ranks on the one card. They share cuda:0, which NCCL
+    refuses ("Duplicate GPU detected"), so they join over gloo, which stages
+    the CUDA tensors of each collective through the host: the sharded math
+    and the kernels at shard shapes run on the card, at none of NCCL's
+    speed. Writes rank<r>.json (or rank<r>.err) into ``workdir``."""
+    import os
+    import traceback
+
+    sys.path.insert(0, str(ROOT))
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from mistral_inference_tpu_torch.parallel.distributed import init_distributed
+
+    try:
+        init_distributed(backend="gloo", timeout_s=180)
+        results = {p.label: par_rank_path(p, rank, card) for p in PAR_PATHS}
+        (Path(workdir) / f"rank{rank}.json").write_text(json.dumps(results))
+    except Exception:
+        (Path(workdir) / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def parallel_phase(card: str) -> dict:
+    """Phase 13: an NCCL world of one, then paths (a)-(d), an engine and
+    lookup speculation over two gloo ranks on the card, each against the
+    single-device port on the same seed and prompts in this run."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    emit(nccl_world_of_one(card))
+    refs = {p.label: par_reference(p) for p in PAR_PATHS}
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as tmp:
+        port = _free_port()
+        ranks = [ctx.Process(target=par_rank, args=(r, port, tmp, card)) for r in range(2)]
+        t_ranks = time.perf_counter()
+        for p in ranks:
+            p.start()
+        deadline = time.monotonic() + PAR_TIMEOUT_S
+        for p in ranks:
+            p.join(max(1.0, deadline - time.monotonic()))
+        for p in ranks:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        errors = [(Path(tmp) / f"rank{r}.err") for r in range(2)]
+        for r, err in enumerate(errors):
+            require(not err.exists(), f"rank {r} failed:\n" + (err.read_text()
+                                                                if err.exists() else ""))
+        require(all(p.exitcode == 0 for p in ranks),
+                f"the ranks exited {[p.exitcode for p in ranks]} (killed after "
+                f"{PAR_TIMEOUT_S} s if negative)")
+        res = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(2)]
+        ranks_s = time.perf_counter() - t_ranks
+
+    summary = {"phase": "parallel", "card": card, "ranks": 2, "backend": "gloo",
+               "device": "cuda:0 for both ranks", "prompt_lens": PAR_PROMPT_LENS,
+               "chunk_size": PAR_CHUNK, "max_tokens": PAR_TOKENS,
+               "logprob_bound": {"max_nats": PAR_MAX_NATS, "mean_nats": PAR_MEAN_NATS},
+               "paths": {}}
+    for path in PAR_PATHS:
+        ref, r0, r1 = refs[path.label], res[0][path.label], res[1][path.label]
+        for line in r0["kernel_shard"]:
+            emit(line)
+        label = f"{path.label} {path.model} x{path.layers} mesh{list(path.mesh)}"
+        require(r0["tokens"] == r1["tokens"] and r0["logprobs"] == r1["logprobs"],
+                f"{label}: the two ranks returned other tokens or logprobs")
+        firsts = par_diverged(path.label, ref["tokens"], ref["logits"], r0["tokens"])
+        max_nats, mean_nats = par_logprob_gap(r0["logprobs"], ref["logprobs"], firsts)
+        require(max_nats <= PAR_MAX_NATS and mean_nats <= PAR_MEAN_NATS,
+                f"{label}: logprobs {max_nats} max, {mean_nats} mean nats from one device")
+        require(not path.exact or (r0["tokens"] == ref["tokens"]
+                                   and r0["logprobs"] == ref["logprobs"]),
+                f"{label}: the tokens or logprobs are not one device's bits")
+        moe = path.model == MOE_MODEL
+        inv_max, inv_mean = ((MOE_INVARIANT_MAX_NATS, MOE_INVARIANT_MEAN_NATS) if moe
+                             else (INVARIANT_MAX_NATS, INVARIANT_MEAN_NATS))
+        for r in (r0, r1):
+            require(r["decode_prefill_max_nats"] <= inv_max
+                    and r["decode_prefill_mean_nats"] <= inv_mean,
+                    f"{label}: decode != prefill on the sharded model")
+            for name in path.expected:
+                require(r["launches"][name] > 0, f"{label}: {name} was not launched on a rank")
+            for name in path.per_decode:
+                require(r["launches"][name] == path.layers * PAR_TOKENS,
+                        f"{label}: {name} launched {r['launches'][name]} times, not "
+                        f"{path.layers} x {PAR_TOKENS}")
+        coll = r0["decode_collectives"]
+        if path.label == "a":
+            require(coll["all_reduce"] == 2 * path.layers and coll["all_gather"] <= 2,
+                    f"{label}: one decode forward issued {coll}")
+        line = {
+            "path": path.label, "model": path.model, "layers": path.layers,
+            "mesh": dict(zip(("data", "expert", "tensor"), path.mesh)),
+            "ring": path.ring, "weights": "int4 (group 128), drawn in bf16 from seed 0",
+            "params": ref["params"],
+            "tokens_equal_ranks": True,
+            "equal_bits_to_one_device": r0["tokens"] == ref["tokens"]
+            and r0["logprobs"] == ref["logprobs"],
+            "rows_diverged": sum(f < PAR_TOKENS for f in firsts),
+            "logprob_max_nats": max_nats, "logprob_mean_nats": mean_nats,
+            "decode_prefill_max_nats": [r0["decode_prefill_max_nats"],
+                                        r1["decode_prefill_max_nats"]],
+            "decode_prefill_mean_nats": [r0["decode_prefill_mean_nats"],
+                                         r1["decode_prefill_mean_nats"]],
+            "decode_prefill_bound": [inv_max, inv_mean],
+            "launches_rank0": {k: v for k, v in r0["launches"].items() if v},
+            "launches_rank1": {k: v for k, v in r1["launches"].items() if v},
+            "decode_collectives": [r0["decode_collectives"], r1["decode_collectives"]],
+            "weight_bytes_per_rank": [r0["weight_bytes"], r1["weight_bytes"]],
+            "weight_bytes_one_device": ref["weight_bytes"],
+            "peak_mem_gb_per_rank": [r0["peak_mem_gb"], r1["peak_mem_gb"]],
+            "seconds_per_rank": [r0["seconds"], r1["seconds"]],
+            "generate_s_per_rank": [r0["generate_s"], r1["generate_s"]],
+            "reference_s": ref["seconds"],
+        }
+        if path.label == "a":
+            require(ref["head_halves_equal_bits"],
+                    "the vocab head's halves are not the full product's bits")
+            # The witnesses of the bound: tensor = 2's row-parallel arithmetic
+            # done by halves on one device, and a wrong shard.
+            halves, halves_lps = ref["row_halves"]
+            halves_nats = par_logprob_gap(halves_lps, ref["logprobs"],
+                                          _first_divergence(halves, ref["tokens"]))
+            wrong_nats = ref["wrong_shard_nats"]
+            to_halves = par_logprob_gap(r0["logprobs"], halves_lps,
+                                        _first_divergence(r0["tokens"], halves))
+            require(halves_nats[0] <= PAR_MAX_NATS and halves_nats[1] <= PAR_MEAN_NATS,
+                    f"{label}: row-parallel halves on one device {halves_nats} nats from "
+                    "the whole products")
+            require(to_halves[1] < mean_nats,
+                    f"{label}: the sharded run lies {to_halves} nats from the row-parallel "
+                    f"halves on one device, no nearer than to the whole products")
+            require(wrong_nats[0] > PAR_MAX_NATS and wrong_nats[1] > PAR_MEAN_NATS,
+                    f"{label}: the bound does not tell a wrong shard ({wrong_nats} nats)")
+            line.update(head_halves_equal_bits=True,
+                        floor_chunk512_vs_256_nats=ref["floor_chunk512_nats"],
+                        row_halves_one_device_nats=halves_nats,
+                        sharded_vs_row_halves_nats=to_halves,
+                        sharded_equal_bits_to_row_halves=r0["tokens"] == halves
+                        and r0["logprobs"] == halves_lps,
+                        wrong_shard_nats=wrong_nats)
+            for r in (r0, r1):
+                require(r["engine_tokens"] == r0["engine_tokens"]
+                        and r["lookup_tokens"] == r0["lookup_tokens"],
+                        "a: the ranks' engine or lookup tokens differ")
+                require(r["lookup_launches"][K7F] > 0, "a: lookup did not launch K7-fp8")
+            eng_first = [par_diverged("a-engine", [t], lg[None], [g])[0] for t, lg, g in zip(
+                ref["engine_tokens"], ref["engine_logits"], r0["engine_tokens"])]
+            look_first = par_diverged("a-lookup", ref["tokens"], ref["logits"],
+                                      r0["lookup_tokens"])
+            line.update(
+                engine={"batch_size": 4, "requests": len(PAR_ENGINE_LENS),
+                        "prompt_lens": PAR_ENGINE_LENS, "max_tokens": PAR_ENGINE_TOKENS,
+                        "rows_diverged": sum(f < PAR_ENGINE_TOKENS for f in eng_first),
+                        "seconds_per_rank": [r0["engine_s"], r1["engine_s"]]},
+                lookup={"spec_tokens": PAR_LOOKUP_K,
+                        "rows_diverged": sum(f < PAR_TOKENS for f in look_first),
+                        "launches_rank0": {k: v for k, v in r0["lookup_launches"].items() if v}})
+        summary["paths"][path.label] = line
+        emit({"phase": "parallel_path", "card": card, **line})
+    summary.update(kernel_shard_lines=sum(len(res[0][p.label]["kernel_shard"]) for p in PAR_PATHS),
+                   ranks_s=ranks_s, seconds=time.perf_counter() - t0)
+    return summary
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4258,7 +4962,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             for name, run in (("spec_serving", lambda: spec_serving_phase(card)),
                               ("mamba_serving", lambda: mamba_serving_phase(card)),
-                              ("lora", lambda: lora_phase(card, Path(tmp)))):
+                              ("lora", lambda: lora_phase(card, Path(tmp))),
+                              ("parallel", lambda: parallel_phase(card))):
                 if name in phases[0]:
                     emit(run())
                     torch.cuda.empty_cache()
@@ -4336,6 +5041,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         emit(lora_phase(card, Path(tmp)))
         torch.cuda.empty_cache()
+    # Many GPUs: an NCCL world of one, then two gloo ranks sharing the card.
+    emit(parallel_phase(card))
+    torch.cuda.empty_cache()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "note": "from the start of main(): the build, every check and path; not the "
                   "interpreter's start and the import of torch"})

@@ -13,6 +13,11 @@ donates the old ones), this port updates the ring IN PLACE: ``update_stacked``
 and the fused decode kernel write into the tensors they are given. Ring bytes
 move through ``uint8`` views of one-byte rings, so no element is ever
 converted on its way and no indexing op needs a float8 implementation.
+
+Under a mesh (``parallel/``) a rank's rings hold its KV heads and, with
+data parallelism, its rows of the global batch from ``row0`` on, while
+``kv_len`` stays the global (B,) fill on every rank, so the host loops read
+and rewind it as on one device. ``local`` is the view a forward works on.
 """
 
 from __future__ import annotations
@@ -39,10 +44,22 @@ class KVCache:
     # (L, B, Hkv, W) fp32 scales for scaled rings; None for bf16 rings.
     k_scale: Optional[torch.Tensor]
     v_scale: Optional[torch.Tensor]
+    # Under data parallelism the global row of the rings' first row (they
+    # hold k.shape[1] rows of the padded batch); None: they hold every row.
+    row0: Optional[int] = None
 
     @property
     def size(self) -> int:
         return self.k.shape[2]
+
+    def local(self) -> "KVCache":
+        """The rings with ``kv_len`` of their own rows only (a copy): what a
+        forward of this rank's rows reads and advances. The global fill is
+        the caller's to advance."""
+        from mistral_inference_tpu_torch.parallel.multihost import local_rows
+
+        return KVCache(self.k, self.v, local_rows(self.kv_len, self.row0, self.k.shape[1]),
+                       self.windows, self.k_scale, self.v_scale)
 
     @classmethod
     def alloc(
@@ -56,16 +73,21 @@ class KVCache:
         dtype: torch.dtype = torch.bfloat16,
         kv_quant: str = "bf16",
         device: Union[str, torch.device] = "cuda",
+        ring_rows: Optional[int] = None,
+        row0: Optional[int] = None,
     ) -> "KVCache":
+        """Rings of ``batch`` rows, or under data parallelism of this rank's
+        ``ring_rows`` from global row ``row0``; ``kv_len`` has ``batch``."""
         sizes = _cache_sizes(n_layers, max_seq_len, sliding_window)
+        rows = batch if ring_rows is None else ring_rows
         # W padded to 128: the kernels tile the ring in 128-slot steps. Slots
         # at or past a layer's window are never written or valid.
         W = -(-max(sizes) // 128) * 128
         kv_dtype = kv_cache_dtype(kv_quant, dtype)
-        shape = (n_layers, batch, W, n_kv_heads * head_dim)
+        shape = (n_layers, rows, W, n_kv_heads * head_dim)
         scales = None, None
         if is_scaled_dtype(kv_dtype):
-            sshape = (n_layers, batch, n_kv_heads, W)
+            sshape = (n_layers, rows, n_kv_heads, W)
             scales = (
                 torch.ones(sshape, dtype=torch.float32, device=device),
                 torch.ones(sshape, dtype=torch.float32, device=device),
@@ -77,6 +99,7 @@ class KVCache:
             windows=sizes,
             k_scale=scales[0],
             v_scale=scales[1],
+            row0=row0,
         )
 
 
@@ -203,7 +226,15 @@ def scatter_chunk(
     prefix is ever written, so rejected draft tokens cannot clobber live
     ring entries even when the ring wraps. int8 rings quantize on write
     with the rule of ``update_stacked``: the committed bytes are those a
-    plain decode step would have written."""
+    plain decode step would have written. Under data parallelism the chunk
+    holds this rank's rows, ``accept`` the global batch's."""
+    if cache.row0 is not None:
+        from mistral_inference_tpu_torch.parallel.multihost import local_rows
+
+        scatter_chunk(cache.local(), chunk_k, chunk_v,
+                      local_rows(accept, cache.row0, chunk_k.shape[1]))
+        cache.kv_len = cache.kv_len + accept.to(torch.int32)
+        return cache
     T = chunk_k.shape[2]
     steps = torch.arange(T, dtype=torch.int32, device=accept.device)
     accept = accept.to(torch.int32)

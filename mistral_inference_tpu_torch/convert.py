@@ -33,6 +33,10 @@ its linears (``(L, in, out)`` stacks and the adapter's, PatchMerger's
 as in the decoder; ``patch_conv`` (O, I, P, P), the norms and the adapter
 biases are copied as they are.
 
+With ``mesh`` (``parallel/``) each layer is assembled on the host, cut to
+this rank's shard there (``parallel/sharding.py``) and only the shard moves
+to the device; the head is vocab-sharded, the rest replicated.
+
 ``params_to_stacked`` (and its Mamba and vision cases) is the inverse: it
 un-fuses along out, which is exact for the same reason, and re-stacks to the
 JAX tree's ``(L, in, out)`` CPU tensors in their dtypes;
@@ -49,6 +53,8 @@ import torch
 from mistral_inference_tpu_torch.args import MambaArgs, TransformerArgs
 from mistral_inference_tpu_torch.model import resolve_device
 from mistral_inference_tpu_torch.models.transformer import LORA_PARTS, Params
+from mistral_inference_tpu_torch.parallel import sharding
+from mistral_inference_tpu_torch.parallel.mesh import Mesh
 
 # port weight -> the JAX leaves stacked along its out dim; "ffn" stands for
 # the tree's feed-forward family, "feed_forward" or "moe"
@@ -86,6 +92,51 @@ def _dev(t: torch.Tensor, device, transpose: bool = False) -> torch.Tensor:
     return (t.t() if transpose else t).contiguous()
 
 
+def to_device(tree: Any, device) -> Any:
+    """A tree of tensors (dicts and lists) moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+class Placer:
+    """Where a loader puts each layer: straight on ``device``; or, under a
+    mesh, on the host first, cut to this rank's shard by ``shard(layer,
+    args, mesh)`` after ``check(args, mesh, quant, group)`` has passed on the
+    first layer, and then moved."""
+
+    def __init__(self, device, mesh: Optional[Mesh], args, shard, check, group_leaf: str):
+        self.device, self.mesh, self.args = device, mesh, args
+        self._shard, self._check, self._group_leaf = shard, check, group_leaf
+        self.build = torch.device("cpu") if mesh is not None else device
+        self._checked = False
+
+    def layer(self, lw: Params) -> Params:
+        if self.mesh is None:
+            return lw
+        if not self._checked:
+            group = sharding.leaf_group(lw[self._group_leaf]) or 128
+            self._check(self.args, self.mesh, self.args.quant, group)
+            self._checked = True
+        return to_device(self._shard(lw, self.args, self.mesh), self.device)
+
+    def head(self, w: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return w
+        return sharding.shard_vocab(w, self.mesh.t, self.mesh.tensor).to(self.device)
+
+
+def transformer_placer(device, mesh: Optional[Mesh], args) -> Placer:
+    return Placer(device, mesh, args, sharding.shard_layer, sharding.check_transformer, "wo")
+
+
+def mamba_placer(device, mesh: Optional[Mesh], args) -> Placer:
+    return Placer(device, mesh, args, sharding.shard_mamba_layer, sharding.check_mamba,
+                  "out_proj")
+
+
 def _fused(parts: Sequence[Any], i: int, device) -> Any:
     """Layer i of the JAX (L, ..., in, out) leaves ``parts`` fused along out:
     a quantized leaf or an expert stack keeps (..., in, out), a plain linear
@@ -99,12 +150,17 @@ def _fused(parts: Sequence[Any], i: int, device) -> Any:
 def params_from_numpy(
     tree: Dict[str, Any],
     device: Optional[Union[str, torch.device]] = None,
+    mesh: Optional[Mesh] = None,
+    args: Optional[TransformerArgs] = None,
 ) -> Params:
     """Dense or MoE JAX params (numpy or CPU torch leaves), plain or
     weight-only quantized, with or without live LoRA leaves -> this port's
     params, on the card unless ``device="cpu"``. Raises on a LoRA leaf of a
-    linear the model does not adapt live."""
+    linear the model does not adapt live. With ``mesh`` (and the model's
+    ``args``), this rank's shard."""
     device = resolve_device(device)
+    place = transformer_placer(device, mesh, args)
+    final, device = device, place.build
     layers = tree["layers"]
     ffn = "moe" if "moe" in layers else "feed_forward"
     if ffn not in layers:
@@ -133,15 +189,15 @@ def params_from_numpy(
                 name: {k: _dev(v[i], device) for k, v in layers[group][name + "_lora"].items()}
                 for group, name in lora
             }
-        out_layers.append(lw)
+        out_layers.append(place.layer(lw))
     params = {
-        "tok_embeddings": _dev(tree["tok_embeddings"], device),
+        "tok_embeddings": _dev(tree["tok_embeddings"], final),
         "layers": out_layers,
-        "norm": _dev(tree["norm"], device),
-        "output": _dev(tree["output"], device, transpose=True),
+        "norm": _dev(tree["norm"], final),
+        "output": place.head(_dev(tree["output"], device, transpose=True)),
     }
     if "vision" in tree:
-        params["vision"] = vision_params_from_numpy(tree["vision"], device)
+        params["vision"] = vision_params_from_numpy(tree["vision"], final)
     return params
 
 
@@ -189,11 +245,15 @@ _MAMBA_SEGMENTS = ("x", "B", "C")
 def mamba_params_from_numpy(
     tree: Dict[str, Any],
     device: Optional[Union[str, torch.device]] = None,
+    mesh: Optional[Mesh] = None,
+    args: Optional[MambaArgs] = None,
 ) -> Params:
     """Mamba2 JAX params (numpy or CPU torch leaves), plain or weight-only
     quantized -> this port's params (``models/mamba.py``), on the card unless
-    ``device="cpu"``."""
+    ``device="cpu"``; with ``mesh`` (and ``args``), this rank's shard."""
     device = resolve_device(device)
+    place = mamba_placer(device, mesh, args)
+    final, device = device, place.build
     tree = _torch_tree(tree)
     layers = tree["layers"]
     out_layers = []
@@ -202,7 +262,7 @@ def mamba_params_from_numpy(
             return _dev(torch.cat([layers[f"{name}_{s}"][i] for s in _MAMBA_SEGMENTS], -1),
                         device)
 
-        out_layers.append({
+        out_layers.append(place.layer({
             "norm": _dev(layers["norm"][i], device),
             "in_proj": _fused([layers[k] for k in _MAMBA_IN_PROJ], i, device),
             "dt_proj": _fused([layers["dt_proj"]], i, device),
@@ -213,14 +273,14 @@ def mamba_params_from_numpy(
             "dt_bias": _dev(layers["dt_bias"][i], device),
             "mixer_norm": _dev(layers["mixer_norm"][i], device),
             "out_proj": _fused([layers["out_proj"]], i, device),
-        })
+        }))
     params = {
-        "embedding": _dev(tree["embedding"], device),
+        "embedding": _dev(tree["embedding"], final),
         "layers": out_layers,
-        "norm_f": _dev(tree["norm_f"], device),
+        "norm_f": _dev(tree["norm_f"], final),
     }
     if "lm_head" in tree:
-        params["lm_head"] = _dev(tree["lm_head"], device, transpose=True)
+        params["lm_head"] = place.head(_dev(tree["lm_head"], device, transpose=True))
     return params
 
 

@@ -18,7 +18,6 @@ import torch.nn.functional as F
 
 from mistral_inference_tpu_torch.model import Mamba, Transformer
 from mistral_inference_tpu_torch.models import mamba as mm
-from mistral_inference_tpu_torch.models import transformer as tf
 
 DEFAULT_TOP_P = 0.8  # the reference's decode loop uses top_p = 0.8
 
@@ -125,12 +124,12 @@ def _prefill_step(
                            input_embeds=input_embeds)
     B = hidden.shape[0]
     rows = torch.arange(B, device=hidden.device)
-    last = tf.output_head(model.params, hidden[rows, (seqlens - 1).clamp_min(0).long()])
+    last = model.head(hidden[rows, (seqlens - 1).clamp_min(0).long()])
     last = torch.where((seqlens > 0)[:, None], last, carry)
     if not want_logprobs:
         return None, last
     logprobs = _sliced_teacher_logprobs(
-        hidden, tokens, carry, lambda h: tf.output_head(model.params, h)
+        hidden, tokens, carry, model.head
     )
     return logprobs, last
 
@@ -389,12 +388,12 @@ def _mamba_prefill_step(
     prelogits, or ``carry`` for a row with no token here)."""
     hidden = model.forward(tokens, seqlens, state, chunk, head="none")
     rows = torch.arange(hidden.shape[0], device=hidden.device)
-    last = mm.apply_head(hidden[rows, (seqlens - 1).clamp_min(0).long()], model.params, model.args)
+    last = model.head(hidden[rows, (seqlens - 1).clamp_min(0).long()])
     last = torch.where((seqlens > 0)[:, None], last, carry)
     if not want_logprobs:
         return None, last
     logprobs = _sliced_teacher_logprobs(
-        hidden, tokens, carry, lambda h: mm.apply_head(h, model.params, model.args)
+        hidden, tokens, carry, model.head
     )
     return logprobs, last
 

@@ -17,6 +17,9 @@ time and bf16 is never widened on the host.
 keys, bf16 leaves as ``<key>.bf16bits`` uint16, quantized leaves as their
 int8 / packed int4 bytes and fp32 scales. One export loads in both packages.
 Its loader keeps every stored dtype as it is.
+
+With ``mesh`` (``parallel/``) every rank reads the memory-mapped folder and
+puts only its shard of each layer on its device (``convert.Placer``).
 """
 
 from __future__ import annotations
@@ -146,20 +149,26 @@ def load_transformer_params(
     args: TransformerArgs,
     dtype: torch.dtype = torch.bfloat16,
     device: Optional[Union[str, torch.device]] = None,
+    mesh=None,
 ) -> Params:
     """This port's params for a reference folder (every leaf cast to
     ``dtype``), or for a stacked export (stored dtypes kept), on the card
     unless ``device="cpu"``. With ``args.lora`` every layer gets zero live
     adapter pairs on the attention and on a dense feed-forward, as the JAX
     package loads them (an export that holds pairs keeps its own); an
-    adapter file fills them (``lora.load_lora``)."""
+    adapter file fills them (``lora.load_lora``). With ``mesh``, this
+    rank's shard."""
     from mistral_inference_tpu_torch.model import resolve_device
 
     device = resolve_device(device)
+    if mesh is not None and args.lora is not None:
+        from mistral_inference_tpu_torch.parallel.sharding import LIVE_LORA_UNPORTED
+
+        raise NotImplementedError(LIVE_LORA_UNPORTED)
     if is_stacked(folder):
-        params = convert.params_from_numpy(_load_stacked(Path(folder)), device)
+        params = convert.params_from_numpy(_load_stacked(Path(folder)), device, mesh, args)
     else:
-        params = _load_reference(folder, args, dtype, device)
+        params = _load_reference(folder, args, dtype, convert.transformer_placer(device, mesh, args))
     if args.lora is not None:
         for lw in params["layers"]:
             if "lora" not in lw:
@@ -167,9 +176,11 @@ def load_transformer_params(
     return params
 
 
-def _load_reference(folder, args: TransformerArgs, dtype: torch.dtype, device) -> Params:
+def _load_reference(folder, args: TransformerArgs, dtype: torch.dtype,
+                    place: convert.Placer) -> Params:
     sd = load_raw_state_dict(folder)
-    put = functools.partial(_put, sd, dtype, device)
+    put = functools.partial(_put, sd, dtype, place.build)
+    final = functools.partial(_put, sd, dtype, place.device)
     layers = []
     for i in range(args.n_layers):
         p = f"layers.{i}"
@@ -190,15 +201,15 @@ def _load_reference(folder, args: TransformerArgs, dtype: torch.dtype, device) -
         else:
             lw["w13"] = put(f"{p}.feed_forward.w1.weight", f"{p}.feed_forward.w3.weight")
             lw["w2"] = put(f"{p}.feed_forward.w2.weight")
-        layers.append(lw)
+        layers.append(place.layer(lw))
     params: Params = {
-        "tok_embeddings": put("tok_embeddings.weight"),
+        "tok_embeddings": final("tok_embeddings.weight"),
         "layers": layers,
-        "norm": put("norm.weight"),
-        "output": put("output.weight"),
+        "norm": final("norm.weight"),
+        "output": place.head(put("output.weight")),
     }
     if args.vision_encoder is not None:
-        params["vision"] = _load_vision(args, put)
+        params["vision"] = _load_vision(args, final)
     return params
 
 
@@ -243,22 +254,26 @@ def load_mamba_params(
     args: MambaArgs,
     dtype: torch.dtype = torch.bfloat16,
     device: Optional[Union[str, torch.device]] = None,
+    mesh=None,
 ) -> Params:
     """This port's Mamba2 params for a mamba_ssm ``MambaLMHeadModel`` folder,
     or for a stacked export, on the card unless ``device="cpu"``. A_log, D
     and dt_bias stay fp32: they feed the fp32 scan whatever the model dtype.
     mamba_ssm packs ``in_proj`` rows as [z | x | B | C | dt] and the conv's
     channels as [x | B | C]; the port keeps z | x | B | C as one
-    ``in_proj``, ``dt_proj`` apart, and the conv as (K, conv_dim)."""
+    ``in_proj``, ``dt_proj`` apart, and the conv as (K, conv_dim). With
+    ``mesh``, this rank's shard."""
     from mistral_inference_tpu_torch.model import resolve_device
 
     device = resolve_device(device)
     if is_stacked(folder):
-        return convert.mamba_params_from_numpy(_load_stacked(Path(folder)), device)
+        return convert.mamba_params_from_numpy(_load_stacked(Path(folder)), device, mesh, args)
+    place = convert.mamba_placer(device, mesh, args)
     sd = load_raw_state_dict(folder)
     zxbc = 2 * args.d_inner + 2 * args.n_groups * args.d_state
-    put = functools.partial(_put, sd, dtype, device)
-    fp32 = functools.partial(_put, sd, torch.float32, device)
+    put = functools.partial(_put, sd, dtype, place.build)
+    final = functools.partial(_put, sd, dtype, place.device)
+    fp32 = functools.partial(_put, sd, torch.float32, place.build)
     layers = []
     for i in range(args.n_layers):
         p = f"backbone.layers.{i}"
@@ -266,7 +281,7 @@ def load_mamba_params(
         if in_proj.shape[0] != zxbc + args.n_ssm_heads:
             raise ValueError(f"{p}.mixer.in_proj.weight has {in_proj.shape[0]} rows, the args "
                              f"give {zxbc + args.n_ssm_heads}")
-        layers.append({
+        layers.append(place.layer({
             "norm": put(f"{p}.norm.weight"),
             "in_proj": in_proj[:zxbc].contiguous(),
             "dt_proj": in_proj[zxbc:].contiguous(),
@@ -277,12 +292,12 @@ def load_mamba_params(
             "dt_bias": fp32(f"{p}.mixer.dt_bias"),
             "mixer_norm": put(f"{p}.mixer.norm.weight"),
             "out_proj": put(f"{p}.mixer.out_proj.weight"),
-        })
+        }))
     params: Params = {
-        "embedding": put("backbone.embedding.weight"),
+        "embedding": final("backbone.embedding.weight"),
         "layers": layers,
-        "norm_f": put("backbone.norm_f.weight"),
+        "norm_f": final("backbone.norm_f.weight"),
     }
     if not args.tie_embeddings:
-        params["lm_head"] = put("lm_head.weight")
+        params["lm_head"] = place.head(put("lm_head.weight"))
     return params

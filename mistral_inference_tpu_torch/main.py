@@ -12,21 +12,34 @@ kernels' plain versions; for tests). ``--quant int8|int4``, ``--kv_quant fp8|int
 <adapter.safetensors>`` work as in the JAX package: an adapter merges into
 the dense weights before any quantization (or fills the live pairs of a
 folder whose ``params.json`` has ``lora``). ``quantize`` takes
-``--lora_path`` too, and exports the merged model. ``--tensor`` takes 1 or
-``auto`` (one device); meshes (``--tensor`` > 1, ``--seq`` > 1) are not
-ported yet and raise.
+``--lora_path`` too, and exports the merged model.
+
+Over N GPUs, one process each, started by ``torchrun``:
+
+    torchrun --nproc-per-node N -m mistral_inference_tpu_torch.main demo <model_path> --tensor N
+
+``--tensor N`` shards the model over N ranks (it needs ``WORLD_SIZE`` = N);
+``--tensor auto`` factorizes the world into (data, expert, tensor) as the
+JAX package does, data at most ``gcd(data, --max_batch_size)`` (ranks left
+over sit idle), and a world of one stays one device. Only the primary rank
+prints; in ``chat`` it reads the prompts and sends them to the others.
+``--seq`` > 1 is not ported yet and raises.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import math
 from typing import List, Optional
 
 import torch
 
 from mistral_inference_tpu_torch.generate import generate, generate_mamba
+from mistral_inference_tpu_torch.args import load_args
 from mistral_inference_tpu_torch.model import Mamba, Transformer, _requantize, get_model_cls
+from mistral_inference_tpu_torch.parallel import distributed
+from mistral_inference_tpu_torch.parallel.mesh import SEQ_UNPORTED, auto_factorize, make_mesh
 from mistral_inference_tpu_torch.tokenizers import (
     ChatRequest,
     Message,
@@ -35,10 +48,32 @@ from mistral_inference_tpu_torch.tokenizers import (
 )
 
 
-def _check_unported(args) -> None:
-    if args.tensor != "auto" and int(args.tensor) > 1 or int(getattr(args, "seq", 1)) > 1:
-        raise NotImplementedError("meshes (--tensor > 1, --seq > 1) are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 6)")
+def _make_mesh(args, cls):
+    """The mesh of ``--tensor`` over the ``torchrun`` world, or None for one
+    device. Every rank joins the process group and makes the mesh; a rank
+    the mesh leaves out gets None too and sits the run out."""
+    if int(getattr(args, "seq", 1)) > 1:
+        raise NotImplementedError(SEQ_UNPORTED)
+    world = distributed.world_size()
+    if args.tensor == "auto":
+        if world == 1:
+            return None
+        margs = load_args(args.model_path)
+        # TP shards KV heads (a transformer) or SSD groups (a Mamba).
+        n_kv = margs.n_groups if cls is Mamba else margs.n_kv_heads
+        n_exp = margs.moe.num_experts if getattr(margs, "moe", None) else 0
+        data, expert, tensor = auto_factorize(world, n_kv_heads=n_kv, n_experts=n_exp)
+        # data shards the batch: at most a divisor of max_batch_size
+        data = math.gcd(data, args.max_batch_size)
+    else:
+        data, expert, tensor = 1, 1, int(args.tensor)
+        if world != tensor:
+            raise ValueError(f"--tensor {tensor} needs {tensor} ranks, found {world}: start "
+                             f"them with torchrun --nproc-per-node {tensor}")
+        if tensor == 1:
+            return None
+    distributed.init_distributed(device=args.device)
+    return make_mesh(data, expert, tensor, device=distributed.rank_device(args.device))
 
 
 def _with_lora(cls, args, **kw):
@@ -56,9 +91,14 @@ def _with_lora(cls, args, **kw):
 
 
 def _load(args):
-    _check_unported(args)
+    """The model of ``args`` (under a mesh, this rank's shard), or None on a
+    rank the mesh leaves out."""
     cls = get_model_cls(args.model_path)
-    kw = dict(max_batch_size=args.max_batch_size, dtype=torch.bfloat16, device=args.device)
+    mesh = _make_mesh(args, cls)
+    if mesh is None and distributed.world_size() > 1:
+        return None
+    kw = dict(max_batch_size=args.max_batch_size, dtype=torch.bfloat16, device=args.device,
+              mesh=mesh)
     if cls is Transformer:
         kw["kv_quant"] = args.kv_quant
     else:
@@ -78,8 +118,15 @@ def _load(args):
                                  "supports --draft_path lookup (n-gram) only")
             model._draft = Transformer.from_folder(
                 args.draft_path, max_batch_size=args.max_batch_size, dtype=torch.bfloat16,
-                device=args.device)
+                device=args.device, mesh=mesh)
     return model
+
+
+def _shared(model, value):
+    """``value`` from the primary rank on every rank of ``model``'s mesh
+    (as is, without one): what the primary read from the terminal."""
+    mesh = getattr(model, "mesh", None)
+    return value if mesh is None else mesh.broadcast_object(value)
 
 
 def _generate(model, prompts: List[List[int]], args, eos_id: Optional[int], images=()):
@@ -115,18 +162,10 @@ def _get_multimodal_input():
     return chunks
 
 
-def interactive(args) -> None:
-    """Multi-turn chat REPL."""
-    tok = load_tokenizer(args.model_path)
-    model = _load(args)
-    messages: List[Message] = []
-    if args.system_prompt:
-        messages.append(Message("system", args.system_prompt))
-
-    is_multimodal = isinstance(model, Transformer) and model.args.vision_encoder is not None
-    print("Interactive chat. Ctrl-D to exit.")
+def _read_turn(tok, model, args, messages: List[Message], is_multimodal: bool):
+    """The next user turn from the terminal as (ids, images), the message
+    appended to ``messages``; None at the input's end."""
     while True:
-        images: List = []
         try:
             if is_multimodal and args.instruct:
                 chunks = _get_multimodal_input()
@@ -135,22 +174,43 @@ def interactive(args) -> None:
                 messages.append(Message("user", chunks))
                 from mistral_inference_tpu_torch.tokenizers.chat import encode_chat_multimodal
 
-                ids, images = encode_chat_multimodal(
+                return encode_chat_multimodal(
                     tok, ChatRequest(messages=messages), model.args.vision_encoder)
-            else:
-                user = input("Prompt: ")
-                if args.instruct:
-                    messages.append(Message("user", user))
-                    ids = encode_chat(tok, ChatRequest(messages=messages))
-                else:
-                    ids = tok.encode(user, bos=True, eos=False)
+            user = input("Prompt: ")
+            if args.instruct:
+                messages.append(Message("user", user))
+                return encode_chat(tok, ChatRequest(messages=messages)), []
+            return tok.encode(user, bos=True, eos=False), []
         except EOFError:
+            return None
+
+
+def interactive(args) -> None:
+    """Multi-turn chat REPL; under a mesh the primary rank reads and prints."""
+    tok = load_tokenizer(args.model_path)
+    model = _load(args)
+    if model is None:
+        return
+    primary = distributed.is_primary()
+    messages: List[Message] = []
+    if args.system_prompt:
+        messages.append(Message("system", args.system_prompt))
+
+    is_multimodal = isinstance(model, Transformer) and model.args.vision_encoder is not None
+    if primary:
+        print("Interactive chat. Ctrl-D to exit.")
+    while True:
+        turn = _read_turn(tok, model, args, messages, is_multimodal) if primary else None
+        turn = _shared(model, turn)
+        if turn is None:
             break
+        ids, images = turn
         generated, _ = _generate(model, [ids], args, eos_id=tok.eos_id,
                                  images=[images] if images else ())
         answer = tok.decode(generated[0])
-        print(answer)
-        print("=" * 40)
+        if primary:
+            print(answer)
+            print("=" * 40)
         if args.instruct:
             messages.append(Message("assistant", answer))
 
@@ -166,8 +226,12 @@ def demo(args) -> None:
     """Batch demo over three fixed prompts."""
     tok = load_tokenizer(args.model_path)
     model = _load(args)
+    if model is None:
+        return
     encoded = [tok.encode(p, bos=True, eos=False) for p in DEMO_PROMPTS]
     generated, logprobs = _generate(model, encoded, args, eos_id=None)
+    if not distributed.is_primary():
+        return
     for p, g, lp in zip(DEMO_PROMPTS, generated, logprobs):
         print(p + tok.decode(g))
         logging.debug("logprobs: %s", lp)
@@ -197,7 +261,8 @@ def build_parser() -> argparse.ArgumentParser:
         )
         sp.add_argument("--spec_tokens", type=int, default=4)
         sp.add_argument("--tensor", default="1",
-                        help="1 or 'auto' (one device); larger meshes are not ported yet")
+                        help="tensor-parallel degree N over N torchrun ranks, or 'auto' to "
+                             "factorize the ranks into data x expert x tensor")
         sp.add_argument("--seq", type=int, default=1,
                         help="sequence-parallel degree; only 1 is ported yet")
         sp.add_argument("--system_prompt", default=None)
@@ -243,7 +308,13 @@ def quantize_export(args) -> None:
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-    args.func(args)
+    try:
+        args.func(args)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

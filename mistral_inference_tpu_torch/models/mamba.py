@@ -25,13 +25,20 @@ state in place. Padding tokens (past ``seqlens``) enter with dt = 0 and zeroed
 conv inputs: they neither decay nor write state, and a row with ``seqlens``
 0 keeps its state. On CPU tensors K9 runs its plain version, so the CPU tests
 run the decomposition the card runs.
+
+Under a mesh (``parallel/``) a rank holds the heads [t nh / T, (t + 1) nh /
+T) and their groups: its slice of ``in_proj`` takes its part of each of z,
+x, B and C, the conv and the SSD run on its channels and heads (K9 on nh / T
+heads), the gated RMSNorm adds its sum of squares over ``tensor`` in fp32,
+and ``out_proj``'s partial sums are added over ``tensor``; the head is
+vocab-sharded and its logits all-gathered.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +47,7 @@ from mistral_inference_tpu_torch.args import MambaArgs
 from mistral_inference_tpu_torch.ops.cuda.ssd_step import fused_ssd_step_stacked
 from mistral_inference_tpu_torch.ops.linear import DEFAULT_GROUP, Weight, linear, quantize_weight
 from mistral_inference_tpu_torch.ops.norm import rms_norm
+from mistral_inference_tpu_torch.parallel.mesh import Mesh, reduce
 
 Params = Dict[str, Any]
 
@@ -55,24 +63,40 @@ class MambaState:
     conv: torch.Tensor  # (L, B, K-1, conv_dim) model dtype: the last inputs of x | B | C
     ssm: torch.Tensor  # (L, B, nh, hd, ds) fp32, or bf16 (half the bytes, one rounding per store)
     seen: torch.Tensor  # (B,) int32: tokens absorbed
+    # Under data parallelism the global row of conv's and ssm's first row;
+    # ``seen`` stays global. None: they hold every row.
+    row0: Optional[int] = None
 
     @classmethod
     def alloc(
         cls, args: MambaArgs, batch: int, dtype: torch.dtype, device: torch.device,
-        ssm_dtype: torch.dtype = torch.float32,
+        ssm_dtype: torch.dtype = torch.float32, tensor: int = 1,
+        state_rows: Optional[int] = None, row0: Optional[int] = None,
     ) -> "MambaState":
         """A bf16 ``ssm_dtype`` halves the state's memory and its traffic per
         decode step; all SSD arithmetic stays fp32. Prefill rounds the stored
         state once per chunk and decode once per token, so decode == prefill
-        then holds only approximately."""
+        then holds only approximately. Under a mesh the state holds the
+        heads of one of ``tensor`` ranks and ``state_rows`` rows from global
+        row ``row0``."""
         L = args.n_layers
+        rows = batch if state_rows is None else state_rows
+        conv_dim = args.conv_dim // tensor
         return cls(
-            conv=torch.zeros((L, batch, args.d_conv - 1, args.conv_dim), dtype=dtype,
-                             device=device),
-            ssm=torch.zeros((L, batch, args.n_ssm_heads, args.headdim, args.d_state),
+            conv=torch.zeros((L, rows, args.d_conv - 1, conv_dim), dtype=dtype, device=device),
+            ssm=torch.zeros((L, rows, args.n_ssm_heads // tensor, args.headdim, args.d_state),
                             dtype=ssm_dtype, device=device),
             seen=torch.zeros((batch,), dtype=torch.int32, device=device),
+            row0=row0,
         )
+
+    def local(self) -> "MambaState":
+        """The state with ``seen`` of its own rows only (a copy), as
+        ``KVCache.local``."""
+        from mistral_inference_tpu_torch.parallel.multihost import local_rows
+
+        return MambaState(self.conv, self.ssm,
+                          local_rows(self.seen, self.row0, self.conv.shape[1]))
 
 
 def init_params(
@@ -82,13 +106,15 @@ def init_params(
     device: torch.device,
     quant: Optional[str] = None,
     group: int = DEFAULT_GROUP,
+    keep: Optional[Callable[[Params], Params]] = None,
 ) -> Params:
     """Random weights in the JAX package's parameterization: linears N(0, 1)
     / sqrt(fan_in), the embedding N(0, 0.02^2), conv taps N(0, 1) / sqrt(K),
     A in [-16, -1] (A_log = log(1 + 15 u)), dt in [1e-3, 0.1] log-uniform
     stored as its inverse softplus in ``dt_bias``, D = 1, norms 1. Drawn in
     ``dtype`` on ``device``. With ``quant`` ("int8" | "int4") ``in_proj`` and
-    ``out_proj`` are quantized as they are drawn, one layer at a time."""
+    ``out_proj`` are quantized as they are drawn, one layer at a time; ``keep``
+    maps each layer as soon as it is drawn (a mesh keeps its shard)."""
     if quant not in (None, "int8", "int4"):
         raise ValueError(f"quant must be None, 'int8' or 'int4', got {quant!r}")
     bits = {None: 0, "int8": 8, "int4": 4}[quant]
@@ -113,7 +139,7 @@ def init_params(
     layers = []
     for _ in range(args.n_layers):
         dt = torch.exp(uniform(nh) * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
-        layers.append({
+        lw = {
             "norm": ones(D),
             "in_proj": big(2 * di + 2 * gd, D),  # z | x | B | C along out
             "dt_proj": draw((nh, D), D**-0.5),
@@ -124,7 +150,8 @@ def init_params(
             "dt_bias": dt + torch.log(-torch.expm1(-dt)),
             "mixer_norm": ones(di),
             "out_proj": big(D, di),
-        })
+        }
+        layers.append(lw if keep is None else keep(lw))
     params: Params = {
         "embedding": draw((args.padded_vocab_size, D), 0.02),
         "layers": layers,
@@ -229,9 +256,12 @@ def _mixer(
     args: MambaArgs,
     chunk: int,
     write_state: bool,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     B, T, _ = x.shape
-    di, ng, ds, nh, hd = args.d_inner, args.n_groups, args.d_state, args.n_ssm_heads, args.headdim
+    tp = 1 if mesh is None else mesh.tensor
+    di, ng, ds = args.d_inner // tp, args.n_groups // tp, args.d_state
+    nh, hd = args.n_ssm_heads // tp, args.headdim
     gd = ng * ds
     zxbc = linear(x, lw["in_proj"])
     dt_raw = F.linear(x, lw["dt_proj"])  # dt stays dense (quant/weights.py)
@@ -266,14 +296,35 @@ def _mixer(
             state.ssm[li] = h_new  # rounds once to a bf16 state
     y = (y + lw["D"][:, None] * xs).reshape(B, T, di).to(x.dtype)
     # Gated RMSNorm: rms_norm(y * silu(z)) * weight (mamba_ssm's RMSNormGated).
-    y = rms_norm(y * F.silu(z), lw["mixer_norm"], MAMBA_NORM_EPS)
-    return linear(y, lw["out_proj"])
+    y = _gated_norm(y * F.silu(z), lw["mixer_norm"], args.d_inner, mesh)
+    return reduce(linear(y, lw["out_proj"]), mesh, "tensor")
 
 
-def apply_head(h: torch.Tensor, params: Params, args: MambaArgs) -> torch.Tensor:
-    """(..., D) hidden -> (..., vocab_size) fp32 prelogits, tied or not."""
-    w = params["embedding"] if args.tie_embeddings else params["lm_head"]
-    return F.linear(h, w).float()[..., : args.vocab_size]
+def _gated_norm(x: torch.Tensor, weight: torch.Tensor, width: int,
+                mesh: Optional[Mesh]) -> torch.Tensor:
+    """``rms_norm`` over the ``width`` channels of d_inner, of which this rank
+    holds ``x``'s: under a mesh the fp32 sum of squares is added over
+    ``tensor``."""
+    xf = x.float()
+    ss = reduce((xf * xf).sum(-1, keepdim=True), mesh, "tensor")
+    normed = xf * torch.rsqrt(ss / width + MAMBA_NORM_EPS)
+    return normed.to(x.dtype) * weight
+
+
+def apply_head(h: torch.Tensor, params: Params, args: MambaArgs,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """(..., D) hidden -> (..., vocab_size) fp32 prelogits, tied or not.
+    Under a mesh this rank's vocab rows (of the replicated embedding, when
+    tied), all-gathered over ``tensor``."""
+    if mesh is None:
+        w = params["embedding"] if args.tie_embeddings else params["lm_head"]
+        return F.linear(h, w).float()[..., : args.vocab_size]
+    if args.tie_embeddings:
+        V = params["embedding"].shape[0]
+        w = params["embedding"][mesh.t * V // mesh.tensor:(mesh.t + 1) * V // mesh.tensor]
+    else:
+        w = params["lm_head"]
+    return mesh.all_gather(F.linear(h, w).float(), "tensor", -1)[..., : args.vocab_size]
 
 
 def forward(
@@ -285,8 +336,10 @@ def forward(
     chunk: int = DEFAULT_CHUNK,
     head: str = "full",
     write_state: bool = True,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
-    """One chunk pass (a prefill chunk, one decode step or a verify chunk).
+    """One chunk pass (a prefill chunk, one decode step or a verify chunk),
+    under ``mesh`` on this rank's heads of every row given.
     Returns prelogits (B, T, vocab_size) fp32, or with ``head="none"`` the
     final-norm hidden states (B, T, D). ``chunk`` is the SSD's chunk length.
 
@@ -298,7 +351,7 @@ def forward(
     taps = seqlens.long()[:, None] + torch.arange(args.d_conv - 1, device=dev)[None, :]
     step = _Step(
         valid=(torch.arange(T, device=dev)[None, :] < seqlens[:, None])[..., None],
-        taps_idx=taps[..., None].expand(-1, -1, args.conv_dim),
+        taps_idx=taps[..., None].expand(-1, -1, state.conv.shape[-1]),
         zero=torch.zeros((), dtype=torch.float32, device=dev),
     )
     dtype = params["embedding"].dtype
@@ -307,9 +360,9 @@ def forward(
         h = h.float()
     for li, lw in enumerate(params["layers"]):
         x = rms_norm(h.to(dtype), lw["norm"], MAMBA_NORM_EPS)
-        out = _mixer(lw, x, step, state, li, args, chunk, write_state)
+        out = _mixer(lw, x, step, state, li, args, chunk, write_state, mesh)
         h = h + out.to(h.dtype)
     if write_state:
         state.seen += seqlens
     h = rms_norm(h.to(dtype), params["norm_f"], MAMBA_NORM_EPS)
-    return h if head == "none" else apply_head(h, params, args)
+    return h if head == "none" else apply_head(h, params, args, mesh)

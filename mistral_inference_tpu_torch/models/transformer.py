@@ -47,6 +47,14 @@ dtype, as plain matrix products; the fused ``wqkv`` and ``w13`` add each
 name's delta to its column slice. The base product keeps its route (K3, K5,
 K8), so a quantized base with live adapters runs the same kernels.
 
+Under a mesh (``parallel/``) the params are this rank's shard and
+``forward`` takes ``mesh``: attention runs on the rank's heads and the dense
+feed-forward on its hidden units, ``wo`` and ``w2`` are each followed by
+one all-reduce over ``tensor``; an MoE layer routes every row on every rank
+with the replicated router, runs its own experts only, and sums the partial
+outputs with one all-reduce over ``expert x tensor``; the head is
+vocab-sharded and its fp32 logits all-gathered over ``tensor``.
+
 On CPU tensors the same names run their plain versions, so the CPU tests run
 the decomposition the card runs.
 """
@@ -54,7 +62,7 @@ the decomposition the card runs.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -90,6 +98,7 @@ from mistral_inference_tpu_torch.ops.linear import (
 )
 from mistral_inference_tpu_torch.ops.norm import rms_norm
 from mistral_inference_tpu_torch.ops.rope import apply_rope, rope_for_positions
+from mistral_inference_tpu_torch.parallel.mesh import Mesh, reduce
 
 Params = Dict[str, Any]
 
@@ -177,6 +186,7 @@ def init_params(
     device: torch.device,
     quant: Optional[str] = None,
     group: int = DEFAULT_GROUP,
+    keep: Optional[Callable[[Params], Params]] = None,
 ) -> Params:
     """Random weights with the JAX package's distributions: linear weights
     N(0, 1) / sqrt(fan_in), embeddings N(0, 1), norms 1. Generated directly
@@ -187,6 +197,10 @@ def init_params(
     whose dense form exceeds the device (Mixtral-8x7B) is made without it:
     the peak is the quantized model plus one weight's fp32 copy. The draws
     are those of ``quant=None``, so the result equals quantizing afterwards.
+
+    ``keep`` maps each layer as soon as it is drawn (a mesh keeps its
+    shard), so the whole model never exists at once; the draws are the
+    same.
     """
     if quant not in (None, "int8", "int4"):
         raise ValueError(f"quant must be None, 'int8' or 'int4', got {quant!r}")
@@ -227,16 +241,16 @@ def init_params(
             }
         return {"w13": big(2 * F_, D), "w2": big(D, F_)}
 
-    layers = [
-        {
+    layers = []
+    for _ in range(args.n_layers):
+        lw = {
             "attention_norm": ones(D),
             "ffn_norm": ones(D),
             "wqkv": big((H + 2 * Hkv) * Dh, D),  # wq, wk, wv stacked on out
             "wo": big(D, H * Dh),
             **ffn(),
         }
-        for _ in range(args.n_layers)
-    ]
+        layers.append(lw if keep is None else keep(lw))
     if args.lora is not None:  # zero pairs, from no generator: the weights stay a plain model's
         for lw in layers:
             lw["lora"] = lora_pairs(args, dtype, device)
@@ -255,10 +269,19 @@ def init_params(
     return params
 
 
-def _dense_ffn(x: torch.Tensor, w: Params, args: TransformerArgs) -> torch.Tensor:
-    """SwiGLU: w2(silu(w1 x) * w3 x)."""
+def _wo(out: torch.Tensor, w: Params, args: TransformerArgs,
+        mesh: Optional[Mesh]) -> torch.Tensor:
+    """The attention's output projection; under a mesh this rank's heads'
+    part, added over ``tensor``."""
+    return reduce(_lin(out, w, "wo", args), mesh, "tensor")
+
+
+def _dense_ffn(x: torch.Tensor, w: Params, args: TransformerArgs,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """SwiGLU: w2(silu(w1 x) * w3 x); under a mesh on this rank's hidden
+    units, the partial sums added over ``tensor``."""
     gate, up = _lin(x, w, "w13", args).chunk(2, dim=-1)
-    return _lin(F.silu(gate) * up, w, "w2", args)
+    return reduce(_lin(F.silu(gate) * up, w, "w2", args), mesh, "tensor")
 
 
 # ---------------------------------------------------------------------------
@@ -287,14 +310,20 @@ def _swiglu(h13: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
 
 
+Experts = Optional[Tuple[int, int]]  # (first, count) of the experts this rank holds
+
+
 def _moe_ffn(x: torch.Tensor, w: Params, top_k: int,
-             args: Optional[TransformerArgs] = None) -> torch.Tensor:
+             args: Optional[TransformerArgs] = None, experts: Experts = None) -> torch.Tensor:
     """Top-k routed SwiGLU experts, every expert evaluated on every token and
     combined with the routing matrix: exact, and the oracle of the other two.
-    x (N, D)."""
+    x (N, D). With ``experts`` (first, count), the stacks hold those experts
+    only, and the result is their part of the sum."""
     E = w["gate"].shape[0]
+    e0, El = experts or (0, E)
     top_idx, top_w = _route(x, w["gate"], top_k)
     combine = (F.one_hot(top_idx, E).float() * top_w[..., None]).sum(dim=1).to(x.dtype)  # (N, E)
+    combine = combine[:, e0:e0 + El]
     h13 = _plus_lora(torch.matmul(x, _expert_weight(w["w13"], x.dtype)), x, w, "w13", args)
     hidden = _swiglu(h13)  # (E, N, F)
     expert_out = _plus_lora(torch.bmm(hidden, _expert_weight(w["w2"], x.dtype)), hidden, w,
@@ -312,7 +341,8 @@ def _ragged_kernel_gate(x: torch.Tensor, w: Params) -> bool:
 
 
 def _moe_ffn_ragged(x: torch.Tensor, w: Params, top_k: int,
-                    args: Optional[TransformerArgs] = None) -> torch.Tensor:
+                    args: Optional[TransformerArgs] = None, experts: Experts = None,
+                    ) -> torch.Tensor:
     """Drop-free sorted grouped-product MoE, the prefill path: the N * k
     assignments sorted by expert (stable, so ties keep token order), each
     projection one grouped product over the sorted rows, the weighted outputs
@@ -324,34 +354,40 @@ def _moe_ffn_ragged(x: torch.Tensor, w: Params, top_k: int,
     every tile carries its expert's index. Anything else runs one plain
     product per expert on its own rows, which reads the counts on the host.
     Live expert adapters add their term per tile (every row of a tile is its
-    expert's), or per expert on the plain route.
+    expert's), or per expert on the plain route. With ``experts`` (first,
+    count) only those experts' rows are computed; the rest add nothing.
     """
     N, D = x.shape
     E = w["gate"].shape[0]
+    e0, El = experts or (0, E)
     top_idx, top_w = _route(x, w["gate"], top_k)
     flat_e = top_idx.reshape(-1)  # (N k,) token-major
     order = torch.argsort(flat_e, stable=True)
     tok = order // top_k  # source token of each sorted row
-    counts = F.one_hot(flat_e, E).sum(dim=0)  # (E,), no host sync
+    counts_all = F.one_hot(flat_e, E).sum(dim=0)  # (E,), no host sync
     NK = N * top_k
     inv = torch.empty_like(order)
     inv[order] = torch.arange(NK, device=x.device)  # flat -> sorted position
     wts = top_w.reshape(-1).to(x.dtype)
+    mine = (flat_e >= e0) & (flat_e < e0 + El)  # assignments to this rank's experts
+    le = (flat_e - e0).clamp(0, El - 1)  # their local expert
 
     if _ragged_kernel_gate(x, w):
         TM = MOE_RAGGED_TM
+        counts = counts_all[e0:e0 + El]
         # Worst-case padded rows, a whole number of tiles: the per-expert
-        # sizes rounded up to TM sum to at most NK + E (TM - 1).
-        Mp = (-(-NK // TM) + E) * TM
+        # sizes rounded up to TM sum to at most NK + El (TM - 1).
+        Mp = (-(-NK // TM) + El) * TM
         padded = -(-counts // TM) * TM
         cum_pad = torch.cumsum(padded, 0)
         offsets = cum_pad - padded  # padded start of each expert's rows
-        starts = torch.cumsum(counts, 0) - counts  # sorted start of each expert's rows
+        # sorted start of each local expert's rows
+        starts = (torch.cumsum(counts_all, 0) - counts_all)[e0:e0 + El]
         # Padded position p belongs to expert g_of_p at rank j; pad rows read
         # a row of their expert (or row 0) and are discarded at the gather
-        # back. Tiles past the last expert's rows carry the clamped E - 1.
+        # back. Tiles past the last expert's rows carry the clamped El - 1.
         p = torch.arange(Mp, device=x.device)
-        g_of_p = torch.searchsorted(cum_pad, p, right=True).clamp_max(E - 1)
+        g_of_p = torch.searchsorted(cum_pad, p, right=True).clamp_max(El - 1)
         j = p - offsets[g_of_p]
         sorted_idx = (starts[g_of_p] + torch.minimum(j, counts[g_of_p] - 1)).clamp(0, NK - 1)
         xs_p = x[tok[sorted_idx]]  # (Mp, D) padded sorted rows
@@ -365,17 +401,21 @@ def _moe_ffn_ragged(x: torch.Tensor, w: Params, top_k: int,
             return out if d is None else out + d.reshape(out.shape)
 
         out_p = mm(_swiglu(mm(xs_p, "w13")), "w2")  # (Mp, D)
-        pos_f = offsets[flat_e] + (inv - starts[flat_e])  # (N k,) token-major
-        out = out_p[pos_f]
+        pos_f = offsets[le] + (inv - starts[le])  # (N k,) token-major
+        out = out_p[pos_f.clamp(0, Mp - 1)]
     else:
-        sizes = counts.tolist()  # the host waits for the counts here
+        sizes = counts_all.tolist()  # the host waits for the counts here
         w13, w2 = _expert_weight(w["w13"], x.dtype), _expert_weight(w["w2"], x.dtype)
         rows = torch.split(x[tok], sizes)  # rows grouped by expert
         parts = []
         for e, r in enumerate(rows):
-            h = _swiglu(_plus_lora(r @ w13[e], r, w, "w13", args, e))
-            parts.append(_plus_lora(h @ w2[e], h, w, "w2", args, e))
+            if not e0 <= e < e0 + El:
+                parts.append(r.new_zeros(r.shape))
+                continue
+            h = _swiglu(_plus_lora(r @ w13[e - e0], r, w, "w13", args, e - e0))
+            parts.append(_plus_lora(h @ w2[e - e0], h, w, "w2", args, e - e0))
         out = torch.cat(parts)[inv]
+    out = torch.where(mine[:, None], out, 0.0)
     return (out * wts[:, None]).reshape(N, top_k, D).sum(dim=1)
 
 
@@ -402,18 +442,22 @@ def moe_capacity(n_rows: int, top_k: int, n_experts: int, capacity_factor: float
 
 def _moe_ffn_dispatch(
     x: torch.Tensor, w: Params, top_k: int, capacity_factor: float,
-    args: Optional[TransformerArgs] = None,
+    args: Optional[TransformerArgs] = None, experts: Experts = None,
 ) -> torch.Tensor:
     """Capacity-bounded expert dispatch: tokens go into per-expert buffers of
     ``moe_capacity`` slots in token-major order (pad tokens of ragged rows
     included: they are rows like any other here), each expert runs its SwiGLU
     on its own (C, D) buffer, and outputs gather back weighted by the router.
     Assignments beyond an expert's capacity contribute zero. Above
-    ``MOE_RAGGED_ROWS`` rows the drop-free ``_moe_ffn_ragged`` takes over."""
+    ``MOE_RAGGED_ROWS`` rows the drop-free ``_moe_ffn_ragged`` takes over.
+    With ``experts`` (first, count) only those experts' buffers are built and
+    run; the capacity and the slots are the global ones, so a rank drops
+    exactly what one device drops."""
     N, D = x.shape
     E = w["gate"].shape[0]
     if N > MOE_RAGGED_ROWS:
-        return _moe_ffn_ragged(x, w, top_k, args)
+        return _moe_ffn_ragged(x, w, top_k, args, experts)
+    e0, El = experts or (0, E)
     C = moe_capacity(N, top_k, E, capacity_factor)
     top_idx, top_w = _route(x, w["gate"], top_k)
 
@@ -429,26 +473,33 @@ def _moe_ffn_dispatch(
     NK = N * top_k
     src = torch.full((E, C + 1), N, dtype=torch.long, device=x.device)
     src[flat_e, torch.where(keep, slot, C)] = torch.arange(NK, device=x.device) // top_k
-    buf = torch.cat([x, x.new_zeros((1, D))])[src[:, :C]]  # (E, C, D)
+    buf = torch.cat([x, x.new_zeros((1, D))])[src[e0:e0 + El, :C]]  # (El, C, D)
 
     hidden = _swiglu(_plus_lora(_expert_mm(buf, w["w13"]), buf, w, "w13", args))
-    out_buf = _plus_lora(_expert_mm(hidden, w["w2"]), hidden, w, "w2", args)  # (E, C, D)
+    out_buf = _plus_lora(_expert_mm(hidden, w["w2"]), hidden, w, "w2", args)  # (El, C, D)
 
-    gathered = out_buf[flat_e, slot.clamp_max(C - 1)]  # (N k, D)
+    gathered = out_buf[(flat_e - e0).clamp(0, El - 1), slot.clamp_max(C - 1)]  # (N k, D)
+    keep = keep & (flat_e >= e0) & (flat_e < e0 + El)
     weights = (top_w.reshape(-1) * keep.float()).to(x.dtype)
     return (gathered * weights[:, None]).reshape(N, top_k, D).sum(dim=1)
 
 
-def _moe_block(x: torch.Tensor, w: Params, args: TransformerArgs) -> torch.Tensor:
+def _moe_block(x: torch.Tensor, w: Params, args: TransformerArgs,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The MoE feed-forward of one layer on x (B, T, D), all B T positions as
-    rows, by ``args.moe_impl``."""
+    rows, by ``args.moe_impl``. Under a mesh, this rank's experts (on its
+    hidden units), and one all-reduce over ``expert x tensor``."""
     rows = x.reshape(-1, x.shape[-1])
     k = args.moe.num_experts_per_tok
+    experts = None
+    if mesh is not None and mesh.expert > 1:
+        El = args.moe.num_experts // mesh.expert
+        experts = (mesh.e * El, El)
     if args.moe_impl == "dispatch":
-        out = _moe_ffn_dispatch(rows, w, k, args.moe_capacity_factor, args)
+        out = _moe_ffn_dispatch(rows, w, k, args.moe_capacity_factor, args, experts)
     else:
-        out = _moe_ffn(rows, w, k, args)
-    return out.reshape(x.shape)
+        out = _moe_ffn(rows, w, k, args, experts)
+    return reduce(out, mesh, ("expert", "tensor")).reshape(x.shape)
 
 
 class RingInputs(NamedTuple):
@@ -518,13 +569,16 @@ def _attention_block(
     ring: RingInputs,
     args: TransformerArgs,
     write_cache: Union[bool, str] = True,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One layer's attention; unless ``write_cache`` is False it writes this
     chunk's K/V into layer ``li`` of the ring in place. Returns (the block's
     output, this chunk's rope'd K, its V: (B, T, Hkv, Dh) before
-    quantization)."""
+    quantization). Under a mesh: this rank's heads, whole GQA groups, and
+    ``wo``'s partial sums added over ``tensor``."""
     B, T, _ = h.shape
-    H, Hkv, Dh = args.n_heads, args.n_kv_heads, args.head_dim
+    tp = 1 if mesh is None else mesh.tensor
+    H, Hkv, Dh = args.n_heads // tp, args.n_kv_heads // tp, args.head_dim
     window = cache.windows[li]
     CK, CV, KS, VS = cache.k, cache.v, cache.k_scale, cache.v_scale
     scaled = KS is not None
@@ -547,7 +601,7 @@ def _attention_block(
             xq, xk, xv, CK, CV, KS, VS, li, window, ring.write_slot, positions,
             ring.slot_pos, ring.slot_valid,
         )
-        return _lin(out, w, "wo", args), xk, xv
+        return _wo(out, w, args, mesh), xk, xv
     if ring.write_slot is not None:
         # Decode: write the ring first, then attend ring-only. Safe for T == 1:
         # the query's own key cannot be evicted by a later token of the chunk.
@@ -555,7 +609,7 @@ def _attention_block(
             xq, xk, xv, CK, CV, KS, VS, li, window, ring.write_slot, positions[:, 0],
             ring.slot_pos, ring.slot_valid,
         )
-        return _lin(out, w, "wo", args), xk, xv
+        return _wo(out, w, args, mesh), xk, xv
     if T == 1 and ring.slot_pos is not None:
         # Decode, non-fused route: the same write through update_stacked,
         # then the read-only kernel over the ring as it now stands.
@@ -563,7 +617,7 @@ def _attention_block(
         out = decode_attention(
             xq, CK, CV, KS, VS, li, positions, ring.slot_pos, ring.slot_valid, window
         )
-        return _lin(out, w, "wo", args), xk, xv
+        return _wo(out, w, args, mesh), xk, xv
 
     # Under a scaled ring the chunk attends to copies of its own K/V rounded
     # through the ring's dtype, so prefill logits see what decode later reads
@@ -586,7 +640,7 @@ def _attention_block(
         )
     if ring.writes is not None:
         update_stacked(CK, CV, KS, VS, li, xk, xv, ring.writes)
-    return _lin(out, w, "wo", args), xk, xv
+    return _wo(out, w, args, mesh), xk, xv
 
 
 ChunkKV = Tuple[torch.Tensor, torch.Tensor]
@@ -602,8 +656,10 @@ def forward(
     head: str = "full",
     write_cache: Union[bool, str] = True,
     input_embeds: Optional[torch.Tensor] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, ChunkKV]]:
-    """One chunk pass (a prefill chunk or one decode step).
+    """One chunk pass (a prefill chunk or one decode step); under ``mesh``
+    on this rank's shard (``params``, the ring's heads) of every row given.
 
     ``input_embeds`` (B, T, D) in the model dtype, when given, replaces the
     token embeddings: a multimodal prefill chunk, its image tokens' slots
@@ -662,26 +718,28 @@ def forward(
             )
         attn_out, xk, xv = _attention_block(
             rms_norm(h, lw["attention_norm"], args.norm_eps), lw, cache, li, positions,
-            token_valid, rope_cs, rings[window], args, write_cache,
+            token_valid, rope_cs, rings[window], args, write_cache, mesh,
         )
         h = h + attn_out
         if write_cache is False:
             chunk_k.append(xk)
             chunk_v.append(xv)
         x = rms_norm(h, lw["ffn_norm"], args.norm_eps)
-        h = h + (_moe_block(x, lw, args) if args.moe else _dense_ffn(x, lw, args))
+        h = h + (_moe_block(x, lw, args, mesh) if args.moe else _dense_ffn(x, lw, args, mesh))
     if write_cache is True:
         cache.kv_len = new_total
     h = rms_norm(h, params["norm"], args.norm_eps)
-    out = h if head == "none" else output_head(params, h)
+    out = h if head == "none" else output_head(params, h, mesh)
     if write_cache is False:
         return out, (torch.stack(chunk_k), torch.stack(chunk_v))
     return out
 
 
-def output_head(params: Params, h: torch.Tensor) -> torch.Tensor:
-    """Vocab projection in the model dtype, returned as fp32."""
-    return F.linear(h, params["output"]).float()
+def output_head(params: Params, h: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Vocab projection in the model dtype, returned as fp32; under a mesh
+    this rank's vocab rows, all-gathered over ``tensor``."""
+    out = F.linear(h, params["output"]).float()
+    return out if mesh is None else mesh.all_gather(out, "tensor", -1)
 
 
 def param_count(params: Params) -> int:

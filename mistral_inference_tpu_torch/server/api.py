@@ -12,6 +12,15 @@ Endpoints:
   POST /v1/completions       {"prompt": str | [int], "max_tokens", "temperature"}
   POST /v1/chat/completions  {"messages": [{role, content}], ...}
   GET  /health               liveness + metrics
+
+Under a mesh (an engine whose model has one) every rank runs a ``Server``
+and every rank steps its engine, but only the primary rank answers HTTP:
+before each step, and once when it stops, it broadcasts the engine calls
+that succeeded since the last broadcast (submits, cancels) and whether to
+step or stop, and the other ranks (``serve`` there runs ``follow``) replay
+them, so every engine sees the same requests in the same order and issues
+the same collectives. A request the engine refuses is never sent; an idle
+primary waits for a call and sends nothing.
 """
 
 from __future__ import annotations
@@ -67,9 +76,48 @@ class Server:
         self._futures: Dict[int, Future] = {}
         self._streams: Dict[int, "queue.Queue"] = {}
         self._lock = threading.Lock()
+        # notified (under the lock) by every engine call and by stop()
+        self._wake = threading.Condition(self._lock)
         self._stop = threading.Event()
         self.healthy = True
         self._thread = threading.Thread(target=self._device_loop, daemon=True)
+        # Under a mesh: the engine calls since the last turn, for the other ranks.
+        self.mesh = getattr(engine.model, "mesh", None)
+        self._ops: list = []
+
+    def _engine_call(self, name: str, *args, **kw):
+        """``engine.<name>(...)``; once it has returned, logged for the
+        other ranks under a mesh (a call the engine refuses raises here and
+        is never replayed). The caller holds the lock."""
+        out = getattr(self.engine, name)(*args, **kw)
+        if self.mesh is not None:
+            self._ops.append((name, args, kw))
+        self._wake.notify()
+        return out
+
+    def _turn(self, step: bool, stop: bool) -> None:
+        """Under a mesh, send the calls since the last turn and this turn's
+        decision to the other ranks (the caller holds the lock)."""
+        if self.mesh is None:
+            return
+        self.mesh.broadcast_object((self._ops, step, stop))
+        self._ops = []
+
+    def follow(self) -> Dict[int, Any]:
+        """A non-primary rank's loop: replay the primary's engine calls and
+        step when it steps, until it stops. Returns the requests that
+        finished here, by id: the primary's, computed alike."""
+        done: Dict[int, Any] = {}
+        while True:
+            ops, step, stop = self.mesh.broadcast_object(None)
+            for name, args, kw in ops:
+                getattr(self.engine, name)(*args, **kw)
+            if step:
+                for ev in self.engine.step():
+                    if ev.finished:
+                        done[ev.request_id] = self.engine._request(ev.request_id)
+            if stop:
+                return done
 
     # -- request path -------------------------------------------------------
 
@@ -90,8 +138,8 @@ class Server:
     ) -> Future:
         fut: Future = Future()
         with self._lock:
-            rid = self.engine.submit(
-                prompt_ids, max_tokens=max_tokens, temperature=temperature,
+            rid = self._engine_call(
+                "submit", prompt_ids, max_tokens=max_tokens, temperature=temperature,
                 images=images, want_logprobs=want_logprobs, top_p=top_p,
                 stop_ids=self._stop_ids(stop),
             )
@@ -107,8 +155,8 @@ class Server:
         (exception, True)."""
         q: "queue.Queue" = queue.Queue()
         with self._lock:
-            rid = self.engine.submit(
-                prompt_ids, max_tokens=max_tokens, temperature=temperature,
+            rid = self._engine_call(
+                "submit", prompt_ids, max_tokens=max_tokens, temperature=temperature,
                 images=images, top_p=top_p, stop_ids=self._stop_ids(stop),
             )
             self._streams[rid] = q
@@ -116,7 +164,7 @@ class Server:
 
     def cancel(self, request_id: int) -> None:
         with self._lock:
-            self.engine.cancel(request_id)
+            self._engine_call("cancel", request_id)
             self._streams.pop(request_id, None)
 
     def drop_stream(self, q: "queue.Queue") -> None:
@@ -132,12 +180,13 @@ class Server:
 
         while not self._stop.is_set():
             with self._lock:
-                has_work = self.engine.has_work
-            if not has_work:
-                self._stop.wait(0.005)
-                continue
+                # Idle: the calls made meanwhile go out with the next step or the stop.
+                self._wake.wait_for(lambda: self.engine.has_work or self._stop.is_set())
+            if self._stop.is_set():
+                break
             try:
                 with self._lock:
+                    self._turn(step=True, stop=False)
                     events = self.engine.step()
                     for ev in events:
                         METRICS.inc("tokens_generated")
@@ -168,17 +217,26 @@ class Server:
                         q.put((e, True))
                     self._streams.clear()
                 self._stop.set()
+        with self._lock:
+            self._turn(step=False, stop=True)
 
     def start(self) -> None:
         self._thread.start()
 
     def stop(self) -> None:
-        self._stop.set()
+        with self._lock:
+            self._stop.set()
+            self._wake.notify()
         self._thread.join(timeout=5)
 
     # -- http ---------------------------------------------------------------
 
     def serve(self, host: str = "0.0.0.0", port: int = 8000) -> None:
+        """Answer HTTP until interrupted; under a mesh only the primary
+        rank does, and the others follow its engine calls."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            self.follow()
+            return
         self.start()
         server = ThreadingHTTPServer((host, port), _make_handler(self))
         try:

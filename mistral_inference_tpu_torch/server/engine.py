@@ -42,6 +42,11 @@ per-row ``kv_len`` already says how full it is.
 The engine is host-side control; every O(model) operation is a forward of
 ``models/``, on the model's device, in inference mode (the cache and carry
 are inference tensors: change them only inside it).
+
+Under a ``tensor`` or ``expert`` mesh every rank runs an engine on the same
+requests in the same order (``server/api.py`` replays the primary's calls):
+its forwards gather every output before sampling, so every host decision
+is the same on every rank. A mesh with ``data`` > 1 raises.
 """
 
 from __future__ import annotations
@@ -120,6 +125,16 @@ class _Block:
     rids: List[Optional[int]]
 
 
+def _check_mesh(model) -> None:
+    """An engine serves a model under ``tensor`` and ``expert`` meshes, its
+    host loop run alike on every rank; its per-row state (prefix copies,
+    staging, frozen rows) is not split over ``data``."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is not None and mesh.data > 1:
+        raise NotImplementedError("the serving engines under a data axis > 1 are not ported "
+                                  "yet (ROADMAP.md Queue 1 item 6b); serve with data=1")
+
+
 class _EngineBase:
     """The client contract and the host loop that both engines share:
     ``submit``, ``cancel``, ``step``, ``run_to_completion``; the slots and
@@ -134,6 +149,7 @@ class _EngineBase:
     def __init__(self, model, batch_size: int, max_seq_len: int, *, temperature: float,
                  eos_id: Optional[int], decode_block: int, admit_chunk: int, seed: int,
                  pipeline: bool):
+        _check_mesh(model)
         self.model = model
         self.device = model.device
         self.B = batch_size
@@ -585,6 +601,7 @@ class Engine(_EngineBase):
     def _check_draft(self, draft) -> None:
         if not isinstance(draft, Transformer):
             raise TypeError(f"the draft must be a Transformer, got {type(draft).__name__}")
+        _check_mesh(draft)
         if draft.args.vocab_size != self.model.args.vocab_size:
             raise ValueError("draft and target must share a vocabulary")
         if draft.device != self.device:

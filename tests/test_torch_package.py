@@ -46,7 +46,9 @@ def test_sources_found():
                    "ops/cuda/ssd_step.py", "models/vision.py", "images.py", "loading.py",
                    "main.py", "server/api.py", "io/safetensors.py", "native/__init__.py",
                    "tokenizers/spm.py", "tokenizers/tekken.py", "tokenizers/chat.py",
-                   "server/engine.py", "server/mamba_engine.py", "lora.py"):
+                   "server/engine.py", "server/mamba_engine.py", "lora.py",
+                   "parallel/mesh.py", "parallel/distributed.py", "parallel/sharding.py",
+                   "parallel/multihost.py", "parallel/inspect.py"):
         assert PKG / module in SOURCES
     assert sorted(p.name for p in (PKG / "ops" / "cuda" / "csrc").glob("*.cu")) == [
         "decode_attention.cu", "flash_attention.cu", "fused_decode.cu", "matmul_quant.cu",
