@@ -150,23 +150,33 @@ Phases, each printing one JSON line:
     each collective's CUDA tensors through the host, so the phase shows the
     sharded math and the kernels at their shard shapes on the card, not
     NCCL's speed), each path against the single-device port on the same
-    seed and prompts (computed first here, its models freed before the
-    ranks start): (a) ``mistral-7b-v0.1`` int4 over an fp8 ring, all 32
-    layers, tensor = 2, with an ``Engine`` (batch 4) serving 8 requests and
-    lookup speculation; (b) ``mixtral-8x7b`` int4, 32 layers, expert = 2;
-    (c) ``codestral-mamba-7b`` int4, 8 layers, tensor = 2; (d)
-    ``mistral-7b-v0.1`` int4, 8 layers, data = 2. Each checks that both
-    ranks return the same tokens, the tokens against one device's (but at a
-    near-tie), the logprobs against them (on (a) beside two witnesses of
-    the bound on one device: ``wo`` and ``w2`` as the two ranks' shards on
-    their halves of the input, inside it and nearer the sharded run than
-    the whole products are, and the halves swapped, a wrong shard, outside
-    it), decode == prefill on the shards,
-    each rank's launches (K2-fp8 and K9 = layers x decode forwards), the
-    collectives of one decode forward (64 all-reduces on (a)), and prints
-    each rank's weight bytes, peak memory and seconds; rank 0 replays the
-    first calls of every kernel wrapper against its plain version at the
-    shard shapes (``kernel_shard`` lines).
+    seed and inputs (computed first here, one run a model, its models freed
+    before the ranks start), in bits: (a) ``mistral-7b-v0.1`` int4 over an
+    fp8 ring, all 32 layers, tensor = 2, with an ``Engine`` (batch 4)
+    serving 8 requests and lookup speculation; (b) ``mixtral-8x7b`` int4,
+    32 layers, expert = 2; (c) ``codestral-mamba-7b`` int4, 8 layers,
+    tensor = 2; (d) ``mistral-7b-v0.1`` int4, 8 layers, data = 2; (e) (a)'s
+    model at seq = 2: 256-token chunks split, one unchunked 77-token
+    prefill that seq does not divide, and the ``Engine``; (f) at data = 2,
+    (d)'s model serving 8 staggered requests through ``Engine(4)``, two of
+    them copying a prefix and one staged into a row of the other data rank,
+    and an 8-layer int4 ``codestral-mamba-7b`` through ``MambaEngine(4)``;
+    (g) 8 layers with live LoRA pairs of rank 16 at tensor = 2; (h)
+    ``mixtral-8x7b`` int4, 2 layers, tensor = 2, the experts' stacks on
+    their columns (K5 in prefill, K8 in decode). Each checks
+    that both ranks return the same tokens, the tokens and logprobs (and the
+    engines', lookup's and the odd chunk's) against one device's bits,
+    beside a wrong shard on one device (``wo`` and ``w2`` output halves
+    swapped) that must leave them; decode == prefill on the shards, each
+    rank's launches (K2-fp8 and K9 = layers x decode forwards, K7-fp8 =
+    layers x lookup's verify forwards on (a)), the
+    collectives of one decode forward (0 all-reduces and 129 all-gathers on
+    (a); a seq prefill chunk's are printed), and prints each rank's weight
+    bytes, peak memory and seconds; rank 0 replays the first calls of every
+    kernel wrapper against its plain version at the shard shapes
+    (``kernel_shard`` lines), and a K3, K5 or K8 call on a column shard
+    also against the matching columns of the whole weight's product, in
+    bits (on every tensor path, each of them that ran at least once).
 
 Then a ``total`` line (the seconds since the start), a ``kernels`` line, the
 nvidia-smi line, and last the device line.
@@ -183,7 +193,9 @@ host's time to enqueue it, and to the serving line the same for one
 engine decode block (a serial engine, 8 rows). ``--kernels=k2,k7_fp8`` runs phases 1 and
 2 and only the named kernels' checks, and prints no result line; so does
 ``--phases=spec_serving,mamba_serving,lora,parallel`` after phases 1 and 2
-for the named phases of 10-13.
+for the named phases of 10-13, and ``--phases=mamba_rows`` for a probe run
+in no other phase: which product of a Mamba forward gives a row other bits
+at B = 1 or 2 than at B = 4 (``mamba_rows_probe``).
 """
 
 from __future__ import annotations
@@ -3873,6 +3885,100 @@ def mamba_serving_phase(card: str) -> dict:
 
 
 LORA_RANK, LORA_SCALING = 16, 2.0
+MAMBA_PROBE_LENS = (1537, 700, 300, 45)  # four rows of phase 11's prompt lengths
+
+
+class _OpLog:
+    """While entered, records the output of every product and step of
+    ``models.mamba``'s forward, in call order: the quantized linears
+    (``linear``), the dense ``dt_proj``, the conv, the chunked SSD, K9, the
+    gated norm and the RMS norms."""
+
+    NAMES = ("linear", "_dt_proj", "_conv", "_ssd_chunked", "fused_ssd_step_stacked",
+             "_gated_norm", "rms_norm")
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from mistral_inference_tpu_torch.models import mamba as mm
+
+        self._saved = [(n, getattr(mm, n)) for n in self.NAMES]
+        for n, fn in self._saved:
+            setattr(mm, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from mistral_inference_tpu_torch.models import mamba as mm
+
+        for n, fn in self._saved:
+            setattr(mm, n, fn)
+
+    def _wrap(self, name, fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            first = out[0] if isinstance(out, tuple) else out
+            self.calls.append((name, first.detach().clone()))
+            return out
+        return call
+
+
+def mamba_rows_probe(card: str) -> dict:
+    """Which product of a Mamba forward gives a row other bits in another
+    batch, where ``MambaEngine`` leaves ``generate_mamba``: the forwards
+    the engine runs for an admission (one 512-wide chunk, the SSD's chunk 128) and a
+    decode step (T = 1), on the 8-layer int4 ``codestral-mamba-7b`` of
+    phase 11 with an fp32 state, at B = 4; then row 0 alone (B = 1, as
+    ``generate_mamba`` of one prompt runs it) and rows 0-1 alone (B = 2, a
+    data rank's rows at data = 2). Every recorded output's rows are compared
+    in bits, in call order; the first op that differs, and every op name
+    that does, are reported."""
+    from mistral_inference_tpu_torch.generate import _prompt_chunks
+
+    t0 = time.perf_counter()
+    model = mamba_model(8, "int4", False)
+    prompts = par_prompts(model.args.vocab_size, MAMBA_PROBE_LENS)
+
+    def run(rows):
+        state = model.alloc_state(len(rows))
+        logs = []
+        for s, tokens, lens in _prompt_chunks([prompts[r] for r in rows], 512, model.device):
+            with _OpLog() as log:
+                model.forward(tokens, lens, state, chunk=128)
+            logs.append(("prefill", s, log.calls))
+        ones = torch.ones((len(rows),), dtype=torch.int32, device=model.device)
+        with _OpLog() as log:  # one decode step on token 1
+            model.forward(ones[:, None], ones, state, chunk=1)
+        logs.append(("decode", 0, log.calls))
+        return logs
+
+    whole = run([0, 1, 2, 3])
+    out = {"phase": "mamba_rows_probe", "card": card, "model": MAMBA_MODEL, "layers": 8,
+           "weights": "int4 (seed 0)", "state": "fp32", "prompt_lens": MAMBA_PROBE_LENS,
+           "admission_chunk": 512, "ssd_chunk": 128, "compared": {}}
+    for label, rows in (("B1_row0_vs_B4", [0]), ("B2_rows01_vs_B4", [0, 1])):
+        part = run(rows)
+        res = []
+        for (kind, s, calls), (_, _, wcalls) in zip(part, whole):
+            layer, first, differing = -1, None, {}
+            for (name, t), (_, w) in zip(calls, wcalls):
+                if name == "rms_norm" and first is None:
+                    layer += 1  # each layer starts with its norm; 8 is the final norm
+                n = differ(t, w[:len(rows)])
+                if n:
+                    differing[name] = differing.get(name, 0) + 1
+                    if first is None:
+                        first = {"op": name, "layer": layer, "elements": n,
+                                 "of": t.numel()}
+            res.append({"forward": kind, "chunk_start": s, "first_differing": first,
+                        "ops_differing": differing, "calls": len(calls)})
+        out["compared"][label] = res
+    out["seconds"] = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 LORA_FAMILIES = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
 LORA_TOKENS = 24
 
@@ -4262,30 +4368,22 @@ def step_probe(step, reset, B: int, steps: int):
 # ---------------------------------------------------------------------------
 
 PAR_PROMPT_LENS = (600, 300, 77, 20)  # the first two take more than one chunk: K4 runs
+PAR_ODD_LENS = (77, 45, 20)  # one unchunked prefill of 77 tokens, which seq = 2 does not divide
 PAR_CHUNK = 256
 PAR_TOKENS = 12
-# The sharded run against one device, on each row's logprobs up to its first
-# divergence (the prompt's teacher-forced ones and the generated ones): a
-# row-parallel product rounds each rank's partial sum to bf16 before the
-# all-reduce adds them, where one device rounds the whole sum once. Over 32
-# layers the fp8 ring's rounding of K and V and the bf16 rounding of the
-# logits (a step of 0.0625 between 8 and 16) carry that to 0.16 nats on
-# `mistral-7b-v0.1` at tensor = 2 (the vocab-sharded head itself is exact:
-# its halves give the full product's bits). So the bound is the one decode ==
-# prefill is held to, two roundings of one function; the paths whose
-# arithmetic is a single device's (expert and data parallelism) are held to
-# its tokens and logprobs in bits. Two witnesses on (a)'s model, on one
-# device, hold the bound to what it must tell apart (``row_halves``): the
-# same arithmetic done by halves must lie inside it, and the sharded run
-# nearer to it than to the whole products (on the H100: 0.16 / 0.031 nats
-# from the whole products, the sharded run 0.0006 mean from the halves); a
-# wrong shard (the halves swapped) must lie outside it (4.9 / 1.09 there).
-PAR_MAX_NATS = INVARIANT_MAX_NATS
-PAR_MEAN_NATS = INVARIANT_MEAN_NATS
+# Every path is held to the single-device port's tokens and logprobs in
+# bits: a tensor-sharded linear keeps its whole K and gathers activations,
+# never partial sums (K3 with the whole weight's split), a seq rank runs its
+# queries through K1 and K4 against the whole chunk, a data rank its rows,
+# an expert rank adds exact zeros for the experts it does not hold. A wrong
+# shard, one device with each layer's ``wo`` and ``w2`` output halves
+# swapped (what tensor = 2 computes if each rank held the other's shard),
+# is the negative control: it must leave those bits.
 PAR_ENGINE_LENS = (300, 180, 120, 90, 64, 40, 24, 12)
 PAR_ENGINE_TOKENS = 10
 PAR_LOOKUP_K = 7
-PAR_TIMEOUT_S = 600
+PAR_LORA_RANK = 16
+PAR_TIMEOUT_S = 900
 PAR_SHAPES_PER_KERNEL = 4  # distinct shapes of one wrapper kept for replay per path
 
 
@@ -4294,21 +4392,33 @@ class ParPath(NamedTuple):
     model: str
     layers: int
     ring: Optional[str]  # the KV ring's type; None for a Mamba
-    mesh: Tuple[int, int, int]  # (data, expert, tensor)
+    mesh: Tuple[int, int, int, int]  # (data, seq, expert, tensor)
     expected: Tuple[str, ...]  # kernels each rank must launch
     per_decode: Tuple[str, ...]  # kernels launched exactly layers x decode forwards
-    # The ranks do a single device's arithmetic: an expert rank's partial adds
-    # exact zeros for the other rank's experts (capacity and slots global); a
-    # data rank runs its rows, whose bits no kernel ties to the batch.
-    exact: bool = False
+    # What the path runs beside greedy generate() ("generate"): an Engine
+    # on PAR_ENGINE_LENS, lookup speculation, the odd-chunk prompts, a
+    # staggered Engine and MambaEngine (``par_engine_workload``).
+    runs: Tuple[str, ...] = ("generate",)
+    lora: bool = False  # live LoRA pairs of rank PAR_LORA_RANK, filled from seed 1
+    ref: Optional[str] = None  # the path whose model (and one-device run) this one shares
 
 
 PAR_PATHS = (
     # the north-star configuration, all 32 layers, tensor = 2
-    ParPath("a", MODEL, 32, "fp8", (1, 1, 2), (K1, K4F, K5, K3, K2F), (K2F,)),
-    ParPath("b", MOE_MODEL, 32, "int8", (1, 2, 1), (K5, K8), (), exact=True),
-    ParPath("c", MAMBA_MODEL, 8, None, (1, 1, 2), (K9,), (K9,)),
-    ParPath("d", MODEL, 8, "int8", (2, 1, 1), (K1, K4, K2, K3, K5), (K2,), exact=True),
+    ParPath("a", MODEL, 32, "fp8", (1, 1, 1, 2), (K1, K4F, K5, K3, K2F, K7F), (K2F,),
+            ("generate", "engine", "lookup")),
+    ParPath("b", MOE_MODEL, 32, "int8", (1, 1, 2, 1), (K5, K8), ()),
+    # the experts' stacks sharded on their columns: w13 on F, w2 on D
+    ParPath("h", MOE_MODEL, 2, "int8", (1, 1, 1, 2), (K1, K4, K5, K8, K3, K2), (K2,)),
+    ParPath("c", MAMBA_MODEL, 8, None, (1, 1, 1, 2), (K9,), (K9,)),
+    ParPath("d", MODEL, 8, "int8", (2, 1, 1, 1), (K1, K4, K2, K3, K5), (K2,)),
+    # the same model as (a), its prefill chunks split over seq = 2
+    ParPath("e", MODEL, 32, "fp8", (1, 2, 1, 1), (K1, K4F, K5, K3, K2F), (K2F,),
+            ("generate", "odd", "engine"), ref="a"),
+    # the serving engines over data = 2: (d)'s model, and an 8-layer Mamba
+    ParPath("f", MODEL, 8, "int8", (2, 1, 1, 1), (K1, K4, K2, K3, K5, K9), (),
+            ("staggered",), ref="d"),
+    ParPath("g", MODEL, 8, "fp8", (1, 1, 1, 2), (K1, K4F, K5, K3, K2F), (K2F,), lora=True),
 )
 
 
@@ -4320,20 +4430,40 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def par_model(path: ParPath, mesh=None):
-    """The path's model, int4 weights drawn in bf16 from seed 0 (under a
-    mesh: this rank's shard of it)."""
-    from mistral_inference_tpu_torch.model import Mamba, Transformer
+def _par_args(path: ParPath, layers: Optional[int] = None):
+    from mistral_inference_tpu_torch.args import LoraArgs
     from mistral_inference_tpu_torch.models.registry import get_args
 
-    args = get_args(path.model)
-    args.n_layers = path.layers
+    args = get_args(MAMBA_MODEL if path.ring is None else path.model)
+    args.n_layers = path.layers if layers is None else layers
+    if path.ring is not None:
+        args.kv_quant = path.ring
+        if args.moe:
+            args.moe_impl = "dispatch"
+        if path.lora:
+            args.lora = LoraArgs(rank=PAR_LORA_RANK, scaling=2.0)
+    return args
+
+
+def par_model(path: ParPath, mesh=None, layers: Optional[int] = None):
+    """The path's model, int4 weights drawn in bf16 from seed 0 (under a
+    mesh: this rank's shard of it; with ``layers``, cut to that depth: its
+    first layers are the full model's); live LoRA pairs filled from seed 1."""
+    from mistral_inference_tpu_torch.model import Mamba, Transformer
+
+    args = _par_args(path, layers)
     if path.ring is None:
         return Mamba.random(args, dtype=torch.bfloat16, seed=0, quant="int4", mesh=mesh)
-    args.kv_quant = path.ring
-    if args.moe:
-        args.moe_impl = "dispatch"
-    return Transformer.random(args, dtype=torch.bfloat16, seed=0, quant="int4", mesh=mesh)
+    model = Transformer.random(args, dtype=torch.bfloat16, seed=0, quant="int4", mesh=mesh)
+    if path.lora:
+        g = torch.Generator(device=model.device).manual_seed(1)
+        for lw in model.params["layers"]:
+            for name in sorted(lw["lora"]):
+                for leaf in ("a", "b"):
+                    t = lw["lora"][name][leaf]
+                    t.copy_(0.05 * torch.randn(t.shape, generator=g, device=t.device,
+                                               dtype=torch.float32))
+    return model
 
 
 def par_prompts(vocab_size: int, lens=PAR_PROMPT_LENS):
@@ -4349,6 +4479,75 @@ def par_generate(model, prompts, max_tokens: int = PAR_TOKENS, **kw):
     run = generate_mamba if hasattr(model, "alloc_state") else generate
     return run(prompts, model, max_tokens=max_tokens, temperature=0.0,
                chunk_size=kw.pop("chunk_size", PAR_CHUNK), **kw)
+
+
+def par_engine_workload(vocab_size: int):
+    """(prompt, max_tokens) of eight requests for four slots: two long rows
+    (data rank 0's), two short ones, then two sharing 600 and 520 tokens
+    with the long rows (prefix copies from rank 0 into rank 1's rows) and
+    two alone (a staged row each)."""
+    base = par_prompts(vocab_size, (700, 640, 300, 90, 40, 30))
+    return [(base[0], 24), (base[1], 24), (base[2], 4), (base[3], 4),
+            (base[0][:600] + base[4], 6), (base[1][:520] + base[5], 6),
+            (base[4], 5), (base[5], 5)]
+
+
+def par_staggered(engine, workload) -> list:
+    """Four requests, two more after a step, the last two after one more
+    each; every request's tokens."""
+    ids, done = [], {}
+    for i, (p, n) in enumerate(workload):
+        if i in (4, 6, 7):
+            done.update({ev.request_id: engine._result(ev.request_id)
+                         for ev in engine.step() if ev.finished})
+        ids.append(engine.submit(p, max_tokens=n))
+    done.update(engine.run_to_completion())
+    return [done[i] for i in ids]
+
+
+def par_runs(path: ParPath, model, mesh=None) -> dict:
+    """Everything ``path.runs`` asks of ``model``: the same on one device and
+    on a rank."""
+    from mistral_inference_tpu_torch.model import Mamba
+    from mistral_inference_tpu_torch.server.engine import Engine
+    from mistral_inference_tpu_torch.server.mamba_engine import MambaEngine
+    from mistral_inference_tpu_torch.utils.profiling import METRICS
+
+    out, V = {}, model.args.vocab_size
+    if "engine" in path.runs:
+        eng = Engine(model, batch_size=4, max_seq_len=max(PAR_ENGINE_LENS) + PAR_ENGINE_TOKENS + 8)
+        ids = [eng.submit(p, max_tokens=PAR_ENGINE_TOKENS)
+               for p in par_prompts(V, PAR_ENGINE_LENS)]
+        t = time.perf_counter()
+        done = eng.run_to_completion()
+        out["engine"] = {"tokens": [done[i] for i in ids], "s": time.perf_counter() - t}
+        del eng
+    if "lookup" in path.runs:
+        k7, before = K7F if path.ring == "fp8" else K7, launch_counts()
+        with AcceptLog() as log:
+            out["lookup"] = par_generate(model, par_prompts(V), draft_model="lookup",
+                                         spec_tokens=PAR_LOOKUP_K)
+        out["lookup_k7"] = {"verify_forwards": log.verify_forwards,
+                            "launches": launch_counts()[k7] - before[k7]}
+    if "odd" in path.runs:
+        out["odd"] = par_generate(model, par_prompts(V, PAR_ODD_LENS), chunk_size=None)
+    if "staggered" in path.runs:
+        work = par_engine_workload(V)
+        hits, staged = METRICS.counters["prefix_hits"], METRICS.counters["staged_admissions"]
+        t = time.perf_counter()
+        tokens = par_staggered(Engine(model, batch_size=4, max_seq_len=800, decode_block=4,
+                                      admit_waterline=1, staging_batch=2), work)
+        out["engine"] = {"tokens": tokens, "s": time.perf_counter() - t,
+                         "prefix_hits": METRICS.counters["prefix_hits"] - hits,
+                         "staged": METRICS.counters["staged_admissions"] - staged}
+        mamba = Mamba.random(_par_args(next(p for p in PAR_PATHS if p.ring is None), 8), dtype=torch.bfloat16, seed=0,
+                             quant="int4", mesh=mesh)
+        t = time.perf_counter()
+        tokens = par_staggered(MambaEngine(mamba, batch_size=4, max_seq_len=800,
+                                           decode_block=4), work)
+        out["mamba_engine"] = {"tokens": tokens, "s": time.perf_counter() - t}
+        del mamba
+    return out
 
 
 def teacher_logits(model, prompts, gen, chunk: int = PAR_CHUNK) -> torch.Tensor:
@@ -4376,37 +4575,10 @@ def teacher_logits(model, prompts, gen, chunk: int = PAR_CHUNK) -> torch.Tensor:
     return out
 
 
-def par_diverged(label: str, ref_tokens, ref_logits: torch.Tensor, got) -> list:
-    """Rows where ``got`` left the reference's greedy tokens; each must leave
-    at a near-tie of the reference's logits (both tokens within
-    NEAR_TIE_GAP of the best), as in phases 4 and 10. Returns the first
-    divergence step of every row (its length where none)."""
-    firsts = []
-    for b, (a, r) in enumerate(zip(got, ref_tokens)):
-        step = next((i for i, (x, y) in enumerate(zip(a, r)) if x != y), len(r))
-        firsts.append(step)
-        if step == len(r):
-            continue
-        logits = ref_logits[b, step]
-        best = float(logits.max())
-        d = {"phase": "divergence", "path": label, "row": b, "step": step,
-             "sharded_token": a[step], "reference_token": r[step],
-             "sharded_gap": best - float(logits[a[step]]),
-             "reference_gap": best - float(logits[r[step]])}
-        emit(d)
-        require(d["sharded_gap"] <= NEAR_TIE_GAP and d["reference_gap"] <= NEAR_TIE_GAP,
-                f"{label}: the sharded run left the single-device tokens away from a "
-                f"near-tie: {d}")
-    return firsts
-
-
-def par_logprob_gap(got_lps, ref_lps, firsts):
-    """max and mean |sharded - single-device| over each row's logprobs up to
-    its first divergence."""
-    gaps = []
-    for n_prompt, a, b, first in zip(PAR_PROMPT_LENS, got_lps, ref_lps, firsts):
-        n = n_prompt - 1 + first
-        gaps.extend(abs(x - y) for x, y in zip(a[:n], b[:n]))
+def par_logprob_gap(got_lps, ref_lps):
+    """max and mean |sharded - single-device| over every logprob of rows
+    whose lengths agree."""
+    gaps = [abs(x - y) for a, b in zip(got_lps, ref_lps) for x, y in zip(a, b)]
     return max(gaps), sum(gaps) / len(gaps)
 
 
@@ -4428,7 +4600,6 @@ def nccl_world_of_one(card: str) -> dict:
 
     import torch.distributed as dist
 
-    from mistral_inference_tpu_torch.generate import generate
     from mistral_inference_tpu_torch.parallel.distributed import init_distributed
     from mistral_inference_tpu_torch.parallel.mesh import make_mesh
 
@@ -4441,7 +4612,7 @@ def nccl_world_of_one(card: str) -> dict:
         backend = dist.get_backend()
         require(backend == "nccl", f"one rank with one GPU took {backend}, not NCCL")
         mesh = make_mesh(1, 1, 1)
-        path = ParPath("nccl1", MODEL, 8, "int8", (1, 1, 1), (), ())
+        path = ParPath("nccl1", MODEL, 8, "int8", (1, 1, 1, 1), (), ())
         plain, meshed = par_model(path), par_model(path, mesh)
         prompts = par_prompts(plain.args.vocab_size)
         want = par_generate(plain, prompts)
@@ -4464,7 +4635,7 @@ def nccl_world_of_one(card: str) -> dict:
             os.environ.pop(k, None)
     torch.cuda.empty_cache()
     return {"phase": "parallel_nccl_world_of_one", "backend": backend, "model": MODEL,
-            "layers": 8, "weights": "int4 (seed 0)", "ring": "int8", "mesh": [1, 1, 1],
+            "layers": 8, "weights": "int4 (seed 0)", "ring": "int8", "mesh": [1, 1, 1, 1],
             "equal_bits_to_no_mesh": True, "forward_collectives": forward_collectives,
             "probe": "dist.all_reduce (bf16) and dist.all_gather (fp32) on the NCCL world "
                      "group: unchanged values",
@@ -4494,7 +4665,7 @@ def _plain_versions():
         "ring_attention_stats": ring,
         "fused_update_decode_attention": att.fused_update_decode_attention_plain,
         "fused_verify_chunk_attention": att.fused_verify_chunk_attention_plain,
-        "matmul_quant": mq.matmul_quant_plain,
+        "matmul_quant": lambda x, q, s, split_n=None: mq.matmul_quant_plain(x, q, s),
         "matmul_quant_stacked": lambda x, q, s, li: mq.matmul_quant_plain(x, q[li], s[li]),
         "moe_matmul_quant_ragged": mm.moe_matmul_quant_ragged_plain,
         "moe_matmul_quant": mm.moe_matmul_quant_plain,
@@ -4514,6 +4685,8 @@ SHARD_CALL_SITES = (
     ("ops.linear", "matmul_quant"), ("ops.linear", "matmul_quant_stacked"),
     ("ops.linear", "moe_matmul_quant_ragged"), ("models.mamba", "fused_ssd_step_stacked"),
 )
+# wrappers whose column-shard outputs are held to the whole weight's columns
+SHARD_WHOLE = ("matmul_quant", "moe_matmul_quant_ragged", "moe_matmul_quant")
 # wrapper -> the arguments it writes in place (ring stacks and scales; the SSD state)
 SHARD_WRITES = {"fused_update_decode_attention": (3, 4, 5, 6),
                 "fused_verify_chunk_attention": (3, 4, 5, 6), "fused_ssd_step_stacked": (4,)}
@@ -4532,14 +4705,37 @@ def _sig(args) -> str:
                     for a in args if isinstance(a, torch.Tensor))
 
 
+def whole_leaves(path: ParPath, mesh) -> list:
+    """(whole leaf, its fused part sizes, its shard on this rank) of every
+    tensor-sharded quantized linear (or expert stack) of layer 0 of the
+    path's model, drawn on one device from the same seed (a one-layer
+    model's layer is the first layer of the deep one)."""
+    from mistral_inference_tpu_torch.parallel.sharding import shard_columns
+
+    if mesh.tensor == 1 or mesh.expert > 1:
+        return []
+    args = _par_args(path, 1)
+    lw = par_model(path, layers=1).params["layers"][0]
+    if path.ring is None:
+        di, gd = args.d_inner, args.n_groups * args.d_state
+        parts = {"in_proj": [di, di, gd, gd], "out_proj": [args.dim]}
+    else:
+        q, kv, F_ = args.n_heads * args.head_dim, args.n_kv_heads * args.head_dim, args.hidden_dim
+        parts = {"wqkv": [q, kv, kv], "wo": [args.dim], "w13": [F_, F_], "w2": [args.dim]}
+    return [(lw[k], sizes, shard_columns(lw[k], sizes, mesh.t, mesh.tensor))
+            for k, sizes in parts.items()]
+
+
 class ShardRecorder:
     """While entered, keeps a copy of the inputs of the first calls of each
     kernel wrapper that the sharded forwards make (up to
     PAR_SHAPES_PER_KERNEL shapes each), to hold each kernel against its
-    plain version at those shard shapes afterwards (``replay``)."""
+    plain version at those shard shapes afterwards (``replay``), and the
+    quantized linears' shard products against the matching columns of the
+    whole weight's product (``whole``: ``whole_leaves``)."""
 
-    def __init__(self):
-        self.records, self._saved = [], []
+    def __init__(self, whole=()):
+        self.records, self._saved, self.whole = [], [], list(whole)
 
     def __enter__(self):
         import importlib
@@ -4565,20 +4761,52 @@ class ShardRecorder:
             return fn(*args, **kw)
         return call
 
-    def replay(self, path: str, card: str) -> list:
+    def _whole_columns(self, name, fn, args, got):
+        """For a K3, K5 or K8 record on a column shard (a dense linear or an
+        expert stack): whether the shard's output equals the matching
+        columns of the whole weight's product, in bits (None where the
+        weight is no such shard)."""
+        from mistral_inference_tpu_torch.parallel.sharding import _part_slices
+
+        if name not in SHARD_WHOLE:
+            return None
+        q = args[1]
+        for leaf, sizes, shard in self.whole:
+            sq = shard["q4"] if "q4" in shard else shard["q"]
+            lead = sq.dim() < q.dim()  # a dense weight as K5's one-weight stack
+            sq = sq[None] if lead else sq
+            if sq.shape != q.shape or not torch.equal(sq, q):
+                continue
+            wq, ws = (leaf["q4"] if "q4" in leaf else leaf["q"]), leaf["scale"]
+            wq, ws = (wq[None], ws[None]) if lead else (wq, ws)
+            rest = args[3:] if name == "moe_matmul_quant_ragged" else ()
+            full = fn(args[0], wq, ws, *rest)  # K3: the whole weight's own split
+            T, t = leaf["scale"].shape[-1] // shard["scale"].shape[-1], self.t
+            cols = torch.cat([torch.arange(full.shape[-1], device=full.device)[s]
+                              for s in _part_slices(sizes, t, T)])
+            torch.cuda.synchronize()
+            return same_bits(full[..., cols], got)
+        return None
+
+    def replay(self, path: str, card: str, t: int = 0) -> list:
         """One ``kernel_shard`` line per record: the kernel and its plain
         version on copies of the recorded inputs; the in-place writes (ring
-        bytes and scales, the SSD state) must equal in bits. K6 is held to
-        its plain version over the ring each K2 record wrote."""
+        bytes and scales, the SSD state) must equal in bits, and a linear's
+        shard output the whole weight's columns. K6 is held to its plain
+        version over the ring each K2 record wrote."""
         from mistral_inference_tpu_torch.ops.cuda import attention as att
 
-        plain = _plain_versions()
+        plain, self.t = _plain_versions(), t
         lines = []
         for name, sig, fn, args, kw in self.records:
             ka, pa = _clone(args), _clone(args)
             got, want = fn(*ka, **_clone(kw)), plain[name](*pa, **_clone(kw))
             torch.cuda.synchronize()
             lines.append(self._line(path, name, sig, got, want, ka, pa, card))
+            whole = self._whole_columns(name, fn, args, got)
+            require(whole is not False, f"{name}: the shard's output at {sig} is not the whole "
+                                        "weight's columns in bits")
+            lines[-1]["whole_columns_equal_bits"] = whole
             lines[-1]["ms"] = timed_ms(lambda: fn(*ka, **kw))  # after the comparison
             if name == "fused_update_decode_attention":
                 xq, _, _, CK, CV, KS, VS, li, window, _, q_pos, kv_pos, kv_valid = pa
@@ -4606,96 +4834,60 @@ class ShardRecorder:
         return {"phase": "kernel_shard", "path": path, "kernel": name, "shape": sig,
                 "max_abs_err": worst, "writes_equal_bits": bool(writes) or None,
                 "tolerance": "abs 1e-2 + rel 1e-2 on bf16 outputs, 1e-4 on fp32 outputs "
-                             "(stats, K9's y); in-place writes equal bits",
+                             "(stats, K9's y); in-place writes and a shard's columns of the "
+                             "whole product equal bits",
                 "card": card}
 
 
-def head_halves_exact(model) -> bool:
-    """Whether the vocab head's two halves (tensor = 2's shards) give the full
-    product's bits, at the row counts the forwards use."""
-    import torch.nn.functional as F
-
-    w = model.params["output"]
-    V = w.shape[0]
-    gen = torch.Generator(device=w.device).manual_seed(3)
-    for rows in (1, 4, 12, 256, 1024):
-        h = torch.randn((rows, w.shape[1]), generator=gen, device=w.device).to(w.dtype)
-        halves = torch.cat([F.linear(h, w[:V // 2]), F.linear(h, w[V // 2:])], -1)
-        if not torch.equal(F.linear(h, w), halves):
-            return False
-    return True
-
-
-def row_halves(model, prompts, swap: bool = False):
-    """``par_generate`` on one device with tensor = 2's row-parallel
-    arithmetic: each layer's ``wo`` and ``w2`` as the two ranks' shards
-    (``sharding.shard_rows``, int4 repacked) on their halves of the input,
-    through the kernels the ranks run, each partial rounded to the
-    activation dtype and the two added in it, as the all-reduce adds them.
-    With ``swap`` each half meets the other rank's shard: a wrong shard."""
-    import torch.nn.functional as F
-
+def wrong_shard(model, prompts):
+    """``par_generate`` on one device with each layer's ``wo`` and ``w2``
+    outputs' two column halves swapped: what tensor = 2 computes if each rank
+    held the other rank's output shard."""
     from mistral_inference_tpu_torch.models import transformer as tf
-    from mistral_inference_tpu_torch.ops.linear import linear
-    from mistral_inference_tpu_torch.parallel.sharding import shard_rows
-
-    shards = {}
-
-    def halves(x, lw, key):
-        if (id(lw), key) not in shards:
-            shards[id(lw), key] = [shard_rows(lw[key], t, 2) for t in (0, 1)]
-        w0, w1 = shards[id(lw), key][::-1] if swap else shards[id(lw), key]
-        K = x.shape[-1] // 2
-        return linear(x[..., :K].contiguous(), w0) + linear(x[..., K:].contiguous(), w1)
-
-    def wo(out, w, args, mesh):
-        return halves(out, w, "wo")
-
-    def dense_ffn(x, w, args, mesh=None):
-        gate, up = tf._lin(x, w, "w13", args).chunk(2, dim=-1)
-        return halves(F.silu(gate) * up, w, "w2")
 
     saved = tf._wo, tf._dense_ffn
-    tf._wo, tf._dense_ffn = wo, dense_ffn
+
+    def swap(y):
+        D = y.shape[-1]
+        return torch.cat([y[..., D // 2:], y[..., :D // 2]], -1)
+
+    tf._wo = lambda out, w, args, mesh, rows=None: swap(saved[0](out, w, args, mesh, rows))
+    tf._dense_ffn = lambda x, w, args, mesh=None, rows=None: swap(saved[1](x, w, args, mesh, rows))
     try:
         return par_generate(model, prompts)
     finally:
         tf._wo, tf._dense_ffn = saved
-        del shards
-        torch.cuda.empty_cache()
 
 
-def _first_divergence(got, want) -> list:
-    return [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), len(b))
-            for a, b in zip(got, want)]
+def _expected_collectives(path: ParPath) -> dict:
+    """The collectives of one decode forward: 4 all-gathers a transformer
+    layer and 2 a Mamba layer under tensor, one for the vocab head, one for
+    the rows under data; one all-reduce a layer under expert; nothing over
+    seq."""
+    data, _, expert, tensor = path.mesh
+    per_layer = (2 if path.ring is None else 4) if tensor > 1 else 0
+    gathers = per_layer * path.layers + (tensor > 1) + (data > 1)
+    return {"all_reduce": path.layers if expert > 1 else 0, "all_gather": gathers}
 
 
 def par_reference(path: ParPath) -> dict:
     """The single-device run of a path, in this process: greedy tokens,
-    logprobs, the teacher-forced logits of the generated tokens, the weight
-    bytes; on (a) also each engine request alone."""
+    logprobs and the teacher-forced logits of the generated tokens, the
+    weight bytes, everything ``path.runs`` asks; on (a) the wrong shard."""
     from mistral_inference_tpu_torch.models import transformer as tf
 
     t0 = time.perf_counter()
     model = par_model(path)
-    prompts = par_prompts(model.args.vocab_size)
-    gen, lps = par_generate(model, prompts)
-    ref = {"tokens": gen, "logprobs": lps, "logits": teacher_logits(model, prompts, gen),
-           "weight_bytes": param_bytes(model.params), "params": tf.param_count(model.params)}
+    ref = {"weight_bytes": param_bytes(model.params), "params": tf.param_count(model.params)}
+    if "generate" in path.runs:
+        prompts = par_prompts(model.args.vocab_size)
+        gen, lps = par_generate(model, prompts)
+        ref.update(tokens=gen, logprobs=lps, logits=teacher_logits(model, prompts, gen))
     if path.label == "a":
-        # One device's own floor: the same model and prompts at chunk 512.
-        gen2, lps2 = par_generate(model, prompts, chunk_size=512)
-        ref["floor_chunk512_nats"] = par_logprob_gap(lps2, lps, _first_divergence(gen2, gen))
-        ref["head_halves_equal_bits"] = head_halves_exact(model)
-        ref["row_halves"] = row_halves(model, prompts)
-        wrong, wrong_lps = row_halves(model, prompts, swap=True)
-        ref["wrong_shard_nats"] = par_logprob_gap(wrong_lps, lps, _first_divergence(wrong, gen))
-        eprompts = par_prompts(model.args.vocab_size, PAR_ENGINE_LENS)
-        alone = [par_generate(model, [p], PAR_ENGINE_TOKENS, chunk_size=512)[0][0]
-                 for p in eprompts]
-        ref["engine_tokens"] = alone
-        ref["engine_logits"] = [teacher_logits(model, [p], [g], 512)[0]
-                                for p, g in zip(eprompts, alone)]
+        wrong, wrong_lps = wrong_shard(model, prompts)
+        ref["wrong_shard"] = {"equal_bits": wrong == gen and wrong_lps == lps,
+                              "rows_diverged": sum(a != b for a, b in zip(wrong, gen))}
+    ref.update(par_runs(path, model))
     ref["seconds"] = time.perf_counter() - t0
     del model
     torch.cuda.empty_cache()
@@ -4704,54 +4896,47 @@ def par_reference(path: ParPath) -> dict:
 
 def par_rank_path(path: ParPath, rank: int, card: str) -> dict:
     """One path on this rank: the sharded model, its greedy run, decode ==
-    prefill, the launches and collectives, and on (a) an engine and lookup
-    speculation; rank 0 also replays the kernels at their shard shapes."""
+    prefill, the launches and collectives, what ``path.runs`` asks; rank 0
+    also replays the kernels at their shard shapes."""
     import contextlib
 
     from mistral_inference_tpu_torch.ops import cuda as kern
-    from mistral_inference_tpu_torch.parallel.inspect import decode_collective_inventory
+    from mistral_inference_tpu_torch.parallel.inspect import (
+        decode_collective_inventory,
+        prefill_collective_inventory,
+    )
     from mistral_inference_tpu_torch.parallel.mesh import make_mesh
 
-    mesh = make_mesh(*path.mesh)
+    mesh = make_mesh(**dict(zip(("data", "seq", "expert", "tensor"), path.mesh)))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = par_model(path, mesh)
     torch.cuda.synchronize()
     out = {"init_s": time.perf_counter() - t0, "weight_bytes": param_bytes(model.params)}
-    prompts = par_prompts(model.args.vocab_size)
-    recorder = ShardRecorder() if rank == 0 else contextlib.nullcontext()
-    kern.reset_launch_counts()
+    recorder = (ShardRecorder(whole_leaves(path, mesh)) if rank == 0
+                else contextlib.nullcontext())
     t = time.perf_counter()
     with recorder:
-        gen, lps = par_generate(model, prompts)
-    torch.cuda.synchronize()
-    out.update(tokens=gen, logprobs=lps, generate_s=time.perf_counter() - t,
-               launches=launch_counts())
-    full = [p + g for p, g in zip(prompts, gen)]
-    _, tf_lps = par_generate(model, full, max_tokens=0)
-    gaps = [abs(a - b) for lp, tl, g in zip(lps, tf_lps, gen)
-            for a, b in zip(lp[-len(g):], tl[-len(g):])]
-    out["decode_prefill_max_nats"], out["decode_prefill_mean_nats"] = (
-        max(gaps), sum(gaps) / len(gaps))
-    out["decode_collectives"] = decode_collective_inventory(model)
-    if path.label == "a":
-        from mistral_inference_tpu_torch.server.engine import Engine
-
-        eprompts = par_prompts(model.args.vocab_size, PAR_ENGINE_LENS)
-        engine = Engine(model, batch_size=4,
-                        max_seq_len=max(PAR_ENGINE_LENS) + PAR_ENGINE_TOKENS + 8)
-        ids = [engine.submit(p, max_tokens=PAR_ENGINE_TOKENS) for p in eprompts]
-        t = time.perf_counter()
-        done = engine.run_to_completion()
-        out["engine_s"] = time.perf_counter() - t
-        out["engine_tokens"] = [done[i] for i in ids]
-        del engine
+        if "generate" in path.runs:
+            prompts = par_prompts(model.args.vocab_size)
+            kern.reset_launch_counts()
+            gen, lps = par_generate(model, prompts)
+            out.update(tokens=gen, logprobs=lps, launches=launch_counts())
         kern.reset_launch_counts()
-        with recorder:
-            out["lookup_tokens"] = par_generate(model, prompts, draft_model="lookup",
-                                                spec_tokens=PAR_LOOKUP_K)[0]
-        out["lookup_launches"] = launch_counts()
-    out["kernel_shard"] = recorder.replay(path.label, card) if rank == 0 else []
+        out.update(par_runs(path, model, mesh))
+        out["runs_launches"] = launch_counts()
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t
+    if "generate" in path.runs:
+        _, tf_lps = par_generate(model, [p + g for p, g in zip(prompts, gen)], max_tokens=0)
+        gaps = [abs(a - b) for lp, tl, g in zip(lps, tf_lps, gen)
+                for a, b in zip(lp[-len(g):], tl[-len(g):])]
+        out["decode_prefill_max_nats"], out["decode_prefill_mean_nats"] = (
+            max(gaps), sum(gaps) / len(gaps))
+        out["decode_collectives"] = decode_collective_inventory(model)
+        if mesh.seq > 1:
+            out["prefill_collectives"] = prefill_collective_inventory(model, 4, PAR_CHUNK)
+    out["kernel_shard"] = recorder.replay(path.label, card, mesh.t) if rank == 0 else []
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["seconds"] = time.perf_counter() - t0
     del model
@@ -4789,15 +4974,135 @@ def par_rank(rank: int, port: int, workdir: str, card: str) -> None:
             dist.destroy_process_group()
 
 
+def _first_divergence(got, want) -> list:
+    return [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), len(b))
+            for a, b in zip(got, want)]
+
+
+def _par_line(path: ParPath, ref: dict, r0: dict, r1: dict):
+    """Phase 13's line for one path, holding both ranks to each other and
+    to one device in bits; returns (the line, what failed)."""
+    label = f"{path.label} {path.model} x{path.layers} mesh{list(path.mesh)}"
+    problems = []
+
+    def require(ok: bool, what: str) -> None:
+        if not ok:
+            problems.append(what)
+
+    keys = [k for k in ("tokens", "logprobs", "engine", "lookup", "odd", "mamba_engine")
+            if k in r0]
+    same = [k for k in keys if (r0[k]["tokens"] == r1[k]["tokens"] if isinstance(r0[k], dict)
+                                else r0[k] == r1[k])]
+    require(same == keys, f"{label}: the two ranks returned other {set(keys) - set(same)}")
+    line = {"path": path.label, "model": path.model, "layers": path.layers,
+            "mesh": dict(zip(("data", "seq", "expert", "tensor"), path.mesh)),
+            "ring": path.ring, "weights": "int4 (group 128), drawn in bf16 from seed 0",
+            "live_lora_rank": PAR_LORA_RANK if path.lora else None,
+            "params": ref["params"], "equal_ranks": same == keys}
+    for k in keys:
+        got, want = r0[k], ref[k]
+        if k in ("engine", "mamba_engine"):
+            equal = got["tokens"] == want["tokens"]
+            line[k] = {"equal_bits_to_one_device": equal,
+                       "rows_diverged": sum(a != b for a, b in zip(got["tokens"], want["tokens"])),
+                       "seconds_per_rank": [r0[k]["s"], r1[k]["s"]],
+                       "one_device_s": want["s"]}
+            if "prefix_hits" in got:
+                line[k].update(prefix_hits=got["prefix_hits"], staged_rows=got["staged"])
+                require(got["prefix_hits"] == want["prefix_hits"] >= 1
+                        and got["staged"] == want["staged"] >= 1,
+                        f"{label}: {got['prefix_hits']} prefix copies and {got['staged']} "
+                        f"staged rows ({want['prefix_hits']} and {want['staged']} on one "
+                        "device; at least one each)")
+        elif k in ("lookup", "odd"):
+            equal = list(got) == list(want)  # (tokens, logprobs); a rank's came through JSON
+            line[k] = {"equal_bits_to_one_device": equal,
+                       **({"k7_launches_verify_forwards": [
+                           [r["lookup_k7"]["launches"], r["lookup_k7"]["verify_forwards"]]
+                           for r in (r0, r1)]} if k == "lookup" else {}),
+                       "first_divergence": _first_divergence(got[0], want[0]),
+                       "logprob_max_mean_nats": par_logprob_gap(got[1], want[1])}
+        else:
+            continue
+        require(equal, f"{label}: {k} is not one device's in bits")
+    if "tokens" in r0:
+        equal = r0["tokens"] == ref["tokens"] and r0["logprobs"] == ref["logprobs"]
+        line["first_divergence"] = _first_divergence(r0["tokens"], ref["tokens"])
+        max_nats, mean_nats = par_logprob_gap(r0["logprobs"], ref["logprobs"])
+        require(equal, f"{label}: the tokens or logprobs are not one device's bits "
+                       f"({max_nats} max, {mean_nats} mean nats)")
+        moe = path.model == MOE_MODEL
+        inv = ((MOE_INVARIANT_MAX_NATS, MOE_INVARIANT_MEAN_NATS) if moe
+               else (INVARIANT_MAX_NATS, INVARIANT_MEAN_NATS))
+        for r in (r0, r1):
+            require(r["decode_prefill_max_nats"] <= inv[0]
+                    and r["decode_prefill_mean_nats"] <= inv[1],
+                    f"{label}: decode != prefill on the sharded model")
+            for name in path.per_decode:
+                require(r["launches"][name] == path.layers * PAR_TOKENS,
+                        f"{label}: {name} launched {r['launches'][name]} times, not "
+                        f"{path.layers} x {PAR_TOKENS}")
+            require(r["decode_collectives"] == _expected_collectives(path),
+                    f"{label}: one decode forward issued {r['decode_collectives']}, not "
+                    f"{_expected_collectives(path)}")
+            if "lookup_k7" in r:
+                k7 = r["lookup_k7"]
+                require(k7["verify_forwards"] > 0
+                        and k7["launches"] == path.layers * k7["verify_forwards"],
+                        f"{label}: lookup launched K7 {k7['launches']} times for "
+                        f"{k7['verify_forwards']} verify forwards of {path.layers} layers")
+        line.update(equal_bits_to_one_device=equal,
+                    logprob_max_nats=max_nats, logprob_mean_nats=mean_nats,
+                    decode_prefill_max_nats=[r0["decode_prefill_max_nats"],
+                                             r1["decode_prefill_max_nats"]],
+                    decode_prefill_mean_nats=[r0["decode_prefill_mean_nats"],
+                                              r1["decode_prefill_mean_nats"]],
+                    decode_prefill_bound=list(inv),
+                    decode_collectives=[r0["decode_collectives"], r1["decode_collectives"]])
+        if "prefill_collectives" in r0:
+            line["prefill_collectives_chunk_256_b4"] = r0["prefill_collectives"]
+    for r in (r0, r1):
+        for name in path.expected:
+            require(r.get("launches", {}).get(name, 0) + r["runs_launches"][name] > 0,
+                    f"{label}: {name} was not launched on a rank")
+    if path.mesh[3] > 1 and path.mesh[2] == 1:  # column shards: each quantized kernel once
+        quant = {x["kernel"] for x in r0["kernel_shard"] if x["kernel"] in SHARD_WHOLE}
+        whole = {x["kernel"] for x in r0["kernel_shard"] if x.get("whole_columns_equal_bits")}
+        require(quant and quant <= whole, f"{label}: no kernel_shard line held "
+                                          f"{sorted(quant - whole)} to the whole weight's columns")
+    line.update(
+        launches_rank0={k: v for k, v in r0.get("launches", {}).items() if v},
+        launches_rank1={k: v for k, v in r1.get("launches", {}).items() if v},
+        runs_launches_rank0={k: v for k, v in r0["runs_launches"].items() if v},
+        kernel_shard_lines=len(r0["kernel_shard"]),
+        whole_columns_lines=sum(bool(x.get("whole_columns_equal_bits"))
+                                for x in r0["kernel_shard"]),
+        weight_bytes_per_rank=[r0["weight_bytes"], r1["weight_bytes"]],
+        weight_bytes_one_device=ref["weight_bytes"],
+        peak_mem_gb_per_rank=[r0["peak_mem_gb"], r1["peak_mem_gb"]],
+        seconds_per_rank=[r0["seconds"], r1["seconds"]],
+        run_s_per_rank=[r0["run_s"], r1["run_s"]], reference_s=ref["seconds"])
+    return line, problems
+
+
 def parallel_phase(card: str) -> dict:
-    """Phase 13: an NCCL world of one, then paths (a)-(d), an engine and
-    lookup speculation over two gloo ranks on the card, each against the
-    single-device port on the same seed and prompts in this run."""
+    """Phase 13: an NCCL world of one, then paths (a)-(h) over two gloo
+    ranks on the card, each against the single-device port on the same seed
+    and inputs in this run, in bits."""
     import multiprocessing as mp
 
     t0 = time.perf_counter()
     emit(nccl_world_of_one(card))
-    refs = {p.label: par_reference(p) for p in PAR_PATHS}
+    refs = {}
+    for p in PAR_PATHS:  # one single-device run a model, for every path on it
+        if p.ref is None:
+            runs = [r for q in PAR_PATHS if p.label in (q.label, q.ref) for r in q.runs]
+            refs[p.label] = par_reference(p._replace(runs=tuple(dict.fromkeys(runs))))
+    for p in PAR_PATHS:
+        refs[p.label] = refs[p.ref or p.label]
+    wrong = refs["a"]["wrong_shard"]
+    require(not wrong["equal_bits"], "a wrong shard (wo and w2 output halves swapped) gave one "
+                                     "device's bits: the check cannot tell it")
     torch.cuda.empty_cache()
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as tmp:
@@ -4825,110 +5130,19 @@ def parallel_phase(card: str) -> dict:
 
     summary = {"phase": "parallel", "card": card, "ranks": 2, "backend": "gloo",
                "device": "cuda:0 for both ranks", "prompt_lens": PAR_PROMPT_LENS,
-               "chunk_size": PAR_CHUNK, "max_tokens": PAR_TOKENS,
-               "logprob_bound": {"max_nats": PAR_MAX_NATS, "mean_nats": PAR_MEAN_NATS},
-               "paths": {}}
+               "odd_prompt_lens": PAR_ODD_LENS, "chunk_size": PAR_CHUNK,
+               "max_tokens": PAR_TOKENS, "held_to": "one device's tokens and logprobs in bits",
+               "wrong_shard": wrong, "paths": {}}
+    problems = []
     for path in PAR_PATHS:
         ref, r0, r1 = refs[path.label], res[0][path.label], res[1][path.label]
         for line in r0["kernel_shard"]:
             emit(line)
-        label = f"{path.label} {path.model} x{path.layers} mesh{list(path.mesh)}"
-        require(r0["tokens"] == r1["tokens"] and r0["logprobs"] == r1["logprobs"],
-                f"{label}: the two ranks returned other tokens or logprobs")
-        firsts = par_diverged(path.label, ref["tokens"], ref["logits"], r0["tokens"])
-        max_nats, mean_nats = par_logprob_gap(r0["logprobs"], ref["logprobs"], firsts)
-        require(max_nats <= PAR_MAX_NATS and mean_nats <= PAR_MEAN_NATS,
-                f"{label}: logprobs {max_nats} max, {mean_nats} mean nats from one device")
-        require(not path.exact or (r0["tokens"] == ref["tokens"]
-                                   and r0["logprobs"] == ref["logprobs"]),
-                f"{label}: the tokens or logprobs are not one device's bits")
-        moe = path.model == MOE_MODEL
-        inv_max, inv_mean = ((MOE_INVARIANT_MAX_NATS, MOE_INVARIANT_MEAN_NATS) if moe
-                             else (INVARIANT_MAX_NATS, INVARIANT_MEAN_NATS))
-        for r in (r0, r1):
-            require(r["decode_prefill_max_nats"] <= inv_max
-                    and r["decode_prefill_mean_nats"] <= inv_mean,
-                    f"{label}: decode != prefill on the sharded model")
-            for name in path.expected:
-                require(r["launches"][name] > 0, f"{label}: {name} was not launched on a rank")
-            for name in path.per_decode:
-                require(r["launches"][name] == path.layers * PAR_TOKENS,
-                        f"{label}: {name} launched {r['launches'][name]} times, not "
-                        f"{path.layers} x {PAR_TOKENS}")
-        coll = r0["decode_collectives"]
-        if path.label == "a":
-            require(coll["all_reduce"] == 2 * path.layers and coll["all_gather"] <= 2,
-                    f"{label}: one decode forward issued {coll}")
-        line = {
-            "path": path.label, "model": path.model, "layers": path.layers,
-            "mesh": dict(zip(("data", "expert", "tensor"), path.mesh)),
-            "ring": path.ring, "weights": "int4 (group 128), drawn in bf16 from seed 0",
-            "params": ref["params"],
-            "tokens_equal_ranks": True,
-            "equal_bits_to_one_device": r0["tokens"] == ref["tokens"]
-            and r0["logprobs"] == ref["logprobs"],
-            "rows_diverged": sum(f < PAR_TOKENS for f in firsts),
-            "logprob_max_nats": max_nats, "logprob_mean_nats": mean_nats,
-            "decode_prefill_max_nats": [r0["decode_prefill_max_nats"],
-                                        r1["decode_prefill_max_nats"]],
-            "decode_prefill_mean_nats": [r0["decode_prefill_mean_nats"],
-                                         r1["decode_prefill_mean_nats"]],
-            "decode_prefill_bound": [inv_max, inv_mean],
-            "launches_rank0": {k: v for k, v in r0["launches"].items() if v},
-            "launches_rank1": {k: v for k, v in r1["launches"].items() if v},
-            "decode_collectives": [r0["decode_collectives"], r1["decode_collectives"]],
-            "weight_bytes_per_rank": [r0["weight_bytes"], r1["weight_bytes"]],
-            "weight_bytes_one_device": ref["weight_bytes"],
-            "peak_mem_gb_per_rank": [r0["peak_mem_gb"], r1["peak_mem_gb"]],
-            "seconds_per_rank": [r0["seconds"], r1["seconds"]],
-            "generate_s_per_rank": [r0["generate_s"], r1["generate_s"]],
-            "reference_s": ref["seconds"],
-        }
-        if path.label == "a":
-            require(ref["head_halves_equal_bits"],
-                    "the vocab head's halves are not the full product's bits")
-            # The witnesses of the bound: tensor = 2's row-parallel arithmetic
-            # done by halves on one device, and a wrong shard.
-            halves, halves_lps = ref["row_halves"]
-            halves_nats = par_logprob_gap(halves_lps, ref["logprobs"],
-                                          _first_divergence(halves, ref["tokens"]))
-            wrong_nats = ref["wrong_shard_nats"]
-            to_halves = par_logprob_gap(r0["logprobs"], halves_lps,
-                                        _first_divergence(r0["tokens"], halves))
-            require(halves_nats[0] <= PAR_MAX_NATS and halves_nats[1] <= PAR_MEAN_NATS,
-                    f"{label}: row-parallel halves on one device {halves_nats} nats from "
-                    "the whole products")
-            require(to_halves[1] < mean_nats,
-                    f"{label}: the sharded run lies {to_halves} nats from the row-parallel "
-                    f"halves on one device, no nearer than to the whole products")
-            require(wrong_nats[0] > PAR_MAX_NATS and wrong_nats[1] > PAR_MEAN_NATS,
-                    f"{label}: the bound does not tell a wrong shard ({wrong_nats} nats)")
-            line.update(head_halves_equal_bits=True,
-                        floor_chunk512_vs_256_nats=ref["floor_chunk512_nats"],
-                        row_halves_one_device_nats=halves_nats,
-                        sharded_vs_row_halves_nats=to_halves,
-                        sharded_equal_bits_to_row_halves=r0["tokens"] == halves
-                        and r0["logprobs"] == halves_lps,
-                        wrong_shard_nats=wrong_nats)
-            for r in (r0, r1):
-                require(r["engine_tokens"] == r0["engine_tokens"]
-                        and r["lookup_tokens"] == r0["lookup_tokens"],
-                        "a: the ranks' engine or lookup tokens differ")
-                require(r["lookup_launches"][K7F] > 0, "a: lookup did not launch K7-fp8")
-            eng_first = [par_diverged("a-engine", [t], lg[None], [g])[0] for t, lg, g in zip(
-                ref["engine_tokens"], ref["engine_logits"], r0["engine_tokens"])]
-            look_first = par_diverged("a-lookup", ref["tokens"], ref["logits"],
-                                      r0["lookup_tokens"])
-            line.update(
-                engine={"batch_size": 4, "requests": len(PAR_ENGINE_LENS),
-                        "prompt_lens": PAR_ENGINE_LENS, "max_tokens": PAR_ENGINE_TOKENS,
-                        "rows_diverged": sum(f < PAR_ENGINE_TOKENS for f in eng_first),
-                        "seconds_per_rank": [r0["engine_s"], r1["engine_s"]]},
-                lookup={"spec_tokens": PAR_LOOKUP_K,
-                        "rows_diverged": sum(f < PAR_TOKENS for f in look_first),
-                        "launches_rank0": {k: v for k, v in r0["lookup_launches"].items() if v}})
+        line, failed = _par_line(path, ref, r0, r1)
+        problems += failed
         summary["paths"][path.label] = line
         emit({"phase": "parallel_path", "card": card, **line})
+    require(not problems, "phase 13: " + "; ".join(problems))
     summary.update(kernel_shard_lines=sum(len(res[0][p.label]["kernel_shard"]) for p in PAR_PATHS),
                    ranks_s=ranks_s, seconds=time.perf_counter() - t0)
     return summary
@@ -4963,7 +5177,8 @@ def main() -> int:
             for name, run in (("spec_serving", lambda: spec_serving_phase(card)),
                               ("mamba_serving", lambda: mamba_serving_phase(card)),
                               ("lora", lambda: lora_phase(card, Path(tmp))),
-                              ("parallel", lambda: parallel_phase(card))):
+                              ("parallel", lambda: parallel_phase(card)),
+                              ("mamba_rows", lambda: mamba_rows_probe(card))):
                 if name in phases[0]:
                     emit(run())
                     torch.cuda.empty_cache()

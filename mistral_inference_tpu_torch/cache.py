@@ -293,6 +293,7 @@ def copy_prefix_rows(
     srcs: Sequence[int],  # source batch rows
     dsts: Sequence[int],  # destination batch rows
     qs: Sequence[int],  # prefix lengths; q <= 0 is a no-op
+    mesh=None,  # under data parallelism, the mesh whose data ranks hold the rows
 ) -> KVCache:
     """Prefix-cache commit, in place: for each i in order, copy the ring
     slots holding positions [0, qs[i]) of row ``srcs[i]`` into row
@@ -300,20 +301,25 @@ def copy_prefix_rows(
     ``kv_len`` to qs[i]. The copies run in array order, so a same-wave chain
     (a row copied into and then a later copy's source) reads its source after
     it was written. Exact bytes: what a fresh prefill of the same tokens
-    writes.
+    writes. Under data parallelism the rows are global, and a copy between
+    two data ranks' rows moves its bytes over ``data``
+    (``multihost.copy_rows``).
 
     Valid ONLY where the source ring never wrapped past q (positions 0..q-1
     live in slots 0..q-1): the serving engine checks the source's fill
     against min(windows) before it copies."""
+    from mistral_inference_tpu_torch.parallel.multihost import copy_rows
+
     for src, dst, q in zip(srcs, dsts, qs):
         if q <= 0:
             continue
         for ring in (cache.k, cache.v):
             b = _bytes(ring)
-            b[:, dst, :q] = b[:, src, :q]
+            copy_rows(b, b, [(src, dst)], mesh, cache.row0, cache.row0, lambda r: r[:, :q])
         if cache.k_scale is not None:
             for sc in (cache.k_scale, cache.v_scale):
-                sc[:, dst, :, :q] = sc[:, src, :, :q]
+                copy_rows(sc, sc, [(src, dst)], mesh, cache.row0, cache.row0,
+                          lambda r: r[..., :q])
         cache.kv_len[dst] = q
     return cache
 
@@ -325,29 +331,37 @@ def adopt_rows(
     src_carry: torch.Tensor,  # (B_s, V)
     src_rows: Sequence[int],  # staging rows to adopt
     dst_rows: Sequence[int],  # rows of ``cache``; a row >= B is dropped
+    mesh=None,  # under data parallelism, the mesh whose data ranks hold the rows
 ) -> Tuple[KVCache, torch.Tensor]:
     """Whole-row adoption from a narrow staging cache, in place: ring bytes,
     scales, ``kv_len`` and the prelogits carry row move together, so a row
     prefilled at staging width is indistinguishable from one prefilled in
     place (same windows, so the same slot arithmetic; the copy is exact
     bytes, quantized payloads and scales included). Returns (cache, carry).
+    Under data parallelism the rows are global (the carries and fills hold
+    every row), and a row staged on another data rank than its destination
+    moves over ``data``.
 
     Serving motivation: an admission prefill costs about as much however few
     rows are new, since occupied rows ride along at seqlens 0; prefilling a
     trickle of new rows in a B_s-row staging cache and adopting them makes
     admission cost proportional to the new rows."""
-    B = cache.k.shape[1]
+    from mistral_inference_tpu_torch.parallel.multihost import copy_rows
+
+    B = cache.kv_len.shape[0]
     pairs = [(s, d) for s, d in zip(src_rows, dst_rows) if d < B]
     if not pairs:
         return cache, carry
-    dev = cache.k.device
+    rings = [(cache.k, src.k), (cache.v, src.v)]
+    if cache.k_scale is not None:
+        rings += [(cache.k_scale, src.k_scale), (cache.v_scale, src.v_scale)]
+    for ring, ring_src in rings:
+        if ring.dtype.itemsize == 1:
+            ring, ring_src = _bytes(ring), _bytes(ring_src)
+        copy_rows(ring, ring_src, pairs, mesh, cache.row0, src.row0)
+    dev = cache.kv_len.device
     si = torch.tensor([s for s, _ in pairs], dtype=torch.long, device=dev)
     di = torch.tensor([d for _, d in pairs], dtype=torch.long, device=dev)
-    for ring, ring_src in ((cache.k, src.k), (cache.v, src.v)):
-        _bytes(ring)[:, di] = _bytes(ring_src)[:, si]
-    if cache.k_scale is not None:
-        cache.k_scale[:, di] = src.k_scale[:, si]
-        cache.v_scale[:, di] = src.v_scale[:, si]
     cache.kv_len[di] = src.kv_len[si]
     carry[di] = src_carry[si]
     return cache, carry

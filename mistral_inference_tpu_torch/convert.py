@@ -98,7 +98,7 @@ def to_device(tree: Any, device) -> Any:
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [to_device(v, device) for v in tree]
-    return tree.to(device)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree  # a shard's "n_whole"
 
 
 class Placer:

@@ -157,14 +157,10 @@ def load_transformer_params(
     adapter pairs on the attention and on a dense feed-forward, as the JAX
     package loads them (an export that holds pairs keeps its own); an
     adapter file fills them (``lora.load_lora``). With ``mesh``, this
-    rank's shard."""
+    rank's shard, the live pairs whole on every rank."""
     from mistral_inference_tpu_torch.model import resolve_device
 
     device = resolve_device(device)
-    if mesh is not None and args.lora is not None:
-        from mistral_inference_tpu_torch.parallel.sharding import LIVE_LORA_UNPORTED
-
-        raise NotImplementedError(LIVE_LORA_UNPORTED)
     if is_stacked(folder):
         params = convert.params_from_numpy(_load_stacked(Path(folder)), device, mesh, args)
     else:

@@ -18,12 +18,14 @@ Over N GPUs, one process each, started by ``torchrun``:
 
     torchrun --nproc-per-node N -m mistral_inference_tpu_torch.main demo <model_path> --tensor N
 
-``--tensor N`` shards the model over N ranks (it needs ``WORLD_SIZE`` = N);
-``--tensor auto`` factorizes the world into (data, expert, tensor) as the
-JAX package does, data at most ``gcd(data, --max_batch_size)`` (ranks left
-over sit idle), and a world of one stays one device. Only the primary rank
-prints; in ``chat`` it reads the prompts and sends them to the others.
-``--seq`` > 1 is not ported yet and raises.
+``--tensor N`` shards the model over N ranks and ``--seq S`` splits each
+prefill chunk's tokens over S (a transformer only; a Mamba raises with the
+JAX package's message): the run needs ``WORLD_SIZE`` = N S, the mesh
+``make_mesh(tensor=N, seq=S)``. ``--tensor auto`` factorizes the world into
+(data, expert, tensor) as the JAX package does, data at most ``gcd(data,
+--max_batch_size)`` (ranks left over sit idle), and a world of one stays
+one device. Only the primary rank prints; in ``chat`` it reads the prompts
+and sends them to the others.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ from mistral_inference_tpu_torch.generate import generate, generate_mamba
 from mistral_inference_tpu_torch.args import load_args
 from mistral_inference_tpu_torch.model import Mamba, Transformer, _requantize, get_model_cls
 from mistral_inference_tpu_torch.parallel import distributed
-from mistral_inference_tpu_torch.parallel.mesh import SEQ_UNPORTED, auto_factorize, make_mesh
+from mistral_inference_tpu_torch.parallel.mesh import auto_factorize, make_mesh
+from mistral_inference_tpu_torch.parallel.sharding import MAMBA_SEQ
 from mistral_inference_tpu_torch.tokenizers import (
     ChatRequest,
     Message,
@@ -49,11 +52,10 @@ from mistral_inference_tpu_torch.tokenizers import (
 
 
 def _make_mesh(args, cls):
-    """The mesh of ``--tensor`` over the ``torchrun`` world, or None for one
-    device. Every rank joins the process group and makes the mesh; a rank
-    the mesh leaves out gets None too and sits the run out."""
-    if int(getattr(args, "seq", 1)) > 1:
-        raise NotImplementedError(SEQ_UNPORTED)
+    """The mesh of ``--tensor`` and ``--seq`` over the ``torchrun`` world, or
+    None for one device. Every rank joins the process group and makes the
+    mesh; a rank the mesh leaves out gets None too and sits the run out."""
+    seq = int(getattr(args, "seq", 1))
     world = distributed.world_size()
     if args.tensor == "auto":
         if world == 1:
@@ -65,15 +67,20 @@ def _make_mesh(args, cls):
         data, expert, tensor = auto_factorize(world, n_kv_heads=n_kv, n_experts=n_exp)
         # data shards the batch: at most a divisor of max_batch_size
         data = math.gcd(data, args.max_batch_size)
+        seq = 1
     else:
+        if seq > 1 and cls is Mamba:
+            raise ValueError(MAMBA_SEQ)
         data, expert, tensor = 1, 1, int(args.tensor)
-        if world != tensor:
-            raise ValueError(f"--tensor {tensor} needs {tensor} ranks, found {world}: start "
-                             f"them with torchrun --nproc-per-node {tensor}")
-        if tensor == 1:
+        if world != tensor * seq:
+            what = " x ".join(f"--{k} {v}" for k, v in (("tensor", tensor), ("seq", seq))
+                              if v > 1) or "--tensor 1"
+            raise ValueError(f"{what} needs {tensor * seq} ranks, found {world}: start them "
+                             f"with torchrun --nproc-per-node {tensor * seq}")
+        if tensor * seq == 1:
             return None
     distributed.init_distributed(device=args.device)
-    return make_mesh(data, expert, tensor, device=distributed.rank_device(args.device))
+    return make_mesh(data, expert, tensor, seq=seq, device=distributed.rank_device(args.device))
 
 
 def _with_lora(cls, args, **kw):
@@ -264,7 +271,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="tensor-parallel degree N over N torchrun ranks, or 'auto' to "
                              "factorize the ranks into data x expert x tensor")
         sp.add_argument("--seq", type=int, default=1,
-                        help="sequence-parallel degree; only 1 is ported yet")
+                        help="sequence-parallel degree: prefill chunks split over S ranks "
+                             "(transformers only)")
         sp.add_argument("--system_prompt", default=None)
         sp.add_argument("--device", default=None, help="'cpu' to run off the card")
         sp.add_argument("--no-instruct", dest="instruct", action="store_false")

@@ -155,6 +155,9 @@ class Transformer:
         if self.mesh is not None:
             sharding.check_transformer(self.args, self.mesh, mode, group)
         self.params = quantize_params(self.params, mode, group)
+        if self.mesh is not None:
+            for lw in self.params["layers"]:
+                sharding.mark_whole_n(lw, self.mesh.tensor)
         self.args.quant = mode
         return self
 
@@ -203,7 +206,8 @@ class Transformer:
 
         def run(tok, lens, c, embeds):
             return tf.forward(self.params, tok, lens, c, self.args, attend_cache, head=head,
-                              write_cache=write_cache, input_embeds=embeds, mesh=self.mesh)
+                              write_cache=write_cache, input_embeds=embeds, mesh=self.mesh,
+                              batch=tokens.shape[0])
 
         with torch.inference_mode():
             if cache.row0 is None:
@@ -299,6 +303,9 @@ class Mamba:
         if self.mesh is not None:
             sharding.check_mamba(self.args, self.mesh, mode, group)
         self.params = quantize_params(self.params, mode, group)
+        if self.mesh is not None:
+            for lw in self.params["layers"]:
+                sharding.mark_whole_n(lw, self.mesh.tensor)
         self.args.quant = mode
         return self
 
@@ -332,7 +339,7 @@ class Mamba:
 
         def run(tok, lens, st, _):
             return mm.forward(self.params, tok, lens, st, self.args, chunk, head=head,
-                              write_state=write_state, mesh=self.mesh)
+                              write_state=write_state, mesh=self.mesh, batch=tokens.shape[0])
 
         with torch.inference_mode():
             if state.row0 is None:

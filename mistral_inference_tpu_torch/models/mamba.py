@@ -28,10 +28,18 @@ run the decomposition the card runs.
 
 Under a mesh (``parallel/``) a rank holds the heads [t nh / T, (t + 1) nh /
 T) and their groups: its slice of ``in_proj`` takes its part of each of z,
-x, B and C, the conv and the SSD run on its channels and heads (K9 on nh / T
-heads), the gated RMSNorm adds its sum of squares over ``tensor`` in fp32,
-and ``out_proj``'s partial sums are added over ``tensor``; the head is
-vocab-sharded and its logits all-gathered.
+x, B and C, ``dt_proj``'s whole product gives its heads' columns, the conv
+and the SSD run on its channels and heads (K9 on nh / T heads). The gated
+activation ``y * silu(z)`` is all-gathered over ``tensor`` to every
+channel, so each rank takes the gated RMSNorm over all of d_inner as one
+device does; ``out_proj`` holds D / T output columns over the whole d_inner,
+gathered after the product. The head is vocab-sharded and its logits
+all-gathered. Products are routed by one device's row count (``batch``).
+Under ``data`` the dense ``dt_proj`` runs on a zero buffer of the global
+batch's shape that holds the rank's rows at their global offset: cuBLAS
+rounds a row of it otherwise at another row count (on an NVIDIA H100 80GB
+HBM3 at 700 W, 512 rows against 2048), and so the product keeps one
+device's row count and row places without a collective.
 """
 
 from __future__ import annotations
@@ -47,7 +55,7 @@ from mistral_inference_tpu_torch.args import MambaArgs
 from mistral_inference_tpu_torch.ops.cuda.ssd_step import fused_ssd_step_stacked
 from mistral_inference_tpu_torch.ops.linear import DEFAULT_GROUP, Weight, linear, quantize_weight
 from mistral_inference_tpu_torch.ops.norm import rms_norm
-from mistral_inference_tpu_torch.parallel.mesh import Mesh, reduce
+from mistral_inference_tpu_torch.parallel.mesh import Mesh, gather
 
 Params = Dict[str, Any]
 
@@ -257,14 +265,18 @@ def _mixer(
     chunk: int,
     write_state: bool,
     mesh: Optional[Mesh] = None,
+    batch: Optional[int] = None,
 ) -> torch.Tensor:
     B, T, _ = x.shape
     tp = 1 if mesh is None else mesh.tensor
     di, ng, ds = args.d_inner // tp, args.n_groups // tp, args.d_state
     nh, hd = args.n_ssm_heads // tp, args.headdim
     gd = ng * ds
-    zxbc = linear(x, lw["in_proj"])
-    dt_raw = F.linear(x, lw["dt_proj"])  # dt stays dense (quant/weights.py)
+    rows = None if batch is None else batch * T  # one device's: the route
+    zxbc = linear(x, lw["in_proj"], rows)
+    dt_raw = _dt_proj(x, lw["dt_proj"], mesh, batch)  # dt stays dense (quant/weights.py)
+    if tp > 1:
+        dt_raw = dt_raw[..., mesh.t * nh:(mesh.t + 1) * nh]  # this rank's heads
     z = zxbc[..., :di]
     xbc = torch.where(step.valid, zxbc[..., di:], 0.0)
     conv, full = _conv(xbc, state.conv[li], lw)
@@ -295,19 +307,35 @@ def _mixer(
         if write_state:
             state.ssm[li] = h_new  # rounds once to a bf16 state
     y = (y + lw["D"][:, None] * xs).reshape(B, T, di).to(x.dtype)
-    # Gated RMSNorm: rms_norm(y * silu(z)) * weight (mamba_ssm's RMSNormGated).
-    y = _gated_norm(y * F.silu(z), lw["mixer_norm"], args.d_inner, mesh)
-    return reduce(linear(y, lw["out_proj"]), mesh, "tensor")
+    # Gated RMSNorm: rms_norm(y * silu(z)) * weight (mamba_ssm's RMSNormGated),
+    # over every channel of d_inner: a rank's channels are gathered first.
+    y = _gated_norm(gather(y * F.silu(z), mesh, "tensor", -1), lw["mixer_norm"])
+    return gather(linear(y, lw["out_proj"], rows), mesh, "tensor", -1)
 
 
-def _gated_norm(x: torch.Tensor, weight: torch.Tensor, width: int,
-                mesh: Optional[Mesh]) -> torch.Tensor:
-    """``rms_norm`` over the ``width`` channels of d_inner, of which this rank
-    holds ``x``'s: under a mesh the fp32 sum of squares is added over
-    ``tensor``."""
+def _dt_proj(x: torch.Tensor, w: torch.Tensor, mesh: Optional[Mesh],
+             batch: Optional[int]) -> torch.Tensor:
+    """``dt_proj``'s product on x (b, T, D). cuBLAS may round a row
+    otherwise at another row count, so under ``data`` the product runs on a
+    zero (batch, T, D) buffer holding this rank's rows at their global
+    offset: one device's row count and row places, with no collective. Rows
+    past ``batch`` (the data axis's padding) come out zero."""
+    if mesh is None or mesh.data == 1:
+        return F.linear(x, w)
+    b = x.shape[0]
+    batch = b * mesh.data if batch is None else batch
+    lo = mesh.d * b
+    n = max(0, min(b, batch - lo))
+    buf = x.new_zeros((batch, *x.shape[1:]))
+    buf[lo:lo + n] = x[:n]
+    return F.pad(F.linear(buf, w)[lo:lo + n], (0, 0, 0, 0, 0, b - n))
+
+
+def _gated_norm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``rms_norm`` over the d_inner channels of ``x``, its sum of squares
+    in fp32."""
     xf = x.float()
-    ss = reduce((xf * xf).sum(-1, keepdim=True), mesh, "tensor")
-    normed = xf * torch.rsqrt(ss / width + MAMBA_NORM_EPS)
+    normed = xf * torch.rsqrt((xf * xf).sum(-1, keepdim=True) / x.shape[-1] + MAMBA_NORM_EPS)
     return normed.to(x.dtype) * weight
 
 
@@ -337,9 +365,12 @@ def forward(
     head: str = "full",
     write_state: bool = True,
     mesh: Optional[Mesh] = None,
+    batch: Optional[int] = None,
 ) -> torch.Tensor:
     """One chunk pass (a prefill chunk, one decode step or a verify chunk),
-    under ``mesh`` on this rank's heads of every row given.
+    under ``mesh`` on this rank's heads of every row given; ``batch``, the
+    global batch where ``tokens`` holds a data rank's rows of it, routes
+    the products by one device's row count.
     Returns prelogits (B, T, vocab_size) fp32, or with ``head="none"`` the
     final-norm hidden states (B, T, D). ``chunk`` is the SSD's chunk length.
 
@@ -360,7 +391,7 @@ def forward(
         h = h.float()
     for li, lw in enumerate(params["layers"]):
         x = rms_norm(h.to(dtype), lw["norm"], MAMBA_NORM_EPS)
-        out = _mixer(lw, x, step, state, li, args, chunk, write_state, mesh)
+        out = _mixer(lw, x, step, state, li, args, chunk, write_state, mesh, batch)
         h = h + out.to(h.dtype)
     if write_state:
         state.seen += seqlens

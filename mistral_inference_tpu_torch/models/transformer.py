@@ -48,12 +48,33 @@ name's delta to its column slice. The base product keeps its route (K3, K5,
 K8), so a quantized base with live adapters runs the same kernels.
 
 Under a mesh (``parallel/``) the params are this rank's shard and
-``forward`` takes ``mesh``: attention runs on the rank's heads and the dense
-feed-forward on its hidden units, ``wo`` and ``w2`` are each followed by
-one all-reduce over ``tensor``; an MoE layer routes every row on every rank
-with the replicated router, runs its own experts only, and sums the partial
-outputs with one all-reduce over ``expert x tensor``; the head is
-vocab-sharded and its fp32 logits all-gathered over ``tensor``.
+``forward`` takes ``mesh``. Every sharded linear holds N / T output columns
+over its whole K (the JAX package's kernels-under-mesh layout), so each
+rank's activations are one device's in bits:
+
+* ``tensor``: attention runs on the rank's heads; their output is
+  all-gathered to every head before ``wo``, whose D / T columns are
+  all-gathered after it. The dense feed-forward runs ``w13`` on the rank's
+  hidden units, all-gathers the hidden before ``w2`` and its columns after.
+  An MoE layer routes every row on every rank with the replicated router,
+  runs its own experts only (their hidden gathered the same way), sums the
+  partial outputs with one all-reduce over ``expert`` and gathers its
+  columns over ``tensor``. The head is vocab-sharded and its fp32 logits
+  all-gathered over ``tensor``. Live LoRA pairs are whole: a rank adds the
+  columns of the whole delta that its shard of the base holds.
+* ``seq``: a chunk that ``mesh.seq_split`` takes is cut into runs of T / S
+  tokens, seq rank s computing run s through the embedding, the norms, the
+  projections and the feed-forward. Its K and V (rope'd, before the ring's
+  quantization) are all-gathered over ``seq``, every seq rank writes the
+  whole chunk into its ring (replicated over ``seq``), K4 takes the rank's
+  queries against the ring and K1 against the whole chunk, and the final
+  hidden states are all-gathered over ``seq`` before the head.
+* Products are routed by one device's row count for the chunk (``linear``'s
+  ``rows``), so a token takes the kernel it takes on one device. An MoE
+  layer whose chunk one device would dispatch (at most
+  ``MOE_RAGGED_ROWS`` rows, capacities counted over every row) gathers the
+  chunk's rows over ``data`` and ``seq`` first, so that capacities and
+  slots are one device's.
 
 On CPU tensors the same names run their plain versions, so the CPU tests run
 the decomposition the card runs.
@@ -98,7 +119,7 @@ from mistral_inference_tpu_torch.ops.linear import (
 )
 from mistral_inference_tpu_torch.ops.norm import rms_norm
 from mistral_inference_tpu_torch.ops.rope import apply_rope, rope_for_positions
-from mistral_inference_tpu_torch.parallel.mesh import Mesh, reduce
+from mistral_inference_tpu_torch.parallel.mesh import Mesh, gather, reduce
 
 Params = Dict[str, Any]
 
@@ -147,36 +168,46 @@ def _scale_in(scaling: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(scaling, dtype=dtype))
 
 
+Select = Union[torch.Tensor, int, slice, None]
+
+
 def _lora_delta(x: torch.Tensor, lw: Params, key: str, args: Optional[TransformerArgs],
-                select: Union[torch.Tensor, int, None] = None) -> Optional[torch.Tensor]:
+                select: Select = None, mesh: Optional[Mesh] = None) -> Optional[torch.Tensor]:
     """The live adapters' term of the linear ``key`` on ``x``: each fused
     name's ``(x @ a) @ b``, concatenated along out, times the scaling; None
     without adapters (a layer loaded from a folder has none on its experts).
-    ``select`` indexes the pairs' expert axis: an expert, or one per leading
-    slice of ``x``."""
+    ``select`` indexes the pairs' expert axis: an expert, a run of experts,
+    or one per leading slice of ``x``. Under a ``tensor`` mesh each name's
+    delta is computed whole and cut to the rank's piece of it, the columns
+    its shard of the base holds."""
     lora = lw.get("lora")
     if lora is None or LORA_PARTS[key][0] not in lora:
         return None
+    t, T = (0, 1) if mesh is None else (mesh.t, mesh.tensor)
     parts = []
     for name in LORA_PARTS[key]:
         a, b = lora[name]["a"], lora[name]["b"]
         if select is not None:
             a, b = a[select], b[select]
-        parts.append(torch.matmul(torch.matmul(x, a), b))
+        d = torch.matmul(torch.matmul(x, a), b)
+        n = d.shape[-1]
+        parts.append(d if T == 1 else d[..., t * n // T:(t + 1) * n // T])
     d = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
     return d * _scale_in(args.lora.scaling, d.dtype)
 
 
 def _plus_lora(out: torch.Tensor, x: torch.Tensor, lw: Params, key: str,
-               args: Optional[TransformerArgs], select: Union[torch.Tensor, int, None] = None,
-               ) -> torch.Tensor:
-    d = _lora_delta(x, lw, key, args, select)
+               args: Optional[TransformerArgs], select: Select = None,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
+    d = _lora_delta(x, lw, key, args, select, mesh)
     return out if d is None else out + d
 
 
-def _lin(x: torch.Tensor, lw: Params, key: str, args: TransformerArgs) -> torch.Tensor:
-    """The linear ``key`` of layer ``lw`` on ``x``, plus its live adapters."""
-    return _plus_lora(linear(x, lw[key]), x, lw, key, args)
+def _lin(x: torch.Tensor, lw: Params, key: str, args: TransformerArgs,
+         mesh: Optional[Mesh] = None, rows: Optional[int] = None) -> torch.Tensor:
+    """The linear ``key`` of layer ``lw`` on ``x``, plus its live adapters;
+    routed as ``rows`` rows (``ops.linear.linear``)."""
+    return _plus_lora(linear(x, lw[key], rows), x, lw, key, args, None, mesh)
 
 
 def init_params(
@@ -269,19 +300,23 @@ def init_params(
     return params
 
 
-def _wo(out: torch.Tensor, w: Params, args: TransformerArgs,
-        mesh: Optional[Mesh]) -> torch.Tensor:
-    """The attention's output projection; under a mesh this rank's heads'
-    part, added over ``tensor``."""
-    return reduce(_lin(out, w, "wo", args), mesh, "tensor")
+def _wo(out: torch.Tensor, w: Params, args: TransformerArgs, mesh: Optional[Mesh],
+        rows: Optional[int] = None) -> torch.Tensor:
+    """The attention's output projection; under a mesh the rank's heads'
+    output is gathered to every head over ``tensor`` first, and the rank's
+    output columns after."""
+    out = gather(out, mesh, "tensor", -1)
+    return gather(_lin(out, w, "wo", args, mesh, rows), mesh, "tensor", -1)
 
 
 def _dense_ffn(x: torch.Tensor, w: Params, args: TransformerArgs,
-               mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """SwiGLU: w2(silu(w1 x) * w3 x); under a mesh on this rank's hidden
-    units, the partial sums added over ``tensor``."""
-    gate, up = _lin(x, w, "w13", args).chunk(2, dim=-1)
-    return reduce(_lin(F.silu(gate) * up, w, "w2", args), mesh, "tensor")
+               mesh: Optional[Mesh] = None, rows: Optional[int] = None) -> torch.Tensor:
+    """SwiGLU: w2(silu(w1 x) * w3 x); under a mesh w1 and w3 on this rank's
+    hidden units, the hidden gathered over ``tensor``, then the rank's
+    columns of w2, gathered."""
+    gate, up = _lin(x, w, "w13", args, mesh, rows).chunk(2, dim=-1)
+    hidden = gather(F.silu(gate) * up, mesh, "tensor", -1)
+    return gather(_lin(hidden, w, "w2", args, mesh, rows), mesh, "tensor", -1)
 
 
 # ---------------------------------------------------------------------------
@@ -313,36 +348,47 @@ def _swiglu(h13: torch.Tensor) -> torch.Tensor:
 Experts = Optional[Tuple[int, int]]  # (first, count) of the experts this rank holds
 
 
+def _mine(experts: Experts) -> Select:
+    """The live pairs' expert axis cut to a rank's experts (whole pairs)."""
+    return None if experts is None else slice(experts[0], experts[0] + experts[1])
+
+
 def _moe_ffn(x: torch.Tensor, w: Params, top_k: int,
-             args: Optional[TransformerArgs] = None, experts: Experts = None) -> torch.Tensor:
+             args: Optional[TransformerArgs] = None, experts: Experts = None,
+             mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Top-k routed SwiGLU experts, every expert evaluated on every token and
     combined with the routing matrix: exact, and the oracle of the other two.
     x (N, D). With ``experts`` (first, count), the stacks hold those experts
-    only, and the result is their part of the sum."""
+    only, and the result is their part of the sum; under a ``tensor`` mesh,
+    its columns of it."""
     E = w["gate"].shape[0]
     e0, El = experts or (0, E)
     top_idx, top_w = _route(x, w["gate"], top_k)
     combine = (F.one_hot(top_idx, E).float() * top_w[..., None]).sum(dim=1).to(x.dtype)  # (N, E)
     combine = combine[:, e0:e0 + El]
-    h13 = _plus_lora(torch.matmul(x, _expert_weight(w["w13"], x.dtype)), x, w, "w13", args)
-    hidden = _swiglu(h13)  # (E, N, F)
+    sel = _mine(experts)
+    h13 = _plus_lora(torch.matmul(x, _expert_weight(w["w13"], x.dtype)), x, w, "w13", args,
+                     sel, mesh)
+    hidden = gather(_swiglu(h13), mesh, "tensor", -1)  # (E, N, F)
     expert_out = _plus_lora(torch.bmm(hidden, _expert_weight(w["w2"], x.dtype)), hidden, w,
-                            "w2", args)  # (E, N, D)
+                            "w2", args, sel, mesh)  # (E, N, D)
     return torch.einsum("ne,end->nd", combine, expert_out)
 
 
 def _ragged_kernel_gate(x: torch.Tensor, w: Params) -> bool:
-    """K5 takes both expert stacks quantized, with dim and hidden (each the
-    reduction of one product and the width of the other) multiples of 256."""
+    """K5 takes both expert stacks quantized, with dim and hidden (the
+    reductions) multiples of 256 and both widths (a shard's) of 128."""
     if not (is_quantized(w["w13"]) and is_quantized(w["w2"])):
         return False
-    hidden = w["w13"]["scale"].shape[-1] // 2
-    return x.shape[-1] % 256 == 0 and hidden % 256 == 0
+    w2 = w["w2"]
+    hidden = w2["q"].shape[-2] if "q" in w2 else 2 * w2["q4"].shape[-2]
+    return (x.shape[-1] % 256 == 0 and hidden % 256 == 0
+            and w["w13"]["scale"].shape[-1] % 128 == 0 and w2["scale"].shape[-1] % 128 == 0)
 
 
 def _moe_ffn_ragged(x: torch.Tensor, w: Params, top_k: int,
                     args: Optional[TransformerArgs] = None, experts: Experts = None,
-                    ) -> torch.Tensor:
+                    mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Drop-free sorted grouped-product MoE, the prefill path: the N * k
     assignments sorted by expert (stable, so ties keep token order), each
     projection one grouped product over the sorted rows, the weighted outputs
@@ -356,6 +402,8 @@ def _moe_ffn_ragged(x: torch.Tensor, w: Params, top_k: int,
     Live expert adapters add their term per tile (every row of a tile is its
     expert's), or per expert on the plain route. With ``experts`` (first,
     count) only those experts' rows are computed; the rest add nothing.
+    Under a ``tensor`` mesh the hidden is gathered before ``w2``, and the
+    result holds the rank's columns.
     """
     N, D = x.shape
     E = w["gate"].shape[0]
@@ -397,10 +445,12 @@ def _moe_ffn_ragged(x: torch.Tensor, w: Params, top_k: int,
             leaf = w[key]
             q = leaf["q4"] if "q4" in leaf else leaf["q"]
             out = moe_matmul_quant_ragged(inp, q, leaf["scale"], tile_group, leaf.get("li"))
-            d = _lora_delta(inp.reshape(-1, TM, inp.shape[-1]), w, key, args, tile_group.long())
+            d = _lora_delta(inp.reshape(-1, TM, inp.shape[-1]), w, key, args,
+                            tile_group.long() + e0, mesh)
             return out if d is None else out + d.reshape(out.shape)
 
-        out_p = mm(_swiglu(mm(xs_p, "w13")), "w2")  # (Mp, D)
+        hidden = gather(_swiglu(mm(xs_p, "w13")), mesh, "tensor", -1)
+        out_p = mm(hidden, "w2")  # (Mp, D)
         pos_f = offsets[le] + (inv - starts[le])  # (N k,) token-major
         out = out_p[pos_f.clamp(0, Mp - 1)]
     else:
@@ -410,13 +460,14 @@ def _moe_ffn_ragged(x: torch.Tensor, w: Params, top_k: int,
         parts = []
         for e, r in enumerate(rows):
             if not e0 <= e < e0 + El:
-                parts.append(r.new_zeros(r.shape))
+                parts.append(r.new_zeros((r.shape[0], w2.shape[-1])))
                 continue
-            h = _swiglu(_plus_lora(r @ w13[e - e0], r, w, "w13", args, e - e0))
-            parts.append(_plus_lora(h @ w2[e - e0], h, w, "w2", args, e - e0))
+            h = _swiglu(_plus_lora(r @ w13[e - e0], r, w, "w13", args, e, mesh))
+            h = gather(h, mesh, "tensor", -1)
+            parts.append(_plus_lora(h @ w2[e - e0], h, w, "w2", args, e, mesh))
         out = torch.cat(parts)[inv]
     out = torch.where(mine[:, None], out, 0.0)
-    return (out * wts[:, None]).reshape(N, top_k, D).sum(dim=1)
+    return (out * wts[:, None]).reshape(N, top_k, -1).sum(dim=1)
 
 
 def _expert_mm(inp: torch.Tensor, leaf: Weight) -> torch.Tensor:
@@ -443,6 +494,7 @@ def moe_capacity(n_rows: int, top_k: int, n_experts: int, capacity_factor: float
 def _moe_ffn_dispatch(
     x: torch.Tensor, w: Params, top_k: int, capacity_factor: float,
     args: Optional[TransformerArgs] = None, experts: Experts = None,
+    mesh: Optional[Mesh] = None, rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Capacity-bounded expert dispatch: tokens go into per-expert buffers of
     ``moe_capacity`` slots in token-major order (pad tokens of ragged rows
@@ -452,11 +504,12 @@ def _moe_ffn_dispatch(
     ``MOE_RAGGED_ROWS`` rows the drop-free ``_moe_ffn_ragged`` takes over.
     With ``experts`` (first, count) only those experts' buffers are built and
     run; the capacity and the slots are the global ones, so a rank drops
-    exactly what one device drops."""
+    exactly what one device drops. ``rows``, one device's row count, picks
+    the route where ``x`` holds a rank's share of them."""
     N, D = x.shape
     E = w["gate"].shape[0]
-    if N > MOE_RAGGED_ROWS:
-        return _moe_ffn_ragged(x, w, top_k, args, experts)
+    if (N if rows is None else rows) > MOE_RAGGED_ROWS:
+        return _moe_ffn_ragged(x, w, top_k, args, experts, mesh)
     e0, El = experts or (0, E)
     C = moe_capacity(N, top_k, E, capacity_factor)
     top_idx, top_w = _route(x, w["gate"], top_k)
@@ -475,31 +528,66 @@ def _moe_ffn_dispatch(
     src[flat_e, torch.where(keep, slot, C)] = torch.arange(NK, device=x.device) // top_k
     buf = torch.cat([x, x.new_zeros((1, D))])[src[e0:e0 + El, :C]]  # (El, C, D)
 
-    hidden = _swiglu(_plus_lora(_expert_mm(buf, w["w13"]), buf, w, "w13", args))
-    out_buf = _plus_lora(_expert_mm(hidden, w["w2"]), hidden, w, "w2", args)  # (El, C, D)
+    sel = _mine(experts)
+    hidden = _swiglu(_plus_lora(_expert_mm(buf, w["w13"]), buf, w, "w13", args, sel, mesh))
+    hidden = gather(hidden, mesh, "tensor", -1)
+    out_buf = _plus_lora(_expert_mm(hidden, w["w2"]), hidden, w, "w2", args, sel,
+                         mesh)  # (El, C, D)
 
     gathered = out_buf[(flat_e - e0).clamp(0, El - 1), slot.clamp_max(C - 1)]  # (N k, D)
     keep = keep & (flat_e >= e0) & (flat_e < e0 + El)
     weights = (top_w.reshape(-1) * keep.float()).to(x.dtype)
-    return (gathered * weights[:, None]).reshape(N, top_k, D).sum(dim=1)
+    return (gathered * weights[:, None]).reshape(N, top_k, -1).sum(dim=1)
+
+
+class _Run(NamedTuple):
+    """What the layers of one forward under a mesh share."""
+
+    mesh: Mesh
+    rows: int  # one device's row count for the chunk: the products' route
+    batch: int  # the global batch, before the data axis pads it
+    seq_run: Optional[slice]  # this seq rank's tokens of a split chunk; None: every token
+
+
+def _global_rows(x: torch.Tensor, run: _Run) -> torch.Tensor:
+    """A rank's (b, T', D) share of a chunk -> the whole (batch, T, D) chunk,
+    gathered over ``seq`` and ``data``."""
+    if run.seq_run is not None:
+        x = run.mesh.all_gather(x, "seq", 1)
+    return gather(x, run.mesh, "data", 0)[:run.batch]
+
+
+def _local_rows(x: torch.Tensor, run: _Run, b: int) -> torch.Tensor:
+    """The inverse of ``_global_rows``: this rank's b rows and seq run."""
+    if run.mesh.data > 1:
+        x = F.pad(x, (0, 0, 0, 0, 0, b * run.mesh.data - x.shape[0]))[run.mesh.d * b:][:b]
+    return x if run.seq_run is None else x[:, run.seq_run]
 
 
 def _moe_block(x: torch.Tensor, w: Params, args: TransformerArgs,
-               mesh: Optional[Mesh] = None) -> torch.Tensor:
+               run: Optional[_Run] = None) -> torch.Tensor:
     """The MoE feed-forward of one layer on x (B, T, D), all B T positions as
     rows, by ``args.moe_impl``. Under a mesh, this rank's experts (on its
-    hidden units), and one all-reduce over ``expert x tensor``."""
-    rows = x.reshape(-1, x.shape[-1])
+    columns), one all-reduce over ``expert`` and the columns gathered over
+    ``tensor``; a chunk that one device would dispatch with capacities is
+    gathered whole over ``data`` and ``seq`` first, and cut back after."""
+    mesh = None if run is None else run.mesh
     k = args.moe.num_experts_per_tok
     experts = None
     if mesh is not None and mesh.expert > 1:
         El = args.moe.num_experts // mesh.expert
         experts = (mesh.e * El, El)
+    whole = (args.moe_impl == "dispatch" and run is not None and run.rows <= MOE_RAGGED_ROWS
+             and (mesh.data > 1 or run.seq_run is not None))
+    xs = _global_rows(x, run) if whole else x
+    rows = xs.reshape(-1, xs.shape[-1])
     if args.moe_impl == "dispatch":
-        out = _moe_ffn_dispatch(rows, w, k, args.moe_capacity_factor, args, experts)
+        out = _moe_ffn_dispatch(rows, w, k, args.moe_capacity_factor, args, experts, mesh,
+                                None if run is None else run.rows)
     else:
-        out = _moe_ffn(rows, w, k, args, experts)
-    return reduce(out, mesh, ("expert", "tensor")).reshape(x.shape)
+        out = _moe_ffn(rows, w, k, args, experts, mesh)
+    out = gather(reduce(out, mesh, "expert"), mesh, "tensor", -1).reshape(xs.shape)
+    return _local_rows(out, run, x.shape[0]) if whole else out
 
 
 class RingInputs(NamedTuple):
@@ -569,14 +657,17 @@ def _attention_block(
     ring: RingInputs,
     args: TransformerArgs,
     write_cache: Union[bool, str] = True,
-    mesh: Optional[Mesh] = None,
+    run: Optional[_Run] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One layer's attention; unless ``write_cache`` is False it writes this
     chunk's K/V into layer ``li`` of the ring in place. Returns (the block's
     output, this chunk's rope'd K, its V: (B, T, Hkv, Dh) before
     quantization). Under a mesh: this rank's heads, whole GQA groups, and
-    ``wo``'s partial sums added over ``tensor``."""
-    B, T, _ = h.shape
+    ``wo`` on every head; with ``run.seq_run``, ``h`` and ``rope_cs`` hold
+    this seq rank's tokens of the chunk and ``positions`` and
+    ``token_valid`` the whole chunk's, whose K and V are gathered."""
+    mesh, rows = (None, None) if run is None else (run.mesh, run.rows)
+    B, Tq, _ = h.shape
     tp = 1 if mesh is None else mesh.tensor
     H, Hkv, Dh = args.n_heads // tp, args.n_kv_heads // tp, args.head_dim
     window = cache.windows[li]
@@ -584,10 +675,16 @@ def _attention_block(
     scaled = KS is not None
 
     cos, sin = rope_cs
-    xq, xk, xv = _lin(h, w, "wqkv", args).split([H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
-    xq = apply_rope(xq.view(B, T, H, Dh), cos, sin)
-    xk = apply_rope(xk.view(B, T, Hkv, Dh), cos, sin)
-    xv = xv.reshape(B, T, Hkv, Dh).contiguous()
+    xq, xk, xv = _lin(h, w, "wqkv", args, mesh, rows).split([H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
+    xq = apply_rope(xq.view(B, Tq, H, Dh), cos, sin)
+    xk = apply_rope(xk.view(B, Tq, Hkv, Dh), cos, sin)
+    xv = xv.reshape(B, Tq, Hkv, Dh).contiguous()
+    q_pos, q_valid = positions, token_valid
+    if run is not None and run.seq_run is not None:
+        # The chunk's K and V from every seq rank: each writes and attends
+        # to the whole chunk, with its own queries.
+        xk, xv = mesh.all_gather(torch.stack([xk, xv]), "seq", 2).unbind(0)
+        q_pos, q_valid = positions[:, run.seq_run], token_valid[:, run.seq_run]
 
     if write_cache == "spec" and ring.write_slot is not None:
         # Speculative verify, fused: write ALL T candidate tokens into
@@ -601,7 +698,7 @@ def _attention_block(
             xq, xk, xv, CK, CV, KS, VS, li, window, ring.write_slot, positions,
             ring.slot_pos, ring.slot_valid,
         )
-        return _wo(out, w, args, mesh), xk, xv
+        return _wo(out, w, args, mesh, rows), xk, xv
     if ring.write_slot is not None:
         # Decode: write the ring first, then attend ring-only. Safe for T == 1:
         # the query's own key cannot be evicted by a later token of the chunk.
@@ -609,15 +706,15 @@ def _attention_block(
             xq, xk, xv, CK, CV, KS, VS, li, window, ring.write_slot, positions[:, 0],
             ring.slot_pos, ring.slot_valid,
         )
-        return _wo(out, w, args, mesh), xk, xv
-    if T == 1 and ring.slot_pos is not None:
+        return _wo(out, w, args, mesh, rows), xk, xv
+    if Tq == 1 and ring.slot_pos is not None:
         # Decode, non-fused route: the same write through update_stacked,
         # then the read-only kernel over the ring as it now stands.
         update_stacked(CK, CV, KS, VS, li, xk, xv, ring.writes)
         out = decode_attention(
             xq, CK, CV, KS, VS, li, positions, ring.slot_pos, ring.slot_valid, window
         )
-        return _wo(out, w, args, mesh), xk, xv
+        return _wo(out, w, args, mesh, rows), xk, xv
 
     # Under a scaled ring the chunk attends to copies of its own K/V rounded
     # through the ring's dtype, so prefill logits see what decode later reads
@@ -627,20 +724,18 @@ def _attention_block(
     if ring.slot_pos is not None:
         o_r, m_r, l_r = ring_attention_stats(
             xq, CK[li], CV[li], KS[li] if scaled else None, VS[li] if scaled else None,
-            positions, ring.slot_pos, token_valid, ring.slot_valid, window,
+            q_pos, ring.slot_pos, q_valid, ring.slot_valid, window,
         )
         o_c, m_c, l_c = flash_attention(
-            xq, xk_att, xv_att, positions, positions, token_valid, token_valid, window,
+            xq, xk_att, xv_att, q_pos, positions, q_valid, token_valid, window,
             return_stats=True,
         )
-        out = merge_attention_parts(o_r, m_r, l_r, o_c, m_c, l_c).reshape(B, T, H * Dh)
+        out = merge_attention_parts(o_r, m_r, l_r, o_c, m_c, l_c).reshape(B, Tq, H * Dh)
     else:
-        out = flash_attention(
-            xq, xk_att, xv_att, positions, positions, token_valid, token_valid, window
-        )
+        out = flash_attention(xq, xk_att, xv_att, q_pos, positions, q_valid, token_valid, window)
     if ring.writes is not None:
         update_stacked(CK, CV, KS, VS, li, xk, xv, ring.writes)
-    return _wo(out, w, args, mesh), xk, xv
+    return _wo(out, w, args, mesh, rows), xk, xv
 
 
 ChunkKV = Tuple[torch.Tensor, torch.Tensor]
@@ -657,9 +752,14 @@ def forward(
     write_cache: Union[bool, str] = True,
     input_embeds: Optional[torch.Tensor] = None,
     mesh: Optional[Mesh] = None,
+    batch: Optional[int] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, ChunkKV]]:
     """One chunk pass (a prefill chunk or one decode step); under ``mesh``
-    on this rank's shard (``params``, the ring's heads) of every row given.
+    on this rank's shard (``params``, the ring's heads) of every row given,
+    split over ``seq`` where ``mesh.seq_split`` takes the chunk (a fused
+    verify chunk never is: K7 writes and attends its whole chunk at once).
+    ``batch`` is the global batch when ``tokens`` holds a data rank's rows
+    of it: the products are routed by one device's row count.
 
     ``input_embeds`` (B, T, D) in the model dtype, when given, replaces the
     token embeddings: a multimodal prefill chunk, its image tokens' slots
@@ -698,14 +798,25 @@ def forward(
     positions = kv_len[:, None] + steps[None, :]
     token_valid = steps[None, :] < seqlens[:, None]
 
+    if input_embeds is not None and tuple(input_embeds.shape) != (
+            B, T, params["tok_embeddings"].shape[1]):
+        raise ValueError(f"input_embeds must be (B, T, dim), got {tuple(input_embeds.shape)}")
+    run, q_positions = None, positions
+    if mesh is not None:
+        split = write_cache != "spec" and mesh.seq_split(T)
+        seq_run = slice(mesh.s * T // mesh.seq, (mesh.s + 1) * T // mesh.seq) if split else None
+        run = _Run(mesh, (B if batch is None else batch) * T, B if batch is None else batch,
+                   seq_run)
+        if split:
+            tokens, q_positions = tokens[:, seq_run], positions[:, seq_run]
+            if input_embeds is not None:
+                input_embeds = input_embeds[:, seq_run]
     if input_embeds is None:
         h = F.embedding(tokens.long(), params["tok_embeddings"])
-    elif tuple(input_embeds.shape) != (B, T, params["tok_embeddings"].shape[1]):
-        raise ValueError(f"input_embeds must be (B, T, dim), got {tuple(input_embeds.shape)}")
     else:
         h = input_embeds
     theta = args.rope_theta or DEFAULT_ROPE_THETA
-    rope_cs = rope_for_positions(positions, args.head_dim, theta)
+    rope_cs = rope_for_positions(q_positions, args.head_dim, theta)
     rings: Dict[int, RingInputs] = {}
     chunk_k: List[torch.Tensor] = []
     chunk_v: List[torch.Tensor] = []
@@ -718,17 +829,20 @@ def forward(
             )
         attn_out, xk, xv = _attention_block(
             rms_norm(h, lw["attention_norm"], args.norm_eps), lw, cache, li, positions,
-            token_valid, rope_cs, rings[window], args, write_cache, mesh,
+            token_valid, rope_cs, rings[window], args, write_cache, run,
         )
         h = h + attn_out
         if write_cache is False:
             chunk_k.append(xk)
             chunk_v.append(xv)
         x = rms_norm(h, lw["ffn_norm"], args.norm_eps)
-        h = h + (_moe_block(x, lw, args, mesh) if args.moe else _dense_ffn(x, lw, args, mesh))
+        h = h + (_moe_block(x, lw, args, run) if args.moe
+                 else _dense_ffn(x, lw, args, mesh, None if run is None else run.rows))
     if write_cache is True:
         cache.kv_len = new_total
     h = rms_norm(h, params["norm"], args.norm_eps)
+    if run is not None and run.seq_run is not None:
+        h = mesh.all_gather(h, "seq", 1)  # the whole chunk, so the head sees one device's rows
     out = h if head == "none" else output_head(params, h, mesh)
     if write_cache is False:
         return out, (torch.stack(chunk_k), torch.stack(chunk_v))

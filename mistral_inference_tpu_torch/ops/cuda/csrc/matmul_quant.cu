@@ -56,14 +56,17 @@ inline int units_per_block(int K, int N, int ng, int bits) {
 }  // namespace mq
 }  // namespace mit
 
-// K3 on x (M, K) and one weight; cudaErrorInvalidValue for the shapes
-// matmul_quant.py's shape_ok refuses.
+// K3 on x (M, K) and one weight, its reduction split that of a weight of
+// split_n columns (N, or a shard's whole N); cudaErrorInvalidValue for the
+// shapes matmul_quant.py's shape_ok refuses.
 extern "C" int matmul_quant_bf16(const void* x, const void* q, const void* scale, void* out,
-                                 int M, int K, int N, int ng, int bits, void* stream) {
+                                 int M, int K, int N, int ng, int bits, int split_n,
+                                 void* stream) {
   using namespace mit::mq;
   if (M < 1 || M > 2 * kMaxRows || !shapes_ok(K, N, ng, bits)) return cudaErrorInvalidValue;
+  if (split_n < N || split_n % 128 != 0) return cudaErrorInvalidValue;
   const int C = min(M, kMaxRows);  // rows a block; 129-256 take a second row block
   return launch_bits<false>(static_cast<cudaStream_t>(stream), x, q, scale, out, C, M,
-                            (M + C - 1) / C, K, N, ng, bits, units_per_block(K, N, ng, bits), 0,
-                            0);
+                            (M + C - 1) / C, K, N, ng, bits,
+                            units_per_block(K, split_n, ng, bits), 0, 0);
 }

@@ -46,8 +46,9 @@
 //
 // Batch invariance: no split of the reduction; every output element is one
 // warpgroup's accumulator, its groups in order, its chunks in order. A row's
-// bits depend on K, N, its weight and its own x row only: not on Mp, on the
-// number of tiles, on E or on the other tiles' weights.
+// bits depend on K, its weight and its own x row only: not on Mp, on the
+// number of tiles, on E or on the other tiles' weights; nor on N, so a
+// column shard of a weight (N / T columns) gives the whole product's columns.
 //
 // What bounds it on the H100: operations. At the main path's 2048 rows each
 // weight byte does 4096 (int8) or 8192 (int4) flops, far above the 295

@@ -13,6 +13,11 @@ Rounding points (those of the TPU kernel): the integer weight is exact in
 the fp32 partial after the dot; groups are summed in fp32; one cast to
 ``x.dtype`` at the end.
 
+The kernel splits the reduction by the shape alone, never by the rows. A
+column shard of a weight (``parallel/sharding.py``) passes ``split_n``, the
+N of the whole weight, so that its launch takes the whole weight's split and
+each of its columns the bits that column has in the whole product.
+
 ``shape_ok`` is the kernel's shape rule in pure Python, K8's rule at up to
 256 rows: N a multiple of 128, a group of 16 or 32 steps or a multiple of 64,
 K a multiple of 64 (int4: 128, with an even group count). The wrappers check
@@ -28,14 +33,14 @@ launches through either entry name.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from mistral_inference_tpu_torch.ops.cuda import _call
 
 _P, _I = _call.P, _call.I
-_SIGS = {("matmul_quant", "matmul_quant_bf16"): [_P] * 4 + [_I] * 5 + [_P]}
+_SIGS = {("matmul_quant", "matmul_quant_bf16"): [_P] * 4 + [_I] * 6 + [_P]}
 _launch = functools.partial(_call.launch, _SIGS)
 _need = _call.need
 
@@ -111,9 +116,11 @@ def matmul_quant_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) ->
     return grouped_dot_plain(x, q, scale).to(x.dtype)
 
 
-def _run(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, layer: int) -> torch.Tensor:
+def _run(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, layer: int,
+         split_n: Optional[int]) -> torch.Tensor:
     """Launch K3 on q (K', N) and scale (ng, N), or on layer ``layer`` of
-    q (L, K', N) and scale (L, ng, N)."""
+    q (L, K', N) and scale (L, ng, N); the reduction split is that of a
+    weight of ``split_n`` columns (N when None)."""
     M, K = x.shape
     stored, N = q.shape[-2:]
     lead = tuple(q.shape[:-2])
@@ -131,11 +138,14 @@ def _run(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, layer: int) -> t
             "multiple of 64, and K % 64 == 0 (int4: K % 128 == 0 and an even group count); "
             f"got M={M} K={K} N={N} groups={ng} int{bits}"
         )
+    split_n = N if split_n is None else int(split_n)
+    if split_n < N or split_n % 128:
+        raise ValueError(f"split_n = {split_n} must be a multiple of 128 of at least N = {N}")
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     _launch(
         "matmul_quant", "matmul_quant_bf16", dev, x.data_ptr(),
         q.data_ptr() + layer * stored * N, scale.data_ptr() + layer * ng * N * 4,
-        out.data_ptr(), M, K, N, ng, bits,
+        out.data_ptr(), M, K, N, ng, bits, split_n,
     )
     matmul_quant.launches += 1
     return out
@@ -145,13 +155,14 @@ def matmul_quant(
     x: torch.Tensor,  # (M, K) bf16 on the card
     q: torch.Tensor,  # (K, N) int8 | (K / 2, N) packed int4
     scale: torch.Tensor,  # (ng, N) fp32
+    split_n: Optional[int] = None,  # a shard's whole N: the split to take
 ) -> torch.Tensor:
     """K3. ``x @ dequant(q)`` -> (M, N) in x.dtype."""
     if q.dim() != 2 or scale.dim() != 2:
         raise ValueError("matmul_quant takes one layer's q (K', N) and scale (ng, N)")
     if not x.is_cuda:
         return matmul_quant_plain(x, q, scale)
-    return _run(x, q, scale, 0)
+    return _run(x, q, scale, 0, split_n)
 
 
 matmul_quant.launches = 0
@@ -168,7 +179,7 @@ def matmul_quant_stacked(
         raise ValueError("matmul_quant_stacked takes q (L, K', N) and scale (L, ng, N)")
     if not x.is_cuda:
         return matmul_quant_plain(x, q[int(li)], scale[int(li)])
-    return _run(x, q, scale, int(li))
+    return _run(x, q, scale, int(li), None)
 
 
 KERNELS = (matmul_quant,)

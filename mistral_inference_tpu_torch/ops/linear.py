@@ -27,11 +27,23 @@ decomposition the card runs):
   its one-weight case, every mid-band prefill linear;
 * anything else: ``x @ dequant(w)``, a plain matrix product on a
   materialized weight, which the JAX package too leaves to its compiler.
+
+Under a mesh a rank may hold fewer rows than one device would (its data
+rows, its seq run of a chunk). ``rows`` is then one device's row count, by
+which the product is routed, so that a token takes the kernel it takes on
+one device: a K5 launch pads the rank's rows to whole 256-row tiles, whose
+rows it computes like any other. A column shard's leaf carries
+``"n_whole"``, the whole weight's N, which K3 takes its reduction split
+from. The cuBLAS routes (a plain weight, ``x @ dequant(w)``) run at the
+rank's own row count: under ``data`` or ``seq`` they give one device's
+bits only where cuBLAS rounds a row alike at both counts, which is not
+guaranteed (Mamba's ``dt_proj`` places its rows in a buffer of one
+device's shape for that reason).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -117,33 +129,38 @@ def _zero_tiles(n: int, device: torch.device) -> torch.Tensor:
     return tg
 
 
-def linear(x: torch.Tensor, w: Weight) -> torch.Tensor:
-    """``x`` (..., in) times a plain weight (out, in) or a quantized leaf."""
+def linear(x: torch.Tensor, w: Weight, rows: Optional[int] = None) -> torch.Tensor:
+    """``x`` (..., in) times a plain weight (out, in) or a quantized leaf,
+    the product routed as one of ``rows`` rows (``x``'s own when None)."""
     if not is_quantized(w):
         return F.linear(x, w)
     K = x.shape[-1]
     scale = w["scale"]
     N = scale.shape[-1]
-    rows = x.numel() // K
+    n = x.numel() // K
+    route = n if rows is None else rows
     q = w["q4"] if "q4" in w else w["q"]
     li = w.get("li")
-    if rows <= DECODE_ROWS_MAX and N % 128 == 0 and K % 128 == 0:
-        x2 = x.reshape(rows, K)
-        out = matmul_quant(x2, q, scale) if li is None else matmul_quant_stacked(x2, q, scale, li)
+    if route <= DECODE_ROWS_MAX and N % 128 == 0 and K % 128 == 0:
+        x2 = x.reshape(n, K)
+        out = (matmul_quant(x2, q, scale, w.get("n_whole")) if li is None
+               else matmul_quant_stacked(x2, q, scale, li))
     elif (
-        DECODE_ROWS_MAX < rows < DEQUANT_ROWS_MIN and rows % PREFILL_TILE_ROWS == 0
+        DECODE_ROWS_MAX < route < DEQUANT_ROWS_MIN and route % PREFILL_TILE_ROWS == 0
         and N % 128 == 0 and K % 256 == 0
     ):
-        tiles = rows // PREFILL_TILE_ROWS
+        tiles = -(-n // PREFILL_TILE_ROWS)
+        x2 = x.reshape(n, K)
+        if tiles * PREFILL_TILE_ROWS != n:  # a rank's share of the rows: whole tiles
+            x2 = F.pad(x2, (0, 0, 0, tiles * PREFILL_TILE_ROWS - n))
         if li is None:
-            out = moe_matmul_quant_ragged(
-                x.reshape(rows, K), q[None], scale[None], _zero_tiles(tiles, x.device)
-            )
+            out = moe_matmul_quant_ragged(x2, q[None], scale[None], _zero_tiles(tiles, x.device))
         else:
             # A dense (L, K', N) layer stack is the kernel's weight axis: a
             # tile_group filled with the layer index selects layer li.
             tg = torch.full((tiles,), int(li), dtype=torch.int32, device=x.device)
-            out = moe_matmul_quant_ragged(x.reshape(rows, K), q, scale, tg)
+            out = moe_matmul_quant_ragged(x2, q, scale, tg)
+        out = out[:n]
     else:
         return x @ dequant(w, x.dtype)
     return out.reshape(*x.shape[:-1], N)

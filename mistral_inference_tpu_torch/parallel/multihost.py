@@ -7,11 +7,14 @@ batch padded with empty rows (seqlens 0, which the ring and the Mamba state
 ignore); ``fetch`` brings the ranks' rows back together, so the host loop,
 sampling included, sees the same global tensor on every rank. The JAX
 package's ``fetch`` (``process_allgather``) plays this part there.
+``copy_rows`` moves a global row's state into another global row (the
+serving engines' prefix copies and staged rows), across data ranks where
+the two rows live on two of them.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -60,3 +63,42 @@ def to_global(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     if not torch.equal(ref, x):
         raise ValueError(f"rank {mesh.rank} holds another value than rank 0")
     return x
+
+
+def copy_rows(
+    dst: torch.Tensor,
+    src: torch.Tensor,
+    pairs: Sequence[Tuple[int, int]],
+    mesh: Optional[Mesh],
+    dst_row0: Optional[int],
+    src_row0: Optional[int],
+    cut: Callable[[torch.Tensor], torch.Tensor] = lambda r: r,
+) -> None:
+    """For each (s, d) of ``pairs`` (global rows), ``cut(dst[:, d]) =
+    cut(src[:, s])`` in place, ``cut`` a view of a row (L, ...). ``dst``
+    and ``src`` (L, b, ...) hold a data rank's b rows from global row
+    ``dst_row0`` / ``src_row0`` (None: every row). A pair whose rows live on
+    one rank is copied there; the pairs whose rows live on two data ranks
+    move through one all-gather over ``data``, the same on every rank.
+    ``dst`` may be ``src``: the pairs are then applied in order only where
+    no pair crosses ranks."""
+    if dst_row0 is None:
+        for s, d in pairs:
+            cut(dst[:, d]).copy_(cut(src[:, s]))
+        return
+    bd, bs, me = dst.shape[1], src.shape[1], mesh.d
+    cross = []
+    for s, d in pairs:
+        if s // bs != d // bd:
+            cross.append((s, d))
+        elif d // bd == me:
+            cut(dst[:, d - dst_row0]).copy_(cut(src[:, s - src_row0]))
+    if not cross:
+        return
+    blank = torch.zeros_like(cut(src[:, 0]))
+    send = torch.stack([cut(src[:, s - src_row0]) if s // bs == me else blank
+                        for s, _ in cross])
+    got = mesh.all_gather(send, "data", 0).unflatten(0, (mesh.data, len(cross)))
+    for k, (s, d) in enumerate(cross):
+        if d // bd == me:
+            cut(dst[:, d - dst_row0]).copy_(got[s // bs, k])

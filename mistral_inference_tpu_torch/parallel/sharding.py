@@ -3,28 +3,38 @@
 
 The JAX package lays a global array over the mesh and lets GSPMD insert the
 collectives; here each rank holds its shard as plain tensors and the
-forwards issue the collectives (``parallel/mesh.py``). The rules, with t of
-T the rank's place on ``tensor`` and e of EP its place on ``expert``:
+forwards issue the collectives (``parallel/mesh.py``). The layout is the
+JAX package's kernels-under-mesh one (``param_specs(pallas=True)``,
+``mamba_param_specs(pallas=True)``): every linear sharded on ``tensor``
+keeps its whole reduction axis K and takes N / T of its output columns, so
+a shard's product is the matching columns of the whole product. With t of T
+the rank's place on ``tensor`` and e of EP its place on ``expert``:
 
-* Column-parallel (the output axis is sharded): ``wqkv``, ``w13``, the
-  experts' ``w13``, Mamba's ``in_proj``. A fused weight is sliced per part
-  (q heads, k heads, v heads; w1, w3; z, x, B, C by heads or groups) and
-  re-fused, so the rank's split of the fused product uses local sizes.
-* Row-parallel (the reduction axis is sharded): ``wo``, ``w2``, Mamba's
-  ``out_proj``. A packed int4 leaf is repacked: its byte row r holds logical
-  rows r and r + K / 2, so the rank's rows are unpacked and packed again as
-  split halves of K / T. Scale groups follow their rows.
+* ``wqkv``, ``w13``, the experts' ``w13`` and Mamba's ``in_proj`` are fused
+  along out: each part (q heads, k heads, v heads; w1, w3; z, x, B, C by
+  heads or groups) is sliced to piece t of T and the pieces re-fused, so
+  the rank's split of the fused product uses local sizes.
+* ``wo``, ``w2``, the experts' ``w2`` and Mamba's ``out_proj`` take output
+  columns [t D / T, (t + 1) D / T); the forward gathers their input over
+  ``tensor`` before the product and their output after it.
+* A quantized two-dimensional shard carries ``"n_whole"``, the N of the
+  whole weight (``mark_whole_n``), from which K3 picks its reduction split: the split follows
+  the shape alone, and the shape is the whole weight's, so a shard's column
+  has the bits it has in the whole product. (K5 and K8 split nothing by N.)
 * Experts: each expert rank holds the contiguous ``E / EP`` experts
   [e E / EP, (e + 1) E / EP); the router ``gate`` is replicated.
-* The output head is sharded on the vocab axis; the embedding, the norms and
-  the Pixtral encoder are replicated.
-* Mamba shards per head: ``dt_proj``, ``A_log``, ``D``, ``dt_bias``, the
-  conv taps and bias per channel of x | B | C, ``mixer_norm`` per channel.
+* The output head is sharded on the vocab axis; the embedding, the norms
+  (Mamba's ``mixer_norm`` too), Mamba's ``dt_proj`` and the Pixtral encoder
+  are replicated, and so are live LoRA pairs, as the JAX package replicates
+  them: after the input gathers every sharded linear sees its whole input,
+  so a rank adds the columns of the whole delta that its shard holds.
+* Mamba shards per head: ``A_log``, ``D``, ``dt_bias``, the conv taps and
+  bias per channel of x | B | C.
+* ``seq`` and ``data`` replicate every weight.
 
 Quantization is per output column in groups along the reduction axis, so a
-shard whose groups align with its rows holds exactly the bytes of the shard
-of the quantized full weight: quantize-then-shard equals
-shard-then-quantize.
+column shard holds exactly the bytes of the shard of the quantized full
+weight: quantize-then-shard equals shard-then-quantize.
 
 ``check_transformer`` and ``check_mamba`` refuse a mesh the model does not
 divide, naming the axis, and a quantized shard that the kernels would not
@@ -40,14 +50,15 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from mistral_inference_tpu_torch.ops.cuda.matmul_quant import nibbles, weight_ok
+from mistral_inference_tpu_torch.ops.cuda.matmul_quant import weight_ok
 from mistral_inference_tpu_torch.ops.linear import is_quantized
 from mistral_inference_tpu_torch.parallel.mesh import Mesh
 
 Params = Dict[str, Any]
 
-LIVE_LORA_UNPORTED = ("live LoRA pairs under a mesh are not ported yet (ROADMAP.md Queue 1 "
-                      "item 6b); merge the adapter into the weights instead")
+# The JAX package's ``main.py`` assertion, raised here for a Mamba under seq.
+MAMBA_SEQ = ("--seq applies to transformer models only (Mamba prefill is a sequential "
+             "recurrence over tokens — it cannot sequence-shard)")
 
 
 # -- the checks ----------------------------------------------------------------
@@ -64,19 +75,15 @@ def _routes(K: int, N: int, ng: int, bits: int) -> bool:
     return K % 128 == 0 and N % 128 == 0 and weight_ok(K, N, ng, bits)
 
 
-def _check_quant(name: str, K: int, N: int, group: int, bits: int, kt: int, nt: int,
-                 tensor: int) -> None:
-    """A quantized weight K x N sharded to K / kt x N / nt on ``tensor``:
-    its groups must align with the rank's rows, and where the kernels take
+def _check_quant(name: str, K: int, N: int, group: int, bits: int, tensor: int) -> None:
+    """A quantized weight K x N sharded to K x N / T: where the kernels take
     the full weight they must take the shard."""
     ng = K // min(group, K)
-    if K % kt or ng % kt:
-        raise ValueError(f"mesh axis tensor={tensor} does not divide the {ng} quantization "
-                         f"groups of {name} (K = {K}): a shard's groups must align with its rows")
-    Kl, Nl, ngl = K // kt, N // nt, ng // kt
-    if _routes(K, N, ng, bits) and not _routes(Kl, Nl, ngl, bits):
-        raise ValueError(f"mesh axis tensor={tensor}: the shard of {name}, {Kl} x {Nl} in {ngl} "
-                         f"groups of int{bits}, is a shape the quantized kernels refuse")
+    Nl = N // tensor
+    if _routes(K, N, ng, bits) and not _routes(K, Nl, ng, bits):
+        raise ValueError(f"mesh axis tensor={tensor}: the shard of {name}, {K} x {Nl} in {ng} "
+                         f"quantization groups of int{bits}, is a shape the quantized kernels "
+                         "refuse")
 
 
 def _bits(quant: Optional[str]) -> int:
@@ -87,8 +94,6 @@ def check_transformer(args, mesh: Mesh, quant: Optional[str] = None, group: int 
     """Refuse a mesh that does not divide the model, naming the axis; with
     ``quant`` ("int8" | "int4"), also one whose shards the kernels refuse."""
     T, EP = mesh.tensor, mesh.expert
-    if args.lora is not None:
-        raise NotImplementedError(LIVE_LORA_UNPORTED)
     _divides(args.n_heads, "tensor", T, "n_heads")
     _divides(args.n_kv_heads, "tensor", T, "n_kv_heads")
     _divides(args.hidden_dim, "tensor", T, "hidden_dim")
@@ -102,19 +107,23 @@ def check_transformer(args, mesh: Mesh, quant: Optional[str] = None, group: int 
         return
     D, Dh, F = args.dim, args.head_dim, args.hidden_dim
     q, kv = args.n_heads * Dh, args.n_kv_heads * Dh
-    _check_quant("wqkv", D, q + 2 * kv, group, bits, 1, T, T)
-    _check_quant("wo", q, D, group, bits, T, 1, T)
-    _check_quant("w13", D, 2 * F, group, bits, 1, T, T)
-    _check_quant("w2", F, D, group, bits, T, 1, T)
-    if args.moe is not None and D % 256 == 0 and F % 256 == 0 and (F // T) % 256:
-        raise ValueError(f"mesh axis tensor={T}: an expert's hidden shard {F // T} is not a "
-                         "multiple of 256, which the grouped expert kernels need")
+    _check_quant("wqkv", D, q + 2 * kv, group, bits, T)
+    _check_quant("wo", q, D, group, bits, T)
+    _check_quant("w13", D, 2 * F, group, bits, T)
+    _check_quant("w2", F, D, group, bits, T)
+    if args.moe is not None and D % 256 == 0 and F % 256 == 0 and (
+            (2 * F // T) % 128 or (D // T) % 128):
+        raise ValueError(f"mesh axis tensor={T}: an expert's shards, {2 * F // T} and "
+                         f"{D // T} columns, are not multiples of 128, which the grouped "
+                         "expert kernels need")
 
 
 def check_mamba(args, mesh: Mesh, quant: Optional[str] = None, group: int = 128) -> None:
     """``check_transformer`` for a Mamba: tensor must divide ``n_groups``
     (and so the heads) and the padded vocabulary; no expert axis."""
     T = mesh.tensor
+    if mesh.seq > 1:
+        raise ValueError(MAMBA_SEQ)
     _divides(args.n_groups, "tensor", T, "n_groups")
     _divides(args.padded_vocab_size, "tensor", T, "the padded vocab (the head is vocab-sharded)")
     if mesh.expert > 1:
@@ -123,8 +132,8 @@ def check_mamba(args, mesh: Mesh, quant: Optional[str] = None, group: int = 128)
     if not bits or T == 1:
         return
     di, gd = args.d_inner, args.n_groups * args.d_state
-    _check_quant("in_proj", args.dim, 2 * di + 2 * gd, group, bits, 1, T, T)
-    _check_quant("out_proj", di, args.dim, group, bits, T, 1, T)
+    _check_quant("in_proj", args.dim, 2 * di + 2 * gd, group, bits, T)
+    _check_quant("out_proj", di, args.dim, group, bits, T)
 
 
 def leaf_group(w: Any) -> Optional[int]:
@@ -149,9 +158,10 @@ def _part_slices(sizes: Sequence[int], t: int, T: int) -> List[slice]:
 
 
 def shard_columns(w: Any, sizes: Sequence[int], t: int, T: int) -> Any:
-    """A column-parallel weight fused along out from parts of ``sizes``:
-    piece t of T of each part, re-fused. A plain linear is (out, in); a
-    quantized leaf or an expert stack is (..., in, out)."""
+    """A weight fused along out from parts of ``sizes`` (one part: a plain
+    output-sharded linear): piece t of T of each part, re-fused. A plain
+    linear is (out, in); a quantized leaf or an expert stack is (..., in,
+    out)."""
     if T == 1:
         return w
     parts = _part_slices(sizes, t, T)
@@ -162,43 +172,6 @@ def shard_columns(w: Any, sizes: Sequence[int], t: int, T: int) -> Any:
     if w.dim() == 2:
         return torch.cat([w[s] for s in parts], 0).contiguous()
     return torch.cat([w[..., s] for s in parts], -1).contiguous()
-
-
-def _repack_int4(q4: torch.Tensor, t: int, T: int) -> torch.Tensor:
-    """Rows [t K / T, (t + 1) K / T) of a packed int4 leaf (..., K / 2, N),
-    packed again as split halves of K / T."""
-    lo, hi = nibbles(q4)
-    rows = torch.cat([lo, hi], dim=-2)  # (..., K, N) int32 in [-8, 7]
-    K = rows.shape[-2]
-    mine = rows[..., t * K // T:(t + 1) * K // T, :]
-    half = mine.shape[-2] // 2
-    return ((mine[..., :half, :] & 0x0F) | (mine[..., half:, :] << 4)).to(torch.int8).contiguous()
-
-
-def shard_rows(w: Any, t: int, T: int) -> Any:
-    """A row-parallel weight: rows t of T of its reduction axis. A plain
-    linear is (out, in); a quantized leaf or an expert stack (..., in, out),
-    its scale groups sliced with their rows and packed int4 repacked."""
-    if T == 1:
-        return w
-    if isinstance(w, dict):
-        if "li" in w:
-            raise ValueError("a layer-stacked leaf cannot be sharded")
-        ng = w["scale"].shape[-2]
-        if ng % T:
-            raise ValueError(f"mesh axis tensor={T} does not divide {ng} quantization groups")
-        out = {"scale": w["scale"][..., t * ng // T:(t + 1) * ng // T, :].contiguous()}
-        if "q4" in w:
-            out["q4"] = _repack_int4(w["q4"], t, T)
-        else:
-            K = w["q"].shape[-2]
-            out["q"] = w["q"][..., t * K // T:(t + 1) * K // T, :].contiguous()
-        return out
-    if w.dim() == 2:
-        K = w.shape[1]
-        return w[:, t * K // T:(t + 1) * K // T].contiguous()
-    K = w.shape[-2]
-    return w[..., t * K // T:(t + 1) * K // T, :].contiguous()
 
 
 def shard_experts(w: Any, e: int, EP: int) -> Any:
@@ -219,26 +192,36 @@ def shard_vocab(w: torch.Tensor, t: int, T: int) -> torch.Tensor:
     return w[t * V // T:(t + 1) * V // T].contiguous()
 
 
+def mark_whole_n(lw: Params, tensor: int) -> Params:
+    """Give each quantized two-dimensional leaf of a sharded layer (every
+    one is a column shard of N / T columns) ``"n_whole"``, the N of its
+    whole weight, from which K3 takes its split. Returns ``lw``."""
+    if tensor > 1:
+        for w in lw.values():
+            if is_quantized(w) and w["scale"].dim() == 2:
+                w["n_whole"] = w["scale"].shape[-1] * tensor
+    return lw
+
+
 # -- whole layers and trees -------------------------------------------------------
 
 
 def shard_layer(lw: Params, args, mesh: Mesh) -> Params:
-    """This rank's shard of one transformer layer (the port's layout)."""
-    if "lora" in lw:
-        raise NotImplementedError(LIVE_LORA_UNPORTED)
+    """This rank's shard of one transformer layer; live LoRA pairs stay
+    whole."""
     t, T = mesh.t, mesh.tensor
-    Dh, F = args.head_dim, args.hidden_dim
+    D, Dh, F = args.dim, args.head_dim, args.hidden_dim
     qkv = [args.n_heads * Dh, args.n_kv_heads * Dh, args.n_kv_heads * Dh]
     out = dict(lw)
     out["wqkv"] = shard_columns(lw["wqkv"], qkv, t, T)
-    out["wo"] = shard_rows(lw["wo"], t, T)
+    out["wo"] = shard_columns(lw["wo"], [D], t, T)
     if "gate" in lw:
         out["w13"] = shard_columns(shard_experts(lw["w13"], mesh.e, mesh.expert), [F, F], t, T)
-        out["w2"] = shard_rows(shard_experts(lw["w2"], mesh.e, mesh.expert), t, T)
+        out["w2"] = shard_columns(shard_experts(lw["w2"], mesh.e, mesh.expert), [D], t, T)
     else:
         out["w13"] = shard_columns(lw["w13"], [F, F], t, T)
-        out["w2"] = shard_rows(lw["w2"], t, T)
-    return out
+        out["w2"] = shard_columns(lw["w2"], [D], t, T)
+    return mark_whole_n(out, T)
 
 
 def shard_params(params: Params, args, mesh: Mesh) -> Params:
@@ -255,7 +238,9 @@ def shard_params(params: Params, args, mesh: Mesh) -> Params:
 
 def shard_mamba_layer(lw: Params, args, mesh: Mesh) -> Params:
     """This rank's shard of one Mamba2 layer: heads [t nh / T, (t + 1) nh / T)
-    and their groups."""
+    and their groups, and D / T of ``out_proj``'s output columns. ``dt_proj``
+    stays whole: its product is a few hundred columns, which the rank takes
+    from the whole product rather than from a narrower one of other bits."""
     t, T = mesh.t, mesh.tensor
     if T == 1:
         return lw
@@ -263,15 +248,13 @@ def shard_mamba_layer(lw: Params, args, mesh: Mesh) -> Params:
     heads = _part_slices([args.n_ssm_heads], t, T)[0]
     out = dict(lw)
     out["in_proj"] = shard_columns(lw["in_proj"], [di, di, gd, gd], t, T)
-    out["dt_proj"] = shard_columns(lw["dt_proj"], [args.n_ssm_heads], t, T)
     for name in ("conv_w", "conv_b"):  # channels x | B | C on the last axis
         parts = _part_slices([di, gd, gd], t, T)
         out[name] = torch.cat([lw[name][..., s] for s in parts], -1).contiguous()
     for name in ("A_log", "D", "dt_bias"):
         out[name] = lw[name][heads].contiguous()
-    out["mixer_norm"] = lw["mixer_norm"][_part_slices([di], t, T)[0]].contiguous()
-    out["out_proj"] = shard_rows(lw["out_proj"], t, T)
-    return out
+    out["out_proj"] = shard_columns(lw["out_proj"], [args.dim], t, T)
+    return mark_whole_n(out, T)
 
 
 def shard_mamba_params(params: Params, args, mesh: Mesh) -> Params:

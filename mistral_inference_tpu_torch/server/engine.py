@@ -43,10 +43,13 @@ The engine is host-side control; every O(model) operation is a forward of
 ``models/``, on the model's device, in inference mode (the cache and carry
 are inference tensors: change them only inside it).
 
-Under a ``tensor`` or ``expert`` mesh every rank runs an engine on the same
-requests in the same order (``server/api.py`` replays the primary's calls):
-its forwards gather every output before sampling, so every host decision
-is the same on every rank. A mesh with ``data`` > 1 raises.
+Under a mesh every rank runs an engine on the same requests in the same
+order (``server/api.py`` replays the primary's calls): its forwards gather
+every output before sampling, so every host decision is the same on every
+rank. Under ``data`` a slot's ring row lives on the data rank that holds
+global rows [d b, (d + 1) b) (``parallel/multihost.py``); fills, carries
+and the host loop stay global, and a prefix copy or a staged row whose two
+rows live on two data ranks moves over ``data`` (``multihost.copy_rows``).
 """
 
 from __future__ import annotations
@@ -125,16 +128,6 @@ class _Block:
     rids: List[Optional[int]]
 
 
-def _check_mesh(model) -> None:
-    """An engine serves a model under ``tensor`` and ``expert`` meshes, its
-    host loop run alike on every rank; its per-row state (prefix copies,
-    staging, frozen rows) is not split over ``data``."""
-    mesh = getattr(model, "mesh", None)
-    if mesh is not None and mesh.data > 1:
-        raise NotImplementedError("the serving engines under a data axis > 1 are not ported "
-                                  "yet (ROADMAP.md Queue 1 item 6b); serve with data=1")
-
-
 class _EngineBase:
     """The client contract and the host loop that both engines share:
     ``submit``, ``cancel``, ``step``, ``run_to_completion``; the slots and
@@ -149,7 +142,6 @@ class _EngineBase:
     def __init__(self, model, batch_size: int, max_seq_len: int, *, temperature: float,
                  eos_id: Optional[int], decode_block: int, admit_chunk: int, seed: int,
                  pipeline: bool):
-        _check_mesh(model)
         self.model = model
         self.device = model.device
         self.B = batch_size
@@ -601,7 +593,6 @@ class Engine(_EngineBase):
     def _check_draft(self, draft) -> None:
         if not isinstance(draft, Transformer):
             raise TypeError(f"the draft must be a Transformer, got {type(draft).__name__}")
-        _check_mesh(draft)
         if draft.args.vocab_size != self.model.args.vocab_size:
             raise ValueError("draft and target must share a vocabulary")
         if draft.device != self.device:
@@ -772,7 +763,8 @@ class Engine(_EngineBase):
         prompts = [r.prompt for _, r in new] + [()] * (Bs - len(new))
         scarry = self._prefill(self.model, staged, prompts, sc, scarry, maxT, attend_first=False)
         self.cache, self.carry = adopt_rows(
-            self.cache, self.carry, sc, scarry, list(range(len(new))), [i for i, _ in new])
+            self.cache, self.carry, sc, scarry, list(range(len(new))), [i for i, _ in new],
+            self.model.mesh)
 
     def _plan_prefix_reuse(self, new) -> Tuple[Dict[int, int], List[Tuple[int, int, int]]]:
         """For each new request, the resident row whose prompt shares the
@@ -831,9 +823,9 @@ class Engine(_EngineBase):
         if not copies:
             return
         srcs, dsts, qs = zip(*copies)
-        copy_prefix_rows(self.cache, srcs, dsts, qs)
+        copy_prefix_rows(self.cache, srcs, dsts, qs, self.model.mesh)
         if self.draft is not None:
-            copy_prefix_rows(self.dcache, srcs, dsts, qs)
+            copy_prefix_rows(self.dcache, srcs, dsts, qs, self.draft.mesh)
         METRICS.inc("prefix_hits", len(copies))
         METRICS.inc("prefix_tokens_reused", sum(qs))
 

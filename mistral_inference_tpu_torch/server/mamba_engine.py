@@ -55,11 +55,16 @@ __all__ = ["MambaEngine", "StepEvent"]
 
 
 def _reset_rows(state: MambaState, rows: torch.Tensor) -> None:
-    """Zero the batch rows ``rows`` of the state in place: conv taps, SSD
-    state and tokens seen."""
+    """Zero the global batch rows ``rows`` of the state in place: conv taps,
+    SSD state and tokens seen. Under data parallelism the conv taps and SSD
+    state hold this rank's rows from ``state.row0``, of which those rows
+    it holds are zeroed."""
+    state.seen[rows] = 0
+    if state.row0 is not None:
+        rows = rows - state.row0
+        rows = rows[(rows >= 0) & (rows < state.conv.shape[1])]
     state.conv[:, rows] = 0
     state.ssm[:, rows] = 0
-    state.seen[rows] = 0
 
 
 class MambaEngine(_EngineBase):

@@ -111,11 +111,12 @@ def test_parser_defaults_match_jax(argv):
 
 @pytest.mark.parametrize("extra,error,match", [
     (["--tensor", "2"], ValueError, "needs 2 ranks, found 1"),
-    (["--seq", "2"], NotImplementedError, "Queue 1 item 6b"),
+    (["--seq", "2"], ValueError, "--seq 2 needs 2 ranks, found 1"),
 ])
 def test_unported_options_raise(folder, capsys, extra, error, match):
-    """``--tensor 2`` needs two ranks (``torchrun``; tests/test_torch_parallel_mp.py
-    runs it so); sequence parallelism is not ported yet."""
+    """``--tensor 2`` and ``--seq 2`` each need two ranks (``torchrun``;
+    tests/test_torch_parallel_mp.py runs them so), and one process is
+    refused with the command that starts them."""
     with pytest.raises(error, match=match):
         demo_out(capsys, folder, *extra)
 

@@ -1,9 +1,9 @@
 """The port's mesh and shard rules in one process, with no ranks
-(``parallel/``): each rule against slices of the full leaf, the int4 repack
-in bits, quantize-then-shard against shard-then-quantize, row-parallel
-partial sums against the full product, ``auto_factorize`` and the rank
-layout against the JAX package's, and every refusal. The sharded runs
-themselves are in tests/test_torch_parallel_mp.py."""
+(``parallel/``): each rule against slices of the full leaf, quantize-then-
+shard against shard-then-quantize, each output shard's product against the
+matching columns of the whole product, live LoRA deltas cut to a shard,
+``auto_factorize`` and the rank layout against the JAX package's, and every
+refusal. The sharded runs themselves are in tests/test_torch_parallel_mp.py."""
 
 import dataclasses
 
@@ -15,6 +15,7 @@ from mistral_inference_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from mistral_inference_tpu_torch.args import LoraArgs, MoeArgs
 from mistral_inference_tpu_torch.main import main
 from mistral_inference_tpu_torch.model import Mamba, Transformer
+from mistral_inference_tpu_torch.models import transformer as tf
 from mistral_inference_tpu_torch.ops.linear import dequant, linear, quantize_weight
 from mistral_inference_tpu_torch.parallel import distributed, sharding
 from mistral_inference_tpu_torch.parallel.mesh import (
@@ -34,7 +35,9 @@ def _w(*shape, seed=0):
 
 def _meshes(**sizes):
     """Every rank of a mesh of these sizes."""
-    n = sizes.get("data", 1) * sizes.get("expert", 1) * sizes.get("tensor", 1)
+    n = 1
+    for v in sizes.values():
+        n *= v
     return [Mesh(**sizes, rank=r) for r in range(n)]
 
 
@@ -47,6 +50,8 @@ def _equal(a, b):
         assert len(a) == len(b)
         for x, y in zip(a, b):
             _equal(x, y)
+    elif isinstance(a, int):  # a shard's "n_whole"
+        assert a == b
     else:
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a, b)
@@ -65,13 +70,25 @@ def test_auto_factorize_matches_jax(n, kv, experts):
 @pytest.mark.parametrize("data,expert,tensor", [(2, 1, 2), (1, 2, 2), (2, 2, 2), (1, 1, 4),
                                                 (4, 1, 1), (2, 4, 1)])
 def test_rank_coordinates_match_jax_layout(data, expert, tensor):
-    """rank = (d E + e) T + t, the device order of the JAX package's mesh."""
+    """rank = ((d S + s) E + e) T + t, the device order of the JAX package's
+    mesh; here with S = 1."""
     devices = jax_make_mesh(data=data, expert=expert, tensor=tensor).devices
     for r in range(data * expert * tensor):
-        d, e, t = coords(r, expert, tensor)
-        assert (d * expert + e) * tensor + t == r
+        d, s, e, t = coords(r, 1, expert, tensor)
+        assert s == 0 and (d * expert + e) * tensor + t == r
         assert devices[d, 0, e, t].id == r
-        assert Mesh(data, expert, tensor, rank=r).coords == (d, e, t)
+        assert Mesh(data, expert, tensor, rank=r).coords == (d, 0, e, t)
+
+
+@pytest.mark.parametrize("data,seq,expert,tensor", [(1, 2, 1, 2), (2, 2, 1, 2), (1, 4, 1, 2),
+                                                    (2, 2, 2, 1)])
+def test_rank_coordinates_with_seq_match_jax_layout(data, seq, expert, tensor):
+    devices = jax_make_mesh(data=data, seq=seq, expert=expert, tensor=tensor).devices
+    for r in range(data * seq * expert * tensor):
+        d, s, e, t = coords(r, seq, expert, tensor)
+        assert ((d * seq + s) * expert + e) * tensor + t == r
+        assert devices[d, s, e, t].id == r
+        assert Mesh(data, expert, tensor, seq=seq, rank=r).coords == (d, s, e, t)
 
 
 def test_mesh_without_groups_refuses_a_collective():
@@ -84,10 +101,17 @@ def test_mesh_without_groups_refuses_a_collective():
 
 
 def test_make_mesh_needs_a_process_group_and_refuses_seq():
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    """A mesh needs the process group, with or without seq; a seq rank
+    splits a chunk only where seq divides it (the JAX package's
+    ``seq_axis``), never a decode step."""
+    with pytest.raises(RuntimeError, match="init_distributed"):
         make_mesh(tensor=2, seq=2)
     with pytest.raises(RuntimeError, match="init_distributed"):
         make_mesh(tensor=2)
+    mesh = Mesh(tensor=2, seq=2, rank=3)
+    assert (mesh.size, mesh.s, mesh.t) == (4, 1, 1)
+    assert mesh.seq_split(8) and not mesh.seq_split(9) and not mesh.seq_split(1)
+    assert not Mesh(tensor=2).seq_split(8)
 
 
 # -- the leaf rules -----------------------------------------------------------------------
@@ -114,32 +138,6 @@ def test_quantized_column_shard_is_the_shard_of_the_dequantized(bits):
         assert torch.equal(got, torch.cat([full[:, c] for c in cols], 1))
 
 
-@pytest.mark.parametrize("bits,T", [(8, 2), (4, 2), (4, 4), (8, 8)])
-def test_row_shard_repacks_in_bits(bits, T):
-    """dequant(shard) == dequant(full)[rows] bit for bit: the int4 shard is
-    repacked as split halves of its own K, its scale groups follow."""
-    leaf = quantize_weight(_w(1024, 128, seed=1), bits, group=128)
-    full = dequant(leaf, F32)
-    K = 1024 // T
-    for t in range(T):
-        shard = sharding.shard_rows(leaf, t, T)
-        key = "q4" if bits == 4 else "q"
-        assert shard[key].shape[0] == (K // 2 if bits == 4 else K)
-        assert torch.equal(dequant(shard, F32), full[t * K:(t + 1) * K])
-
-
-def test_int4_repack_of_known_rows():
-    """Logical rows r and r + K/2 share byte row r: a shard of K/2 rows
-    packs its own first and second quarters of the full K."""
-    K, N = 8, 2
-    q = torch.arange(-4, 4).repeat_interleave(N).reshape(K, N).to(torch.int8)  # rows -4 .. 3
-    lo, hi = q[:K // 2].to(torch.int32), q[K // 2:].to(torch.int32)
-    packed = ((lo & 0xF) | (hi << 4)).to(torch.int8)
-    got = sharding._repack_int4(packed, 1, 2)  # logical rows 4 .. 7 = values 0 .. 3
-    want = ((torch.tensor([[0, 0], [1, 1]]) & 0xF) | (torch.tensor([[2, 2], [3, 3]]) << 4))
-    assert torch.equal(got, want.to(torch.int8))
-
-
 def test_expert_and_vocab_shards():
     stack = _w(8, 4, 6)
     assert torch.equal(sharding.shard_experts(stack, 1, 4), stack[2:4])
@@ -147,17 +145,52 @@ def test_expert_and_vocab_shards():
     assert torch.equal(sharding.shard_vocab(head, 1, 2), head[5:])
 
 
+# (seed, K, N) of each output-sharded weight: a layer's wo and w2, an expert
+# stack's w2, Mamba's out_proj
+OUTPUT_LEAVES = {"wo": (1, 256, 256), "w2": (2, 512, 256), "experts_w2": (3, 512, 256),
+                 "out_proj": (4, 512, 256)}
+
+
+def _output_leaf(which: str, quant):
+    """(the whole weight of ``which``, its input width K), dense or
+    quantized as a model holds it."""
+    seed, K, N = OUTPUT_LEAVES[which]
+    gen = torch.Generator().manual_seed(seed)
+    bits = {None: 0, "int8": 8, "int4": 4}[quant]
+    if which == "experts_w2":
+        w = torch.randn((3, K, N), generator=gen)  # (E, in, out), applied as x @ w
+        return (quantize_weight(w, bits, 64) if bits else w), K
+    w = torch.randn((N, K), generator=gen)  # (out, in)
+    return (quantize_weight(w.t(), bits, 64) if bits else w), K
+
+
+def _apply(w, x):
+    if isinstance(w, dict) and w["scale"].dim() == 3:  # an expert stack, per expert
+        return torch.stack([linear(x, {k: v[e] for k, v in w.items()})
+                            for e in range(w["scale"].shape[0])])
+    if not isinstance(w, dict) and w.dim() == 3:
+        return torch.matmul(x, w)
+    return linear(x, w)
+
+
 @pytest.mark.parametrize("quant", [None, "int8", "int4"])
-def test_row_parallel_partials_sum_to_the_full_product(quant):
-    """wo and w2 are row-parallel: the ranks' products on their slices of
-    the input add up to the full product."""
-    w = _w(512, 256, seed=2)  # (out, in)
-    x = _w(3, 256, seed=3)
-    full = w if quant is None else quantize_weight(w.t(), {"int8": 8, "int4": 4}[quant], 64)
-    want = linear(x, full)
-    got = sum(linear(x[:, 128 * t:128 * (t + 1)], sharding.shard_rows(full, t, 2))
-              for t in range(2))
-    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+@pytest.mark.parametrize("which", ["wo", "w2", "experts_w2", "out_proj"])
+def test_output_shard_is_the_columns_of_the_whole_product(which, quant):
+    """wo, w2, the experts' w2 and Mamba's out_proj shard their output
+    axis: each rank's product on the whole input is the matching D / T
+    columns of the whole product, in bits; a quantized two-dimensional
+    shard carries its whole N for K3's split."""
+    w, K = _output_leaf(which, quant)
+    x = _w(5, K, seed=9)
+    whole = _apply(w, x)
+    N = whole.shape[-1]
+    for t in range(2):
+        shard = sharding.mark_whole_n({"w": sharding.shard_columns(w, [N], t, 2)}, 2)["w"]
+        assert torch.equal(_apply(shard, x), whole[..., t * N // 2:(t + 1) * N // 2])
+        if quant is not None and which != "experts_w2":
+            assert shard["n_whole"] == N and shard["scale"].shape[-1] == N // 2
+        else:
+            assert not isinstance(shard, dict) or "n_whole" not in shard
 
 
 # -- whole models -------------------------------------------------------------------
@@ -180,7 +213,7 @@ def test_random_under_mesh_is_the_shard_of_the_full_model(moe):
             {**full.params, "layers": list(full.params["layers"])}, full.args, m))
     lw, s0 = full.params["layers"][0], shards[0].params["layers"][0]
     assert s0["wqkv"].shape[0] * 2 == lw["wqkv"].shape[0]
-    assert s0["wo"].shape[1] * 2 == lw["wo"].shape[1]
+    assert s0["wo"].shape[0] * 2 == lw["wo"].shape[0] and s0["wo"].shape[1] == lw["wo"].shape[1]
     if moe:
         assert s0["w13"].shape[0] * 2 == lw["w13"].shape[0]
 
@@ -191,7 +224,7 @@ def test_quantize_then_shard_equals_shard_then_quantize(family, mode):
     """The groups align with the shards, so quantizing a shard gives the
     bytes of the shard of the quantized full model."""
     cls, args, group = ((Transformer, qargs(), 64) if family == "transformer"
-                        else (Mamba, margs(dim=128, n_groups=4, d_state=32, headdim=32), 32))
+                        else (Mamba, margs(dim=256, n_groups=4, d_state=32, headdim=32), 32))
     meshes = _meshes(tensor=2)
     full, shards = _full_and_shards(cls, args, 6, meshes)
     full.quantize(mode, group=group)
@@ -215,7 +248,7 @@ def test_mamba_shard_takes_its_heads_of_each_part():
     meshes = _meshes(tensor=2)
     full, shards = _full_and_shards(Mamba, args, 8, meshes)
     lw = full.params["layers"][0]
-    di, gd, nh = args.d_inner, args.n_groups * args.d_state, args.n_ssm_heads
+    di, gd, nh, D = args.d_inner, args.n_groups * args.d_state, args.n_ssm_heads, args.dim
     for t, shd in enumerate(shards):
         s = shd.params["layers"][0]
         rows = torch.cat([lw["in_proj"][part * di + t * di // 2:part * di + (t + 1) * di // 2]
@@ -225,7 +258,9 @@ def test_mamba_shard_takes_its_heads_of_each_part():
                             for part in range(2)])
         assert torch.equal(s["in_proj"], rows)
         assert torch.equal(s["A_log"], lw["A_log"][t * nh // 2:(t + 1) * nh // 2])
-        assert torch.equal(s["out_proj"], lw["out_proj"][:, t * di // 2:(t + 1) * di // 2])
+        assert torch.equal(s["out_proj"], lw["out_proj"][t * D // 2:(t + 1) * D // 2])
+        assert torch.equal(s["dt_proj"], lw["dt_proj"]) and torch.equal(s["mixer_norm"],
+                                                                       lw["mixer_norm"])
 
 
 def test_cache_and_state_hold_local_heads_and_rows():
@@ -263,7 +298,7 @@ def test_mamba_axis_that_does_not_divide_raises():
 
 @pytest.mark.parametrize("quant", ["int8", "int4"])
 def test_a_shard_the_kernels_refuse_raises(quant):
-    """wo's K = 128 splits to 64 at tensor = 2, which K3 refuses: the mesh is
+    """wo's N = 128 splits to 64 at tensor = 2, which K3 refuses: the mesh is
     refused, at the quantization of the shard and for a model born
     quantized, and the shard never routes to a plain product."""
     shd = Transformer.random(targs(), dtype=F32, device="cpu", mesh=Mesh(tensor=2))
@@ -275,26 +310,51 @@ def test_a_shard_the_kernels_refuse_raises(quant):
 
 
 def test_misaligned_groups_raise():
-    with pytest.raises(ValueError, match="quantization groups"):
-        Transformer.random(qargs(), dtype=F32, device="cpu", mesh=Mesh(tensor=2)).quantize(
-            "int8", group=256)
+    """A group of 256 puts ``wo``'s whole K = 256 in one group; at dim =
+    128 its shard, 256 x 64, is refused, and the refusal names the shard's
+    quantization groups (a shard keeps its whole K, so its groups are the
+    whole weight's)."""
+    with pytest.raises(ValueError, match="256 x 64 in 1 quantization groups"):
+        Transformer.random(qargs(dim=128), dtype=F32, device="cpu",
+                           mesh=Mesh(tensor=2)).quantize("int8", group=256)
 
 
 def test_live_lora_under_a_mesh_raises():
+    """Live pairs under a mesh: whole on every rank (the JAX package
+    replicates them, zero until an adapter is loaded), and each rank's delta
+    of every adapted linear is its shard's columns of the whole delta, piece
+    t of each fused part."""
     args = targs(lora=LoraArgs(rank=4, scaling=2.0))
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        Transformer.random(args, dtype=F32, device="cpu", mesh=Mesh(tensor=2))
+    full = Transformer.random(args, dtype=F32, device="cpu")
+    lw = full.params["layers"][0]
+    shards = [Transformer.random(args, dtype=F32, device="cpu", mesh=m) for m in _meshes(tensor=2)]
+    for shd in shards:
+        _equal(shd.params["layers"][0]["lora"], lw["lora"])
+    gen = torch.Generator().manual_seed(0)
+    for pair in lw["lora"].values():
+        for t_ in pair.values():
+            t_.copy_(torch.randn(t_.shape, generator=gen))
+    for key, names in tf.LORA_PARTS.items():
+        x = _w(3, lw["lora"][names[0]]["a"].shape[0], seed=5)
+        whole = tf._lora_delta(x, lw, key, args)
+        sizes = [lw["lora"][n]["b"].shape[-1] for n in names]
+        for m in _meshes(tensor=2):
+            want = torch.cat([whole[..., s] for s in sharding._part_slices(sizes, m.t, 2)], -1)
+            assert torch.equal(tf._lora_delta(x, lw, key, args, mesh=m), want)
 
 
 def test_engines_under_data_raise():
+    """The engines serve under data: a slot's ring row or state row lives on
+    its data rank (rows [d b, (d + 1) b)), its fill and carry on every rank."""
     from mistral_inference_tpu_torch.server.engine import Engine
     from mistral_inference_tpu_torch.server.mamba_engine import MambaEngine
 
-    mesh = Mesh(data=2, rank=0)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        Engine(Transformer.random(targs(), dtype=F32, device="cpu", mesh=mesh), 2, 32)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        MambaEngine(Mamba.random(margs(), dtype=F32, device="cpu", mesh=mesh), 2, 32)
+    mesh = Mesh(data=2, rank=1)
+    eng = Engine(Transformer.random(targs(), dtype=F32, device="cpu", mesh=mesh), 3, 32)
+    assert (eng.cache.k.shape[1], eng.cache.row0, eng.cache.kv_len.shape) == (2, 2, (3,))
+    assert eng.carry.shape[0] == 3
+    meng = MambaEngine(Mamba.random(margs(), dtype=F32, device="cpu", mesh=mesh), 3, 32)
+    assert (meng.state.ssm.shape[1], meng.state.row0, meng.state.seen.shape) == (2, 2, (3,))
 
 
 def test_ranks_sharing_a_gpu_need_gloo(monkeypatch):
@@ -315,7 +375,19 @@ def test_cli_seq_and_tensor_without_ranks_raise(tmp_path):
     from test_torch_parallel_mp import _cli_folder
 
     tmp_path = _cli_folder(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        main(["demo", str(tmp_path), "--seq", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="--tensor 2 x --seq 2 needs 4 ranks, found 1"):
+        main(["demo", str(tmp_path), "--seq", "2", "--tensor", "2", "--device", "cpu"])
     with pytest.raises(ValueError, match="needs 4 ranks, found 1"):
         main(["demo", str(tmp_path), "--tensor", "4", "--device", "cpu"])
+
+
+def test_mamba_under_seq_raises_as_the_jax_cli_does(tmp_path):
+    from test_torch_cli import _tekken
+    from test_torch_loading import write_reference_folder
+
+    write_reference_folder(tmp_path, "mamba", seed=3)
+    _tekken(tmp_path)
+    with pytest.raises(ValueError, match="--seq applies to transformer models only"):
+        main(["demo", str(tmp_path), "--seq", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="--seq applies to transformer models only"):
+        Mamba.random(margs(), dtype=F32, device="cpu", mesh=Mesh(seq=2))
