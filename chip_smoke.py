@@ -5,7 +5,8 @@
 
 Phases, each printing one JSON line:
 
-1. card: the card's name and power limit (nvidia-smi); TF32 off.
+1. card: the card's name and power limit (nvidia-smi) and the published
+   peaks (``utils/chip.py``, by the card's name) every bound derives from; TF32 off.
 2. build: every kernel of ``mistral_inference_tpu_torch/ops/cuda/csrc`` is
    compiled from the checkout with nvcc (sm_90a).
 3. kernels: each of the ten CUDA kernels against its plain PyTorch version
@@ -51,7 +52,10 @@ Phases, each printing one JSON line:
    K5, K3, K2-fp8) and ``fp8-nonfused-decode`` at 8 layers (K6-fp8). Each
    checks that greedy tokens repeat, the decode == prefill invariant, that
    top-p sampling is fixed by its seed, and that every kernel of the path was
-   launched.
+   launched. Beside them the ``MISTRAL_MOE_DEBUG`` drop line: one
+   ``mixtral-8x7b`` layer's dispatch over 256 rows at capacity factor 0.5,
+   its ``METRICS`` count equal to the plain count of slots past capacity
+   (above 0), nothing counted with the switch off, K8 launched.
 5. speculation: a probe that the verify forward's operations give a row the
    same bits among 20 or 32 rows as among 4 (K3 also among 128 and 256),
    then four paths of
@@ -130,9 +134,13 @@ Phases, each printing one JSON line:
 11. Mamba serving: ``MambaEngine(batch_size=4)`` on ``codestral-mamba-7b``
     (8 layers, int4) with an fp32 and a bf16 SSD state, 12 requests, plainly
     and with prompt lookup (K = 7): each greedy request against
-    ``generate_mamba`` alone, K9's launches (layers x decode forwards; 0 for
-    lookup), a finished request's state rows unchanged in bits through
-    every block; one HTTP completion through ``Server(MambaEngine(...))``.
+    ``generate_mamba`` alone (equal tokens plainly; lookup at near-ties),
+    K9's launches (layers x decode forwards; 0 for lookup), a finished
+    request's state rows unchanged in bits through every block; one HTTP
+    completion through ``Server(MambaEngine(...))``, equal tokens. Then the
+    rows probe (``mamba_rows_probe``): no op of a Mamba forward gives a row
+    other bits at B = 1 or 2 than at B = 4, and ``fixed_rows_linear`` keeps
+    a row's bits among 4-2048 rows.
 
 12. LoRA: a rank-16 adapter on phase 9's folder: ``main quantize
     --lora_path`` exports quantize(merge_lora(dense)) in bits, ``main demo
@@ -178,8 +186,8 @@ Phases, each printing one JSON line:
     also against the matching columns of the whole weight's product, in
     bits (on every tensor path, each of them that ran at least once).
 
-Then a ``total`` line (the seconds since the start), a ``kernels`` line, the
-nvidia-smi line, and last the device line.
+Then a ``total`` line (the seconds since the start, and each phase's), a
+``kernels`` line, the nvidia-smi line, and last the device line.
 Any failure raises and the script exits non-zero. Without a CUDA device,
 or without the package beside it, it exits non-zero and prints no result.
 nvcc's build logs (``-Xptxas -v``: registers, shared memory) go to stderr.
@@ -193,9 +201,8 @@ host's time to enqueue it, and to the serving line the same for one
 engine decode block (a serial engine, 8 rows). ``--kernels=k2,k7_fp8`` runs phases 1 and
 2 and only the named kernels' checks, and prints no result line; so does
 ``--phases=spec_serving,mamba_serving,lora,parallel`` after phases 1 and 2
-for the named phases of 10-13, and ``--phases=mamba_rows`` for a probe run
-in no other phase: which product of a Mamba forward gives a row other bits
-at B = 1 or 2 than at B = 4 (``mamba_rows_probe``).
+for the named phases of 10-13, ``--phases=mamba_rows`` for the rows probe
+and ``--phases=moe_drops`` for the drop line.
 """
 
 from __future__ import annotations
@@ -217,11 +224,9 @@ ROOT = Path(__file__).resolve().parent
 
 SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's 1.98 GHz boost clock
 
-# The card's published peaks (NVIDIA H100 SXM data sheet, dense): used for
-# each kernel's least time, stated against the card's full 700 W limit.
-PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
-PEAK_BYTES = 3.35e12
+# The card's published peaks (``utils/chip.py``, looked up by the card's
+# name in main()): each kernel's least time derives from them.
+SPEC = None
 
 MODEL = "mistral-7b-v0.1"
 MOE_MODEL = "mixtral-8x7b"
@@ -368,8 +373,10 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bound(flops: float, bytes_: float, peak_flops: float = PEAK_BF16_FLOPS):
-    t_ops, t_bytes = flops / peak_flops, bytes_ / PEAK_BYTES
+def bound(flops: float, bytes_: float, dtype: torch.dtype = torch.bfloat16):
+    """The card's least time in ms for ``flops`` operations on ``dtype``
+    inputs and ``bytes_`` moved, and which of the two bounds it."""
+    t_ops, t_bytes = SPEC.flop_seconds(flops, dtype), SPEC.hbm_seconds(bytes_)
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -1521,7 +1528,7 @@ def check_k9(gen):
         del start, plain
         state_bytes = 2 * B * NH * HD * DS * ssm.element_size()  # layer li read once, written once
         b_ms, b_by = bound(5.0 * B * NH * HD * DS, state_bytes + nbytes(a, dtx, Bm, Cm, y),
-                           PEAK_FP32_FLOPS)
+                           torch.float32)
         out[name] = {
             "max_abs_err": err,
             "ms": timed_ms(lambda: fused_ssd_step_stacked(a, dtx, Bm, Cm, ssm, li)),
@@ -1762,6 +1769,67 @@ def topp_phase(run, prompts, **kw) -> float:
             and all(len(lp) == len(p) - 1 + TOPP_TOKENS for lp, p in zip(l1, prompts)),
             "wrong number of sampled tokens or logprobs")
     return topp_s
+
+
+MOE_DROP_ROWS, MOE_DROP_FACTOR = 256, 0.5
+MOE_DROPS = "moe_dropped_assignments"
+
+
+def moe_drop_line(card: str) -> dict:
+    """The ``MISTRAL_MOE_DEBUG`` drop counter on one ``mixtral-8x7b`` layer at
+    full width (int4, random weights from seed 0): ``_moe_ffn_dispatch`` over
+    256 rows at capacity factor 0.5 with the switch on, then off (set
+    in-process, so that no other phase counts). On: the count in ``METRICS``
+    equals the assignments past an expert's capacity, counted by a host loop
+    over the same routing, and is above 0; off: nothing is counted. Both
+    outputs are equal in bits, and each launches K8 twice (w13, w2)."""
+    from mistral_inference_tpu_torch.model import Transformer
+    from mistral_inference_tpu_torch.models import transformer as tf
+    from mistral_inference_tpu_torch.models.registry import get_args
+    from mistral_inference_tpu_torch.ops import cuda as kern
+    from mistral_inference_tpu_torch.utils.profiling import METRICS
+
+    t0 = time.perf_counter()
+    args = get_args(MOE_MODEL)
+    args.n_layers, args.moe_impl = 1, "dispatch"
+    model = Transformer.random(args, dtype=torch.bfloat16, seed=0, quant="int4")
+    lw = model.params["layers"][0]
+    k, E = args.moe.num_experts_per_tok, args.moe.num_experts
+    x = randn(torch.Generator(device="cuda").manual_seed(23), MOE_DROP_ROWS, args.dim,
+              dtype=torch.bfloat16)
+    C = tf.moe_capacity(MOE_DROP_ROWS, k, E, MOE_DROP_FACTOR)
+    filled, plain = [0] * E, 0
+    for e in tf._route(x, lw["gate"], k)[0].reshape(-1).tolist():
+        plain += filled[e] >= C
+        filled[e] += 1
+    runs, saved = {}, tf._MOE_DEBUG
+    try:
+        for on in (True, False):
+            tf._MOE_DEBUG = on
+            METRICS.__init__()
+            kern.reset_launch_counts()
+            y = tf._moe_ffn_dispatch(x, lw, k, MOE_DROP_FACTOR, args)
+            torch.cuda.synchronize()
+            runs[on] = (y, METRICS.counters.get(MOE_DROPS), launch_counts()[K8])
+    finally:
+        tf._MOE_DEBUG = saved
+        METRICS.__init__()
+    (y_on, counted, k8_on), (y_off, off, k8_off) = runs[True], runs[False]
+    out = {"phase": "moe_drops", "card": card, "model": MOE_MODEL, "layer": "one, full width",
+           "weights": "int4 (seed 0)", "rows": MOE_DROP_ROWS, "top_k": k, "experts": E,
+           "capacity_factor": MOE_DROP_FACTOR, "capacity": C, "assignments": MOE_DROP_ROWS * k,
+           "counted_on": counted, "plain_count": plain, "counted_off": off,
+           "k8_launches": [k8_on, k8_off], "outputs_equal_bits": same_bits(y_on, y_off),
+           "finite": bool(torch.isfinite(y_on).all())}
+    del model
+    torch.cuda.empty_cache()
+    require(plain > 0 and counted == plain, f"moe drops: counted {counted}, plain {plain}")
+    require(off is None, f"moe drops: {off} counted with the switch off")
+    require(k8_on == k8_off == 2, f"moe drops: K8 launched {k8_on}, {k8_off} times, not 2")
+    require(out["outputs_equal_bits"] and out["finite"], "moe drops: the counter changed "
+                                                         "the output, or it is not finite")
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def main_path(card: str, profile: bool, path: MainPath):
@@ -3794,7 +3862,8 @@ def mamba_serving_phase(card: str) -> dict:
     int4 weights, once with an fp32 and once with a bf16 SSD state, serving
     ``mamba_serving_workload`` plainly and with prompt lookup (K = 7).
     Checks every greedy request against generate_mamba of its prompt alone
-    (chunk 512), K9's launches (layers x decode forwards plainly, 0 for
+    (chunk 512): equal tokens plainly and over HTTP, near-ties allowed only
+    for lookup, whose verify runs the chunked SSD; K9's launches (layers x decode forwards plainly, 0 for
     lookup), that every block leaves a finished request's state rows in
     bits, and no row past prompt + max_tokens (+ a lookup block's slack);
     then one HTTP completion through ``Server(MambaEngine(...))`` with a
@@ -3835,6 +3904,11 @@ def mamba_serving_phase(card: str) -> dict:
             launches = launch_counts()
             name = f"mamba_serving {state} {label}"
             diverged = held_to_references(name, model, w, reqs, ref, stop_at, mamba_carry)
+            # Plain serving runs generate_mamba's products with a row's bits
+            # its own: equal tokens. Lookup verifies through the chunked SSD
+            # where decode runs K9 (other sums): near-ties only.
+            require(label == "lookup" or not diverged,
+                    f"{name}: {len(diverged)} requests left generate_mamba alone")
             want_k9 = layers * fwd.step if label == "plain" else 0
             require(launches[K9] == want_k9 and (label == "lookup") == (fwd.step == 0),
                     f"{name}: K9 launched {launches[K9]} times for {fwd.step} decode forwards "
@@ -3873,9 +3947,10 @@ def mamba_serving_phase(card: str) -> dict:
                 "mamba http: the reply's tokens are not the engine's")
         got = rec.generated + [tok.eos_id] if len(rec.generated) < len(want) else rec.generated
         diverged = divergences(model, [prompt], [got], [want[:len(got)]], mamba_carry)
-        near_ties("mamba_serving http", diverged)
-        require(diverged or got == want[:len(got)], "mamba http: the tokens are not "
-                                                    "generate_mamba's")
+        for d in diverged:
+            emit({"phase": "divergence", "path": "mamba_serving http", **d})
+        require(not diverged and got == want[:len(got)],
+                "mamba http: the tokens are not generate_mamba's")
         out["http"] = {"prompt_len": len(prompt), "tokens": len(rec.generated), "wall_s": http_s,
                        "divergences_at_near_ties": len(diverged)}
         del model, engine
@@ -3891,11 +3966,12 @@ MAMBA_PROBE_LENS = (1537, 700, 300, 45)  # four rows of phase 11's prompt length
 class _OpLog:
     """While entered, records the output of every product and step of
     ``models.mamba``'s forward, in call order: the quantized linears
-    (``linear``), the dense ``dt_proj``, the conv, the chunked SSD, K9, the
-    gated norm and the RMS norms."""
+    (``linear``), the dense ``dt_proj`` and head products
+    (``fixed_rows_linear``), the conv, the chunked SSD, K9, the gated norm,
+    the RMS norms and the head."""
 
-    NAMES = ("linear", "_dt_proj", "_conv", "_ssd_chunked", "fused_ssd_step_stacked",
-             "_gated_norm", "rms_norm")
+    NAMES = ("linear", "fixed_rows_linear", "_conv", "_ssd_chunked",
+             "fused_ssd_step_stacked", "_gated_norm", "rms_norm", "apply_head")
 
     def __init__(self):
         self.calls = []
@@ -3923,16 +3999,45 @@ class _OpLog:
         return call
 
 
-def mamba_rows_probe(card: str) -> dict:
+def fixed_rows_check(model) -> dict:
+    """``fixed_rows_linear`` on layer 0's ``dt_proj`` and on the head: a row
+    alone against the same row at the first, middle and last place among 4,
+    16, 300 and 2048 rows: the differing elements of each, beside plain
+    ``F.linear`` compared the same way (for the record)."""
+    import torch.nn.functional as F
+
+    from mistral_inference_tpu_torch.ops.linear import ROW_BLOCK, fixed_rows_linear
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    weights = {"dt_proj": model.params["layers"][0]["dt_proj"], "head": model.params["lm_head"]}
+    D = model.args.dim
+    x = randn(gen, 2048, D).to(torch.bfloat16)
+    out = {"row_block": ROW_BLOCK, "rows": [4, 16, 300, 2048]}
+    for name, w in weights.items():
+        fixed, plain = {}, {}
+        alone = {p: (fixed_rows_linear(x[p:p + 1], w), F.linear(x[p:p + 1], w))
+                 for n in out["rows"] for p in (0, n // 2, n - 1)}
+        for n in out["rows"]:
+            got_f, got_p = fixed_rows_linear(x[:n], w), F.linear(x[:n], w)
+            fixed[n] = sum(differ(got_f[p:p + 1], alone[p][0]) for p in (0, n // 2, n - 1))
+            plain[n] = sum(differ(got_p[p:p + 1], alone[p][1]) for p in (0, n // 2, n - 1))
+        out[name] = {"shape": list(w.shape), "fixed_rows_differing": fixed,
+                     "plain_F_linear_differing": plain}
+    return out
+
+
+def mamba_rows_probe(card: str) -> None:
     """Which product of a Mamba forward gives a row other bits in another
-    batch, where ``MambaEngine`` leaves ``generate_mamba``: the forwards
-    the engine runs for an admission (one 512-wide chunk, the SSD's chunk 128) and a
-    decode step (T = 1), on the 8-layer int4 ``codestral-mamba-7b`` of
-    phase 11 with an fp32 state, at B = 4; then row 0 alone (B = 1, as
+    batch, where ``MambaEngine`` would leave ``generate_mamba``: the forwards
+    the engine runs for an admission (one 512-wide chunk, the SSD's chunk
+    128) and a decode step (T = 1), on the 8-layer int4 ``codestral-mamba-7b``
+    of phase 11 with an fp32 state, at B = 4; then row 0 alone (B = 1, as
     ``generate_mamba`` of one prompt runs it) and rows 0-1 alone (B = 2, a
     data rank's rows at data = 2). Every recorded output's rows are compared
     in bits, in call order; the first op that differs, and every op name
-    that does, are reported."""
+    that does, are reported; then ``fixed_rows_check``. Prints its line, then
+    requires that no op differ and that fixed_rows_linear keep every row's
+    bits."""
     from mistral_inference_tpu_torch.generate import _prompt_chunks
 
     t0 = time.perf_counter()
@@ -3956,6 +4061,7 @@ def mamba_rows_probe(card: str) -> dict:
     out = {"phase": "mamba_rows_probe", "card": card, "model": MAMBA_MODEL, "layers": 8,
            "weights": "int4 (seed 0)", "state": "fp32", "prompt_lens": MAMBA_PROBE_LENS,
            "admission_chunk": 512, "ssd_chunk": 128, "compared": {}}
+    problems = []
     for label, rows in (("B1_row0_vs_B4", [0]), ("B2_rows01_vs_B4", [0, 1])):
         part = run(rows)
         res = []
@@ -3972,11 +4078,19 @@ def mamba_rows_probe(card: str) -> dict:
                                  "of": t.numel()}
             res.append({"forward": kind, "chunk_start": s, "first_differing": first,
                         "ops_differing": differing, "calls": len(calls)})
+            if first is not None:
+                problems.append(f"{label} {kind} chunk {s}: {first}")
         out["compared"][label] = res
+    out["fixed_rows"] = fixed = fixed_rows_check(model)
+    for name in ("dt_proj", "head"):
+        if any(fixed[name]["fixed_rows_differing"].values()):
+            problems.append(f"fixed_rows_linear on {name}: {fixed[name]}")
     out["seconds"] = time.perf_counter() - t0
     del model
     torch.cuda.empty_cache()
-    return out
+    emit(out)  # printed before the check, so that a failure shows the ops
+    require(not problems, "mamba rows: a row's bits moved with the rows beside it: "
+                          + "; ".join(problems))
 
 
 LORA_FAMILIES = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
@@ -5158,11 +5272,18 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
 
+    global SPEC
+    import dataclasses
+
+    from mistral_inference_tpu_torch.utils.chip import spec_for_device
+
     card = nvidia_smi()
+    SPEC = spec_for_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "chip_spec": dataclasses.asdict(SPEC)})
 
     from mistral_inference_tpu_torch.ops.cuda import _build
 
@@ -5178,13 +5299,23 @@ def main() -> int:
                               ("mamba_serving", lambda: mamba_serving_phase(card)),
                               ("lora", lambda: lora_phase(card, Path(tmp))),
                               ("parallel", lambda: parallel_phase(card)),
-                              ("mamba_rows", lambda: mamba_rows_probe(card))):
+                              ("mamba_rows", lambda: mamba_rows_probe(card)),
+                              ("moe_drops", lambda: moe_drop_line(card))):
                 if name in phases[0]:
-                    emit(run())
+                    got = run()
+                    if got is not None:  # the rows probe prints its own line
+                        emit(got)
                     torch.cuda.empty_cache()
         print(card, flush=True)
         return 0
 
+    laps, last = {}, [t_start]
+
+    def lap(name: str) -> None:  # each phase's seconds, for the total line
+        now = time.perf_counter()
+        laps[name], last[0] = now - last[0], now
+
+    lap("1-2 card and build")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     checks = (check_k1, check_k4, check_k2, check_k3, check_k5, check_k8, check_k6, check_k7,
@@ -5199,6 +5330,7 @@ def main() -> int:
     if only:  # a part of the run, for work on one kernel: no result line
         print(card, flush=True)
         return 0
+    lap("3 kernels")
 
     # Each kernel's launches on the path that runs it at the greatest depth:
     # the full Mixtral model for all but K6, which only the non-fused route runs.
@@ -5211,6 +5343,10 @@ def main() -> int:
             if path.layers > depth.get(name, 0):
                 launches[name], depth[name] = counted[name], path.layers
         torch.cuda.empty_cache()
+    lap("4 main paths")
+    emit(moe_drop_line(card))  # beside the Mixtral path: the drop counter
+    torch.cuda.empty_cache()
+    lap("4 moe drops")
     emit(row_count_probe(gen))
     for spath in SPEC_PATHS:
         summary, counted = spec_path(card, spath)
@@ -5219,6 +5355,7 @@ def main() -> int:
         if spath.fused and spath.layers > depth.get(k7, 0):
             launches[k7], depth[k7] = counted[k7], spath.layers
         torch.cuda.empty_cache()
+    lap("5 speculation")
     # K9's launches per greedy generate_mamba on the full 64-layer model.
     for mpath in MAMBA_PATHS:
         summary, counted = mamba_path(card, "--profile" in sys.argv[1:], mpath)
@@ -5228,6 +5365,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     emit(mamba_lookup_path(card)[0])
     torch.cuda.empty_cache()
+    lap("6 mamba")
     # The multimodal path: K10's launches, and K1, K4 and K2 at 40 layers.
     summary, counted, pix_model = pixtral_path(card, "--profile" in sys.argv[1:])
     emit(summary)
@@ -5235,13 +5373,16 @@ def main() -> int:
         if summary["layers"] > depth.get(name, 0):
             launches[name], depth[name] = counted[name], summary["layers"]
     torch.cuda.empty_cache()
+    lap("7 vision")
     # The serving engine over the north-star model, the Pixtral model resident.
     emit(serving_phase(card, "--profile" in sys.argv[1:], torch.cuda.memory_allocated()))
     torch.cuda.empty_cache()
+    lap("8 serving")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # The front door: a checkpoint folder on disk through the CLI and the HTTP API.
         emit(front_door_phase(card, pix_model, Path(tmp)))
         torch.cuda.empty_cache()
+        lap("9 front door")
         # Speculative serving, the Pixtral model still resident (its lookup
         # engine runs K7-fp8 at 32 layers); then Mamba serving, and LoRA on
         # the front door's folder.
@@ -5252,14 +5393,21 @@ def main() -> int:
             depth[K7F] = spec["layers"]
         del pix_model
         torch.cuda.empty_cache()
+        lap("10 speculative serving")
         emit(mamba_serving_phase(card))
         torch.cuda.empty_cache()
+        lap("11 mamba serving")
+        mamba_rows_probe(card)
+        torch.cuda.empty_cache()
+        lap("11 mamba rows probe")
         emit(lora_phase(card, Path(tmp)))
         torch.cuda.empty_cache()
+        lap("12 lora")
     # Many GPUs: an NCCL world of one, then two gloo ranks sharing the card.
     emit(parallel_phase(card))
     torch.cuda.empty_cache()
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+    lap("13 parallel")
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start, "phase_seconds": laps,
           "note": "from the start of main(): the build, every check and path; not the "
                   "interpreter's start and the import of torch"})
     emit({"kernels": [

@@ -6,7 +6,8 @@ defaults).
     python -m mistral_inference_tpu_torch.main demo <model_path> [...]
     python -m mistral_inference_tpu_torch.main quantize <model_path> <out_path> [...]
 
-Everything runs on the card unless ``--device cpu`` asks for the CPU (the
+Installed, the same commands are the console scripts ``mistral-chat-torch``,
+``mistral-demo-torch`` and ``mistral-quantize-torch``. Everything runs on the card unless ``--device cpu`` asks for the CPU (the
 kernels' plain versions; for tests). ``--quant int8|int4``, ``--kv_quant fp8|int8``,
 ``--ssm_state bf16``, ``--draft_path <folder> | lookup`` and ``--lora_path
 <adapter.safetensors>`` work as in the JAX package: an adapter merges into
@@ -33,6 +34,7 @@ from __future__ import annotations
 import argparse
 import logging
 import math
+import sys
 from typing import List, Optional
 
 import torch
@@ -323,6 +325,21 @@ def main(argv=None) -> None:
 
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def mistral_chat() -> None:
+    """Console script ``mistral-chat-torch <model_path> [...]``."""
+    main(["chat"] + sys.argv[1:])
+
+
+def mistral_demo() -> None:
+    """Console script ``mistral-demo-torch <model_path> [...]``."""
+    main(["demo"] + sys.argv[1:])
+
+
+def mistral_quantize() -> None:
+    """Console script ``mistral-quantize-torch <model_path> <out_path> [...]``."""
+    main(["quantize"] + sys.argv[1:])
 
 
 if __name__ == "__main__":

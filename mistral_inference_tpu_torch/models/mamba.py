@@ -35,11 +35,11 @@ channel, so each rank takes the gated RMSNorm over all of d_inner as one
 device does; ``out_proj`` holds D / T output columns over the whole d_inner,
 gathered after the product. The head is vocab-sharded and its logits
 all-gathered. Products are routed by one device's row count (``batch``).
-Under ``data`` the dense ``dt_proj`` runs on a zero buffer of the global
-batch's shape that holds the rank's rows at their global offset: cuBLAS
-rounds a row of it otherwise at another row count (on an NVIDIA H100 80GB
-HBM3 at 700 W, 512 rows against 2048), and so the product keeps one
-device's row count and row places without a collective.
+
+The two dense cuBLAS products, ``dt_proj`` and the head, go through
+``ops.linear.fixed_rows_linear``: one call per fixed block of rows, so a
+row's bits do not depend on the rows beside it. ``MambaEngine`` then gives
+``generate_mamba``'s tokens at any batch, and a data rank one device's.
 """
 
 from __future__ import annotations
@@ -53,7 +53,13 @@ import torch.nn.functional as F
 
 from mistral_inference_tpu_torch.args import MambaArgs
 from mistral_inference_tpu_torch.ops.cuda.ssd_step import fused_ssd_step_stacked
-from mistral_inference_tpu_torch.ops.linear import DEFAULT_GROUP, Weight, linear, quantize_weight
+from mistral_inference_tpu_torch.ops.linear import (
+    DEFAULT_GROUP,
+    Weight,
+    fixed_rows_linear,
+    linear,
+    quantize_weight,
+)
 from mistral_inference_tpu_torch.ops.norm import rms_norm
 from mistral_inference_tpu_torch.parallel.mesh import Mesh, gather
 
@@ -274,7 +280,7 @@ def _mixer(
     gd = ng * ds
     rows = None if batch is None else batch * T  # one device's: the route
     zxbc = linear(x, lw["in_proj"], rows)
-    dt_raw = _dt_proj(x, lw["dt_proj"], mesh, batch)  # dt stays dense (quant/weights.py)
+    dt_raw = fixed_rows_linear(x, lw["dt_proj"])  # dense (quant/weights.py); row-stable
     if tp > 1:
         dt_raw = dt_raw[..., mesh.t * nh:(mesh.t + 1) * nh]  # this rank's heads
     z = zxbc[..., :di]
@@ -313,24 +319,6 @@ def _mixer(
     return gather(linear(y, lw["out_proj"], rows), mesh, "tensor", -1)
 
 
-def _dt_proj(x: torch.Tensor, w: torch.Tensor, mesh: Optional[Mesh],
-             batch: Optional[int]) -> torch.Tensor:
-    """``dt_proj``'s product on x (b, T, D). cuBLAS may round a row
-    otherwise at another row count, so under ``data`` the product runs on a
-    zero (batch, T, D) buffer holding this rank's rows at their global
-    offset: one device's row count and row places, with no collective. Rows
-    past ``batch`` (the data axis's padding) come out zero."""
-    if mesh is None or mesh.data == 1:
-        return F.linear(x, w)
-    b = x.shape[0]
-    batch = b * mesh.data if batch is None else batch
-    lo = mesh.d * b
-    n = max(0, min(b, batch - lo))
-    buf = x.new_zeros((batch, *x.shape[1:]))
-    buf[lo:lo + n] = x[:n]
-    return F.pad(F.linear(buf, w)[lo:lo + n], (0, 0, 0, 0, 0, b - n))
-
-
 def _gated_norm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """``rms_norm`` over the d_inner channels of ``x``, its sum of squares
     in fp32."""
@@ -341,18 +329,20 @@ def _gated_norm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 def apply_head(h: torch.Tensor, params: Params, args: MambaArgs,
                mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """(..., D) hidden -> (..., vocab_size) fp32 prelogits, tied or not.
-    Under a mesh this rank's vocab rows (of the replicated embedding, when
-    tied), all-gathered over ``tensor``."""
+    """(..., D) hidden -> (..., vocab_size) fp32 prelogits, tied or not,
+    each row's bits its own (``fixed_rows_linear``). Under a mesh this
+    rank's vocab rows (of the replicated embedding, when tied), all-gathered
+    over ``tensor``."""
     if mesh is None:
         w = params["embedding"] if args.tie_embeddings else params["lm_head"]
-        return F.linear(h, w).float()[..., : args.vocab_size]
+        return fixed_rows_linear(h, w).float()[..., : args.vocab_size]
     if args.tie_embeddings:
         V = params["embedding"].shape[0]
         w = params["embedding"][mesh.t * V // mesh.tensor:(mesh.t + 1) * V // mesh.tensor]
     else:
         w = params["lm_head"]
-    return mesh.all_gather(F.linear(h, w).float(), "tensor", -1)[..., : args.vocab_size]
+    logits = fixed_rows_linear(h, w).float()
+    return mesh.all_gather(logits, "tensor", -1)[..., : args.vocab_size]
 
 
 def forward(

@@ -77,3 +77,33 @@ REGISTRY: Dict[str, Union[TransformerArgs, MambaArgs]] = {
 def get_args(name: str) -> Union[TransformerArgs, MambaArgs]:
     """A fresh copy of a preset (callers may edit kv_quant, moe_impl or depth)."""
     return copy.deepcopy(REGISTRY[name])
+
+
+def param_count(name: str) -> int:
+    """The parameters of preset ``name`` by the JAX package's formula, counted
+    from its shapes without building it (``models.transformer.param_count``
+    counts a built tree). A Mamba layer: ``in_proj`` and ``dt_proj``, the
+    conv taps, ``out_proj``, ``A_log``, ``D`` and ``dt_bias``, the gated
+    norm and the layer norm; a transformer layer: the attention, the
+    feed-forward (an MoE's experts and router) and two norms."""
+    a = get_args(name)
+    if isinstance(a, MambaArgs):
+        gd = a.n_groups * a.d_state
+        per_layer = (
+            a.dim * (2 * a.d_inner + 2 * gd + a.n_ssm_heads)
+            + a.d_conv * (a.d_inner + 2 * gd)
+            + a.d_inner * a.dim
+            + 3 * a.n_ssm_heads
+            + a.d_inner
+            + a.dim
+        )
+        total = a.n_layers * per_layer + a.padded_vocab_size * a.dim + a.dim
+        if not a.tie_embeddings:
+            total += a.padded_vocab_size * a.dim
+        return total
+    attn = a.dim * (a.n_heads + 2 * a.n_kv_heads) * a.head_dim + a.n_heads * a.head_dim * a.dim
+    ffn = 3 * a.dim * a.hidden_dim
+    if a.moe:
+        ffn = a.moe.num_experts * ffn + a.dim * a.moe.num_experts
+    per_layer = attn + ffn + 2 * a.dim
+    return a.n_layers * per_layer + 2 * a.vocab_size * a.dim + a.dim

@@ -83,6 +83,7 @@ the decomposition the card runs.
 from __future__ import annotations
 
 import functools
+import os
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -120,6 +121,7 @@ from mistral_inference_tpu_torch.ops.linear import (
 from mistral_inference_tpu_torch.ops.norm import rms_norm
 from mistral_inference_tpu_torch.ops.rope import apply_rope, rope_for_positions
 from mistral_inference_tpu_torch.parallel.mesh import Mesh, gather, reduce
+from mistral_inference_tpu_torch.utils.profiling import METRICS
 
 Params = Dict[str, Any]
 
@@ -134,6 +136,11 @@ FUSED_DECODE = True
 MOE_RAGGED_ROWS = 256  # above this, dispatch routes to the sorted ragged path
 MOE_RAGGED_TM = 256  # row tile of the sorted grouped product (K5)
 MOE_EXPERT_ROWS_MAX = 128  # K8 up to this capacity
+
+# MISTRAL_MOE_DEBUG=1: add each dispatch's over-capacity drops to
+# utils.profiling.METRICS ("moe_dropped_assignments"), one host sync a
+# dispatch; off, the dispatch records nothing and waits for nothing.
+_MOE_DEBUG = os.environ.get("MISTRAL_MOE_DEBUG", "") not in ("", "0")
 
 # Port weight -> the reference linears it fuses along out, in order: the
 # names of its live LoRA pairs.
@@ -518,6 +525,11 @@ def _moe_ffn_dispatch(
     onehot = F.one_hot(flat_e, E)
     slot = (torch.cumsum(onehot, 0) * onehot).sum(dim=-1) - 1  # rank within its expert
     keep = slot < C
+    if _MOE_DEBUG:
+        # Drops are silent by design (they contribute zero); the count helps
+        # tune capacity_factor. The global count, before a rank's expert
+        # range: every rank records what one device records.
+        METRICS.inc("moe_dropped_assignments", float((~keep).sum().item()))
 
     # The buffers by gather: src[e, c] is the token in slot c of expert e, or
     # N, a row of zeros. Every kept (e, slot) has exactly one source, so the

@@ -37,8 +37,9 @@ rows it computes like any other. A column shard's leaf carries
 from. The cuBLAS routes (a plain weight, ``x @ dequant(w)``) run at the
 rank's own row count: under ``data`` or ``seq`` they give one device's
 bits only where cuBLAS rounds a row alike at both counts, which is not
-guaranteed (Mamba's ``dt_proj`` places its rows in a buffer of one
-device's shape for that reason).
+guaranteed. ``fixed_rows_linear`` is a plain product whose row bits are
+guaranteed: one cuBLAS call per block of ``ROW_BLOCK`` rows (Mamba's
+``dt_proj`` and head).
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ DEFAULT_GROUP = 128
 DECODE_ROWS_MAX = 256  # K3 up to here
 PREFILL_TILE_ROWS = 256  # K5's row tile on the dense path
 DEQUANT_ROWS_MIN = 8192  # from here a materialized weight and one product
+ROW_BLOCK = 128  # rows per cuBLAS call of fixed_rows_linear: a decode step's in one
 
 # (tiles, device) -> tile_group of zeros for K5's one-weight case
 _ZERO_TILES: Dict[tuple, torch.Tensor] = {}
@@ -127,6 +129,23 @@ def _zero_tiles(n: int, device: torch.device) -> torch.Tensor:
         tg = torch.zeros((n,), dtype=torch.int32, device=device)
         _ZERO_TILES[(n, device)] = tg
     return tg
+
+
+def fixed_rows_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``F.linear(x, w)`` for a plain weight, each row's bits a function of
+    that row and ``w`` alone. The rows, zero-padded to whole blocks of
+    ``ROW_BLOCK``, go through one ``F.linear`` a block: every call has one
+    (M, N, K) and so takes one cuBLAS kernel, whatever the row count and
+    wherever the row sits. One batched product would not do: cuBLAS may pick
+    its kernel by the batch count."""
+    K = x.shape[-1]
+    x2 = x.reshape(-1, K)
+    n = x2.shape[0]
+    pad = -n % ROW_BLOCK
+    if pad:
+        x2 = F.pad(x2, (0, 0, 0, pad))
+    out = torch.cat([F.linear(x2[i:i + ROW_BLOCK], w) for i in range(0, max(n, 1), ROW_BLOCK)])
+    return out[:n].reshape(*x.shape[:-1], w.shape[0])
 
 
 def linear(x: torch.Tensor, w: Weight, rows: Optional[int] = None) -> torch.Tensor:

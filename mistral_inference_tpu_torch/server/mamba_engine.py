@@ -24,10 +24,10 @@ Admission chunks are ``admit_chunk`` wide, whatever the prompts' lengths, with
 the SSD's own chunk min(128, admit_chunk): a row's prefill then takes the
 kernels of ``generate_mamba(chunk_size=admit_chunk)`` (the quantized linears'
 route follows the row count) and rounds a bf16 state at the same positions.
-The dense products (``dt_proj``, the head, the chunked SSD's) still see B
-rows where ``generate_mamba`` of one prompt sees one, and may round
-otherwise: on the card a request leaves ``generate_mamba`` alone only where
-its best logits nearly tie. The JAX engine's power-of-two widths, which
+The dense products ``dt_proj`` and the head run on fixed row blocks
+(``ops.linear.fixed_rows_linear``), so a row's bits do not depend on the B
+rows beside it: a plain request's tokens equal ``generate_mamba``'s of its
+prompt alone, on the card too. The JAX engine's power-of-two widths, which
 bound its compiled programs, would cost short prompts less.
 """
 

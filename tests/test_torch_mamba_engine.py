@@ -4,8 +4,8 @@ of its prompt, with reset state in recycled slots, EOS and stop ids, prompt
 logprobs, int8 weights, staggered budgets, the HTTP API, and prompt-lookup
 speculation (staggered, EOS mid-block, mixed temperatures). One case per
 mode, ``test_mamba_engine_matches_jax_engine[plain|lookup]``, is also held
-against the JAX package's ``MambaEngine`` on the same weights (its XLA
-route). A frozen slot keeps its state's bits through a decode block, with
+against the JAX package's ``MambaEngine`` and ``generate_mamba`` on the
+same weights (its XLA route). A frozen slot keeps its state's bits through a decode block, with
 an fp32 and a bf16 state.
 
 Tolerances: greedy tokens equal; prompt logprobs within 1e-4 of
@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from mistral_inference_tpu.args import MambaArgs as JaxMambaArgs
+from mistral_inference_tpu.generate import generate_mamba as jax_generate_mamba
 from mistral_inference_tpu.model import Mamba as JaxMamba
 from mistral_inference_tpu.models import mamba as jmm
 from mistral_inference_tpu.server.mamba_engine import MambaEngine as JaxMambaEngine
@@ -89,11 +90,13 @@ def serve(model, prompts, max_tokens, **kw):
 @pytest.mark.parametrize("mode", ["plain", "lookup"])
 def test_mamba_engine_matches_jax_engine(models, mode):
     """Both packages' engines on shared weights, four requests over two
-    slots: equal tokens, equal to generate_mamba alone; the logprob
-    request's prompt logprobs within 1e-4 of JAX's."""
+    slots: equal tokens, equal to generate_mamba alone and to the JAX
+    package's generate_mamba; the logprob request's prompt logprobs within
+    1e-4 of JAX's."""
     jmodel, port = models
     draft = None if mode == "plain" else "lookup"
     ref = reference(port, PROMPTS, 6)
+    assert jax_generate_mamba(PROMPTS, jmodel, max_tokens=6, temperature=0.0)[0] == ref
     jeng = JaxMambaEngine(jmodel, batch_size=2, max_seq_len=64, decode_block=4,
                           draft_model=draft, spec_tokens=3)
     jids = [jeng.submit(p, max_tokens=6, want_logprobs=i == 0) for i, p in enumerate(PROMPTS)]
