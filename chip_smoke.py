@@ -1779,8 +1779,8 @@ def moe_drop_line(card: str) -> dict:
     """The ``MISTRAL_MOE_DEBUG`` drop counter on one ``mixtral-8x7b`` layer at
     full width (int4, random weights from seed 0): ``_moe_ffn_dispatch`` over
     256 rows at capacity factor 0.5 with the switch on, then off (set
-    in-process, so that no other phase counts). On: the count in ``METRICS``
-    equals the assignments past an expert's capacity, counted by a host loop
+    in-process, so that no other phase counts). On: the count kept on the
+    card, folded into ``METRICS``, equals the assignments past an expert's capacity, counted by a host loop
     over the same routing, and is above 0; off: nothing is counted. Both
     outputs are equal in bits, and each launches K8 twice (w13, w2)."""
     from mistral_inference_tpu_torch.model import Transformer
@@ -1810,6 +1810,7 @@ def moe_drop_line(card: str) -> dict:
             kern.reset_launch_counts()
             y = tf._moe_ffn_dispatch(x, lw, k, MOE_DROP_FACTOR, args)
             torch.cuda.synchronize()
+            METRICS.fold_on_device()  # the count is kept on the card until folded
             runs[on] = (y, METRICS.counters.get(MOE_DROPS), launch_counts()[K8])
     finally:
         tf._MOE_DEBUG = saved

@@ -22,6 +22,8 @@ from mistral_inference_tpu_torch.models import mamba as mm
 from mistral_inference_tpu_torch.models import transformer as tf
 from mistral_inference_tpu_torch.parallel import multihost, sharding
 from mistral_inference_tpu_torch.parallel.mesh import Mesh
+from mistral_inference_tpu_torch.utils import profiling
+from mistral_inference_tpu_torch.utils.profiling import METRICS, Span
 
 MAX_SEQ_LEN = 128_000  # positions the reference's RoPE table covers
 
@@ -63,6 +65,14 @@ def _mesh_forward(model, tokens, seqlens, state, b, extra, run):
     if isinstance(out, tuple):
         return (multihost.fetch(out[0], model.mesh, B), *out[1:])
     return multihost.fetch(out, model.mesh, B)
+
+
+def _forward_span(tokens: torch.Tensor, seqlens: torch.Tensor) -> Span:
+    """A forward's call-tier span ``model.forward``: kind (decode for T = 1,
+    else prefill), rows, T and the real tokens (``METRICS.real_tokens``)."""
+    B, T = tokens.shape
+    return METRICS.span("model.forward", kind="decode" if T == 1 else "prefill", rows=B, T=T,
+                        real=METRICS.real_tokens(seqlens))
 
 
 class Transformer:
@@ -209,7 +219,8 @@ class Transformer:
                               write_cache=write_cache, input_embeds=embeds, mesh=self.mesh,
                               batch=tokens.shape[0])
 
-        with torch.inference_mode():
+        with torch.inference_mode(), (_forward_span(tokens, seqlens) if profiling.TRACING
+                                      else profiling.NULL):
             if cache.row0 is None:
                 return run(tokens, seqlens, cache, input_embeds)
             out = _mesh_forward(self, tokens, seqlens, cache, cache.k.shape[1], input_embeds,
@@ -341,7 +352,8 @@ class Mamba:
             return mm.forward(self.params, tok, lens, st, self.args, chunk, head=head,
                               write_state=write_state, mesh=self.mesh, batch=tokens.shape[0])
 
-        with torch.inference_mode():
+        with torch.inference_mode(), (_forward_span(tokens, seqlens) if profiling.TRACING
+                                      else profiling.NULL):
             if state.row0 is None:
                 return run(tokens, seqlens, state, None)
             out = _mesh_forward(self, tokens, seqlens, state, state.conv.shape[1], None, run)

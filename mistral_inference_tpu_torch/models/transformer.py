@@ -121,6 +121,7 @@ from mistral_inference_tpu_torch.ops.linear import (
 from mistral_inference_tpu_torch.ops.norm import rms_norm
 from mistral_inference_tpu_torch.ops.rope import apply_rope, rope_for_positions
 from mistral_inference_tpu_torch.parallel.mesh import Mesh, gather, reduce
+from mistral_inference_tpu_torch.utils import profiling
 from mistral_inference_tpu_torch.utils.profiling import METRICS
 
 Params = Dict[str, Any]
@@ -137,9 +138,10 @@ MOE_RAGGED_ROWS = 256  # above this, dispatch routes to the sorted ragged path
 MOE_RAGGED_TM = 256  # row tile of the sorted grouped product (K5)
 MOE_EXPERT_ROWS_MAX = 128  # K8 up to this capacity
 
-# MISTRAL_MOE_DEBUG=1: add each dispatch's over-capacity drops to
-# utils.profiling.METRICS ("moe_dropped_assignments"), one host sync a
-# dispatch; off, the dispatch records nothing and waits for nothing.
+# MISTRAL_MOE_DEBUG=1: add each dispatch's over-capacity drops to a count
+# kept on the card, which utils.profiling.METRICS folds into its counter
+# "moe_dropped_assignments" (the engine once a block, ``dump()``); no host
+# sync. Off, the dispatch records nothing.
 _MOE_DEBUG = os.environ.get("MISTRAL_MOE_DEBUG", "") not in ("", "0")
 
 # Port weight -> the reference linears it fuses along out, in order: the
@@ -396,6 +398,16 @@ def _ragged_kernel_gate(x: torch.Tensor, w: Params) -> bool:
 def _moe_ffn_ragged(x: torch.Tensor, w: Params, top_k: int,
                     args: Optional[TransformerArgs] = None, experts: Experts = None,
                     mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """``_ragged``, the span ``moe.ragged`` (rows, E) while the tracing
+    switch is on."""
+    if profiling.TRACING:
+        with METRICS.span("moe.ragged", rows=x.shape[0], E=w["gate"].shape[0]):
+            return _ragged(x, w, top_k, args, experts, mesh)
+    return _ragged(x, w, top_k, args, experts, mesh)
+
+
+def _ragged(x: torch.Tensor, w: Params, top_k: int, args: Optional[TransformerArgs],
+            experts: Experts, mesh: Optional[Mesh]) -> torch.Tensor:
     """Drop-free sorted grouped-product MoE, the prefill path: the N * k
     assignments sorted by expert (stable, so ties keep token order), each
     projection one grouped product over the sorted rows, the weighted outputs
@@ -512,11 +524,23 @@ def _moe_ffn_dispatch(
     With ``experts`` (first, count) only those experts' buffers are built and
     run; the capacity and the slots are the global ones, so a rank drops
     exactly what one device drops. ``rows``, one device's row count, picks
-    the route where ``x`` holds a rank's share of them."""
+    the route where ``x`` holds a rank's share of them. While the tracing
+    switch is on, the capacity route is the span ``moe.dispatch`` (rows, E)."""
+    if (x.shape[0] if rows is None else rows) > MOE_RAGGED_ROWS:
+        return _moe_ffn_ragged(x, w, top_k, args, experts, mesh)
+    if profiling.TRACING:
+        with METRICS.span("moe.dispatch", rows=x.shape[0], E=w["gate"].shape[0]):
+            return _dispatch(x, w, top_k, capacity_factor, args, experts, mesh)
+    return _dispatch(x, w, top_k, capacity_factor, args, experts, mesh)
+
+
+def _dispatch(x: torch.Tensor, w: Params, top_k: int, capacity_factor: float,
+              args: Optional[TransformerArgs], experts: Experts,
+              mesh: Optional[Mesh]) -> torch.Tensor:
+    """``_moe_ffn_dispatch``'s capacity buffers, at most ``MOE_RAGGED_ROWS``
+    rows."""
     N, D = x.shape
     E = w["gate"].shape[0]
-    if (N if rows is None else rows) > MOE_RAGGED_ROWS:
-        return _moe_ffn_ragged(x, w, top_k, args, experts, mesh)
     e0, El = experts or (0, E)
     C = moe_capacity(N, top_k, E, capacity_factor)
     top_idx, top_w = _route(x, w["gate"], top_k)
@@ -529,7 +553,7 @@ def _moe_ffn_dispatch(
         # Drops are silent by design (they contribute zero); the count helps
         # tune capacity_factor. The global count, before a rank's expert
         # range: every rank records what one device records.
-        METRICS.inc("moe_dropped_assignments", float((~keep).sum().item()))
+        METRICS.add_on_device("moe_dropped_assignments", (~keep).sum())
 
     # The buffers by gather: src[e, c] is the token in slot c of expert e, or
     # N, a row of zeros. Every kept (e, slot) has exactly one source, so the
@@ -682,9 +706,6 @@ def _attention_block(
     B, Tq, _ = h.shape
     tp = 1 if mesh is None else mesh.tensor
     H, Hkv, Dh = args.n_heads // tp, args.n_kv_heads // tp, args.head_dim
-    window = cache.windows[li]
-    CK, CV, KS, VS = cache.k, cache.v, cache.k_scale, cache.v_scale
-    scaled = KS is not None
 
     cos, sin = rope_cs
     xq, xk, xv = _lin(h, w, "wqkv", args, mesh, rows).split([H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
@@ -698,6 +719,30 @@ def _attention_block(
         xk, xv = mesh.all_gather(torch.stack([xk, xv]), "seq", 2).unbind(0)
         q_pos, q_valid = positions[:, run.seq_run], token_valid[:, run.seq_run]
 
+    if profiling.TRACING:
+        name = ("attn.verify" if write_cache == "spec" and ring.write_slot is not None
+                else "attn.decode" if Tq == 1 and ring.slot_pos is not None else "attn.prefill")
+        with METRICS.span(name, layer=li, rows=B, T=Tq):
+            out = _attend(xq, xk, xv, q_pos, q_valid, cache, li, positions, token_valid, ring,
+                          write_cache)
+    else:
+        out = _attend(xq, xk, xv, q_pos, q_valid, cache, li, positions, token_valid, ring,
+                      write_cache)
+    return _wo(out, w, args, mesh, rows), xk, xv
+
+
+def _attend(xq, xk, xv, q_pos, q_valid, cache: KVCache, li: int, positions, token_valid,
+            ring: RingInputs, write_cache: Union[bool, str]) -> torch.Tensor:
+    """The attention of ``_attention_block`` between the projections: the
+    query heads' output (B, T, H * Dh), the ring written as the route says.
+    While the tracing switch is on it is the span ``attn.decode`` (T = 1
+    over the ring, either route), ``attn.verify`` (the fused verify chunk) or
+    ``attn.prefill`` (layer, rows, T)."""
+    B, Tq = xq.shape[:2]
+    H, Dh = xq.shape[2], xq.shape[3]
+    window = cache.windows[li]
+    CK, CV, KS, VS = cache.k, cache.v, cache.k_scale, cache.v_scale
+    scaled = KS is not None
     if write_cache == "spec" and ring.write_slot is not None:
         # Speculative verify, fused: write ALL T candidate tokens into
         # consecutive slots, then attend every query ring-only; causality
@@ -706,27 +751,24 @@ def _attention_block(
         # position): nothing is evicted, rejected slots stay invisible (the
         # caller advances kv_len only past accepted tokens) and are
         # overwritten when real tokens reach those positions.
-        out = fused_verify_chunk_attention(
+        return fused_verify_chunk_attention(
             xq, xk, xv, CK, CV, KS, VS, li, window, ring.write_slot, positions,
             ring.slot_pos, ring.slot_valid,
         )
-        return _wo(out, w, args, mesh, rows), xk, xv
     if ring.write_slot is not None:
         # Decode: write the ring first, then attend ring-only. Safe for T == 1:
         # the query's own key cannot be evicted by a later token of the chunk.
-        out = fused_update_decode_attention(
+        return fused_update_decode_attention(
             xq, xk, xv, CK, CV, KS, VS, li, window, ring.write_slot, positions[:, 0],
             ring.slot_pos, ring.slot_valid,
         )
-        return _wo(out, w, args, mesh, rows), xk, xv
     if Tq == 1 and ring.slot_pos is not None:
         # Decode, non-fused route: the same write through update_stacked,
         # then the read-only kernel over the ring as it now stands.
         update_stacked(CK, CV, KS, VS, li, xk, xv, ring.writes)
-        out = decode_attention(
+        return decode_attention(
             xq, CK, CV, KS, VS, li, positions, ring.slot_pos, ring.slot_valid, window
         )
-        return _wo(out, w, args, mesh, rows), xk, xv
 
     # Under a scaled ring the chunk attends to copies of its own K/V rounded
     # through the ring's dtype, so prefill logits see what decode later reads
@@ -747,7 +789,7 @@ def _attention_block(
         out = flash_attention(xq, xk_att, xv_att, q_pos, positions, q_valid, token_valid, window)
     if ring.writes is not None:
         update_stacked(CK, CV, KS, VS, li, xk, xv, ring.writes)
-    return _wo(out, w, args, mesh, rows), xk, xv
+    return out
 
 
 ChunkKV = Tuple[torch.Tensor, torch.Tensor]

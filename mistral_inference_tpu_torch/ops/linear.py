@@ -55,6 +55,8 @@ from mistral_inference_tpu_torch.ops.cuda.matmul_quant import (
     nibbles,
 )
 from mistral_inference_tpu_torch.ops.cuda.moe_matmul import moe_matmul_quant_ragged
+from mistral_inference_tpu_torch.utils import profiling
+from mistral_inference_tpu_torch.utils.profiling import METRICS
 
 QuantWeight = Dict[str, torch.Tensor]
 Weight = Union[torch.Tensor, QuantWeight]
@@ -150,24 +152,51 @@ def fixed_rows_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def linear(x: torch.Tensor, w: Weight, rows: Optional[int] = None) -> torch.Tensor:
     """``x`` (..., in) times a plain weight (out, in) or a quantized leaf,
-    the product routed as one of ``rows`` rows (``x``'s own when None)."""
+    the product routed as one of ``rows`` rows (``x``'s own when None).
+    While the tracing switch is on, the call is the span ``ops.linear``: K,
+    N, bits, group, rows (the route's) and route (K3, K5, dequant or
+    plain)."""
+    if profiling.TRACING:
+        with METRICS.span("ops.linear", **_linear_attrs(x, w, rows)):
+            return _linear(x, w, rows)
+    return _linear(x, w, rows)
+
+
+def _route(rows: int, N: int, K: int) -> str:
+    """The kernel a quantized product of ``rows`` rows goes to."""
+    if rows <= DECODE_ROWS_MAX and N % 128 == 0 and K % 128 == 0:
+        return "K3"
+    if (DECODE_ROWS_MAX < rows < DEQUANT_ROWS_MIN and rows % PREFILL_TILE_ROWS == 0
+            and N % 128 == 0 and K % 256 == 0):
+        return "K5"
+    return "dequant"
+
+
+def _linear_attrs(x: torch.Tensor, w: Weight, rows: Optional[int]) -> Dict[str, object]:
+    K = x.shape[-1]
+    n = x.numel() // K if rows is None else rows
+    if not is_quantized(w):
+        return dict(K=K, N=w.shape[0], bits=8 * w.element_size(), group=0, rows=n, route="plain")
+    N = w["scale"].shape[-1]
+    return dict(K=K, N=N, bits=4 if "q4" in w else 8, group=K // w["scale"].shape[-2], rows=n,
+                route=_route(n, N, K))
+
+
+def _linear(x: torch.Tensor, w: Weight, rows: Optional[int]) -> torch.Tensor:
     if not is_quantized(w):
         return F.linear(x, w)
     K = x.shape[-1]
     scale = w["scale"]
     N = scale.shape[-1]
     n = x.numel() // K
-    route = n if rows is None else rows
+    route = _route(n if rows is None else rows, N, K)
     q = w["q4"] if "q4" in w else w["q"]
     li = w.get("li")
-    if route <= DECODE_ROWS_MAX and N % 128 == 0 and K % 128 == 0:
+    if route == "K3":
         x2 = x.reshape(n, K)
         out = (matmul_quant(x2, q, scale, w.get("n_whole")) if li is None
                else matmul_quant_stacked(x2, q, scale, li))
-    elif (
-        DECODE_ROWS_MAX < route < DEQUANT_ROWS_MIN and route % PREFILL_TILE_ROWS == 0
-        and N % 128 == 0 and K % 256 == 0
-    ):
+    elif route == "K5":
         tiles = -(-n // PREFILL_TILE_ROWS)
         x2 = x.reshape(n, K)
         if tiles * PREFILL_TILE_ROWS != n:  # a rank's share of the rows: whole tiles

@@ -72,7 +72,8 @@ from mistral_inference_tpu_torch.generate import (
     sample,
 )
 from mistral_inference_tpu_torch.model import Transformer
-from mistral_inference_tpu_torch.utils.profiling import METRICS
+from mistral_inference_tpu_torch.utils import profiling
+from mistral_inference_tpu_torch.utils.profiling import METRICS, Span
 
 LOOKUP = ("lookup", "ngram")
 
@@ -99,11 +100,15 @@ class Request:
     # admission sweep pays it when any of its rows asks.
     want_logprobs: bool = False
     t_submit: float = 0.0
+    t_admit: float = 0.0  # the start of the sweep that took it
     t_first_token: float = 0.0
     done: bool = False
     # Set when the row's logits went NaN: the request fails loudly instead of
     # streaming garbage, and its slot is freed.
     error: Optional[str] = None
+    # Its latest span: "request.queued" from submit to the sweep that takes
+    # it, then "request.decode" from its first token to its end.
+    span: Optional[Span] = field(default=None, repr=False, compare=False)
 
 
 @dataclass
@@ -120,21 +125,26 @@ class _Block:
     (``ready`` marks the copy's end on the card), its width in steps and the
     request id each row was decoding for (None: a dead row). A decode block's
     outputs are (tokens, logprobs), each (n, B); a speculative block's
-    (emits, logprobs, accepts), (n, B, K + 1) twice and (n, B)."""
+    (emits, logprobs, accepts), (n, B, K + 1) twice and (n, B). With
+    ``counted``, one more output: the counts kept on the card
+    (``METRICS.take_on_device``) by those names, snapshot behind the block."""
 
     out: Tuple[torch.Tensor, ...]
     ready: Optional[torch.cuda.Event]
     n: int
     rids: List[Optional[int]]
+    counted: Tuple[str, ...] = ()
 
 
 class _EngineBase:
     """The client contract and the host loop that both engines share:
     ``submit``, ``cancel``, ``step``, ``run_to_completion``; the slots and
-    the queue, the per-row sampling settings, the pipelined decode block and
-    its fan-out, and the speculative step's ragged emission. A subclass owns
+    the queue, the per-row sampling settings, the admission's waits, the
+    pipelined decode block and its fan-out, the speculative step's ragged
+    emission, and the engine's spans (``utils.profiling``). A subclass owns
     the model's state (a ring KV cache, a Mamba state) and provides
-    ``_admit``, ``_decode_step`` and, for speculation, ``_spec_dispatch``."""
+    ``_take`` and ``_sweep`` (admission), ``_decode_step`` and, for
+    speculation, ``_spec_dispatch``."""
 
     lookup = False
     _spec = False
@@ -225,6 +235,7 @@ class _EngineBase:
             stop_ids=tuple(stop_ids), images=list(images), want_logprobs=want_logprobs,
             t_submit=time.perf_counter(),
         )
+        req.span = METRICS.open_span("request.queued", (req.request_id,), start=req.t_submit)
         self.queue.append(req)
         return req.request_id
 
@@ -234,10 +245,12 @@ class _EngineBase:
         for i, r in enumerate(self.queue):
             if r.request_id == request_id:
                 del self.queue[i]
+                METRICS.close_span(r.span)
                 return True
         for s in self.slots:
             if s is not None and s.request_id == request_id and not s.done:
                 s.done = True
+                self._end_decode_span(s, time.perf_counter())
                 return True
         return False
 
@@ -265,7 +278,17 @@ class _EngineBase:
         the previous block decodes one extra block, frozen by its budget or
         dropped at the fan-out by its request id. No block is queued when no
         row can outlive the one in flight (max_tokens bounds every row; EOS
-        only ends rows earlier). A speculative engine takes ``_step_spec``."""
+        only ends rows earlier). A speculative engine takes ``_step_spec``.
+
+        The step is the span ``engine.step``; it sets the gauges
+        ``queue_depth`` and ``live_rows`` as it leaves them."""
+        with METRICS.span("engine.step"):
+            events = self._step()
+        METRICS.set("queue_depth", len(self.queue))
+        METRICS.set("live_rows", sum(s is not None and not s.done for s in self.slots))
+        return events
+
+    def _step(self) -> List[StepEvent]:
         self._evicted.clear()
         if self._spec:
             return self._step_spec()
@@ -331,21 +354,35 @@ class _EngineBase:
             return None, None
         return self._temps, self._top_ps
 
-    def _to_host(self, out: Sequence[torch.Tensor]):
-        """Queue the copy of a block's outputs to the host; (copies, the
-        event that marks their end on the card, or None on the CPU)."""
+    def _to_host(self, out: Sequence[torch.Tensor], n: int, rids: List[Optional[int]]) -> _Block:
+        """Queue the copy of a block's outputs to the host, with the counts
+        kept on the card so far (``METRICS.take_on_device``); the block
+        (``ready`` None on the CPU)."""
+        out = list(out)
+        taken = METRICS.take_on_device(self.carry.device)
+        counted = ()
+        if taken is not None:
+            counted = taken[0]
+            out.append(taken[1])
         if self.device.type != "cuda":
-            return tuple(out), None
+            return _Block(tuple(out), None, n, rids, counted)
         host = tuple(t.to("cpu", non_blocking=True) for t in out)
         ready = torch.cuda.Event()
         ready.record()
-        return host, ready
+        return _Block(host, ready, n, rids, counted)
 
     @staticmethod
     def _read(block: _Block) -> Tuple[np.ndarray, ...]:
-        if block.ready is not None:
-            block.ready.synchronize()
-        return tuple(t.numpy() for t in block.out)
+        """A block's outputs on the host, once its copy has landed (the span
+        ``engine.drain.wait``); its counts are folded into ``METRICS``."""
+        with METRICS.span("engine.drain.wait"):
+            if block.ready is not None:
+                block.ready.synchronize()
+        out = tuple(t.numpy() for t in block.out)
+        if block.counted:
+            METRICS.fold(block.counted, out[-1])
+            out = out[:-1]
+        return out
 
     def _valid(self, rids: List[Optional[int]]) -> np.ndarray:
         """A row counts only while its slot still holds the request the block
@@ -382,19 +419,25 @@ class _EngineBase:
         """Queue one decode block on the card and the copy of its tokens and
         logprobs to the host behind it; nothing waits for the card. Each row's
         budget freezes it in the block once its request has all its tokens,
-        so a row never writes past prompt + max_tokens."""
-        n = self._block_size()
-        live_rows = self._live_rows()
-        live = self._to_device(np.array(live_rows, np.int32))
-        budget = self._to_device(np.array(self._remaining(prev), np.int32))
-        temps, top_ps = self._sampling(live_rows)
-        toks, lps, self.carry = _decode_block(
-            self._decode_step, self.carry, n, 0.0, DEFAULT_TOP_P, self.generator,
-            temps=temps, live=live, top_ps=top_ps, budget=budget,
-        )
-        out, ready = self._to_host((toks, lps))
-        rids = [s.request_id if on else None for s, on in zip(self.slots, live_rows)]
-        self._pending = _Block(out, ready, n, rids)
+        so a row never writes past prompt + max_tokens. The span
+        ``engine.dispatch`` holds the host's whole time here: the block's n
+        forwards are enqueued, one after another."""
+        with METRICS.span("engine.dispatch") as sp:
+            n = self._block_size()
+            live_rows = self._live_rows()
+            remaining = self._remaining(prev)
+            sp.rids = rids = [s.request_id if on else None for s, on in zip(self.slots, live_rows)]
+            sp.attrs.update(n=n, live=sum(live_rows), B=self.B)
+            live = self._to_device(np.array(live_rows, np.int32))
+            budget = self._to_device(np.array(remaining, np.int32))
+            temps, top_ps = self._sampling(live_rows)
+            if profiling.TRACING:  # step i decodes the rows whose budget exceeds i
+                METRICS.expect_tokens([sum(r > i for r in remaining) for i in range(n)])
+            toks, lps, self.carry = _decode_block(
+                self._decode_step, self.carry, n, 0.0, DEFAULT_TOP_P, self.generator,
+                temps=temps, live=live, top_ps=top_ps, budget=budget,
+            )
+            self._pending = self._to_host((toks, lps), n, rids)
 
     def _emit(self, slot: Request, tok: int, lp: float, now: float) -> StepEvent:
         """One token of a live request: EOS and stop ids end it (the token
@@ -406,26 +449,46 @@ class _EngineBase:
         if hit_stop or len(slot.generated) >= slot.max_tokens:
             slot.done = True
             METRICS.observe("request_latency_s", now - slot.t_submit)
+            self._end_decode_span(slot, now)
             return StepEvent(slot.request_id, tok, True, lp)
         return StepEvent(slot.request_id, tok, False, lp)
 
+    @staticmethod
+    def _first_token(slot: Request, now: float) -> None:
+        """A request's first token reached the host: its ``request.decode``
+        span opens, under the sweep that admitted it."""
+        slot.t_first_token = now
+        METRICS.observe("ttft_s", now - slot.t_submit)
+        sweep = slot.span.parent if slot.span is not None else 0
+        slot.span = METRICS.open_span("request.decode", (slot.request_id,), start=now)
+        slot.span.parent = sweep
+
+    @staticmethod
+    def _end_decode_span(slot: Request, now: float) -> None:
+        if slot.span is not None and slot.span.name == "request.decode":
+            METRICS.close_span(slot.span, now)
+
     def _drain(self, block: Optional[_Block]) -> List[StepEvent]:
         """Read back a decode block and turn it into events: tokens, EOS and
-        stop ids, max_tokens, NaN failures."""
+        stop ids, max_tokens, NaN failures. The span ``engine.drain`` counts
+        the tokens handed to requests against the block's B x n slots."""
         if block is None:
             return []
-        toks, lps = self._read(block)  # (n, B) each
-        now = time.perf_counter()
-        valid = self._valid(block.rids)
-        events = self._fail_nan_rows(np.isnan(lps).any(axis=0) & valid, now)
-        for t in range(block.n):
-            for i, slot in enumerate(self.slots):
-                if slot is None or slot.done or not valid[i]:
-                    continue
-                if not slot.generated and not slot.t_first_token:
-                    slot.t_first_token = now
-                    METRICS.observe("ttft_s", now - slot.t_submit)
-                events.append(self._emit(slot, int(toks[t, i]), float(lps[t, i]), now))
+        with METRICS.span("engine.drain", block.rids, slots=self.B * block.n) as sp:
+            toks, lps = self._read(block)  # (n, B) each
+            with METRICS.span("engine.fanout"):
+                now = time.perf_counter()
+                valid = self._valid(block.rids)
+                events = self._fail_nan_rows(np.isnan(lps).any(axis=0) & valid, now)
+                failed = len(events)
+                for t in range(block.n):
+                    for i, slot in enumerate(self.slots):
+                        if slot is None or slot.done or not valid[i]:
+                            continue
+                        if not slot.generated and not slot.t_first_token:
+                            self._first_token(slot, now)
+                        events.append(self._emit(slot, int(toks[t, i]), float(lps[t, i]), now))
+            sp.attrs["tokens"] = len(events) - failed
         return events
 
     def _fail_nan_rows(self, bad: np.ndarray, now: float) -> List[StepEvent]:
@@ -439,8 +502,48 @@ class _EngineBase:
             slot.error = "numerical failure: NaN logits in decode"
             METRICS.inc("numerical_failures")
             METRICS.observe("request_latency_s", now - slot.t_submit)
+            self._end_decode_span(slot, now)
             events.append(StepEvent(slot.request_id, -1, True, 0.0))
         return events
+
+    # -- admission ----------------------------------------------------------
+
+    @torch.inference_mode()
+    def _admit(self) -> None:
+        """Take waiting requests into free slots (``_take``) and prefill them
+        in one sweep (``_sweep``). Spans: ``engine.admit`` holds it all,
+        ``engine.admit.wait`` is the wait for the block in flight, and
+        ``engine.admit.sweep``, the admission's clock (its length is the
+        sample ``admission_prefill_s``), ends each new request's
+        ``request.queued`` where it starts."""
+        if not self.queue:
+            return
+        with METRICS.span("engine.admit") as sp:
+            new = self._take()
+            if not new:
+                return
+            sp.rids = tuple(r.request_id for _, r in new)
+            # The block in flight precedes this admission on the card; wait for
+            # it before the clock starts, so that decode time is not charged to
+            # admission (and the sweep's planning reads settled fills).
+            with METRICS.span("engine.admit.wait"):
+                self._sync()
+            with METRICS.span("engine.admit.sweep", sp.rids, sample="admission_prefill_s") as sweep:
+                for _, r in new:
+                    r.t_admit = sweep.start
+                    METRICS.close_span(r.span, sweep.start, sweep.id)
+                self._sweep(new, sweep)
+            METRICS.inc("requests_admitted", len(new))
+
+    def _sweep_attrs(self, sweep: Span, kind: str, new, rows: int, maxT: int, real: int,
+                     copied: int = 0) -> None:
+        """A sweep's attributes: its kind ("staged", "full", "images",
+        "speculative"), the new rows, the rows each chunk carries, its
+        chunks, the real prompt tokens it prefills, the tokens it carries
+        (rows x ``admit_chunk`` x chunks) and the prefix tokens it copies."""
+        chunks = -(-maxT // self.admit_chunk)
+        sweep.attrs.update(kind=kind, new=len(new), rows=rows, chunks=chunks, real=real,
+                           carried=rows * self.admit_chunk * chunks, copied=copied)
 
     # -- speculative serving ------------------------------------------------
 
@@ -466,8 +569,7 @@ class _EngineBase:
             self._hlen[rows] = self._to_device(np.array([len(r.prompt) + 1 for _, r in new]))
         now = time.perf_counter()
         for j, (_, r) in enumerate(new):
-            r.t_first_token = now
-            METRICS.observe("ttft_s", now - r.t_submit)
+            self._first_token(r, now)
             self._pending_events.append(self._emit(r, int(t0_h[j]), float(lp_h[j]), now))
 
     def _take_pending(self) -> List[StepEvent]:
@@ -486,30 +588,35 @@ class _EngineBase:
         if not any(live_rows):
             self._admit()
             return self._take_pending()
-        rids = [s.request_id if on else None for s, on in zip(self.slots, live_rows)]
-        live = self._to_device(np.array(live_rows, np.int32))
-        temps, top_ps = self._sampling(live_rows)
-        self._t0, out = self._spec_dispatch(live, temps, top_ps)
-        host, ready = self._to_host(out)
-        block = _Block(host, ready, self._spec_iters, rids)
+        with METRICS.span("engine.dispatch") as sp:
+            sp.rids = rids = [s.request_id if on else None for s, on in zip(self.slots, live_rows)]
+            sp.attrs.update(n=self._spec_iters, live=sum(live_rows), B=self.B)
+            live = self._to_device(np.array(live_rows, np.int32))
+            temps, top_ps = self._sampling(live_rows)
+            self._t0, out = self._spec_dispatch(live, temps, top_ps)
+            block = self._to_host(out, self._spec_iters, rids)
         self._admit()
         events = self._take_pending()
-        emits, lps, accepts = self._read(block)  # (n, B, K + 1) x 2, (n, B)
-        now = time.perf_counter()
-        valid = self._valid(rids)
-        events.extend(self._fail_nan_rows(np.isnan(lps).any(axis=(0, 2)) & valid, now))
-        emitted = iter_rows = 0
-        for it in range(emits.shape[0]):
-            for i, slot in enumerate(self.slots):
-                if slot is None or slot.done or not valid[i]:
-                    continue
-                iter_rows += 1
-                for j in range(int(accepts[it, i]) + 1):
-                    emitted += 1
-                    events.append(self._emit(slot, int(emits[it, i, j]), float(lps[it, i, j]),
-                                             now))
-                    if slot.done:
-                        break
+        with METRICS.span("engine.drain", sp.rids,
+                          slots=self.B * self._spec_iters * (self.K + 1)) as drain:
+            emits, lps, accepts = self._read(block)  # (n, B, K + 1) x 2, (n, B)
+            with METRICS.span("engine.fanout"):
+                now = time.perf_counter()
+                valid = self._valid(rids)
+                events.extend(self._fail_nan_rows(np.isnan(lps).any(axis=(0, 2)) & valid, now))
+                emitted = iter_rows = 0
+                for it in range(emits.shape[0]):
+                    for i, slot in enumerate(self.slots):
+                        if slot is None or slot.done or not valid[i]:
+                            continue
+                        iter_rows += 1
+                        for j in range(int(accepts[it, i]) + 1):
+                            emitted += 1
+                            events.append(self._emit(slot, int(emits[it, i, j]),
+                                                     float(lps[it, i, j]), now))
+                            if slot.done:
+                                break
+            drain.attrs["tokens"] = emitted
         if iter_rows:
             METRICS.observe("spec_tokens_per_forward", emitted / iter_rows)
         return events
@@ -621,19 +728,14 @@ class Engine(_EngineBase):
         return sp._spec_block(self.model, self.draft, self._t0, self.cache, self.dcache,
                               self.generator, temps, live, top_ps, **kw)
 
-    @torch.inference_mode()
-    def _admit(self) -> None:
-        """Fill free slots from the queue and prefill the new rows in chunks
-        of ``admit_chunk`` tokens (the other rows ride along with seqlens 0).
-        Prompt logprobs are gathered per chunk for the rows that want them:
-        the numbers generate() returns. A speculative engine then prefills
-        the draft's ring too and emits each new row's first token."""
+    def _take(self) -> List[Tuple[int, Request]]:
+        """Fill free slots from the queue: (row, request) of each new one."""
         free = [i for i in range(self.B) if self.slots[i] is None or self.slots[i].done]
         # Batched admission: while rows run, wait for enough free slots to
         # share one sweep; with nothing running, waiting would stall.
         if (self.queue and any(self._live_rows())
                 and len(free) < min(len(self.queue), self.admit_waterline)):
-            return
+            return []
         new: List[Tuple[int, Request]] = []
         while free and self.queue:
             r = self.queue.popleft()
@@ -649,14 +751,18 @@ class Engine(_EngineBase):
                 self._evicted[self.slots[i].request_id] = self.slots[i]
             self.slots[i] = r
             new.append((i, r))
-        if not new:
-            return
-        # The block in flight precedes this admission on the card; wait for it
-        # before the clock starts, so that decode time is not charged to
-        # admission (and the prefix planning below reads settled fills).
-        self._sync()
-        t_admit = time.perf_counter()
+        return new
 
+    def _sweep(self, new, sweep: Span) -> None:
+        """Prefill the new rows in chunks of ``admit_chunk`` tokens (the other
+        rows ride along with seqlens 0), staged or in the full batch, after
+        their prefix copies. Prompt logprobs are gathered per chunk for the
+        rows that want them: the numbers generate() returns. A speculative
+        engine then prefills the draft's ring too and emits each new row's
+        first token. Spans: ``engine.admit.prefill`` (a staged one's length
+        is the sample ``admission_staged_s``) ending in its wait for the
+        card, ``engine.admit.prefill.wait``; ``engine.admit.spec``
+        (``admission_spec_s``)."""
         offs, copies = self._plan_prefix_reuse(new)
         maxT = max(len(r.prompt) - offs.get(i, 0) for i, r in new)
         rows = self._set_sampling(new)
@@ -672,35 +778,38 @@ class Engine(_EngineBase):
             prompts[i] = r.prompt[offs.get(i, 0):]
 
         with_images = any(r.images for _, r in new)
-        if (self._staging_B and len(new) <= self._staging_B and not copies and not with_images
-                and self.draft is None):
-            self._admit_staged(new, maxT)
-            self._sync()
-            METRICS.observe("admission_staged_s", time.perf_counter() - t_admit)
-            METRICS.inc("staged_admissions")
-        else:
-            embeds = None
-            if with_images:  # the whole prompts' embeddings, sliced per chunk
-                from mistral_inference_tpu_torch.models.vision import embed_multimodal
+        staged = bool(self._staging_B and len(new) <= self._staging_B and not copies
+                      and not with_images and self.draft is None)
+        kind = ("staged" if staged else "images" if with_images
+                else "speculative" if self._spec else "full")
+        self._sweep_attrs(sweep, kind, new, self._staging_B if staged else self.B, maxT,
+                          sum(len(prompts[i]) for i, _ in new), sum(q for _, _, q in copies))
+        with METRICS.span("engine.admit.prefill", sample="admission_staged_s" if staged else None):
+            if staged:
+                self._admit_staged(new, maxT)
+            else:
+                embeds = None
+                if with_images:  # the whole prompts' embeddings, sliced per chunk
+                    from mistral_inference_tpu_torch.models.vision import embed_multimodal
 
-                images = [[] for _ in range(self.B)]
-                for i, r in new:
-                    images[i] = r.images
-                embeds = embed_multimodal(self.model, prompts, images)
-            # The first chunk of a sweep without prefix copies attends to
-            # itself alone: every new row's ring is empty.
-            self.carry = self._prefill(self.model, new, prompts, self.cache, self.carry, maxT,
-                                       attend_first=bool(offs), embeds=embeds)
-            self._sync()
+                    images = [[] for _ in range(self.B)]
+                    for i, r in new:
+                        images[i] = r.images
+                    embeds = embed_multimodal(self.model, prompts, images)
+                # The first chunk of a sweep without prefix copies attends to
+                # itself alone: every new row's ring is empty.
+                self.carry = self._prefill(self.model, new, prompts, self.cache, self.carry,
+                                           maxT, attend_first=bool(offs), embeds=embeds)
+            with METRICS.span("engine.admit.prefill.wait"):
+                self._sync()
+        if staged:
+            METRICS.inc("staged_admissions")
         if self._spec:
-            t_spec = time.perf_counter()
-            if self.draft is not None:  # the draft's ring from the same offsets
-                self.dcarry = self._prefill(self.draft, [], prompts, self.dcache, self.dcarry,
-                                            maxT, attend_first=bool(offs))
-            self._first_tokens(new, rows)
-            METRICS.observe("admission_spec_s", time.perf_counter() - t_spec)
-        METRICS.observe("admission_prefill_s", time.perf_counter() - t_admit)
-        METRICS.inc("requests_admitted", len(new))
+            with METRICS.span("engine.admit.spec", sample="admission_spec_s"):
+                if self.draft is not None:  # the draft's ring from the same offsets
+                    self.dcarry = self._prefill(self.draft, [], prompts, self.dcache,
+                                                self.dcarry, maxT, attend_first=bool(offs))
+                self._first_tokens(new, rows)
 
     def _prefill(self, model, new, prompts, cache, carry, maxT: int, attend_first: bool,
                  embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -732,6 +841,8 @@ class Engine(_EngineBase):
                 chunk = p[s:s + width]
                 tokens[b, :len(chunk)] = chunk
                 seqlens[b] = len(chunk)
+            if profiling.TRACING:
+                METRICS.expect_tokens([int(seqlens.sum())])
             chunk_embeds = None
             if embeds is not None:
                 chunk_embeds = embeds[:, s:s + width]

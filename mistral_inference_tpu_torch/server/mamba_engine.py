@@ -33,7 +33,6 @@ bound its compiled programs, would cost short prompts less.
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -49,7 +48,8 @@ from mistral_inference_tpu_torch.server.engine import (
     _EngineBase,
     _gather_prompt_logprobs,
 )
-from mistral_inference_tpu_torch.utils.profiling import METRICS
+from mistral_inference_tpu_torch.utils import profiling
+from mistral_inference_tpu_torch.utils.profiling import METRICS, Span
 
 __all__ = ["MambaEngine", "StepEvent"]
 
@@ -109,12 +109,8 @@ class MambaEngine(_EngineBase):
             top_p=DEFAULT_TOP_P, ngram=2)
         return t0, out
 
-    @torch.inference_mode()
-    def _admit(self) -> None:
-        """Fill every free slot from the queue, zero the new rows' state and
-        prefill them in ``admit_chunk``-wide chunks (the other rows ride
-        along at seqlens 0). Prompt logprobs go to the requests that want
-        them. Lookup mode then emits each new row's first token."""
+    def _take(self) -> List[Tuple[int, Request]]:
+        """Fill every free slot from the queue: (row, request) of each new one."""
         new: List[Tuple[int, Request]] = []
         for i in range(self.B):
             if (self.slots[i] is None or self.slots[i].done) and self.queue:
@@ -122,29 +118,37 @@ class MambaEngine(_EngineBase):
                     self._evicted[self.slots[i].request_id] = self.slots[i]
                 self.slots[i] = self.queue.popleft()
                 new.append((i, self.slots[i]))
-        if not new:
-            return
-        # Wait for the block in flight first: its time is not admission's.
-        self._sync()
-        t_admit = time.perf_counter()
+        return new
+
+    def _sweep(self, new, sweep: Span) -> None:
+        """Zero the new rows' state and prefill them in ``admit_chunk``-wide
+        chunks (the other rows ride along at seqlens 0). Prompt logprobs go
+        to the requests that want them. Lookup mode then emits each new row's
+        first token. Spans as ``Engine._sweep``'s."""
         rows = self._set_sampling(new)
         _reset_rows(self.state, rows)
         width = self.admit_chunk
         want_lp = any(r.want_logprobs for _, r in new)
-        for s in range(0, max(len(r.prompt) for _, r in new), width):
-            tokens = np.zeros((self.B, width), np.int64)
-            seqlens = np.zeros((self.B,), np.int32)
-            for i, r in new:
-                chunk = r.prompt[s:s + width]
-                tokens[i, :len(chunk)] = chunk
-                seqlens[i] = len(chunk)
-            lp_d, self.carry = _mamba_prefill_step(
-                self.model, self._to_device(tokens), self._to_device(seqlens), self.state,
-                self.carry, min(DEFAULT_CHUNK, width), want_logprobs=want_lp)
-            if want_lp:
-                _gather_prompt_logprobs(new, lp_d, seqlens, s == 0)
+        maxT = max(len(r.prompt) for _, r in new)
+        self._sweep_attrs(sweep, "speculative" if self._spec else "full", new, self.B, maxT,
+                          sum(len(r.prompt) for _, r in new))
+        with METRICS.span("engine.admit.prefill"):
+            for s in range(0, maxT, width):
+                tokens = np.zeros((self.B, width), np.int64)
+                seqlens = np.zeros((self.B,), np.int32)
+                for i, r in new:
+                    chunk = r.prompt[s:s + width]
+                    tokens[i, :len(chunk)] = chunk
+                    seqlens[i] = len(chunk)
+                if profiling.TRACING:
+                    METRICS.expect_tokens([int(seqlens.sum())])
+                lp_d, self.carry = _mamba_prefill_step(
+                    self.model, self._to_device(tokens), self._to_device(seqlens), self.state,
+                    self.carry, min(DEFAULT_CHUNK, width), want_logprobs=want_lp)
+                if want_lp:
+                    _gather_prompt_logprobs(new, lp_d, seqlens, s == 0)
+            with METRICS.span("engine.admit.prefill.wait"):
+                self._sync()
         if self._spec:
-            self._first_tokens(new, rows)
-        self._sync()
-        METRICS.observe("admission_prefill_s", time.perf_counter() - t_admit)
-        METRICS.inc("requests_admitted", len(new))
+            with METRICS.span("engine.admit.spec", sample="admission_spec_s"):
+                self._first_tokens(new, rows)

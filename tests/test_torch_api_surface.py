@@ -9,10 +9,11 @@
 * every name of the JAX package's top level resolves on the port's, the
   model classes and the tokenizer loader lazily: importing the package loads
   no model code and no kernel module;
-* ``MISTRAL_MOE_DEBUG``: the dispatch's over-capacity drops counted into
-  ``METRICS["moe_dropped_assignments"]`` equal the JAX package's count on
-  the same converted weights (its un-jitted dispatch), and the plain count
-  of slots past the capacity; nothing is counted with the switch off.
+* ``MISTRAL_MOE_DEBUG``: the dispatch's over-capacity drops, kept on the
+  tensors' device and folded into ``METRICS["moe_dropped_assignments"]``
+  by ``METRICS.dump()``, equal the JAX package's count on the same
+  converted weights (its un-jitted dispatch), and the plain count of slots
+  past the capacity; nothing is counted with the switch off.
 """
 
 import dataclasses
@@ -191,12 +192,16 @@ def test_moe_debug_counts_drops_like_jax(monkeypatch, moe_layer, on):
     jw, lw, x = moe_layer
     for metrics in (JAX_METRICS, PORT_METRICS):
         monkeypatch.setattr(metrics, "counters", defaultdict(float))
+    monkeypatch.setattr(PORT_METRICS, "_on_device", {})
     monkeypatch.setattr(jtf, "_MOE_DEBUG", on)
     monkeypatch.setattr(ttf, "_MOE_DEBUG", on)
     ref = jtf._moe_ffn_dispatch(jnp.asarray(x), jw, 2, 0.5)
     jax.effects_barrier()
     out = ttf._moe_ffn_dispatch(torch.from_numpy(x), lw, 2, 0.5)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=2e-5)
+    # The port keeps the count on the tensors' device until a fold.
+    assert DROPS not in PORT_METRICS.counters
+    PORT_METRICS.dump()
     if not on:
         assert DROPS not in JAX_METRICS.counters and DROPS not in PORT_METRICS.counters
         return
@@ -207,6 +212,7 @@ def test_moe_debug_counts_drops_like_jax(monkeypatch, moe_layer, on):
     for e0 in (0, 2):
         shard = {"gate": lw["gate"], "w13": lw["w13"][e0:e0 + 2], "w2": lw["w2"][e0:e0 + 2]}
         ttf._moe_ffn_dispatch(torch.from_numpy(x), shard, 2, 0.5, experts=(e0, 2))
+    PORT_METRICS.dump()
     assert PORT_METRICS.counters[DROPS] == 3 * want
 
 
