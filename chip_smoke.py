@@ -111,6 +111,11 @@ Phases, each printing one JSON line:
    prefix hits, that no row writes past prompt + max_tokens and K2-fp8's
    launches (layers x decode forwards); prints requests/s, output tokens/s,
    TTFT p50 / p99, admission's share of the wall time and peak memory.
+   Then the staged-rows check (``staged_rows_check``), on ``mistral-7b-v0.1``
+   (fp8 ring) and ``mixtral-8x7b`` (int8 ring, capacities), int4, 32 layers
+   each: a 1100-token request staged alone, beside 2 and beside 7 requests
+   of other lengths (each chunk over the rows still prefilling), its carried
+   prelogits, ring row, prompt logprobs and served tokens equal in bits.
 
 9. front door: a reference folder of ``mistral-7b-v0.1`` at 8 layers on
    disk through ``from_folder``, ``main quantize``, ``main demo`` and
@@ -201,7 +206,8 @@ host's time to enqueue it, and to the serving line the same for one
 engine decode block (a serial engine, 8 rows). ``--kernels=k2,k7_fp8`` runs phases 1 and
 2 and only the named kernels' checks, and prints no result line; so does
 ``--phases=spec_serving,mamba_serving,lora,parallel`` after phases 1 and 2
-for the named phases of 10-13, ``--phases=mamba_rows`` for the rows probe
+for the named phases of 10-13, ``--phases=staged_rows`` for the staged-rows
+check, ``--phases=mamba_rows`` for the rows probe
 and ``--phases=moe_drops`` for the drop line.
 """
 
@@ -1663,8 +1669,8 @@ class RouteLog:
 
         self._tf, self._route = tf, tf._route
 
-        def logged(x, gate, top_k):
-            idx, w = self._route(x, gate, top_k)
+        def logged(x, gate, top_k, *rest):
+            idx, w = self._route(x, gate, top_k, *rest)
             self.picks.append(idx)
             return idx, w
 
@@ -2825,6 +2831,117 @@ def serving_phase(card: str, profile: bool, resident: int = 0):
     if profile:
         summary["engine_block"] = engine_block_probe(model)
     return summary
+
+
+# The staged-rows check: a 1100-token request (3 chunks of 512) alone, then
+# beside rows of other lengths, shorter and longer, in one staged sweep.
+STAGED_TARGET = 1100
+STAGED_BESIDE = {0: [], 2: [300, 2000], 7: [40, 300, 700, 1050, 1500, 2000, 3000]}
+STAGED_TOKENS = 48
+
+
+class StagedPath(NamedTuple):
+    model: str
+    ring: str  # the KV ring's type
+    window: Optional[int]
+    moe_impl: str = "dense"
+    capacity: float = 1.0  # moe_capacity_factor
+
+
+# The benchmark's two configurations at full depth: Mistral-7B over an fp8
+# ring, and Mixtral-8x7B over an int8 ring with capacities ("dispatch", whose
+# staged chunks of 512 rows and more take the ragged route).
+STAGED_PATHS = (StagedPath(MODEL, "fp8", WINDOW),
+                StagedPath(MOE_MODEL, "int8", None, "dispatch", 4.0))
+
+
+def staged_rows_check(card: str, path: StagedPath) -> dict:
+    """A staged row's bits do not move with the rows staged beside it. On
+    ``path.model`` (int4 weights, all 32 layers), an ``Engine(batch_size=16,
+    max_seq_len=4608, admit_chunk=512, staging_batch=8)``, which compacts,
+    admits a 1100-token greedy request that wants its prompt logprobs in one
+    staged sweep alone, beside 2 and beside 7 other requests
+    (``STAGED_BESIDE``), each chunk over the rows still prefilling. Its
+    carried prelogits after the sweep, its ring row (bytes and scales up to
+    its fill), its prompt logprobs and its ``STAGED_TOKENS`` served tokens
+    must equal the lone sweep's in bits. Returns the line: each sweep's
+    prefill forwards' rows and seconds."""
+    from mistral_inference_tpu_torch.model import Transformer
+    from mistral_inference_tpu_torch.models.registry import get_args
+    from mistral_inference_tpu_torch.server.engine import Engine, _compacts
+
+    args = get_args(path.model)
+    args.kv_quant, args.sliding_window = path.ring, path.window
+    if args.moe:
+        args.moe_impl, args.moe_capacity_factor = path.moe_impl, path.capacity
+    model = Transformer.random(args, dtype=torch.bfloat16, seed=0, quant="int4")
+    gen = torch.Generator().manual_seed(1)
+
+    def prompt(n: int) -> list:
+        return torch.randint(1, args.vocab_size, (n,), generator=gen).tolist()
+
+    target = prompt(STAGED_TARGET)
+    beside = {k: [prompt(n) for n in lens] for k, lens in STAGED_BESIDE.items()}
+    forward, rows = model.forward, []
+
+    def recording(tokens, *a, **kw):
+        if tokens.shape[1] > 1:
+            rows.append(tokens.shape[0])
+        return forward(tokens, *a, **kw)
+
+    model.forward = recording
+    runs, first = {}, None
+    for k, others in beside.items():
+        eng = Engine(model, batch_size=16, max_seq_len=SERVING_MAX_SEQ, admit_chunk=SERVING_CHUNK,
+                     staging_batch=8, prefix_cache=False)
+        require(_compacts(model, 8, SERVING_CHUNK), f"staged rows {path.model}: no compaction")
+        half = len(others) // 2
+        for p in others[:half]:
+            eng.submit(p, max_tokens=4)
+        rid = eng.submit(target, max_tokens=STAGED_TOKENS, want_logprobs=True)
+        for p in others[half:]:
+            eng.submit(p, max_tokens=4)
+        del rows[:]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._admit()
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        slot = next(i for i, r in enumerate(eng.slots) if r is not None and r.request_id == rid)
+        fill = int(eng.cache.kv_len[slot])
+        c = eng.cache
+        state = [eng.carry[slot].clone()] + [t[:, slot, :fill].clone() for t in (c.k, c.v)] + [
+            t[:, slot, :, :fill].clone() for t in (c.k_scale, c.v_scale)]
+        prompt_lp = torch.tensor(eng._request(rid).prompt_logprobs, dtype=torch.float32)  # exact
+        tokens = eng.run_to_completion()[rid]
+        del eng
+        torch.cuda.empty_cache()
+        runs[k] = {"prefill_rows": list(rows), "sweep_s": sweep_s, "fill": fill,
+                   "tokens": len(tokens), "prompt_logprobs": len(prompt_lp)}
+        require(fill == STAGED_TARGET and len(tokens) == STAGED_TOKENS
+                and len(prompt_lp) == STAGED_TARGET - 1,
+                f"staged {path.model} beside {k}: fill {fill}, {len(tokens)} tokens, "
+                f"{len(prompt_lp)} prompt logprobs")
+        if first is None:
+            first = state, prompt_lp, tokens
+            continue
+        runs[k].update(carry_same_bits=same_bits(state[0], first[0][0]),
+                       ring_same_bits=all(same_bits(a, b) for a, b in zip(state[1:], first[0][1:])),
+                       prompt_logprobs_same_bits=same_bits(prompt_lp, first[1]),
+                       tokens_equal=tokens == first[2])
+        require(runs[k]["carry_same_bits"] and runs[k]["ring_same_bits"]
+                and runs[k]["prompt_logprobs_same_bits"] and runs[k]["tokens_equal"],
+                f"staged {path.model} beside {k}: the row's bits moved with the rows beside it: "
+                f"{runs[k]}")
+    model.forward = forward
+    del model
+    return {"phase": "staged_rows", "model": path.model, "layers": args.n_layers, "card": card,
+            "weights": "bf16 random (seed 0), quantized to int4 (group 128)",
+            "kv_ring": path.ring, "window": path.window,
+            "moe": None if args.moe is None else f"{path.moe_impl}, capacity {path.capacity}",
+            "engine": f"Engine(batch_size=16, max_seq_len={SERVING_MAX_SEQ}, admit_chunk="
+                      f"{SERVING_CHUNK}, staging_batch=8)",
+            "target_prompt": STAGED_TARGET, "beside": STAGED_BESIDE, "runs": runs}
 
 
 def engine_block_probe(model, B: int = SERVING_B, steps: int = 10):
@@ -5296,7 +5413,9 @@ def main() -> int:
     phases = [a.split("=", 1)[1].split(",") for a in sys.argv[1:] if a.startswith("--phases=")]
     if phases:  # a part of the run, for work on the serving phases: no result line
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            for name, run in (("spec_serving", lambda: spec_serving_phase(card)),
+            for name, run in (("staged_rows", lambda: [staged_rows_check(card, p)
+                                                       for p in STAGED_PATHS]),
+                              ("spec_serving", lambda: spec_serving_phase(card)),
                               ("mamba_serving", lambda: mamba_serving_phase(card)),
                               ("lora", lambda: lora_phase(card, Path(tmp))),
                               ("parallel", lambda: parallel_phase(card)),
@@ -5304,8 +5423,9 @@ def main() -> int:
                               ("moe_drops", lambda: moe_drop_line(card))):
                 if name in phases[0]:
                     got = run()
-                    if got is not None:  # the rows probe prints its own line
-                        emit(got)
+                    for line in got if isinstance(got, list) else [got]:
+                        if line is not None:  # the rows probe prints its own line
+                            emit(line)
                     torch.cuda.empty_cache()
         print(card, flush=True)
         return 0
@@ -5379,6 +5499,10 @@ def main() -> int:
     emit(serving_phase(card, "--profile" in sys.argv[1:], torch.cuda.memory_allocated()))
     torch.cuda.empty_cache()
     lap("8 serving")
+    for staged in STAGED_PATHS:
+        emit(staged_rows_check(card, staged))
+        torch.cuda.empty_cache()
+    lap("8 staged rows")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # The front door: a checkpoint folder on disk through the CLI and the HTTP API.
         emit(front_door_phase(card, pix_model, Path(tmp)))

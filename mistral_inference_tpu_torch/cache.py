@@ -61,6 +61,18 @@ class KVCache:
         return KVCache(self.k, self.v, local_rows(self.kv_len, self.row0, self.k.shape[1]),
                        self.windows, self.k_scale, self.v_scale)
 
+    def leading(self, n: int) -> "KVCache":
+        """Rows [0, n) of a cache that holds every row, with no copy: the
+        rings, scales and ``kv_len`` are views (each layer's n rows stay one
+        contiguous block, as the kernels read a layer). A forward through it
+        writes those rows' ring bytes in place and replaces its ``kv_len``,
+        which the caller copies back."""
+        if self.row0 is not None:
+            raise ValueError("a data rank's cache holds a share of the rows, not a leading run")
+        return KVCache(self.k[:, :n], self.v[:, :n], self.kv_len[:n], self.windows,
+                       None if self.k_scale is None else self.k_scale[:, :n],
+                       None if self.v_scale is None else self.v_scale[:, :n])
+
     @classmethod
     def alloc(
         cls,

@@ -116,22 +116,33 @@ def _prefill_step(
     attend_cache: bool,
     want_logprobs: bool = True,
     input_embeds: Optional[torch.Tensor] = None,  # (B, T, D) for a multimodal chunk
+    pad_rows: int = 0,
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """One prompt chunk. Returns (teacher-forced logprobs (B, T), or None
     without ``want_logprobs``; each row's last valid prelogits, carried over
-    when the row has no token here)."""
+    when the row has no token here). The plain products whose kernel cuBLAS
+    picks by the row count, the head's and the MoE router's, run on rows
+    zero-padded to ``pad_rows`` where B is fewer: a caller whose chunks
+    hold fewer and fewer rows keeps them at one shape, so a row's prelogits
+    and logprobs do not depend on how many rows its chunk holds."""
+    B, T = tokens.shape
+    pad = max(0, pad_rows - B)
     hidden = model.forward(tokens, seqlens, cache, attend_cache, head="none",
-                           input_embeds=input_embeds)
-    B = hidden.shape[0]
+                           input_embeds=input_embeds,
+                           router_rows=pad_rows * T if pad else None)
+
+    def padded(t: torch.Tensor) -> torch.Tensor:  # (B, ...) -> (B + pad, ...)
+        return F.pad(t, (0, 0) * (t.dim() - 1) + (0, pad)) if pad else t
+
     rows = torch.arange(B, device=hidden.device)
-    last = model.head(hidden[rows, (seqlens - 1).clamp_min(0).long()])
+    last = model.head(padded(hidden[rows, (seqlens - 1).clamp_min(0).long()]))[:B]
     last = torch.where((seqlens > 0)[:, None], last, carry)
     if not want_logprobs:
         return None, last
     logprobs = _sliced_teacher_logprobs(
-        hidden, tokens, carry, model.head
+        padded(hidden), padded(tokens), padded(carry), model.head
     )
-    return logprobs, last
+    return logprobs[:B], last
 
 
 def prefill_prompts(

@@ -205,11 +205,13 @@ class Transformer:
         head: str = "full",
         write_cache: Union[bool, str] = True,
         input_embeds: Optional[torch.Tensor] = None,
+        router_rows: Optional[int] = None,
     ):
         """Prelogits (B, T, V) fp32, or hidden states with ``head="none"``.
         The cache is updated in place. ``write_cache`` (False | "spec") is
-        speculative decoding's verify pass, and ``input_embeds`` (B, T, dim)
-        replaces the token embeddings: see ``models.transformer.forward``."""
+        speculative decoding's verify pass, ``input_embeds`` (B, T, dim)
+        replaces the token embeddings, and ``router_rows`` is the row count
+        the MoE router's product runs at: see ``models.transformer.forward``."""
         tokens, seqlens = tokens.to(self.device), seqlens.to(self.device)
         if input_embeds is not None:
             input_embeds = input_embeds.to(self.device)
@@ -217,7 +219,7 @@ class Transformer:
         def run(tok, lens, c, embeds):
             return tf.forward(self.params, tok, lens, c, self.args, attend_cache, head=head,
                               write_cache=write_cache, input_embeds=embeds, mesh=self.mesh,
-                              batch=tokens.shape[0])
+                              batch=tokens.shape[0], router_rows=router_rows)
 
         with torch.inference_mode(), (_forward_span(tokens, seqlens) if profiling.TRACING
                                       else profiling.NULL):

@@ -333,13 +333,22 @@ def _dense_ffn(x: torch.Tensor, w: Params, args: TransformerArgs,
 # ---------------------------------------------------------------------------
 
 
-def _route(x: torch.Tensor, gate: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _route(x: torch.Tensor, gate: torch.Tensor, top_k: int,
+           router_rows: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k experts of each token and their softmax weights in fp32 (over
     the selected logits, like the reference): (N, k) int64, (N, k) fp32.
     Equal logits go to the lower expert index first, as ``jax.lax.top_k``
     orders them: a stable descending sort, since ``torch.topk`` promises no
-    tie order on the card and bf16 gate logits do tie."""
-    logits = F.linear(x, gate)  # (N, E)
+    tie order on the card and bf16 gate logits do tie. The logits' product
+    runs on ``x`` zero-padded to ``router_rows`` rows where N is fewer: cuBLAS
+    picks its kernel by the row count (on the H100 a row's logits differ
+    between 512 and 2048 rows), so a caller whose chunks hold a varying
+    number of rows keeps them at one count."""
+    N = x.shape[0]
+    if router_rows is not None and router_rows > N:
+        logits = F.linear(F.pad(x, (0, 0, 0, router_rows - N)), gate)[:N]  # (N, E)
+    else:
+        logits = F.linear(x, gate)
     vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
     return idx[:, :top_k], torch.softmax(vals[:, :top_k].float(), dim=-1)
 
@@ -364,15 +373,15 @@ def _mine(experts: Experts) -> Select:
 
 def _moe_ffn(x: torch.Tensor, w: Params, top_k: int,
              args: Optional[TransformerArgs] = None, experts: Experts = None,
-             mesh: Optional[Mesh] = None) -> torch.Tensor:
+             mesh: Optional[Mesh] = None, router_rows: Optional[int] = None) -> torch.Tensor:
     """Top-k routed SwiGLU experts, every expert evaluated on every token and
     combined with the routing matrix: exact, and the oracle of the other two.
     x (N, D). With ``experts`` (first, count), the stacks hold those experts
     only, and the result is their part of the sum; under a ``tensor`` mesh,
-    its columns of it."""
+    its columns of it. ``router_rows``: ``_route``'s."""
     E = w["gate"].shape[0]
     e0, El = experts or (0, E)
-    top_idx, top_w = _route(x, w["gate"], top_k)
+    top_idx, top_w = _route(x, w["gate"], top_k, router_rows)
     combine = (F.one_hot(top_idx, E).float() * top_w[..., None]).sum(dim=1).to(x.dtype)  # (N, E)
     combine = combine[:, e0:e0 + El]
     sel = _mine(experts)
@@ -384,7 +393,7 @@ def _moe_ffn(x: torch.Tensor, w: Params, top_k: int,
     return torch.einsum("ne,end->nd", combine, expert_out)
 
 
-def _ragged_kernel_gate(x: torch.Tensor, w: Params) -> bool:
+def ragged_kernel_gate(x: torch.Tensor, w: Params) -> bool:
     """K5 takes both expert stacks quantized, with dim and hidden (the
     reductions) multiples of 256 and both widths (a shard's) of 128."""
     if not (is_quantized(w["w13"]) and is_quantized(w["w2"])):
@@ -397,17 +406,18 @@ def _ragged_kernel_gate(x: torch.Tensor, w: Params) -> bool:
 
 def _moe_ffn_ragged(x: torch.Tensor, w: Params, top_k: int,
                     args: Optional[TransformerArgs] = None, experts: Experts = None,
-                    mesh: Optional[Mesh] = None) -> torch.Tensor:
+                    mesh: Optional[Mesh] = None, router_rows: Optional[int] = None) -> torch.Tensor:
     """``_ragged``, the span ``moe.ragged`` (rows, E) while the tracing
     switch is on."""
     if profiling.TRACING:
         with METRICS.span("moe.ragged", rows=x.shape[0], E=w["gate"].shape[0]):
-            return _ragged(x, w, top_k, args, experts, mesh)
-    return _ragged(x, w, top_k, args, experts, mesh)
+            return _ragged(x, w, top_k, args, experts, mesh, router_rows)
+    return _ragged(x, w, top_k, args, experts, mesh, router_rows)
 
 
 def _ragged(x: torch.Tensor, w: Params, top_k: int, args: Optional[TransformerArgs],
-            experts: Experts, mesh: Optional[Mesh]) -> torch.Tensor:
+            experts: Experts, mesh: Optional[Mesh],
+            router_rows: Optional[int] = None) -> torch.Tensor:
     """Drop-free sorted grouped-product MoE, the prefill path: the N * k
     assignments sorted by expert (stable, so ties keep token order), each
     projection one grouped product over the sorted rows, the weighted outputs
@@ -422,12 +432,12 @@ def _ragged(x: torch.Tensor, w: Params, top_k: int, args: Optional[TransformerAr
     expert's), or per expert on the plain route. With ``experts`` (first,
     count) only those experts' rows are computed; the rest add nothing.
     Under a ``tensor`` mesh the hidden is gathered before ``w2``, and the
-    result holds the rank's columns.
+    result holds the rank's columns. ``router_rows``: ``_route``'s.
     """
     N, D = x.shape
     E = w["gate"].shape[0]
     e0, El = experts or (0, E)
-    top_idx, top_w = _route(x, w["gate"], top_k)
+    top_idx, top_w = _route(x, w["gate"], top_k, router_rows)
     flat_e = top_idx.reshape(-1)  # (N k,) token-major
     order = torch.argsort(flat_e, stable=True)
     tok = order // top_k  # source token of each sorted row
@@ -439,7 +449,7 @@ def _ragged(x: torch.Tensor, w: Params, top_k: int, args: Optional[TransformerAr
     mine = (flat_e >= e0) & (flat_e < e0 + El)  # assignments to this rank's experts
     le = (flat_e - e0).clamp(0, El - 1)  # their local expert
 
-    if _ragged_kernel_gate(x, w):
+    if ragged_kernel_gate(x, w):
         TM = MOE_RAGGED_TM
         counts = counts_all[e0:e0 + El]
         # Worst-case padded rows, a whole number of tiles: the per-expert
@@ -514,6 +524,7 @@ def _moe_ffn_dispatch(
     x: torch.Tensor, w: Params, top_k: int, capacity_factor: float,
     args: Optional[TransformerArgs] = None, experts: Experts = None,
     mesh: Optional[Mesh] = None, rows: Optional[int] = None,
+    router_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Capacity-bounded expert dispatch: tokens go into per-expert buffers of
     ``moe_capacity`` slots in token-major order (pad tokens of ragged rows
@@ -524,26 +535,27 @@ def _moe_ffn_dispatch(
     With ``experts`` (first, count) only those experts' buffers are built and
     run; the capacity and the slots are the global ones, so a rank drops
     exactly what one device drops. ``rows``, one device's row count, picks
-    the route where ``x`` holds a rank's share of them. While the tracing
-    switch is on, the capacity route is the span ``moe.dispatch`` (rows, E)."""
+    the route where ``x`` holds a rank's share of them. ``router_rows``:
+    ``_route``'s. While the tracing switch is on, the capacity route is the
+    span ``moe.dispatch`` (rows, E)."""
     if (x.shape[0] if rows is None else rows) > MOE_RAGGED_ROWS:
-        return _moe_ffn_ragged(x, w, top_k, args, experts, mesh)
+        return _moe_ffn_ragged(x, w, top_k, args, experts, mesh, router_rows)
     if profiling.TRACING:
         with METRICS.span("moe.dispatch", rows=x.shape[0], E=w["gate"].shape[0]):
-            return _dispatch(x, w, top_k, capacity_factor, args, experts, mesh)
-    return _dispatch(x, w, top_k, capacity_factor, args, experts, mesh)
+            return _dispatch(x, w, top_k, capacity_factor, args, experts, mesh, router_rows)
+    return _dispatch(x, w, top_k, capacity_factor, args, experts, mesh, router_rows)
 
 
 def _dispatch(x: torch.Tensor, w: Params, top_k: int, capacity_factor: float,
               args: Optional[TransformerArgs], experts: Experts,
-              mesh: Optional[Mesh]) -> torch.Tensor:
+              mesh: Optional[Mesh], router_rows: Optional[int] = None) -> torch.Tensor:
     """``_moe_ffn_dispatch``'s capacity buffers, at most ``MOE_RAGGED_ROWS``
     rows."""
     N, D = x.shape
     E = w["gate"].shape[0]
     e0, El = experts or (0, E)
     C = moe_capacity(N, top_k, E, capacity_factor)
-    top_idx, top_w = _route(x, w["gate"], top_k)
+    top_idx, top_w = _route(x, w["gate"], top_k, router_rows)
 
     flat_e = top_idx.reshape(-1)  # (N k,) token-major
     onehot = F.one_hot(flat_e, E)
@@ -601,12 +613,13 @@ def _local_rows(x: torch.Tensor, run: _Run, b: int) -> torch.Tensor:
 
 
 def _moe_block(x: torch.Tensor, w: Params, args: TransformerArgs,
-               run: Optional[_Run] = None) -> torch.Tensor:
+               run: Optional[_Run] = None, router_rows: Optional[int] = None) -> torch.Tensor:
     """The MoE feed-forward of one layer on x (B, T, D), all B T positions as
     rows, by ``args.moe_impl``. Under a mesh, this rank's experts (on its
     columns), one all-reduce over ``expert`` and the columns gathered over
     ``tensor``; a chunk that one device would dispatch with capacities is
-    gathered whole over ``data`` and ``seq`` first, and cut back after."""
+    gathered whole over ``data`` and ``seq`` first, and cut back after.
+    ``router_rows``: ``_route``'s."""
     mesh = None if run is None else run.mesh
     k = args.moe.num_experts_per_tok
     experts = None
@@ -619,9 +632,9 @@ def _moe_block(x: torch.Tensor, w: Params, args: TransformerArgs,
     rows = xs.reshape(-1, xs.shape[-1])
     if args.moe_impl == "dispatch":
         out = _moe_ffn_dispatch(rows, w, k, args.moe_capacity_factor, args, experts, mesh,
-                                None if run is None else run.rows)
+                                None if run is None else run.rows, router_rows)
     else:
-        out = _moe_ffn(rows, w, k, args, experts, mesh)
+        out = _moe_ffn(rows, w, k, args, experts, mesh, router_rows)
     out = gather(reduce(out, mesh, "expert"), mesh, "tensor", -1).reshape(xs.shape)
     return _local_rows(out, run, x.shape[0]) if whole else out
 
@@ -807,13 +820,16 @@ def forward(
     input_embeds: Optional[torch.Tensor] = None,
     mesh: Optional[Mesh] = None,
     batch: Optional[int] = None,
+    router_rows: Optional[int] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, ChunkKV]]:
     """One chunk pass (a prefill chunk or one decode step); under ``mesh``
     on this rank's shard (``params``, the ring's heads) of every row given,
     split over ``seq`` where ``mesh.seq_split`` takes the chunk (a fused
     verify chunk never is: K7 writes and attends its whole chunk at once).
     ``batch`` is the global batch when ``tokens`` holds a data rank's rows
-    of it: the products are routed by one device's row count.
+    of it: the products are routed by one device's row count. The MoE
+    router's product runs on its token rows zero-padded to ``router_rows``
+    (``_route``).
 
     ``input_embeds`` (B, T, D) in the model dtype, when given, replaces the
     token embeddings: a multimodal prefill chunk, its image tokens' slots
@@ -890,7 +906,7 @@ def forward(
             chunk_k.append(xk)
             chunk_v.append(xv)
         x = rms_norm(h, lw["ffn_norm"], args.norm_eps)
-        h = h + (_moe_block(x, lw, args, run) if args.moe
+        h = h + (_moe_block(x, lw, args, run, router_rows) if args.moe
                  else _dense_ffn(x, lw, args, mesh, None if run is None else run.rows))
     if write_cache is True:
         cache.kv_len = new_total

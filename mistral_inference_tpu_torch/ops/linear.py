@@ -44,7 +44,7 @@ guaranteed: one cuBLAS call per block of ``ROW_BLOCK`` rows (Mamba's
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -170,6 +170,16 @@ def _route(rows: int, N: int, K: int) -> str:
             and N % 128 == 0 and K % 256 == 0):
         return "K5"
     return "dequant"
+
+
+def rows_alike(w: QuantWeight, row_counts: Sequence[int]) -> bool:
+    """Whether the quantized product ``w`` gives a row the same bits at each
+    of ``row_counts`` rows: one route at every count, and a hand-written
+    kernel's (K3 or K5, neither of which splits a reduction by the rows);
+    ``dequant`` is a cuBLAS product, whose kernel the row count picks."""
+    K = w["q"].shape[-2] if "q" in w else 2 * w["q4"].shape[-2]
+    routes = {_route(n, w["scale"].shape[-1], K) for n in row_counts}
+    return len(routes) == 1 and "dequant" not in routes
 
 
 def _linear_attrs(x: torch.Tensor, w: Weight, rows: Optional[int]) -> Dict[str, object]:

@@ -13,7 +13,8 @@ per-row ``kv_len`` already says how full it is.
   ``kv_len``: the stale ring bytes become invisible. A sweep waits until
   ``admit_waterline`` slots are free (its cost hardly depends on how many rows
   are new); a sweep of at most ``staging_batch`` rows prefills in a narrow
-  staging cache and adopts the rows (``cache.adopt_rows``); a request whose
+  staging cache, each chunk over the new rows whose prompts reach it, and
+  adopts the rows (``cache.adopt_rows``); a request whose
   prompt shares a prefix with a resident row's prompt copies those ring slots
   (``cache.copy_prefix_rows``) instead of prefilling them. A sweep that
   holds an image request computes the multimodal embeddings of its whole
@@ -72,6 +73,8 @@ from mistral_inference_tpu_torch.generate import (
     sample,
 )
 from mistral_inference_tpu_torch.model import Transformer
+from mistral_inference_tpu_torch.models.transformer import MOE_RAGGED_ROWS, ragged_kernel_gate
+from mistral_inference_tpu_torch.ops.linear import is_quantized, rows_alike
 from mistral_inference_tpu_torch.utils import profiling
 from mistral_inference_tpu_torch.utils.profiling import METRICS, Span
 
@@ -535,15 +538,15 @@ class _EngineBase:
                 self._sweep(new, sweep)
             METRICS.inc("requests_admitted", len(new))
 
-    def _sweep_attrs(self, sweep: Span, kind: str, new, rows: int, maxT: int, real: int,
+    def _sweep_attrs(self, sweep: Span, kind: str, new, chunk_rows: Sequence[int], real: int,
                      copied: int = 0) -> None:
         """A sweep's attributes: its kind ("staged", "full", "images",
-        "speculative"), the new rows, the rows each chunk carries, its
+        "speculative"), the new rows, the rows its first chunk carries, its
         chunks, the real prompt tokens it prefills, the tokens it carries
-        (rows x ``admit_chunk`` x chunks) and the prefix tokens it copies."""
-        chunks = -(-maxT // self.admit_chunk)
-        sweep.attrs.update(kind=kind, new=len(new), rows=rows, chunks=chunks, real=real,
-                           carried=rows * self.admit_chunk * chunks, copied=copied)
+        (each chunk's rows x ``admit_chunk``, summed) and the prefix tokens
+        it copies. ``chunk_rows`` holds each chunk's row count."""
+        sweep.attrs.update(kind=kind, new=len(new), rows=chunk_rows[0], chunks=len(chunk_rows),
+                           real=real, carried=sum(chunk_rows) * self.admit_chunk, copied=copied)
 
     # -- speculative serving ------------------------------------------------
 
@@ -754,9 +757,10 @@ class Engine(_EngineBase):
         return new
 
     def _sweep(self, new, sweep: Span) -> None:
-        """Prefill the new rows in chunks of ``admit_chunk`` tokens (the other
-        rows ride along with seqlens 0), staged or in the full batch, after
-        their prefix copies. Prompt logprobs are gathered per chunk for the
+        """Prefill the new rows in chunks of ``admit_chunk`` tokens, staged
+        (each chunk carries the new rows still prefilling) or in the full
+        batch (the other rows ride along with seqlens 0), after their prefix
+        copies. Prompt logprobs are gathered per chunk for the
         rows that want them: the numbers generate() returns. A speculative
         engine then prefills the draft's ring too and emits each new row's
         first token. Spans: ``engine.admit.prefill`` (a staged one's length
@@ -782,11 +786,19 @@ class Engine(_EngineBase):
                       and not with_images and self.draft is None)
         kind = ("staged" if staged else "images" if with_images
                 else "speculative" if self._spec else "full")
-        self._sweep_attrs(sweep, kind, new, self._staging_B if staged else self.B, maxT,
-                          sum(len(prompts[i]) for i, _ in new), sum(q for _, _, q in copies))
+        starts = range(0, maxT, self.admit_chunk)
+        staged_new = new
+        if staged and _compacts(self.model, self._staging_B, self.admit_chunk):
+            # Longest prompt first: the rows chunk c carries lead the cache.
+            staged_new = sorted(new, key=lambda e: -len(e[1].prompt))  # stable
+            chunk_rows = [sum(len(r.prompt) > s for _, r in new) for s in starts]
+        else:
+            chunk_rows = [self._staging_B if staged else self.B] * len(starts)
+        self._sweep_attrs(sweep, kind, new, chunk_rows, sum(len(prompts[i]) for i, _ in new),
+                          sum(q for _, _, q in copies))
         with METRICS.span("engine.admit.prefill", sample="admission_staged_s" if staged else None):
             if staged:
-                self._admit_staged(new, maxT)
+                self._admit_staged(staged_new, chunk_rows)
             else:
                 embeds = None
                 if with_images:  # the whole prompts' embeddings, sliced per chunk
@@ -799,7 +811,7 @@ class Engine(_EngineBase):
                 # The first chunk of a sweep without prefix copies attends to
                 # itself alone: every new row's ring is empty.
                 self.carry = self._prefill(self.model, new, prompts, self.cache, self.carry,
-                                           maxT, attend_first=bool(offs), embeds=embeds)
+                                           chunk_rows, attend_first=bool(offs), embeds=embeds)
             with METRICS.span("engine.admit.prefill.wait"):
                 self._sync()
         if staged:
@@ -808,36 +820,45 @@ class Engine(_EngineBase):
             with METRICS.span("engine.admit.spec", sample="admission_spec_s"):
                 if self.draft is not None:  # the draft's ring from the same offsets
                     self.dcarry = self._prefill(self.draft, [], prompts, self.dcache,
-                                                self.dcarry, maxT, attend_first=bool(offs))
+                                                self.dcarry, chunk_rows, attend_first=bool(offs))
                 self._first_tokens(new, rows)
 
-    def _prefill(self, model, new, prompts, cache, carry, maxT: int, attend_first: bool,
-                 embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _prefill(self, model, new, prompts, cache, carry, chunk_rows: Sequence[int],
+                 attend_first: bool, embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Chunks of ``admit_chunk`` of each row's ``prompts`` entry (empty: a
         row that rides along) through ``model`` into ``cache``; returns the
         new carry. Prompt logprobs go to the requests of ``new`` that want
         them (their rows in ``prompts`` are whole prompts: no prefix was
         copied). ``embeds`` (rows, max prompt length, dim), the input
         embeddings of the whole prompts, is sliced per chunk and zero-padded
-        like the tokens.
+        like the tokens. Chunk c carries the leading ``chunk_rows[c]`` rows:
+        where that is fewer than ``prompts`` holds (a staged sweep, its
+        prompts longest first, on a cache that holds every row), the rows
+        whose prompt reaches the chunk, through ``KVCache.leading`` (no copy)
+        and the leading rows of ``carry``; a row that has left keeps its
+        carry.
 
         Every chunk is ``admit_chunk`` wide, however short the prompts: a
         row's prefill then runs the chunks of ``generate(chunk_size=
         admit_chunk)`` and its linears the same route (which ``ops/linear``
-        picks by the row count, K5 for B x admit_chunk rows while that stays
+        picks by the row count, K5 for rows x admit_chunk while that stays
         under 8192), whatever it is admitted with. So a request's tokens do
         not depend on its batch: a narrower chunk would send a sweep of short
         prompts through K3, whose other rounding an fp8 ring turns into
         another token far from a near-tie (seen on the card). Narrow chunks
         (the JAX engine's powers of two, which bound its compiled programs)
-        cost short prompts less."""
+        cost short prompts less. The head's products of every chunk run at
+        ``len(prompts)`` rows, so a row's carry and prompt logprobs do not
+        depend on how many rows its chunks hold; the layers' products take
+        one route at every row count a compacted chunk has (``_compacts``)."""
         width = self.admit_chunk
         want_lp = any(r.want_logprobs for _, r in new)
         n_rows = len(prompts)
-        for s in range(0, maxT, width):
-            tokens = np.zeros((n_rows, width), np.int64)
-            seqlens = np.zeros((n_rows,), np.int32)
-            for b, p in enumerate(prompts):
+        for c, k in enumerate(chunk_rows):
+            s = c * width
+            tokens = np.zeros((k, width), np.int64)
+            seqlens = np.zeros((k,), np.int32)
+            for b, p in enumerate(prompts[:k]):
                 chunk = p[s:s + width]
                 tokens[b, :len(chunk)] = chunk
                 seqlens[b] = len(chunk)
@@ -845,24 +866,34 @@ class Engine(_EngineBase):
                 METRICS.expect_tokens([int(seqlens.sum())])
             chunk_embeds = None
             if embeds is not None:
-                chunk_embeds = embeds[:, s:s + width]
+                chunk_embeds = embeds[:k, s:s + width]
                 chunk_embeds = F.pad(chunk_embeds, (0, 0, 0, width - chunk_embeds.shape[1]))
-            lp_d, carry = _prefill_step(
-                model, self._to_device(tokens), self._to_device(seqlens), cache, carry,
-                attend_cache=s > 0 or attend_first, want_logprobs=want_lp,
-                input_embeds=chunk_embeds,
+            chunk_cache = cache if k == n_rows else cache.leading(k)
+            lp_d, last = _prefill_step(
+                model, self._to_device(tokens), self._to_device(seqlens), chunk_cache,
+                carry[:k], attend_cache=s > 0 or attend_first, want_logprobs=want_lp,
+                input_embeds=chunk_embeds, pad_rows=n_rows,
             )
+            if k == n_rows:
+                carry = last
+            else:
+                cache.kv_len[:k] = chunk_cache.kv_len
+                carry = torch.cat([last, carry[k:]])
             if want_lp:
                 _gather_prompt_logprobs(new, lp_d, seqlens, s == 0)
         return carry
 
-    def _admit_staged(self, new, maxT: int) -> None:
+    def _admit_staged(self, new, chunk_rows: Sequence[int]) -> None:
         """Prefill the few new rows in a staging cache of ``staging_batch``
-        rows, then adopt them whole into the main cache: ring bytes, scales,
-        fills and carry rows move exactly, so the adopted rows hold what
-        their own prefill wrote. Only the vocab head's product sees another
-        row count than a full sweep's, which may move a carried logit by an
-        ulp on the card."""
+        rows, in the order of ``new``, chunk c over the leading
+        ``chunk_rows[c]`` rows (where the sweep compacts, ``new`` runs
+        longest prompt first and those are the rows still prefilling), then
+        adopt them whole into the main cache: ring bytes,
+        scales, fills and carry rows move exactly, so the adopted rows hold
+        what their own prefill wrote. Only the plain products, the vocab
+        head's and an MoE router's, see another row count than a full
+        sweep's (``staging_batch`` rows, in every staged sweep), which may
+        move a carried logit by an ulp on the card."""
         Bs = self._staging_B
         if self._stage_cache is None:
             # The main cache's span: the same windows, the same slots.
@@ -872,7 +903,8 @@ class Engine(_EngineBase):
         scarry = torch.zeros((Bs, self.carry.shape[1]), dtype=torch.float32, device=self.device)
         staged = [(j, r) for j, (_, r) in enumerate(new)]
         prompts = [r.prompt for _, r in new] + [()] * (Bs - len(new))
-        scarry = self._prefill(self.model, staged, prompts, sc, scarry, maxT, attend_first=False)
+        scarry = self._prefill(self.model, staged, prompts, sc, scarry, chunk_rows,
+                               attend_first=False)
         self.cache, self.carry = adopt_rows(
             self.cache, self.carry, sc, scarry, list(range(len(new))), [i for i, _ in new],
             self.model.mesh)
@@ -941,13 +973,42 @@ class Engine(_EngineBase):
         METRICS.inc("prefix_tokens_reused", sum(qs))
 
 
+def _compacts(model: Transformer, staging_B: int, width: int) -> bool:
+    """Whether a staged chunk may carry only the rows still prefilling, k of
+    the ``staging_B`` staging rows: only where each product of the chunk's
+    ``k x width`` rows takes one hand-written kernel at every k, so that a
+    row's bits do not depend on the rows staged beside it. ``ops.linear``
+    routes a quantized product by its row count, and cuBLAS picks a plain
+    product's kernel by it: so every layer weight is quantized and
+    ``rows_alike``, no adapter is live, and an MoE layer's experts take K5's
+    ragged route ("dispatch" above ``MOE_RAGGED_ROWS`` rows; its capacities
+    below, and the "dense" oracle's plain products, depend on the rows). The
+    head's and the router's plain products run at the staging width
+    (``_prefill_step``). Never under data parallelism: each data rank holds
+    a fixed share of the staging rows."""
+    if model.mesh is not None and model.mesh.data > 1:
+        return False
+    counts = [k * width for k in range(1, staging_B + 1)]
+    args, layers = model.args, model.params["layers"]
+    keys = ("wqkv", "wo") if args.moe else ("wqkv", "wo", "w13", "w2")
+    if any("lora" in lw or not all(is_quantized(lw[key]) and rows_alike(lw[key], counts)
+                                   for key in keys) for lw in layers):
+        return False
+    if args.moe is None:
+        return True
+    x = torch.empty((0, args.dim))  # the gate reads the width alone
+    return (args.moe_impl == "dispatch" and width > MOE_RAGGED_ROWS
+            and all(ragged_kernel_gate(x, lw) for lw in layers))
+
+
 def _gather_prompt_logprobs(new, lp_d: torch.Tensor, seqlens: np.ndarray, first: bool) -> None:
     """A prefill chunk's teacher-forced logprobs (rows, T) to the requests of
     ``new`` [(row, request)] that want them: each row's valid positions, less
-    a prompt's first token, which has none."""
+    a prompt's first token, which has none. A row past the chunk's rows (a
+    compacted chunk's) has none here."""
     lp = lp_d.cpu().numpy()
     for b, r in new:
-        if r.want_logprobs and seqlens[b]:
+        if r.want_logprobs and b < len(seqlens) and seqlens[b]:
             r.prompt_logprobs.extend(lp[b, (1 if first else 0):seqlens[b]].tolist())
 
 

@@ -130,8 +130,8 @@ class MambaEngine(_EngineBase):
         width = self.admit_chunk
         want_lp = any(r.want_logprobs for _, r in new)
         maxT = max(len(r.prompt) for _, r in new)
-        self._sweep_attrs(sweep, "speculative" if self._spec else "full", new, self.B, maxT,
-                          sum(len(r.prompt) for _, r in new))
+        self._sweep_attrs(sweep, "speculative" if self._spec else "full", new,
+                          [self.B] * -(-maxT // width), sum(len(r.prompt) for _, r in new))
         with METRICS.span("engine.admit.prefill"):
             for s in range(0, maxT, width):
                 tokens = np.zeros((self.B, width), np.int64)

@@ -133,6 +133,49 @@ def test_update_stacked_matches(kv_quant):
     assert sorted(slot[b_idx == 0].tolist()) == [0, 1, 2, 3, 4]
 
 
+@pytest.mark.parametrize("kv_quant", ["bf16", "int8", "fp8"])
+def test_leading_rows_view_writes_through(kv_quant):
+    """``KVCache.leading(2)`` of a 3-row cache: each layer's rows one
+    contiguous block (as the kernels take a layer), and a chunk written into
+    it lands in the cache's first two rows exactly as a write of the whole
+    cache with the third row idle; the third row is untouched."""
+    rng = np.random.default_rng(3)
+    L, B, W, Hkv, Dh, T, window = 3, 3, 128, 2, 8, 6, 128
+    CK, CV, KS, VS = _ring(kv_quant, rng, L, B, W, Hkv, Dh)
+    xk = rng.standard_normal((B, T, Hkv, Dh)).astype(np.float32)
+    xv = rng.standard_normal((B, T, Hkv, Dh)).astype(np.float32)
+    kv_len = np.array([4, 9, 2], np.int32)
+    seqlens = np.array([6, 3, 0], np.int32)
+
+    def write(c, n):
+        positions = torch.from_numpy(kv_len[:n, None] + np.arange(T, dtype=np.int32)[None])
+        valid = torch.from_numpy(np.arange(T)[None] < seqlens[:n, None])
+        writes = tcache.ring_writes(positions, valid, torch.from_numpy(kv_len[:n] + seqlens[:n]),
+                                    window)
+        tcache.update_stacked(c.k, c.v, c.k_scale, c.v_scale, 1, torch.from_numpy(xk[:n]),
+                              torch.from_numpy(xv[:n]), writes)
+
+    def cache():
+        t = [None if a is None else _t(a) for a in (CK, CV, KS, VS)]
+        return tcache.KVCache(t[0], t[1], torch.from_numpy(kv_len), [window] * L, t[2], t[3])
+
+    whole, part = cache(), cache()
+    view = part.leading(2)
+    rings = [r for r in (view.k, view.v, view.k_scale, view.v_scale) if r is not None]
+    assert all(r[li].is_contiguous() for r in rings for li in range(L))
+    assert view.kv_len.tolist() == [4, 9]
+    write(whole, B)
+    write(view, 2)
+    for ours, theirs in zip((part.k, part.v, part.k_scale, part.v_scale),
+                            (whole.k, whole.v, whole.k_scale, whole.v_scale)):
+        if ours is not None:
+            _equal(ours, (theirs.view(torch.uint8) if theirs.element_size() == 1 else theirs).numpy())
+    _equal(part.k[:, 2], CK[:, 2])
+    with pytest.raises(ValueError, match="share of the rows"):
+        tcache.KVCache(whole.k, whole.v, whole.kv_len, whole.windows, whole.k_scale,
+                       whole.v_scale, row0=0).leading(2)
+
+
 @pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
 def test_dequant_layer_matches(kv_quant):
     rng = np.random.default_rng(2)

@@ -24,7 +24,7 @@ import torch
 from mistral_inference_tpu.args import TransformerArgs as JaxArgs
 from mistral_inference_tpu.model import Transformer as JaxTransformer
 from mistral_inference_tpu.server.engine import Engine as JaxEngine
-from mistral_inference_tpu_torch.args import TransformerArgs
+from mistral_inference_tpu_torch.args import MoeArgs, TransformerArgs
 from mistral_inference_tpu_torch.convert import params_from_numpy
 from mistral_inference_tpu_torch.generate import generate
 from mistral_inference_tpu_torch.model import Transformer
@@ -342,6 +342,166 @@ def test_engine_staged_admission_matches_direct():
     assert eng.run_to_completion()[rid] == gen_ref[0]
     assert counter("staged_admissions") == s1 + 1
     np.testing.assert_allclose(eng._request(rid).prompt_logprobs, lp_ref[0][:6], atol=1e-5,
+                               rtol=0)
+
+
+def _prefill_rows(monkeypatch, model) -> list:
+    """The rows of each prefill forward (T > 1) ``model`` runs from now on."""
+    rows, forward = [], model.forward
+
+    def recording(tokens, *a, **kw):
+        if tokens.shape[1] > 1:
+            rows.append(tokens.shape[0])
+        return forward(tokens, *a, **kw)
+
+    monkeypatch.setattr(model, "forward", recording)
+    return rows
+
+
+def quantized(seed, kind="int8", **overrides) -> Transformer:
+    """An int8 model at ``tiny_args`` or, with ``kind`` "wide" or "moe", at
+    widths whose products all take K5 at 512 rows and more (the "moe" one's
+    experts through the ragged route, "dispatch"); "plain" keeps fp32
+    weights."""
+    if kind in ("wide", "moe"):
+        overrides = dict(dim=256, head_dim=64, hidden_dim=512, **overrides)
+    if kind == "moe":
+        overrides.update(moe=MoeArgs(num_experts=4, num_experts_per_tok=2), moe_impl="dispatch")
+    return Transformer.random(tiny_args(**overrides), dtype=torch.float32, seed=seed,
+                              device="cpu", quant=None if kind == "plain" else "int8")
+
+
+# A staged sweep of three prompts spanning 3, 2 and 1 chunks: the model, the
+# chunk and the prompt lengths.
+STILL_PREFILLING = {"dense_16": ("int8", 16, (10, 40, 20)),
+                    "moe_512": ("moe", 512, (300, 1100, 700))}
+
+
+@pytest.mark.parametrize("case", list(STILL_PREFILLING))
+def test_staged_chunks_carry_only_the_rows_still_prefilling(monkeypatch, case):
+    """Three prompts spanning 3, 2 and 1 chunks, staged together in a
+    staging cache of 4 rows: the chunks run 3, 2 and 1 rows, not 4 each.
+    The plain products whose kernel cuBLAS picks by the row count keep the
+    staging width: the vocab head's (each chunk's last positions and the
+    prompt logprobs' slices) run at 4 rows, and an MoE router's at 4 x the
+    chunk. Every quantized product takes one route (K3 at chunks of 16, K5
+    at 512)."""
+    from mistral_inference_tpu_torch.models import transformer as tf
+    from mistral_inference_tpu_torch.ops import linear as lin
+
+    kind, width, lens = STILL_PREFILLING[case]
+    model = quantized(29, kind)
+    eng = Engine(model, batch_size=8, max_seq_len=1152, admit_chunk=width, staging_batch=4,
+                 prefix_cache=False)
+    for n in lens:
+        eng.submit([(5 * i + n) % 500 + 1 for i in range(n)], max_tokens=2,
+                   want_logprobs=n == lens[0])
+    rows = _prefill_rows(monkeypatch, model)
+    head_rows, router_rows, routes = [], [], set()
+    head, route, lin_route = model.head, tf._route, lin._route
+
+    def recording_head(h, *a, **kw):
+        head_rows.append(h.shape[0])
+        return head(h, *a, **kw)
+
+    def recording_router(x, gate, top_k, padded=None):
+        router_rows.append(max(x.shape[0], padded or 0))
+        return route(x, gate, top_k, padded)
+
+    def recording_route(n, N, K):
+        routes.add(lin_route(n, N, K))
+        return lin_route(n, N, K)
+
+    monkeypatch.setattr(model, "head", recording_head)
+    monkeypatch.setattr(tf, "_route", recording_router)
+    monkeypatch.setattr(lin, "_route", recording_route)
+    eng._admit()
+    assert rows == [3, 2, 1]
+    slices = -(-width // 64)  # the prompt logprobs' head slices a chunk
+    assert len(head_rows) == 3 * (1 + slices) and set(head_rows) == {4}
+    assert router_rows == ([4 * width] * 3 * model.args.n_layers if kind == "moe" else [])
+    assert routes == {"K3" if width == 16 else "K5"}
+
+
+# Engines and models that decide whether a staged chunk may carry only the
+# rows still prefilling: the engine's arguments, the model (``quantized``)
+# and the verdict.
+COMPACTS = {
+    "b64": (dict(batch_size=64), "wide", True),  # 8 staging rows x 512: K5 at every k
+    "lookup_b64": (dict(batch_size=64, draft_model="lookup"), "wide", False),  # 17: dequant at 16
+    "b128": (dict(batch_size=128), "wide", False),  # 16 x 512 = 8192 rows: dequant at k = 16
+    "chunk_256": (dict(batch_size=64, admit_chunk=256), "wide", False),  # K3 at k = 1, then K5
+    "chunk_384": (dict(batch_size=64, admit_chunk=384), "wide", False),  # K5 at even k alone
+    "chunk_16": (dict(batch_size=64, admit_chunk=16), "int8", True),  # K3 at every k
+    "narrow_512": (dict(batch_size=64), "int8", False),  # K % 256 != 0: dequant (cuBLAS)
+    "plain_weights": (dict(batch_size=64), "plain", False),  # cuBLAS products
+    "moe_512": (dict(batch_size=64), "moe", True),  # the experts through K5's ragged route
+    "moe_16": (dict(batch_size=64, admit_chunk=16), "moe", False),  # capacities over k x 16 rows
+}
+
+
+@pytest.mark.parametrize("case", list(COMPACTS))
+def test_staged_chunks_compact_only_where_every_row_count_takes_one_route(case):
+    """A staged chunk of k rows runs k x admit_chunk rows through each
+    product, and ``ops.linear`` routes a product by its rows (cuBLAS, where
+    it routes there or the weight is plain, picks its kernel by them too).
+    The engine compacts only where every k from 1 to the staging width gives
+    every product one hand-written kernel (for MoE experts, K5's ragged
+    route above ``MOE_RAGGED_ROWS`` rows); elsewhere each chunk keeps the
+    staging width, so a staged row's bits never depend on how many rows are
+    beside it."""
+    from mistral_inference_tpu_torch.ops.linear import _route
+    from mistral_inference_tpu_torch.server.engine import _compacts
+
+    kw, kind, compacts = COMPACTS[case]
+    eng = Engine(quantized(3, kind), max_seq_len=64, prefix_cache=False, **kw)
+    width, layer = eng.admit_chunk, eng.model.params["layers"][0]
+    assert _compacts(eng.model, eng._staging_B, width) is compacts
+    if kind != "plain":
+        w = layer["wqkv"]
+        routes = {_route(k * width, w["scale"].shape[-1], w["q"].shape[-2])
+                  for k in range(1, eng._staging_B + 1)}
+        assert (len(routes) == 1 and "dequant" not in routes) is (compacts or case == "moe_16")
+
+
+# A 40-token request (3 chunks of 16) and the prompt lengths beside it.
+BESIDE = {"alone": [], "one_shorter": [9], "one_longer": [60],
+          "seven": [5, 60, 12, 47, 23, 52, 33], "full_sweep": [9, 60]}
+
+
+@pytest.mark.parametrize("beside", list(BESIDE))
+def test_staged_row_does_not_depend_on_the_rows_beside_it(monkeypatch, beside):
+    """A staged request's tokens and prompt logprobs (int8 weights, an fp8
+    ring) equal its own generate()'s whether it is staged alone, with one
+    shorter or longer prompt, or with seven of both kinds, each chunk
+    carrying the rows still prefilling; and through a full sweep, which
+    carries all 16 rows in every chunk. The requests beside it equal their
+    own generate()'s too."""
+    args = tiny_args(kv_quant="fp8")
+    model = Transformer.random(args, dtype=torch.float32, seed=37, device="cpu", quant="int8")
+    rng = np.random.default_rng(5)
+    target = rng.integers(1, 512, 40).tolist()
+    others = [rng.integers(1, 512, n).tolist() for n in BESIDE[beside]]
+    gen_ref, lp_ref = generate([target], model, max_tokens=5, temperature=0.0, chunk_size=16)
+    staging = 0 if beside == "full_sweep" else 8
+    eng = Engine(model, batch_size=16, max_seq_len=80, admit_chunk=16, decode_block=4,
+                 staging_batch=staging, prefix_cache=False)
+    ids = [eng.submit(p, max_tokens=3) for p in others[:len(others) // 2]]
+    rid = eng.submit(target, max_tokens=5, want_logprobs=True)
+    ids += [eng.submit(p, max_tokens=3) for p in others[len(others) // 2:]]
+    rows = _prefill_rows(monkeypatch, model)
+    s0 = counter("staged_admissions")
+    results = eng.run_to_completion()
+    lens = [len(target)] + BESIDE[beside]
+    starts = range(0, max(lens), 16)
+    if staging:
+        assert counter("staged_admissions") == s0 + 1
+        assert rows == [sum(n > s for n in lens) for s in starts]
+    else:
+        assert rows == [16] * len(starts)
+    assert results[rid] == gen_ref[0]
+    assert [results[i] for i in ids] == reference(model, others, 3, chunk_size=16)
+    np.testing.assert_allclose(eng._request(rid).prompt_logprobs, lp_ref[0][:39], atol=1e-5,
                                rtol=0)
 
 

@@ -80,17 +80,23 @@ def test_request_spans_share_an_id_and_follow_one_another():
 
 @pytest.mark.parametrize("staging,rows", [(8, 8), (0, 16)])
 def test_sweep_counts_equal_a_hand_count(staging, rows):
-    """Prompts of 100, 700 and 1300 tokens at admit_chunk 512: 3 chunks,
-    2100 real tokens, and rows x 512 x 3 carried (12288 in a staging cache
-    of 8 rows)."""
-    eng = Engine(tiny(2), batch_size=16, max_seq_len=1400, admit_chunk=512,
+    """Prompts of 100, 700 and 1300 tokens at admit_chunk 512: 3 chunks and
+    2100 real tokens in a cache of ``rows`` rows. A staged sweep's chunks
+    carry the rows still prefilling, 3, 2 and 1 of the staging cache's 8:
+    (3 + 2 + 1) x 512 = 3072 carried, 3 rows in its first chunk; a full
+    sweep's carry all 16, 16 x 512 x 3 = 24576. The layers are int8 at
+    widths whose products take K5 at every k x 512 rows, as a staged chunk
+    carries only the rows still prefilling where they do."""
+    eng = Engine(tiny(2, quant="int8", dim=256, head_dim=64, hidden_dim=512), batch_size=16,
+                 max_seq_len=1400, admit_chunk=512,
                  staging_batch=staging, prefix_cache=False)
     for n in (100, 700, 1300):
         eng.submit([(7 * i + n) % 500 + 1 for i in range(n)], max_tokens=1)
     eng.step()
     (sweep,) = named("engine.admit.sweep")
-    assert sweep.attrs == dict(kind="staged" if staging else "full", new=3, rows=rows, chunks=3,
-                               real=2100, carried=rows * 512 * 3, copied=0)
+    chunk_rows = [3, 2, 1] if staging else [rows] * 3
+    assert sweep.attrs == dict(kind="staged" if staging else "full", new=3, rows=chunk_rows[0],
+                               chunks=3, real=2100, carried=sum(chunk_rows) * 512, copied=0)
     assert len(named("model.forward")) == 0  # the call tier is off
 
 
